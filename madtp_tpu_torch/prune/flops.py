@@ -1,0 +1,67 @@
+"""Closed-form compute model, one multiply-add = one FLOP as fvcore counts
+(copy of ``madtp_tpu/prune/flops.py:23-96``).  Per-layer kept counts fix the
+compute of a transformer stack, so the GFLOPs the temperature controller reads
+need no tracing."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+from madtp_tpu_torch.core.config import MedConfig, ViTConfig
+
+
+def _layer_macs(n_in: float, n_out: float, D: int, I: int, n_kv: float = None):
+    """qkv (3 n D^2) + scores/values (2 n n_kv D) + proj (n D^2) + FFN (2 n_out D I)."""
+    n_kv = n_in if n_kv is None else n_kv
+    attn = 3 * n_in * D * D + 2 * n_in * n_kv * D + n_in * D * D
+    ffn = 2 * n_out * D * I
+    return attn + ffn
+
+
+def vit_flops(cfg: ViTConfig, kept_counts: Sequence[int]) -> float:
+    """MACs for one image; ``kept_counts[l]`` = alive patches (merged
+    included) after layer ``l``."""
+    D = cfg.embed_dim
+    I = int(D * cfg.mlp_ratio)
+    total = cfg.num_patches * (3 * cfg.patch_size ** 2) * D
+    n_prev = cfg.num_patches + 1
+    for k in kept_counts:
+        n_out = float(k) + 1
+        total += _layer_macs(n_prev, n_out, D, I)
+        n_prev = n_out
+    # MAG query: tokens x codebook (100) + pooled features, per layer
+    total += sum((float(k) + 1) * 100 * D * 2 for k in kept_counts)
+    return float(total)
+
+
+def med_flops(cfg: MedConfig, kept_counts: Sequence[int], n_text0: int, *,
+              cross_kv: float = 0.0, twin: bool = False) -> float:
+    """MACs for the text/multimodal encoder; ``cross_kv`` = image tokens seen
+    by cross-attention (0 for text mode)."""
+    D = cfg.hidden_size
+    I = cfg.intermediate_size
+    total = 0.0
+    n_prev = float(n_text0)
+    streams = 2 if twin else 1
+    for i, k in enumerate(kept_counts):
+        n_out = float(k) + 1
+        total += _layer_macs(n_prev, n_out, D, I)
+        if cross_kv > 0:
+            per_stream = (n_out * D * D + 2 * cross_kv * D * D
+                          + 2 * n_out * cross_kv * D + n_out * D * D)
+            total += streams * per_stream
+            if twin and i >= cfg.merge_start_layer:
+                total += n_out * (2 * D) * D  # merge layer
+        total += n_out * 100 * D * 2  # MAG
+        n_prev = n_out
+    return float(total)
+
+
+def nlvr_gflops(vit_cfg: ViTConfig, med_cfg: MedConfig, v_kept: Sequence[int],
+                t_kept: Sequence[int], n_text0: int) -> float:
+    """Per-sample GFLOPs for BLIP-NLVR: two images plus the twin-cross text
+    encoder (132.54 unpruned at 384^2)."""
+    v = 2 * vit_flops(vit_cfg, v_kept)
+    cross_kv = float(v_kept[-1]) + 1
+    t = med_flops(med_cfg, t_kept, n_text0, cross_kv=cross_kv, twin=True)
+    return (v + t) / 1e9

@@ -19,3 +19,8 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped without one")
