@@ -4,19 +4,32 @@
 
 Phases, each fatal on failure:
 
-1. build kernel K1 (``madtp_tpu_torch/csrc/attention_scores.cu``) with nvcc;
+1. build kernels K1 (``madtp_tpu_torch/csrc/attention_scores.cu``) and K2
+   (``csrc/attention_scores_bwd.cu``) with nvcc, one process each, together;
 2. K1 against its plain PyTorch version on the card at the NLVR shapes, fp32
    and bf16, with times, the card's bound, and the time of
    ``F.scaled_dot_product_attention`` for the ``out`` part alone (a yardstick
    that computes less than K1; the port never calls it);
-3. the full-width NLVR model (ViT-B/16@384 + 12-layer twin MED, seeded random
+3. K2 against its plain version (autograd through K1's) at the train step's
+   shapes, fp32 and bf16, two launches bit-identical, with times, the bound,
+   and SDPA forward + backward for the ``out`` part alone (partial again);
+4. the full-width NLVR model (ViT-B/16@384 + 12-layer twin MED, seeded random
    weights, 2 pairs, fp32) on the card against the same model on the CPU, in
    mask and gather mode: equal kept counts, logits within 1e-4, K1 launched in
    every layer;
-4. the main path in bf16 at 32 pairs: temperature bisection toward half the
-   dense GFLOPs in mask mode, the capacity schedule, and the gather-mode eval
-   through ``tasks.nlvr.evaluate``; samples/s of the gather step and of the
-   dense forward.
+5. the eval main path in bf16 at 32 pairs: temperature bisection toward half
+   the dense GFLOPs in mask mode, the capacity schedule, and the gather-mode
+   eval through ``tasks.nlvr.evaluate``; samples/s of the gather step and of
+   the dense forward;
+6. one fp32 train step of the full-width model, 1 pair, on the card against
+   the CPU, mask and gather mode: equal kept counts, losses within 1e-4,
+   named gradients within 1e-3 of their largest value, K2 launched once per
+   K1 launch;
+7. the training main path at 16 pairs: controller epochs (temperature update,
+   cosine LR, a mask-mode fp32 train epoch, an eval for the GFLOPs), then a
+   ``--fast_train`` epoch (probe, capacities, gather-mode train) in fp32 and
+   with ``amp``; a gather step under the sync guard; the checkpoint round
+   trip; step times, a profile of the gather amp step.
 
 Prints the card's name and power limit, a JSON line of kernel measurements,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -64,6 +77,61 @@ def k1_case(B, N, *, with_bias, dtype, device, H=12, Dh=64, seed=0):
     return q, k, v, torch.from_numpy(alive).to(device), bias
 
 
+def k2_case(B, N, *, with_bias, dtype, device, H=12, seed=0):
+    """K2 inputs: a K1 case, K1's out and row statistics on it, and random
+    N(0, 1) cotangents of all three outputs."""
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+
+    q, k, v, alive, bias = k1_case(B, N, with_bias=with_bias, dtype=dtype, device=device,
+                                   H=H, seed=seed)
+    bias_in = torch.zeros(alive.shape, device=device) if bias is None else bias
+    scale = q.shape[-1] ** -0.5
+    with torch.no_grad():
+        out, _, _, stats = attention_scores_cuda(q, k, v, alive, bias_in, scale,
+                                                 return_stats=True)
+    rng = np.random.RandomState(seed + 1)
+    d_out = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(device, dtype)
+    d_cls, d_col = (torch.from_numpy(rng.randn(B, N - 1).astype(np.float32)).to(device)
+                    for _ in range(2))
+    return dict(q=q, k=k, v=v, alive=alive, bias=bias, bias_in=bias_in, scale=scale,
+                out=out, stats=stats, d_out=d_out, d_cls=d_cls, d_col=d_col)
+
+
+def head_max_near_ties(c, rel=1e-5):
+    """[B, N, N] bool: the (alive query i >= 1, key j >= 1) whose two largest
+    head probabilities agree within ``rel``.  The gradient of the head max
+    is discontinuous there: two versions whose P differ in the last bits may
+    send it to different heads."""
+    q, k, alive = c["q"].float(), c["k"].float(), c["alive"]
+    logits = torch.einsum("bihd,bjhd->bhij", q, k) * c["scale"]
+    logits = (logits + c["bias_in"][:, None, None, :]).masked_fill(
+        ~alive[:, None, None, :], float("-inf"))
+    top = torch.nan_to_num(torch.softmax(logits, dim=-1)).topk(2, dim=1).values
+    del logits
+    near = (top[:, 0] - top[:, 1] <= rel * top[:, 0]) & (top[:, 0] > 0)
+    near &= alive[:, :, None]
+    near[:, 0, :] = False
+    near[:, :, 0] = False
+    return near
+
+
+def compare_k2(c, got, want, tol, label):
+    """K2's (dq, dk, dv, dbias) against the plain version's, leaving out the
+    query rows (dq) and key rows (dk, dbias) of head-max near ties.  Returns
+    the max abs errors and the number of near ties."""
+    near = head_max_near_ties(c)
+    rows, cols = ~near.any(dim=2), ~near.any(dim=1)
+    errs = {}
+    for name, g, w, keep in zip(("dq", "dk", "dv", "dbias"), got, want,
+                                (rows, cols, None, cols)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"K2 {name} {label}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+        if keep is not None:
+            g, w = g[keep], w[keep]
+        errs[name] = check_close(f"K2 {name} {label}", g, w, *tol[name])
+    return errs, int(near.sum())
+
+
 def k1_work(q, alive):
     """(flops, bytes) the function needs: 4 Dh flops per (head, query, alive
     key) for q k^T and P v; each input read once, each output written once."""
@@ -74,6 +142,24 @@ def k1_work(q, alive):
     nbytes = (3 * B * N * H * Dh * el + B * N + B * N * 4  # q, k, v, alive, bias
               + B * N * H * Dh * el + 2 * B * N * 4)  # out, col_mass, cls_attn
     return flops, nbytes
+
+
+def k2_work(q, alive):
+    """(flops, bytes) of the backward itself: one q k^T recompute and the four
+    gradient products, 10 Dh flops per (head, query, alive key); q, k, v,
+    alive, bias, dout, dcls, dcol read once, dq, dk, dv, dbias written once."""
+    B, N, H, Dh = q.shape
+    flops = 10.0 * H * Dh * N * int(alive.sum())
+    el = q.element_size()
+    nbytes = (4 * B * N * H * Dh * el + B * N + B * N * 4 + 2 * B * (N - 1) * 4
+              + 3 * B * N * H * Dh * el + B * N * 4)
+    return flops, nbytes
+
+
+def bound(flops, nbytes, dtype):
+    """The least time the card could take, ms, and what bounds it."""
+    t_ops, t_bytes = flops / PEAK[dtype] * 1e3, nbytes / MEM_RATE * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def time_ms(fn, iters):
@@ -115,13 +201,42 @@ def profile_step(label, fn, step_ms, top=10):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]  # ranges, not kernels
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"[profile] {label}: device busy {busy_ms:.2f} ms of the {step_ms:.2f} ms step "
-        f"({busy_ms / step_ms:.1%}); {len(kernels)} kernel names")
+        f"({busy_ms / step_ms:.1%}); {sum(e.count for e in kernels)} launches of "
+        f"{len(kernels)} kernels; " + kernel_totals(kernels, busy_ms))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
         log(f"[profile]   {ms:8.3f} ms {ms / max(busy_ms, 1e-9):6.1%} x{e.count:<5d} {e.key[:90]}")
+
+
+def kernel_totals(kernels, busy_ms):
+    """Device time of K1's and K2's passes among profiler averages."""
+    out = []
+    for name, tag in (("K1", "::k1_"), ("K2", "::k2_")):
+        ms = sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
+        out.append(f"{name} {ms:.2f} ms ({ms / max(busy_ms, 1e-9):.1%})")
+    return ", ".join(out)
+
+
+def profile_backward(label, step, batch):
+    """Device time of the backward pass alone of one train step's loss, and
+    K1's (remat only) and K2's part of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    loss = step.loss_fn(*batch)[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"[profile] {label} backward alone: device {busy_ms:.2f} ms; "
+        + kernel_totals(kernels, busy_ms))
 
 
 def check_close(name, got, want, rtol, atol):
@@ -137,10 +252,11 @@ def check_close(name, got, want, rtol, atol):
 
 def phase_build():
     from madtp_tpu_torch.kernels import attention_scores as k1
+    from madtp_tpu_torch.kernels import attention_scores_bwd as k2
     from madtp_tpu_torch.kernels.build import build_all
 
     t0 = time.perf_counter()
-    built = build_all([k1.SOURCE])
+    built = build_all([k1.SOURCE, k2.SOURCE])
     log(f"[build] {time.perf_counter() - t0:.2f} s wall for {len(built)} kernel source(s)")
     for name, b in built.items():
         log(f"[build] {name}: nvcc {b.seconds:.2f} s -> {b.path.name}")
@@ -178,10 +294,7 @@ def phase_k1(device, main_n=584):
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
             sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask, scale=scale), 10)
-            flops, nbytes = k1_work(q, alive)
-            t_ops, t_bytes = flops / PEAK[dtype] * 1e3, nbytes / MEM_RATE * 1e3
-            bound_ms = max(t_ops, t_bytes)
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
+            bound_ms, bound_by = bound(*k1_work(q, alive), dtype)
             log(f"[k1] {str(dtype)[6:]} B={B} N={N} bias={with_bias}: "
                 f"max|err| out {errs['out']:.2e} col {errs['col_mass']:.2e} "
                 f"cls {errs['cls_attn']:.2e} | K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -191,6 +304,63 @@ def phase_k1(device, main_n=584):
                 record = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms)
             del q, k, v, got, want
+            torch.cuda.empty_cache()
+    return record
+
+
+def phase_k2(device, main_n=592):
+    """K2 vs plain at the train step's shapes: the mask-mode ViT buffer
+    (N = 592), the gather path's first layer (584) and a later one (320) at
+    32 images, the text side at 16 captions with PAD_BIAS keys (40 mask, 26
+    gather).  Returns the fp32 record at N = ``main_n`` (the mask-mode fp32
+    train step, ``compress_nlvr``'s default) for the kernels line."""
+    import torch.nn.functional as F
+
+    from madtp_tpu_torch.kernels import attention_scores_bwd as k2
+    from madtp_tpu_torch.ops.attention import attention_scores_bwd_plain
+
+    cases = [(32, 592, False), (32, 584, False), (32, 320, False), (16, 40, True),
+             (16, 26, True)]
+    record = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, N, with_bias in cases:
+            c = k2_case(B, N, with_bias=with_bias, dtype=dtype, device=device)
+            args = [c[n] for n in ("q", "k", "v", "alive", "bias_in", "scale", "out", "stats",
+                                   "d_out", "d_cls", "d_col")]
+            plain_args = [c[n] for n in ("q", "k", "v", "alive", "bias", "scale", "d_out",
+                                         "d_cls", "d_col")]
+            got = k2.attention_scores_bwd_cuda(*args)
+            want = attention_scores_bwd_plain(*plain_args)
+            torch.cuda.synchronize()
+            label = f"B={B} N={N} {str(dtype)[6:]}"
+            errs, near = compare_k2(c, got, want, k2.TOLERANCES[dtype], label)
+            again = k2.attention_scores_bwd_cuda(*args)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K2 {label}: two launches on the same inputs differ")
+            del got, want, again
+            ms = time_ms(lambda: k2.attention_scores_bwd_cuda(*args), 5)
+            plain_ms = time_ms(lambda: attention_scores_bwd_plain(*plain_args), 2)
+            mask = torch.zeros(c["alive"].shape, device=device).masked_fill(
+                ~c["alive"], float("-inf"))
+            mask = (mask + c["bias_in"])[:, None, None, :].to(dtype)
+            qh, kh, vh = (c[n].transpose(1, 2).detach().requires_grad_() for n in "qkv")
+            do = c["d_out"].view(c["q"].shape).transpose(1, 2)
+
+            def sdpa():
+                o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=c["scale"])
+                torch.autograd.grad(o, (qh, kh, vh), do)
+
+            sdpa_ms = time_ms(sdpa, 5)
+            bound_ms, bound_by = bound(*k2_work(c["q"], c["alive"]), dtype)
+            log(f"[k2] {label} bias={with_bias}: max|err| dq {errs['dq']:.2e} dk {errs['dk']:.2e} "
+                f"dv {errs['dv']:.2e} dbias {errs['dbias']:.2e} ({near} head-max near ties "
+                f"left out); bit-identical relaunch | K2 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}), sdpa fwd+bwd (out only, computes "
+                f"less than K2) {sdpa_ms:.4f} ms")
+            if dtype == torch.float32 and N == main_n:
+                record = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms)
+            del c, args, plain_args, qh, kh, vh, do, mask
             torch.cuda.empty_cache()
     return record
 
@@ -336,6 +506,209 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
     return launches
 
 
+GRAD_PARAMS = ("visual_encoder.patch_embed.proj.weight", "visual_encoder.blocks.0.attn.qkv.weight",
+               "visual_encoder.blocks.11.attn.qkv.weight", "space_dict",
+               "text_encoder.encoder.layer.0.attention.self.query.weight", "cls_head.0.weight")
+GRAD_TOL = 1e-3  # of the largest |gradient| of the tensor: fp32 on both, sums in
+# another order, and a head-max tie may send col_mass's gradient to another head
+
+
+def phase_train_parity(device, cfg, temperature=1.0):
+    """One fp32 train forward and backward of the full-width model, 1 pair,
+    on the card (K1 forward, K2 backward) and on the CPU (plain), in mask
+    mode and in gather mode at lossless capacities."""
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+    from madtp_tpu_torch.models.blip import init_nlvr_model
+    from madtp_tpu_torch.tasks.nlvr import fast_capacity_schedule
+
+    cpu_model = init_nlvr_model(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    images, ids, mask = synthetic_inputs(cfg, pairs=1, text_len=26, seed=4)
+    targets = torch.tensor([1])
+    per_forward = cfg.vit.depth + cfg.med.num_hidden_layers
+    with torch.inference_mode():
+        ref = cpu_model(images, ids, mask, temperature=temperature, prune_active=True)
+    caps = fast_capacity_schedule(ref.v_kept.numpy(), ref.t_kept.numpy(), "ceil")
+    for mode, (cv, ct) in (("mask", (None, None)), ("gather", caps)):
+        kw = dict(temperature=temperature, prune_active=True, capacities_v=cv,
+                  capacities_t=ct)
+        res = {}
+        for where, model, dev in (("cpu", cpu_model, torch.device("cpu")),
+                                  ("card", gpu_model, device)):
+            x = [t.to(dev) for t in (images, ids, mask)]
+            with torch.inference_mode():
+                out = model(*x, **kw)
+            k1_before = attention_scores_cuda.launches
+            k2_before = attention_scores_bwd_cuda.launches
+            model.zero_grad(set_to_none=True)
+            lo, lf, _ = model(*x, targets=targets.to(dev), **kw)
+            (lo + 0.1 * lf).backward()
+            named = dict(model.named_parameters())
+            res[where] = dict(kept=(out.v_kept.cpu(), out.t_kept.cpu()),
+                              losses=(float(lo.detach()), float(lf.detach())),
+                              grads={n: named[n].grad.cpu() for n in GRAD_PARAMS},
+                              k1=attention_scores_cuda.launches - k1_before,
+                              k2=attention_scores_bwd_cuda.launches - k2_before)
+        cpu, card = res["cpu"], res["card"]
+        if not all(torch.equal(a, b) for a, b in zip(cpu["kept"], card["kept"])):
+            raise AssertionError(f"train {mode}: kept counts differ: card {card['kept']} "
+                                 f"cpu {cpu['kept']}")
+        loss_err = max(abs(a - b) for a, b in zip(cpu["losses"], card["losses"]))
+        if not loss_err <= 1e-4:
+            raise AssertionError(f"train {mode}: losses differ by {loss_err:.3e} (limit 1e-4)")
+        rel = {}
+        for n in GRAD_PARAMS:
+            g, want = card["grads"][n], cpu["grads"][n]
+            scale = float(want.abs().max())
+            rel[n] = float((g - want).abs().max()) / scale if scale > 0 else float("inf")
+            if not (torch.isfinite(g).all() and rel[n] <= GRAD_TOL):
+                raise AssertionError(f"train {mode}: grad of {n} differs by {rel[n]:.3e} of "
+                                     f"its max {scale:.3e} (limit {GRAD_TOL})")
+        if card["k1"] != per_forward or card["k2"] != card["k1"]:
+            raise AssertionError(f"train {mode}: K1 {card['k1']} and K2 {card['k2']} launches, "
+                                 f"want {per_forward} each")
+        log(f"[train-parity] {mode}: kept vision {card['kept'][0].tolist()} text "
+            f"{card['kept'][1].tolist()} equal; losses card {card['losses']} cpu "
+            f"{cpu['losses']} (max diff {loss_err:.2e}); K1 {card['k1']} K2 {card['k2']} "
+            f"launches per step")
+        log("[train-parity]   grad max|diff| / max|grad|: " + ", ".join(
+            f"{n.replace('visual_encoder.', 'v.').replace('text_encoder.encoder.', 't.')} "
+            f"{r:.2e}" for n, r in rel.items()))
+
+
+def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, iters=5,
+                     p_target=0.5, enc_token_id=2):
+    """Compression training as ``madtp_tpu/cli/compress_nlvr.py:335-384``
+    runs it, on synthetic data: controller epochs in mask mode fp32, then a
+    ``--fast_train`` epoch in fp32 and with ``amp``.  Returns the K1 and K2
+    launch counts of that run."""
+    import tempfile
+
+    from madtp_tpu_torch.ckpt.convert import load_nlvr_state_dict, save_nlvr_checkpoint
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+    from madtp_tpu_torch.models.blip import init_nlvr_model
+    from madtp_tpu_torch.prune.flops import nlvr_gflops
+    from madtp_tpu_torch.tasks.nlvr import (cached_probe_batches, evaluate, probe_capacities,
+                                            train_epoch)
+    from madtp_tpu_torch.train.controller import TemperatureController
+    from madtp_tpu_torch.train.loops import make_nlvr_train_step
+    from madtp_tpu_torch.train.optim import cosine_lr, make_adamw, set_lr
+
+    log(f"[train] {card_line()}")
+    model = init_nlvr_model(cfg, seed=0, device=device)  # fp32 masters
+    opt = make_adamw(model.parameters(), lr=3e-6, weight_decay=0.05)  # configs/nlvr.yaml
+    rng = np.random.default_rng(5)
+    s = cfg.vit.image_size
+
+    def loader_fn(n):
+        def loader():
+            for _ in range(n):
+                im = rng.standard_normal((2 * pairs, 3, s, s), dtype=np.float32)
+                yield (im[:pairs], im[pairs:], [f"sentence {i}" for i in range(pairs)],
+                       rng.integers(0, 2, size=pairs))
+        return loader
+
+    def tokenize(sentences):
+        mask = np.ones((len(sentences), text_len), np.int64)
+        mask[-1, text_len - 5:] = 0  # one padded caption: PAD_BIAS keys
+        return rng.integers(1, cfg.med.vocab_size, size=(len(sentences), text_len)), mask
+
+    ori = nlvr_gflops(cfg.vit, cfg.med, [cfg.vit.num_patches] * cfg.vit.depth,
+                      [text_len - 1] * cfg.med.num_hidden_layers, text_len)
+    controller = TemperatureController(target_gflops=ori * (1.0 - p_target))
+    quiet = dict(print_fn=lambda m: log(f"[train]   {m}"), print_freq=0)
+
+    attention_scores_cuda.launches = attention_scores_bwd_cuda.launches = 0
+    step_mask = make_nlvr_train_step(model, opt)  # mask mode, fp32: compress_nlvr's default
+    cur_g = ori
+    for epoch in range(epochs):
+        if epoch > 0:
+            controller.update(cur_g)
+        temperature = controller.temperature
+        lr = cosine_lr(epoch, epochs, 3e-6, 0.0)
+        set_lr(opt, lr)
+        stats = train_epoch(model, step_mask, loader_fn(batches), tokenize, enc_token_id,
+                            temperature, lr=lr, **quiet)
+        _, cur_g = evaluate(model, loader_fn(1), tokenize, temperature, prune_active=True,
+                            enc_token_id=enc_token_id, **quiet)
+        log(f"[train] epoch {epoch}: T={temperature:.2f} lr={lr:.3e} loss {stats['loss']} "
+            f"(ori {stats['loss_ori']}, fdt {stats['loss_fdt']}); eval GFLOPs {cur_g:.2f} "
+            f"(target {controller.target_gflops:.2f}, dense {ori:.2f})")
+        if not (all(math.isfinite(float(stats[k])) for k in ("loss", "loss_ori", "loss_fdt"))
+                and stats["batches_done"] == batches and 0 < cur_g <= ori):
+            raise AssertionError(f"epoch {epoch}: stats {stats}, GFLOPs {cur_g}")
+    probe = cached_probe_batches([None], loader_fn(2), n=2)
+    caps_v, caps_t = probe_capacities(model, probe, tokenize, enc_token_id, temperature, "ceil")
+    log(f"[train] fast_train capacities vision {list(caps_v)} text {list(caps_t)}")
+    steps = {}
+    for amp in (False, True):
+        name = "gather " + ("amp" if amp else "fp32")
+        steps[name] = make_nlvr_train_step(model, opt, capacities_v=caps_v,
+                                           capacities_t=caps_t, amp=amp)
+        stats = train_epoch(model, steps[name], loader_fn(batches), tokenize, enc_token_id,
+                            temperature, lr=lr, **quiet)
+        log(f"[train] fast_train epoch, {name}: loss {stats['loss']} (ori {stats['loss_ori']}, "
+            f"fdt {stats['loss_fdt']})")
+        if not math.isfinite(float(stats["loss"])):
+            raise AssertionError(f"{name}: loss {stats['loss']}")
+    torch.cuda.synchronize()
+    launches = (attention_scores_cuda.launches, attention_scores_bwd_cuda.launches)
+    log(f"[train] launches on the training main path: K1 {launches[0]}, K2 {launches[1]}")
+    if min(launches) == 0:
+        raise AssertionError(f"training main path launched K1/K2 {launches} times")
+
+    # one fixed batch on the card for the guard, the timings and the profile
+    im0, im1, _, tg = next(iter(loader_fn(1)()))
+    ids, mask = tokenize([""] * pairs)
+    ids[:, 0] = enc_token_id
+    batch = tuple(torch.from_numpy(a).to(device) for a in (np.concatenate([im0, im1]), ids,
+                                                           mask, tg)) + (temperature,)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the train step must not wait on the card
+    try:
+        m = steps["gather fp32"](*batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not torch.isfinite(m["loss"]):
+        raise AssertionError("gather train step under the sync guard: loss not finite")
+    log("[train] gather fp32 train step ran under set_sync_debug_mode('error')")
+
+    steps["mask fp32"] = step_mask
+    steps["dense fp32"] = make_nlvr_train_step(model, opt, prune_active=False)
+    steps["dense amp"] = make_nlvr_train_step(model, opt, prune_active=False, amp=True)
+    times = {}
+    for name in ("mask fp32", "gather fp32", "gather amp", "dense fp32", "dense amp"):
+        step = steps[name]
+        step(*batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times[name] = time_ms(lambda: step(*batch), iters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[train] {name} step {times[name]:.2f} ms = {pairs / times[name] * 1e3:.1f} "
+            f"pairs/s; peak memory {peak:.2f} GiB")
+    for name in ("mask fp32", "gather amp"):
+        profile_backward(name, steps[name], batch)
+    host = host_ms(lambda: steps["gather amp"](*batch), iters)
+    log(f"[train] gather amp step host dispatch time {host:.2f} ms")
+    profile_step("gather amp train step", lambda: steps["gather amp"](*batch),
+                 times["gather amp"], top=12)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/checkpoint_best.pth"
+        save_nlvr_checkpoint(model, path, epoch=epochs - 1, temperature=temperature)
+        ck = torch.load(path)
+        again = load_nlvr_state_dict(ck["model"], cfg, device=device)
+    with torch.inference_mode():
+        a = model(*batch[:3], temperature=temperature, prune_active=True)
+        b = again(*batch[:3], temperature=temperature, prune_active=True)
+    if not (torch.equal(a.logits, b.logits) and ck["temperature"] == temperature):
+        raise AssertionError("the reloaded checkpoint gives other logits or temperature")
+    log(f"[train] checkpoint round trip: identical logits, temperature {ck['temperature']:.2f}")
+    return launches
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -357,17 +730,29 @@ def main():
 
     phase_build()
     record = phase_k1(device)
+    record2 = phase_k2(device)
     cfg = full_config()
     phase_model_parity(device, cfg)
-    launches = phase_main_path(device, cfg)
+    eval_launches = phase_main_path(device, cfg)
+    phase_train_parity(device, cfg)
+    k1_train, k2_train = phase_train_main(device, cfg)
 
-    kernel = dict(name="attention_scores", route="cuda",
-                  source="madtp_tpu_torch/csrc/attention_scores.cu",
-                  replaces="madtp_tpu/ops/pallas/fused_attention.py:595",
-                  launches=launches, **record,
-                  library_note="library_ms is scaled_dot_product_attention, out only")
+    kernels = [
+        dict(name="attention_scores", route="cuda",
+             source="madtp_tpu_torch/csrc/attention_scores.cu",
+             replaces="madtp_tpu/ops/pallas/fused_attention.py:595",
+             launches=eval_launches + k1_train,
+             launches_by_path={"eval": eval_launches, "train": k1_train}, **record,
+             library_note="library_ms is scaled_dot_product_attention, out only"),
+        dict(name="attention_scores_bwd", route="cuda",
+             source="madtp_tpu_torch/csrc/attention_scores_bwd.cu",
+             replaces="madtp_tpu/ops/pallas/fused_attention.py:306",
+             launches=k2_train, launches_by_path={"train": k2_train}, **record2,
+             library_note="library_ms is scaled_dot_product_attention forward + backward, "
+                          "out only"),
+    ]
     log(card_line())
-    log(json.dumps({"kernels": [kernel]}))
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""Weights into the port's NLVR model, from two sources that must give the
-same tensors:
+"""Weights into and out of the port's NLVR model.  In, from two sources that
+must give the same tensors:
 
 * :func:`nlvr_from_jax_params` — the JAX package's NLVR param tree as numpy
   arrays (layers stacked ``[L, ...]``, linear kernels ``[in, out]``);
@@ -11,6 +11,9 @@ The reference layout carries ``crossattention.output.merge_layer`` only at
 layers >= ``merge_start_layer``, like the port's modules; a base checkpoint
 may carry ``self``/``dense`` where the twin layers need ``self0``/``self1`` and
 ``dense0``/``dense1``, and both twins then start from the same weights.
+
+Out: :func:`save_nlvr_checkpoint` writes what a compression run leaves
+behind, the weights and the temperature, in the reference ``.pth`` layout.
 """
 
 from __future__ import annotations
@@ -188,3 +191,13 @@ def nlvr_from_jax_params(tree: Mapping, cfg: BlipConfig, device="cuda") -> NLVRM
     lin("cls_head.2", tree["cls_head"]["fc2"])
     sd["space_dict"] = _tensor(tree["space_dict"])
     return _load(cfg, sd, dev)
+
+
+def save_nlvr_checkpoint(model: NLVRModel, path: str, *, epoch: int,
+                         temperature: float) -> None:
+    """Write ``{"model": state_dict, "epoch", "temperature"}`` with fp32 CPU
+    tensors in the reference key layout (``madtp_tpu/ckpt/export.py:121-128``);
+    :func:`load_nlvr_state_dict` and the JAX package's ``load_blip_nlvr`` read
+    it back."""
+    sd = {k: v.detach().float().cpu().contiguous() for k, v in model.state_dict().items()}
+    torch.save({"model": sd, "epoch": int(epoch), "temperature": float(temperature)}, path)

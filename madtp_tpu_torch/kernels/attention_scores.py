@@ -47,16 +47,16 @@ def _load():
     return fn
 
 
-def _check(q, k, v, key_alive, key_bias):
+def _check(q, k, v, key_alive, key_bias, who="attention_scores_cuda"):
     if not q.is_cuda:
-        raise ValueError(f"attention_scores_cuda needs CUDA tensors, got {q.device}")
+        raise ValueError(f"{who} needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES:
-        raise ValueError(f"attention_scores_cuda takes float32 or bfloat16, got {q.dtype}")
+        raise ValueError(f"{who} takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4:
         raise ValueError(f"q must be [B, N, H, Dh], got shape {tuple(q.shape)}")
     B, N, H, Dh = q.shape
     if Dh != HEAD_DIM or N < 2:
-        raise ValueError(f"attention_scores_cuda needs Dh == {HEAD_DIM} and N >= 2, "
+        raise ValueError(f"{who} needs Dh == {HEAD_DIM} and N >= 2, "
                          f"got shape {tuple(q.shape)}")
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -74,14 +74,24 @@ def _check(q, k, v, key_alive, key_bias):
         raise ValueError("key_bias must be a contiguous float32 [B, N] tensor on q's device")
 
 
-def attention_scores_cuda(q, k, v, key_alive, key_bias, scale: float):
+def attention_scores_cuda(q, k, v, key_alive, key_bias, scale: float, *,
+                          return_stats: bool = False):
     """Launch K1.  ``q, k, v``: [B, N, H, 64] float32 or bfloat16 views with
     contiguous heads; ``key_alive`` bool [B, N]; ``key_bias`` float32 [B, N].
 
     Returns ``(out [B, N, H*Dh] in q's dtype, cls_attn [B, N-1],
     col_mass [B, N-1])`` (fp32 scores over slots 1..N-1), like
-    ``attention_scores_plain``.  Raises on any input the kernel does not
-    take; it never falls back."""
+    ``attention_scores_plain``; with ``return_stats`` also the row
+    statistics K2 reads, fp32 [3, B, H, N]: the max of the scaled, biased
+    logits over alive keys (0 for a row with none), the sum of exp, and the
+    fp32 norm of the row of out.  Raises on any input the kernel does not
+    take, and on an input that needs a gradient while grad mode is on: the
+    outputs carry none (``ops.attention.ScoringAttention`` is the
+    differentiable path).  It never falls back."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, key_bias)):
+        raise RuntimeError(
+            "attention_scores_cuda returns no gradient: call it under torch.no_grad() "
+            "or through madtp_tpu_torch.ops.attention.attention_scores")
     _check(q, k, v, key_alive, key_bias)
     fn = _load()
     B, N, H, Dh = q.shape
@@ -100,7 +110,8 @@ def attention_scores_cuda(q, k, v, key_alive, key_bias, scale: float):
     if err != 0:
         raise RuntimeError(f"K1 launch failed with cudaError_t {err}")
     attention_scores_cuda.launches += 1
-    return out.view(B, N, H * Dh), cls[:, 1:], col[:, 1:]
+    res = (out.view(B, N, H * Dh), cls[:, 1:], col[:, 1:])
+    return res + (stats,) if return_stats else res
 
 
 attention_scores_cuda.launches = 0

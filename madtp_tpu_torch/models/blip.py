@@ -1,6 +1,7 @@
 """BLIP-NLVR: the ViT image tower over both images of each pair, then the
 twin cross-attention MED and the 2-way head
-(counterpart of ``madtp_tpu/models/blip.py:39-111``, eval branch)."""
+(counterpart of ``madtp_tpu/models/blip.py:39-124``, eval and train
+branches)."""
 
 from __future__ import annotations
 
@@ -13,8 +14,9 @@ from madtp_tpu_torch.core.config import BlipConfig
 from madtp_tpu_torch.core.device import resolve_device
 from madtp_tpu_torch.models.med import MedEncoder
 from madtp_tpu_torch.models.vit import VisionTransformer
-from madtp_tpu_torch.ops.layers import linear
+from madtp_tpu_torch.ops.layers import cosine_embedding_loss, linear
 from madtp_tpu_torch.prune.dtp import TokenState
+from madtp_tpu_torch.train.losses import cross_entropy
 
 
 class NLVROut(NamedTuple):
@@ -30,6 +32,15 @@ def split_state(state: TokenState, n: int) -> Tuple[TokenState, TokenState]:
         return TokenState(state.x[sl], state.alive[sl],
                           None if state.bias is None else state.bias[sl])
     return part(slice(None, n)), part(slice(n, None))
+
+
+def fdt_alignment_loss(sd_img_ft: torch.Tensor, sd_txt_ft: torch.Tensor,
+                       sd_dim: int) -> torch.Tensor:
+    """Cross-modal FDT loss: ``CosineEmbeddingLoss(+1)`` over the L2-normalized,
+    depth-summed MAG features (``madtp_tpu/models/blip.py:48-53``)."""
+    a = sd_img_ft / (torch.linalg.vector_norm(sd_img_ft, dim=-1, keepdim=True) + 1e-10)
+    b = sd_txt_ft / (torch.linalg.vector_norm(sd_txt_ft, dim=-1, keepdim=True) + 1e-10)
+    return cosine_embedding_loss(a.reshape(-1, sd_dim), b.reshape(-1, sd_dim))
 
 
 class NLVRModel(nn.Module):
@@ -50,10 +61,17 @@ class NLVRModel(nn.Module):
                 text_mask: torch.Tensor, *, temperature=0.0,
                 prune_active: bool = False,
                 capacities_v: Optional[Sequence[int]] = None,
-                capacities_t: Optional[Sequence[int]] = None) -> NLVROut:
+                capacities_t: Optional[Sequence[int]] = None,
+                targets: Optional[torch.Tensor] = None):
         """``images`` [2B, 3, H, W]: the first images of the B pairs, then the
         second ones.  ``capacities_v``/``capacities_t`` switch the towers to
-        gather mode."""
+        gather mode.
+
+        Returns an :class:`NLVROut`; with ``targets`` [B] (the train branch of
+        ``blip_nlvr_forward``) ``(loss_ori, loss_fdt, logits)`` instead:
+        the fp32 cross-entropy of the logits and, when pruning, the FDT
+        alignment loss between the two images' averaged MAG features and the
+        text's (else ``loss_ori`` again)."""
         B = text_ids.shape[0]
         v = self.visual_encoder(images, space_dict=self.space_dict,
                                 temperature=temperature, prune_active=prune_active,
@@ -65,6 +83,13 @@ class NLVRModel(nn.Module):
         fc1, fc2 = self.cls_head[0], self.cls_head[2]
         h = torch.relu(linear(t.state.x[:, 0, :], fc1.weight, fc1.bias))
         logits = linear(h, fc2.weight, fc2.bias)
+        if targets is not None:
+            loss_ori = cross_entropy(logits, targets)
+            loss_fdt = loss_ori
+            if prune_active and v.sd_ft is not None and t.sd_ft is not None:
+                sd_img = (v.sd_ft[:B] + v.sd_ft[B:]) / 2.0
+                loss_fdt = fdt_alignment_loss(sd_img, t.sd_ft, self.cfg.sd_dim)
+            return loss_ori, loss_fdt, logits
         overflow = None
         if v.overflow is not None or t.overflow is not None:
             overflow = (0 if v.overflow is None else v.overflow) + (

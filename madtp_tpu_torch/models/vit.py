@@ -11,6 +11,12 @@ in the dtype of the weights.
   of layer ``i`` at ``1 + P0 + i``;
 * gather mode (``capacities``): the 577 tokens padded to 584, compacted after
   each layer's DTP decision to that layer's capacity.
+
+With ``ViTConfig.grad_checkpoint`` the last ``ckpt_layers`` blocks of the
+mask-mode path (all of them when ``ckpt_layers < 0``) are recomputed in the
+backward pass (``madtp_tpu/models/vit.py:178-198``).  The recompute takes
+the same DTP decisions only because K1 is deterministic (fixed-order sums, no
+float atomics); it launches K1 once more per recomputed block.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from madtp_tpu_torch.core.config import ViTConfig
 from madtp_tpu_torch.ops.attention import AttnAux, self_attention
@@ -116,24 +123,25 @@ class VisionTransformer(nn.Module):
         depth = self.cfg.depth
         state = init_token_state(x, depth=depth if prune_active else 0,
                                  pad_to=8 if prune_active else 1)
-        use_fdt = space_dict is not None
-        sd_all = _zeros_sd(B, space_dict) if use_fdt else None
+        sd_all = None if space_dict is None else _zeros_sd(B, space_dict)
+        first_remat = depth - self.remat_layers() if torch.is_grad_enabled() else depth
         kept_list = []
         for i, blk in enumerate(self.blocks):
-            token_attn = None
-            if use_fdt:
-                token_attn, sd_ft = query_model(state.x[:, 1:], space_dict,
-                                                state.alive[:, 1:])
-                sd_all = sd_all + sd_ft
-            state, aux = blk.attn_part(state, need_scores=prune_active)
-            kept = state.alive[0, 1:].sum()
-            if prune_active:
-                state, kept = dtp_prune(state, _signals(aux, token_attn),
-                                        temperature, 1 + P0 + i)
-            state = blk.ffn_part(state)
+            args = (blk, state, sd_all, space_dict, temperature, prune_active, 1 + P0 + i)
+            if i >= first_remat:
+                state, sd_all, kept = checkpoint(_mask_layer, *args, use_reentrant=False)
+            else:
+                state, sd_all, kept = _mask_layer(*args)
             kept_list.append(kept)
         return EncoderOut(self._final_norm(state), sd_all,
                           torch.stack(kept_list), None)
+
+    def remat_layers(self) -> int:
+        """How many of the last blocks the mask-mode path recomputes."""
+        if not self.cfg.grad_checkpoint:
+            return 0
+        depth = self.cfg.depth
+        return depth if self.cfg.ckpt_layers < 0 else min(self.cfg.ckpt_layers, depth)
 
     def _forward_gather(self, x, space_dict, temperature, capacities) -> EncoderOut:
         if len(capacities) != self.cfg.depth:
@@ -160,6 +168,21 @@ class VisionTransformer(nn.Module):
         x = layer_norm(state.x, self.norm.weight, self.norm.bias,
                        self.cfg.layer_norm_eps)
         return TokenState(x, state.alive, state.bias)
+
+
+def _mask_layer(blk: Block, state: TokenState, sd_all, space_dict, temperature,
+                prune_active: bool, merge_slot: int):
+    """One mask-mode layer: MAG query, attention, DTP into ``merge_slot``,
+    FFN.  Returns ``(state, sd_all, kept)``."""
+    token_attn = None
+    if space_dict is not None:
+        token_attn, sd_ft = query_model(state.x[:, 1:], space_dict, state.alive[:, 1:])
+        sd_all = sd_all + sd_ft
+    state, aux = blk.attn_part(state, need_scores=prune_active)
+    kept = state.alive[0, 1:].sum()
+    if prune_active:
+        state, kept = dtp_prune(state, _signals(aux, token_attn), temperature, merge_slot)
+    return blk.ffn_part(state), sd_all, kept
 
 
 def _zeros_sd(B: int, space_dict: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,10 @@ gives zeros, not NaN.
 :func:`attention_core` is the plain PyTorch version (never
 ``F.scaled_dot_product_attention``, which returns NaN on fully masked rows).
 :func:`attention_scores` is the scoring self-attention that every pruned
-layer runs: on CUDA tensors it launches kernel K1, on CPU tensors it runs
-:func:`attention_scores_plain`.  The JAX package's dispatch thresholds
+layer runs: on CUDA tensors it launches kernel K1 (through
+:class:`ScoringAttention`, K1 forward and K2 backward, when a gradient is
+needed), on CPU tensors it runs :func:`attention_scores_plain`, which autograd
+differentiates by itself.  The JAX package's dispatch thresholds
 (``FUSED_MIN_N``, ``FUSED_FULL_MAX_N``) were set for the TPU's lanes and do
 not apply: every scoring attention on the card goes through K1, the text
 side's short buffers included.
@@ -27,6 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
 from madtp_tpu_torch.ops.layers import linear
 
 
@@ -96,19 +99,69 @@ def attention_scores_plain(q, k, v, key_alive, key_bias, scale: float):
     return out, aux.cls_attn, aux.col_mass
 
 
+def attention_scores_bwd_plain(q, k, v, key_alive, key_bias, scale: float,
+                               d_out, d_cls, d_col):
+    """K2's plain version: the VJP of :func:`attention_scores_plain` by
+    ``torch.autograd.grad`` (the counterpart of the XLA-VJP fallback at
+    ``madtp_tpu/ops/attention.py:414-420``).  ``d_out`` [B, N, H*Dh],
+    ``d_cls`` and ``d_col`` [B, N-1].  Returns ``(dq, dk, dv, dbias)`` with
+    ``dq, dk, dv`` shaped and typed like ``q`` and ``dbias`` fp32 [B, N].
+
+    ``Tensor.amax``'s backward splits the gradient evenly among tied heads,
+    as XLA's ``reduce_max`` VJP does."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        bias = (torch.zeros(key_alive.shape, dtype=torch.float32, device=q.device)
+                if key_bias is None else key_bias.detach().float())
+        bias.requires_grad_()
+        outs = attention_scores_plain(*qkv, key_alive, bias, scale)
+        return torch.autograd.grad(outs, (*qkv, bias), (d_out, d_cls, d_col))
+
+
+class ScoringAttention(torch.autograd.Function):
+    """K1 forward, K2 backward (counterpart of ``_fused_scores_diff``,
+    ``_fused_fwd`` and ``_fused_bwd``, ``madtp_tpu/ops/attention.py:328-423``).
+
+    The forward keeps K1's per-(image, head, row) max, sum-exp and fp32 row
+    norm so that K2 recomputes the probabilities without another softmax
+    pass.  ``q``, ``k`` and ``v`` may be views of one packed tensor or three
+    tensors; each gets its own gradient, in its dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_alive, key_bias, scale):
+        out, cls, col, stats = attention_scores_cuda(q, k, v, key_alive, key_bias, scale,
+                                                     return_stats=True)
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, key_alive, key_bias, out, stats)
+        return out, cls, col
+
+    @staticmethod
+    def backward(ctx, d_out, d_cls, d_col):
+        q, k, v, key_alive, key_bias, out, stats = ctx.saved_tensors
+        dq, dk, dv, dbias = attention_scores_bwd_cuda(
+            q, k, v, key_alive, key_bias, ctx.scale, out, stats,
+            d_out.contiguous(), d_cls.contiguous(), d_col.contiguous())
+        return dq, dk, dv, None, dbias, None
+
+
 def attention_scores(q, k, v, key_alive, key_bias=None, scale=None):
     """Scoring self-attention (counterpart of ``_fused_scores_diff`` /
     ``_fused_forward``).  ``q, k, v``: [B, N, H, Dh]; ``key_alive`` bool
     [B, N], also the query mask of ``col_mass``; ``key_bias`` [B, N] or None.
 
-    CUDA tensors go to kernel K1 (which raises on what it does not take);
-    CPU tensors to the plain version."""
+    CUDA tensors go to the kernels, which raise on what they do not take:
+    through :class:`ScoringAttention` when grad mode is on and an input
+    requires a gradient, else straight to K1 (``no_grad``,
+    ``inference_mode``).  CPU tensors go to the plain version."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if q.is_cuda:
         bias = (torch.zeros(key_alive.shape, dtype=torch.float32, device=q.device)
                 if key_bias is None else key_bias.float().contiguous())
-        return attention_scores_cuda(q, k, v, key_alive.contiguous(), bias, scale)
+        alive = key_alive.contiguous()
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+            return ScoringAttention.apply(q, k, v, alive, bias, scale)
+        return attention_scores_cuda(q, k, v, alive, bias, scale)
     if q.device.type != "cpu":
         raise ValueError(f"attention_scores runs on CUDA or CPU tensors, got {q.device}")
     return attention_scores_plain(q, k, v, key_alive, key_bias, scale)

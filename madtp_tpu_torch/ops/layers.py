@@ -1,5 +1,5 @@
 """Elementary NN ops as plain functions on tensors
-(counterpart of ``madtp_tpu/ops/layers.py:22-135``).
+(counterpart of ``madtp_tpu/ops/layers.py:22-145``).
 
 Weights are in PyTorch's layout (``[out, in]`` for a linear), the layout of
 the reference ``.pth`` files.  A module's weights set its compute dtype.
@@ -60,3 +60,13 @@ def patch_embed(images: torch.Tensor, weight: torch.Tensor,
     x = images.reshape(B, C, gh, ph, gw, pw).permute(0, 2, 4, 1, 3, 5)
     x = x.reshape(B, gh * gw, C * ph * pw)
     return linear(x, weight.reshape(D, C * ph * pw), bias)
+
+
+def cosine_embedding_loss(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """torch ``nn.CosineEmbeddingLoss`` with target +1, ``mean(1 - cos(a, b))``
+    over the rows, the denominator clamped at ``eps``
+    (``madtp_tpu/ops/layers.py:137-145``)."""
+    an = torch.sqrt((a * a).sum(dim=-1))
+    bn = torch.sqrt((b * b).sum(dim=-1))
+    cos = (a * b).sum(dim=-1) / torch.clamp_min(an * bn, eps)
+    return (1.0 - cos).mean()

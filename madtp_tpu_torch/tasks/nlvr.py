@@ -1,11 +1,14 @@
-"""NLVR2 evaluation (counterpart of ``madtp_tpu/tasks/nlvr.py:27-170``):
-the eval step, the single-process eval loop that returns the analytic
-per-sample GFLOPs, and the capacity-schedule helper of the fast eval
-(``madtp_tpu/cli/common.py:257-276``)."""
+"""NLVR2 evaluation and compression training
+(counterpart of ``madtp_tpu/tasks/nlvr.py:27-257``): the eval step, the
+single-process eval loop that returns the analytic per-sample GFLOPs, the
+single-process train epoch, and the capacity helpers of ``--fast_eval`` and
+``--fast_train`` (``madtp_tpu/cli/common.py:234-276``,
+``madtp_tpu/cli/compress_nlvr.py:270-300``)."""
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional, Sequence, Tuple
+import itertools
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +29,18 @@ def make_eval_step(model: NLVRModel, prune_active: bool,
                      prune_active=prune_active, capacities_v=capacities_v,
                      capacities_t=capacities_t)
     return step
+
+
+def _device_batch(image0, image1, sentences, tokenize, enc_token_id, device):
+    """Images ``[2B, ...]`` (first images, then second ones), ids with the
+    encoder token at slot 0 (reference ``models/blip_nlvr.py:69``) and the
+    mask, on ``device``; returns them and the text length."""
+    ids, mask = tokenize(sentences)
+    ids = np.array(ids)
+    ids[:, 0] = enc_token_id
+    images = torch.from_numpy(np.concatenate([image0, image1], axis=0))
+    return (images.to(device), torch.from_numpy(ids).to(device),
+            torch.from_numpy(np.asarray(mask)).to(device)), ids.shape[1]
 
 
 def evaluate(model: NLVRModel, loader_fn: Callable[[], Iterable], tokenize,
@@ -62,16 +77,12 @@ def evaluate(model: NLVRModel, loader_fn: Callable[[], Iterable], tokenize,
 
     pending = None
     for i, (image0, image1, sentences, targets) in enumerate(loader_fn()):
-        ids, mask = tokenize(sentences)
-        ids = np.array(ids)
-        ids[:, 0] = enc_token_id  # reference models/blip_nlvr.py:69
-        images = torch.from_numpy(np.concatenate([image0, image1], axis=0))
-        out = step(images.to(device),
-                   torch.from_numpy(ids).to(device), torch.from_numpy(np.asarray(mask)).to(device),
-                   temperature)
+        batch, text_w = _device_batch(image0, image1, sentences, tokenize, enc_token_id,
+                                      device)
+        out = step(*batch, temperature)
         if pending is not None:
             consume(pending)
-        pending = (out, targets, ids.shape[1])
+        pending = (out, targets, text_w)
         if print_freq and i % print_freq == 0:
             print_fn(f"Evaluation: [{i}]")
     if pending is not None:
@@ -100,3 +111,81 @@ def fast_capacity_schedule(vk, tk, cap_mode: str, *, margin_v: int = 16,
     ct = calibrate_capacities(tk if tk.ndim == 2 else tk[None, :],
                               margin=margin_t, multiple=8)
     return cv, ct
+
+
+def train_epoch(model: NLVRModel, train_step, loader_fn: Callable[[], Iterable], tokenize,
+                enc_token_id: int, temperature: float, *, print_fn=print,
+                print_freq: int = 50, lr: float = 0.0, stop=None) -> dict:
+    """One compression-training epoch (single process).  ``train_step`` is
+    :func:`madtp_tpu_torch.train.loops.make_nlvr_train_step`'s step, which
+    updates the model in place.  Step ``i``'s losses are read back after
+    step ``i+1`` is dispatched (a one-deep lag), so the host does not wait
+    on the card every step.  ``stop()`` is polled after each step, so a
+    stopped epoch counts every batch it trained exactly once.
+
+    Returns the stats: the mean of ``temperature``, ``lr``, ``loss``,
+    ``loss_ori`` and ``loss_fdt`` as ``"%.4f"`` strings, and
+    ``batches_done`` (int)."""
+    device = model.space_dict.device
+    sums: dict = {}
+
+    def record(metrics):
+        vals = dict(temperature=float(temperature), lr=lr,
+                    **{k: float(v) for k, v in metrics.items()})
+        for k, v in vals.items():
+            total, count = sums.get(k, (0.0, 0))
+            sums[k] = (total + v, count + 1)
+
+    pending = None
+    batches_done = 0
+    for i, (image0, image1, sentences, targets) in enumerate(loader_fn()):
+        batch, _ = _device_batch(image0, image1, sentences, tokenize, enc_token_id, device)
+        metrics = train_step(*batch, torch.from_numpy(np.asarray(targets)).to(device),
+                             temperature)
+        if pending is not None:
+            record(pending)
+        pending = metrics
+        batches_done += 1
+        if print_freq and i % print_freq == 0:
+            print_fn(f"Train: [{i}] T={temperature} lr={lr}")
+        if stop is not None and stop():
+            break
+    if pending is not None:
+        record(pending)
+    stats = {k: f"{total / max(count, 1):.4f}" for k, (total, count) in sums.items()}
+    stats["batches_done"] = batches_done
+    return stats
+
+
+def cached_probe_batches(cache: list, loader_factory: Callable[[], Iterable],
+                         n: int = 2) -> List:
+    """Pull ``n`` probe batches once and keep them in ``cache`` (a
+    one-element ``[None]`` list the caller owns), so every epoch's
+    ``--fast_train`` calibration reads the same batches."""
+    if cache[0] is None:
+        it = loader_factory()
+        cache[0] = list(itertools.islice(it, n))
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
+        if not cache[0]:
+            raise ValueError("probe loader yielded no batches")
+    return cache[0]
+
+
+def probe_capacities(model: NLVRModel, batches, tokenize, enc_token_id: int,
+                     temperature: float, cap_mode: str = "ceil"):
+    """``--fast_train``'s per-epoch calibration (``fast_train_step`` in
+    ``madtp_tpu/cli/compress_nlvr.py:270-300``): the
+    mask-mode eval step on the probe batches at this epoch's temperature,
+    then :func:`fast_capacity_schedule` over their kept counts.  Returns
+    ``(capacities_v, capacities_t)``."""
+    device = model.space_dict.device
+    probe = make_eval_step(model, prune_active=True)
+    vks, tks = [], []
+    for image0, image1, sentences, _ in batches:
+        batch, _ = _device_batch(image0, image1, sentences, tokenize, enc_token_id, device)
+        out = probe(*batch, temperature)
+        vks.append(out.v_kept.cpu().numpy())
+        tks.append(out.t_kept.cpu().numpy())
+    return fast_capacity_schedule(np.stack(vks), np.stack(tks), cap_mode)

@@ -74,3 +74,23 @@ def test_chip_smoke_fails_without_gpu(tmp_path):
     proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and '"ok"' not in proc.stdout
+
+
+def test_train_step_refuses_without_gpu(no_gpu):
+    """make_nlvr_train_step defaults to the card and raises without one; given
+    device="cpu" it builds the step for a model on the CPU."""
+    from madtp_tpu_torch.core.config import BlipConfig, MedConfig, ViTConfig
+    from madtp_tpu_torch.models.blip import init_nlvr_model
+    from madtp_tpu_torch.train.loops import make_nlvr_train_step
+    from madtp_tpu_torch.train.optim import make_adamw
+
+    vit = ViTConfig(image_size=32, embed_dim=64, depth=1, num_heads=1)
+    cfg = BlipConfig(vit, MedConfig(hidden_size=64, num_hidden_layers=1, num_attention_heads=1,
+                                    intermediate_size=64, twin_cross=True, encoder_width=64,
+                                    vocab_size=10, max_position_embeddings=8),
+                     sd_num=4, sd_dim=64)
+    model = init_nlvr_model(cfg, device="cpu")
+    opt = make_adamw(model.parameters(), lr=1e-5, weight_decay=0.05)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_nlvr_train_step(model, opt)
+    assert callable(make_nlvr_train_step(model, opt, device="cpu"))

@@ -1,15 +1,19 @@
-"""Kernel K1 against its plain PyTorch version on the card (the checks of
-``chip_smoke.py`` phase 2).  Needs an NVIDIA GPU with nvcc; skipped elsewhere.
+"""Kernels K1 and K2 against their plain PyTorch versions on the card (the
+checks of ``chip_smoke.py``), the autograd pairing of the two, and the
+refusals.  Needs an NVIDIA GPU with nvcc; skipped elsewhere.
 
-Run on the card: ``python -m pytest tests/test_torch_cuda.py -q -m cuda``.
+Run on the card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
 
 import pytest
 import torch
 
-from chip_smoke import k1_case
+from chip_smoke import compare_k2, k1_case, k2_case
+from madtp_tpu_torch.kernels import attention_scores_bwd as k2
 from madtp_tpu_torch.kernels.attention_scores import TOLERANCES, attention_scores_cuda
-from madtp_tpu_torch.ops.attention import attention_scores, attention_scores_plain
+from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+from madtp_tpu_torch.ops.attention import (attention_scores, attention_scores_bwd_plain,
+                                           attention_scores_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -24,7 +28,8 @@ def cuda():
 
 def _compare(q, k, v, alive, bias):
     bias_in = torch.zeros(alive.shape, device=q.device) if bias is None else bias
-    got = attention_scores_cuda(q, k, v, alive, bias_in, q.shape[-1] ** -0.5)
+    with torch.no_grad():
+        got = attention_scores_cuda(q, k, v, alive, bias_in, q.shape[-1] ** -0.5)
     want = attention_scores_plain(q, k, v, alive, bias, q.shape[-1] ** -0.5)
     torch.cuda.synchronize()
     for name, g, w in zip(("out", "cls_attn", "col_mass"), got, want):
@@ -66,3 +71,160 @@ def test_k1_dispatch_and_refusals(cuda):
     with pytest.raises(ValueError):
         q32, k32, v32 = (t[..., :32] for t in (q, k, v))
         attention_scores(q32, k32, v32, alive)
+
+
+def test_k1_refuses_inputs_that_need_a_gradient(cuda):
+    """K1's outputs carry no gradient, so a direct call that would drop one
+    raises; under no_grad it runs."""
+    q, k, v, alive, _ = k1_case(2, 40, with_bias=False, dtype=torch.float32, device=cuda)
+    bias = torch.zeros(alive.shape, device=cuda)
+    qg = q.detach().requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        attention_scores_cuda(qg, k, v, alive, bias, 0.125)
+    with torch.no_grad():
+        attention_scores_cuda(qg, k, v, alive, bias, 0.125)
+
+
+def _k2_compare(c):
+    got = attention_scores_bwd_cuda(c["q"], c["k"], c["v"], c["alive"], c["bias_in"],
+                                    c["scale"], c["out"], c["stats"], c["d_out"],
+                                    c["d_cls"], c["d_col"])
+    want = attention_scores_bwd_plain(c["q"], c["k"], c["v"], c["alive"], c["bias"],
+                                      c["scale"], c["d_out"], c["d_cls"], c["d_col"])
+    torch.cuda.synchronize()
+    compare_k2(c, got, want, k2.TOLERANCES[c["q"].dtype], "")
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,with_bias", [
+    (32, 592, False), (32, 584, False), (16, 40, True), (16, 26, True),
+    (3, 2, True), (3, 65, False)])
+def test_k2_matches_plain(cuda, B, N, with_bias, dtype):
+    _k2_compare(k2_case(B, N, with_bias=with_bias, dtype=dtype, device=cuda))
+
+
+def test_k2_dead_rows_and_determinism(cuda):
+    """A batch row with no alive key gets zero gradients, not NaN; K2 uses
+    no float atomics, so a second launch gives the same bits."""
+    c = k2_case(4, 130, with_bias=True, dtype=torch.float32, device=cuda)
+    c["alive"][1] = False
+    with torch.no_grad():
+        c["out"], _, _, c["stats"] = attention_scores_cuda(
+            c["q"], c["k"], c["v"], c["alive"], c["bias_in"], c["scale"], return_stats=True)
+    first = _k2_compare(c)
+    for g in first:
+        assert torch.isfinite(g).all() and not g[1].any()
+    again = attention_scores_bwd_cuda(c["q"], c["k"], c["v"], c["alive"], c["bias_in"],
+                                      c["scale"], c["out"], c["stats"], c["d_out"],
+                                      c["d_cls"], c["d_col"])
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scoring_attention_gradients(cuda, packed, dtype):
+    """attention_scores with inputs that need a gradient goes through
+    ScoringAttention (one K1 and one K2 launch) and returns the gradients
+    autograd finds through the plain version, for views of one packed qkv
+    (the ViT) and for three separate tensors (the MED text side)."""
+    q, k, v, alive, bias = k1_case(4, 70, with_bias=True, dtype=dtype, device=cuda)
+    if not packed:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    bias_g = bias.clone().requires_grad_()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    k1_before, k2_before = attention_scores_cuda.launches, attention_scores_bwd_cuda.launches
+    outs = attention_scores(*leaves, alive, bias_g)
+    weights = [torch.randn(o.shape, generator=gen, device=cuda) for o in outs]
+    loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+    got = torch.autograd.grad(loss, (*leaves, bias_g))
+    assert attention_scores_cuda.launches == k1_before + 1
+    assert attention_scores_bwd_cuda.launches == k2_before + 1
+    assert outs[0].grad_fn is not None and "ScoringAttention" in type(outs[0].grad_fn).__name__
+    scale = q.shape[-1] ** -0.5
+    want = attention_scores_bwd_plain(q, k, v, alive, bias, scale, weights[0].to(dtype),
+                                      weights[1], weights[2])
+    compare_k2(dict(q=q, k=k, alive=alive, bias_in=bias, scale=scale), got, want,
+               k2.TOLERANCES[dtype], "ScoringAttention")
+
+
+def test_scoring_attention_eval_launches_k1_alone(cuda):
+    """Under inference_mode (the eval step) the Function is not used."""
+    q, k, v, alive, _ = k1_case(2, 40, with_bias=False, dtype=torch.float32, device=cuda)
+    before = attention_scores_cuda.launches
+    with torch.inference_mode():
+        out, _, _ = attention_scores(q, k, v, alive)
+    assert out.grad_fn is None and attention_scores_cuda.launches == before + 1
+
+
+def test_remat_relaunches_k1_and_keeps_the_gradients(cuda):
+    """With the last ViT block recomputed in the backward pass, K1 runs once
+    more for it, K2 once per forward launch, and the loss is that without
+    remat bit for bit (K1 is deterministic, so the recompute takes the same
+    DTP decisions); the gradients agree to fp32 rounding (PyTorch's own
+    backward kernels may sum with atomics)."""
+    import dataclasses
+
+    from madtp_tpu_torch.core.config import BlipConfig, MedConfig, ViTConfig
+    from madtp_tpu_torch.models.blip import init_nlvr_model
+
+    vit = ViTConfig(image_size=64, embed_dim=128, depth=2, num_heads=2, sd_dim=128)
+    med = MedConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                    intermediate_size=256, vocab_size=100, max_position_embeddings=32,
+                    twin_cross=True, encoder_width=128, sd_dim=128, merge_start_layer=1)
+    cfg = BlipConfig(vit, med, sd_num=16, sd_dim=128)
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randn(4, 3, 64, 64, generator=gen).to(cuda)
+    ids = torch.randint(1, 100, (2, 10), generator=gen).to(cuda)
+    mask = torch.ones(2, 10, dtype=torch.int64, device=cuda)
+    targets = torch.tensor([0, 1], device=cuda)
+    runs = []
+    for remat in (False, True):
+        c = cfg._replace(vit=dataclasses.replace(vit, grad_checkpoint=remat, ckpt_layers=1))
+        model = init_nlvr_model(c, seed=0, device=cuda)
+        k1, k2 = attention_scores_cuda.launches, attention_scores_bwd_cuda.launches
+        lo, lf, _ = model(images, ids, mask, temperature=20.0, prune_active=True,
+                          targets=targets)
+        (lo + 0.1 * lf).backward()
+        runs.append((float(lo.detach()), [p.grad for p in model.parameters()],
+                     attention_scores_cuda.launches - k1, attention_scores_bwd_cuda.launches - k2))
+    (lo, grads, k1, k2), (lo_r, grads_r, k1_r, k2_r) = runs
+    assert (k1, k2) == (4, 4) and (k1_r, k2_r) == (5, 4)
+    assert lo_r == lo
+    for a, b in zip(grads, grads_r):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-7)
+
+
+def test_k2_refusals(cuda):
+    """K2 raises on what it does not take: another head width, dtype,
+    layout, or more than 16 heads."""
+    c = k2_case(2, 40, with_bias=False, dtype=torch.float32, device=cuda)
+    args = [c[n] for n in ("q", "k", "v", "alive", "bias_in", "scale", "out", "stats",
+                           "d_out", "d_cls", "d_col")]
+
+    def call(**repl):
+        a = list(args)
+        names = ("q", "k", "v", "alive", "bias_in", "scale", "out", "stats", "d_out",
+                 "d_cls", "d_col")
+        for n, val in repl.items():
+            a[names.index(n)] = val
+        return attention_scores_bwd_cuda(*a)
+
+    q, k, v = args[:3]
+    with pytest.raises(ValueError):
+        call(q=q[..., :32], k=k[..., :32], v=v[..., :32])
+    with pytest.raises(ValueError):
+        call(q=q.half(), k=k.half(), v=v.half())
+    with pytest.raises(ValueError):
+        call(k=k.contiguous())  # strides differ from q's
+    with pytest.raises(ValueError):
+        call(d_out=c["d_out"].double())
+    with pytest.raises(ValueError):
+        call(d_col=c["d_col"][:, :-1])
+    wide = k2_case(1, 8, with_bias=False, dtype=torch.float32, device=cuda, H=17)
+    with pytest.raises(ValueError, match="heads"):
+        attention_scores_bwd_cuda(*(wide[n] for n in ("q", "k", "v", "alive", "bias_in",
+                                                      "scale", "out", "stats", "d_out",
+                                                      "d_cls", "d_col")))
