@@ -4,8 +4,9 @@
 
 Phases, each fatal on failure:
 
-1. build kernels K1 (``madtp_tpu_torch/csrc/attention_scores.cu``) and K2
-   (``csrc/attention_scores_bwd.cu``) with nvcc, one process each, together;
+1. build kernels K1 (``madtp_tpu_torch/csrc/attention_scores.cu``), K2
+   (``csrc/attention_scores_bwd.cu``) and K4 (``csrc/cross_attention.cu``)
+   with nvcc, one process each, together;
 2. K1 against its plain PyTorch version on the card at the NLVR shapes, fp32
    and bf16, with times, the card's bound, and the time of
    ``F.scaled_dot_product_attention`` for the ``out`` part alone (a yardstick
@@ -13,6 +14,10 @@ Phases, each fatal on failure:
 3. K2 against its plain version (autograd through K1's) at the train step's
    shapes, fp32 and bf16, two launches bit-identical, with times, the bound,
    and SDPA forward + backward for the ``out`` part alone (partial again);
+3b. K4 against its plain version at the ITM rerank's, the NLVR twin cross's
+   and ragged shapes, with and without bias, fp32 and bf16, two launches
+   bit-identical, with times, the bound, and SDPA with the same additive mask
+   (the same function);
 4. the full-width NLVR model (ViT-B/16@384 + 12-layer twin MED, seeded random
    weights, 2 pairs, fp32) on the card against the same model on the CPU, in
    mask and gather mode: equal kept counts, logits within 1e-4, K1 launched in
@@ -29,7 +34,22 @@ Phases, each fatal on failure:
    cosine LR, a mask-mode fp32 train epoch, an eval for the GFLOPs), then a
    ``--fast_train`` epoch (probe, capacities, gather-mode train) in fp32 and
    with ``amp``; a gather step under the sync guard; the checkpoint round
-   trip; step times, a profile of the gather amp step.
+   trip; step times, a profile of the gather amp step;
+8. the full-width BLIP retrieval model (ViT-B/16@384 + 12-layer MED with
+   single-stream cross-attention, the width of ``configs/retrieval_coco.yaml``,
+   seeded random weights, fp32) on the card against the CPU: 4 images, 8
+   texts, ``k_test`` 4, mask and gather mode: equal kept counts and
+   candidate sets, features within 1e-5, rerank scores within 1e-4, 12 K4
+   launches per ITM forward;
+9. the retrieval main path in bf16 at p=0.5: temperature bisection toward half
+   the dense ``retrieval_gflops`` in mask mode, the ``--fast_eval`` capacities,
+   ``tasks.retrieval.evaluate`` in gather mode on 64 synthetic images (2
+   batches of 32) and 320 texts at ``k_test`` 64, the dense eval, and one ITM
+   forward at ``k_test`` 256: images/s, texts/s, ITM candidates/s, eval wall
+   time, a profile of the ITM forward.
+
+The NLVR phases (4-7) also hold K4 to 24 launches per forward: the twin
+cross-attention's two streams in each of the 12 MED layers.
 
 Prints the card's name and power limit, a JSON line of kernel measurements,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -49,6 +69,7 @@ import numpy as np
 import torch
 
 PAD_BIAS = -10000.0
+CLS_ID, SEP_ID, ENC_ID = 101, 102, 30523  # BERT's [CLS], [SEP]; BLIP's added [ENC]
 MEM_RATE = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; fp32 CUDA cores
 
@@ -156,6 +177,50 @@ def k2_work(q, alive):
     return flops, nbytes
 
 
+def k4_case(B, Nq, S, *, with_bias, dtype, device, H=12, Dh=64, seed=0, packed_q=False):
+    """K4 inputs at one shape: q a [B, Nq, H, Dh] view of the query linear's
+    output (with ``packed_q``, of a packed [B, Nq, 3*H*Dh] tensor: strided),
+    k and v views of two separate [B, S, H*Dh] tensors (the key and value
+    linears' outputs), a quarter of the keys dead (slot 0 alive, so every row
+    has a live key), and with ``with_bias`` PAD_BIAS on about a fifth."""
+    rng = np.random.RandomState(seed)
+
+    def heads(*shape):
+        t = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device=device, dtype=dtype)
+        return t[..., :H * Dh].unflatten(-1, (H, Dh))
+
+    q = heads(B, Nq, (3 if packed_q else 1) * H * Dh)
+    k, v = heads(B, S, H * Dh), heads(B, S, H * Dh)
+    alive = rng.rand(B, S) > 0.25
+    alive[:, 0] = True
+    bias = None
+    if with_bias:
+        bias = torch.from_numpy(
+            (rng.rand(B, S) < 0.2).astype(np.float32) * PAD_BIAS).to(device)
+    return q, k, v, torch.from_numpy(alive).to(device), bias
+
+
+def k4_work(q, k, alive, bias):
+    """(flops, bytes) of the cross-attention: 4 Dh flops per (head, query,
+    alive key) for q k^T and P v; q, k, v, alive, bias read once, out
+    written once."""
+    B, Nq, H, Dh = q.shape
+    S = k.shape[1]
+    flops = 4.0 * H * Dh * Nq * int(alive.sum())
+    el = q.element_size()
+    nbytes = (2 * B * Nq * H * Dh + 2 * B * S * H * Dh) * el + B * S
+    return flops, nbytes + (0 if bias is None else B * S * 4)
+
+
+def sdpa_mask(alive, bias, dtype):
+    """The additive [B, 1, 1, S] mask that makes scaled_dot_product_attention
+    compute the kernels' masking: the bias (None: none), -inf at dead keys."""
+    mask = torch.zeros(alive.shape, device=alive.device).masked_fill(~alive, float("-inf"))
+    if bias is not None:
+        mask = mask + bias
+    return mask[:, None, None, :].to(dtype)
+
+
 def bound(flops, nbytes, dtype):
     """The least time the card could take, ms, and what bounds it."""
     t_ops, t_bytes = flops / PEAK[dtype] * 1e3, nbytes / MEM_RATE * 1e3
@@ -213,9 +278,9 @@ def profile_step(label, fn, step_ms, top=10):
 
 
 def kernel_totals(kernels, busy_ms):
-    """Device time of K1's and K2's passes among profiler averages."""
+    """Device time of K1's, K2's and K4's passes among profiler averages."""
     out = []
-    for name, tag in (("K1", "::k1_"), ("K2", "::k2_")):
+    for name, tag in (("K1", "::k1_"), ("K2", "::k2_"), ("K4", "::k4_")):
         ms = sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
         out.append(f"{name} {ms:.2f} ms ({ms / max(busy_ms, 1e-9):.1%})")
     return ", ".join(out)
@@ -253,10 +318,11 @@ def check_close(name, got, want, rtol, atol):
 def phase_build():
     from madtp_tpu_torch.kernels import attention_scores as k1
     from madtp_tpu_torch.kernels import attention_scores_bwd as k2
+    from madtp_tpu_torch.kernels import cross_attention as k4
     from madtp_tpu_torch.kernels.build import build_all
 
     t0 = time.perf_counter()
-    built = build_all([k1.SOURCE, k2.SOURCE])
+    built = build_all([k1.SOURCE, k2.SOURCE, k4.SOURCE])
     log(f"[build] {time.perf_counter() - t0:.2f} s wall for {len(built)} kernel source(s)")
     for name, b in built.items():
         log(f"[build] {name}: nvcc {b.seconds:.2f} s -> {b.path.name}")
@@ -289,8 +355,7 @@ def phase_k1(device, main_n=584):
                     for name, g, w in zip(("out", "cls_attn", "col_mass"), got, want)}
             ms = time_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), 10)
             plain_ms = time_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
-            mask = torch.zeros(alive.shape, device=device).masked_fill(~alive, float("-inf"))
-            mask = (mask + bias_in)[:, None, None, :].to(dtype)
+            mask = sdpa_mask(alive, bias_in, dtype)
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
             sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask, scale=scale), 10)
@@ -340,9 +405,7 @@ def phase_k2(device, main_n=592):
             del got, want, again
             ms = time_ms(lambda: k2.attention_scores_bwd_cuda(*args), 5)
             plain_ms = time_ms(lambda: attention_scores_bwd_plain(*plain_args), 2)
-            mask = torch.zeros(c["alive"].shape, device=device).masked_fill(
-                ~c["alive"], float("-inf"))
-            mask = (mask + c["bias_in"])[:, None, None, :].to(dtype)
+            mask = sdpa_mask(c["alive"], c["bias_in"], dtype)
             qh, kh, vh = (c[n].transpose(1, 2).detach().requires_grad_() for n in "qkv")
             do = c["d_out"].view(c["q"].shape).transpose(1, 2)
 
@@ -365,6 +428,52 @@ def phase_k2(device, main_n=592):
     return record
 
 
+def phase_k4(device, main=(256, 35, 320)):
+    """K4 vs plain at the ITM rerank's shapes (256 candidates, 35 text
+    queries, 592 image slots in mask mode and 320 in gather mode), the NLVR
+    twin cross's (32 pairs, 32 text slots, 320 image slots) and ragged ones
+    (Nq 1 and 7, S not a multiple of the 64-key tile), with and without bias,
+    fp32 and bf16; two launches bit-identical.  Returns the bf16 record at
+    (B, Nq, S) = ``main`` without bias (the gather-mode ITM) for the kernels
+    line."""
+    import torch.nn.functional as F
+
+    from madtp_tpu_torch.kernels.cross_attention import TOLERANCES, cross_attention_cuda
+    from madtp_tpu_torch.ops.attention import cross_attention_plain
+
+    cases = [(256, 35, 592), (256, 35, 320), (32, 32, 320), (8, 1, 100), (8, 7, 130)]
+    record = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Nq, S in cases:
+            for with_bias in (False, True):
+                q, k, v, alive, bias = k4_case(B, Nq, S, with_bias=with_bias, dtype=dtype,
+                                               device=device, packed_q=Nq == 7)
+                scale = q.shape[-1] ** -0.5
+                got = cross_attention_cuda(q, k, v, alive, bias, scale)
+                want = cross_attention_plain(q, k, v, alive, bias, scale)
+                torch.cuda.synchronize()
+                label = f"B={B} Nq={Nq} S={S} bias={with_bias} {str(dtype)[6:]}"
+                err = check_close(f"K4 {label}", got, want, *TOLERANCES[dtype])
+                if not torch.equal(got, cross_attention_cuda(q, k, v, alive, bias, scale)):
+                    raise AssertionError(f"K4 {label}: two launches on the same inputs differ")
+                ms = time_ms(lambda: cross_attention_cuda(q, k, v, alive, bias, scale), 20)
+                plain_ms = time_ms(lambda: cross_attention_plain(q, k, v, alive, bias, scale), 5)
+                mask = sdpa_mask(alive, bias, dtype)
+                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+                sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, scale=scale), 20)
+                bound_ms, bound_by = bound(*k4_work(q, k, alive, bias), dtype)
+                log(f"[k4] {label}: max|err| {err:.2e}, bit-identical relaunch | K4 {ms:.4f} ms, "
+                    f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                    f"sdpa (same function) {sdpa_ms:.4f} ms")
+                if dtype == torch.bfloat16 and (B, Nq, S) == main and not with_bias:
+                    record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=sdpa_ms)
+                del q, k, v, got, want, mask
+                torch.cuda.empty_cache()
+    return record
+
+
 def full_config():
     from madtp_tpu_torch.core.config import BlipConfig, MedConfig, ViTConfig
 
@@ -384,8 +493,9 @@ def synthetic_inputs(cfg, pairs, text_len, seed):
 
 
 def phase_model_parity(device, cfg, temperature=1.0):
-    """The full-width model on the card (K1) and the CPU (plain), fp32."""
+    """The full-width model on the card (K1, K4) and the CPU (plain), fp32."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.models.blip import init_nlvr_model
     from madtp_tpu_torch.tasks.nlvr import fast_capacity_schedule
 
@@ -402,10 +512,11 @@ def phase_model_parity(device, cfg, temperature=1.0):
             t0 = time.perf_counter()
             ref = cpu_model(images, ids, mask, **kw)
             cpu_s = time.perf_counter() - t0
-            before = attention_scores_cuda.launches
+            before, k4_before = attention_scores_cuda.launches, cross_attention_cuda.launches
             out = gpu_model(images.to(device), ids.to(device), mask.to(device), **kw)
             torch.cuda.synchronize()
             launches = attention_scores_cuda.launches - before
+            k4 = cross_attention_cuda.launches - k4_before
         vk, tk = out.v_kept.cpu(), out.t_kept.cpu()
         if not (torch.equal(vk, ref.v_kept) and torch.equal(tk, ref.t_kept)):
             raise AssertionError(f"{mode}: kept counts differ: card {vk.tolist()} "
@@ -415,8 +526,12 @@ def phase_model_parity(device, cfg, temperature=1.0):
             raise AssertionError(f"{mode}: logits differ by {err:.3e} (limit 1e-4)")
         if launches < per_forward:
             raise AssertionError(f"{mode}: K1 launched {launches} times, want >= {per_forward}")
+        if k4 != 2 * cfg.med.num_hidden_layers:
+            raise AssertionError(f"{mode}: K4 launched {k4} times, want "
+                                 f"{2 * cfg.med.num_hidden_layers} (two streams per layer)")
         log(f"[parity] {mode}: kept vision {vk.tolist()} text {tk.tolist()} equal on card "
-            f"and cpu; max|logit diff| {err:.3e}; K1 launches {launches}; cpu {cpu_s:.1f} s")
+            f"and cpu; max|logit diff| {err:.3e}; K1 launches {launches}, K4 {k4}; "
+            f"cpu {cpu_s:.1f} s")
         if mode == "mask":
             caps = fast_capacity_schedule(ref.v_kept.numpy(), ref.t_kept.numpy(), "ceil")
             log(f"[parity] gather capacities vision {list(caps[0])} text {list(caps[1])}")
@@ -424,8 +539,10 @@ def phase_model_parity(device, cfg, temperature=1.0):
 
 def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_steps=8,
                     eval_batches=3, iters=10):
-    """NLVR2 eval at p=0.5, bf16: bisection, capacities, gather eval."""
+    """NLVR2 eval at p=0.5, bf16: bisection, capacities, gather eval.
+    Returns the K1 and K4 launch counts of that run."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.models.blip import init_nlvr_model
     from madtp_tpu_torch.prune.flops import nlvr_gflops
     from madtp_tpu_torch.tasks.nlvr import evaluate, fast_capacity_schedule, make_eval_step
@@ -441,7 +558,7 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
     target = ori * (1.0 - p_target)
     step_mask = make_eval_step(model, prune_active=True)
 
-    attention_scores_cuda.launches = 0
+    attention_scores_cuda.launches = cross_attention_cuda.launches = 0
     lo, hi = 0.05, 60.0
     for _ in range(bisect_steps):
         t = math.sqrt(lo * hi)
@@ -473,11 +590,13 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
                                  enc_token_id=2, capacities_v=caps_v, capacities_t=caps_t,
                                  print_fn=lambda m: log(f"[main] {m}"), print_freq=1)
     torch.cuda.synchronize()
-    launches = attention_scores_cuda.launches
+    launches, k4 = attention_scores_cuda.launches, cross_attention_cuda.launches
     per_forward = cfg.vit.depth + cfg.med.num_hidden_layers
     want = per_forward * (bisect_steps + eval_batches)
     if launches < want:
         raise AssertionError(f"main path launched K1 {launches} times, want >= {want}")
+    if k4 != 2 * cfg.med.num_hidden_layers * (bisect_steps + eval_batches):
+        raise AssertionError(f"main path launched K4 {k4} times, want 24 per forward")
     if not (math.isfinite(cur_gflops) and 0 < cur_gflops < ori):
         raise AssertionError(f"gather eval GFLOPs {cur_gflops} not in (0, {ori})")
 
@@ -500,10 +619,10 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
         f"dense bf16 {dense_ms:.2f} ms = {pairs / dense_ms * 1e3:.1f} samples/s; "
         f"ratio {dense_ms / gather_ms:.3f}")
     log(f"[main] gather step host dispatch time {gather_host_ms:.2f} ms")
-    log(f"[main] K1 launches on the main path: {launches}")
+    log(f"[main] launches on the main path: K1 {launches}, K4 {k4}")
     profile_step("gather step", lambda: step_gather(images, ids, mask, t_star), gather_ms)
     profile_step("dense step", lambda: step_dense(images, ids, mask, 0.0), dense_ms)
-    return launches
+    return launches, k4
 
 
 GRAD_PARAMS = ("visual_encoder.patch_embed.proj.weight", "visual_encoder.blocks.0.attn.qkv.weight",
@@ -519,6 +638,7 @@ def phase_train_parity(device, cfg, temperature=1.0):
     mode and in gather mode at lossless capacities."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.models.blip import init_nlvr_model
     from madtp_tpu_torch.tasks.nlvr import fast_capacity_schedule
 
@@ -541,6 +661,7 @@ def phase_train_parity(device, cfg, temperature=1.0):
                 out = model(*x, **kw)
             k1_before = attention_scores_cuda.launches
             k2_before = attention_scores_bwd_cuda.launches
+            k4_before = cross_attention_cuda.launches
             model.zero_grad(set_to_none=True)
             lo, lf, _ = model(*x, targets=targets.to(dev), **kw)
             (lo + 0.1 * lf).backward()
@@ -549,7 +670,8 @@ def phase_train_parity(device, cfg, temperature=1.0):
                               losses=(float(lo.detach()), float(lf.detach())),
                               grads={n: named[n].grad.cpu() for n in GRAD_PARAMS},
                               k1=attention_scores_cuda.launches - k1_before,
-                              k2=attention_scores_bwd_cuda.launches - k2_before)
+                              k2=attention_scores_bwd_cuda.launches - k2_before,
+                              k4=cross_attention_cuda.launches - k4_before)
         cpu, card = res["cpu"], res["card"]
         if not all(torch.equal(a, b) for a, b in zip(cpu["kept"], card["kept"])):
             raise AssertionError(f"train {mode}: kept counts differ: card {card['kept']} "
@@ -568,10 +690,12 @@ def phase_train_parity(device, cfg, temperature=1.0):
         if card["k1"] != per_forward or card["k2"] != card["k1"]:
             raise AssertionError(f"train {mode}: K1 {card['k1']} and K2 {card['k2']} launches, "
                                  f"want {per_forward} each")
+        if card["k4"] != 2 * cfg.med.num_hidden_layers:
+            raise AssertionError(f"train {mode}: K4 {card['k4']} launches, want 24 per step")
         log(f"[train-parity] {mode}: kept vision {card['kept'][0].tolist()} text "
             f"{card['kept'][1].tolist()} equal; losses card {card['losses']} cpu "
             f"{cpu['losses']} (max diff {loss_err:.2e}); K1 {card['k1']} K2 {card['k2']} "
-            f"launches per step")
+            f"K4 {card['k4']} launches per step")
         log("[train-parity]   grad max|diff| / max|grad|: " + ", ".join(
             f"{n.replace('visual_encoder.', 'v.').replace('text_encoder.encoder.', 't.')} "
             f"{r:.2e}" for n, r in rel.items()))
@@ -581,13 +705,14 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
                      p_target=0.5, enc_token_id=2):
     """Compression training as ``madtp_tpu/cli/compress_nlvr.py:335-384``
     runs it, on synthetic data: controller epochs in mask mode fp32, then a
-    ``--fast_train`` epoch in fp32 and with ``amp``.  Returns the K1 and K2
-    launch counts of that run."""
+    ``--fast_train`` epoch in fp32 and with ``amp``.  Returns the K1, K2 and
+    K4 launch counts of that run."""
     import tempfile
 
     from madtp_tpu_torch.ckpt.convert import load_nlvr_state_dict, save_nlvr_checkpoint
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.models.blip import init_nlvr_model
     from madtp_tpu_torch.prune.flops import nlvr_gflops
     from madtp_tpu_torch.tasks.nlvr import (cached_probe_batches, evaluate, probe_capacities,
@@ -621,6 +746,7 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     quiet = dict(print_fn=lambda m: log(f"[train]   {m}"), print_freq=0)
 
     attention_scores_cuda.launches = attention_scores_bwd_cuda.launches = 0
+    cross_attention_cuda.launches = 0
     step_mask = make_nlvr_train_step(model, opt)  # mask mode, fp32: compress_nlvr's default
     cur_g = ori
     for epoch in range(epochs):
@@ -654,10 +780,13 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
         if not math.isfinite(float(stats["loss"])):
             raise AssertionError(f"{name}: loss {stats['loss']}")
     torch.cuda.synchronize()
-    launches = (attention_scores_cuda.launches, attention_scores_bwd_cuda.launches)
-    log(f"[train] launches on the training main path: K1 {launches[0]}, K2 {launches[1]}")
-    if min(launches) == 0:
-        raise AssertionError(f"training main path launched K1/K2 {launches} times")
+    launches = (attention_scores_cuda.launches, attention_scores_bwd_cuda.launches,
+                cross_attention_cuda.launches)
+    log(f"[train] launches on the training main path: K1 {launches[0]}, K2 {launches[1]}, "
+        f"K4 {launches[2]}")
+    if min(launches) == 0 or launches[2] != launches[0]:
+        raise AssertionError(f"training main path launched K1/K2/K4 {launches} times "
+                             "(K4 should match K1: 24 of each per forward)")
 
     # one fixed batch on the card for the guard, the timings and the profile
     im0, im1, _, tg = next(iter(loader_fn(1)()))
@@ -709,6 +838,246 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     return launches
 
 
+def retrieval_config():
+    """BLIP retrieval at the width of ``configs/retrieval_coco.yaml``: ViT-B/16
+    @ 384 and the 12-layer BERT-base MED with single-stream cross-attention."""
+    from madtp_tpu_torch.core.config import BlipConfig, MedConfig, ViTConfig
+
+    vit = ViTConfig()
+    med = MedConfig(encoder_width=vit.embed_dim, sd_dim=vit.embed_dim)
+    return BlipConfig(vit=vit, med=med, sd_dim=vit.embed_dim)
+
+
+def retrieval_corpus(cfg, n_images, texts_per_image, seed, text_len=35):
+    """A synthetic corpus: ``n_images`` images and ``texts_per_image`` texts
+    for each (COCO has 5), token ids with CLS at slot 0 and SEP at the end of
+    a random length in [10, text_len], padded to the longest (the
+    tokenizer's ``padding="longest"``, at most 35 tokens).  Returns
+    ``(images, ids, mask, txt2img, img2txt)``."""
+    rng = np.random.default_rng(seed)
+    s = cfg.vit.image_size
+    images = rng.standard_normal((n_images, 3, s, s), dtype=np.float32)
+    n_texts = n_images * texts_per_image
+    lengths = rng.integers(10, text_len + 1, size=n_texts)
+    lengths[0] = text_len
+    ids = rng.integers(1000, 30000, size=(n_texts, text_len))
+    mask = (np.arange(text_len)[None, :] < lengths[:, None]).astype(np.int64)
+    ids[:, 0] = CLS_ID
+    ids[np.arange(n_texts), lengths - 1] = SEP_ID
+    ids = np.where(mask > 0, ids, 0)
+    txt2img = [t // texts_per_image for t in range(n_texts)]
+    img2txt = [list(range(i * texts_per_image, (i + 1) * texts_per_image))
+               for i in range(n_images)]
+    return images, ids, mask, txt2img, img2txt
+
+
+def phase_retrieval_parity(device, cfg, temperature=3.0, k_test=4):
+    """The full-width retrieval model on the card (K1, K4) and the CPU
+    (plain), fp32, seeded weights: 4 images, 8 texts, ``k_test`` 4, in mask
+    and gather mode.  Equal kept counts and candidate sets, features within
+    1e-5, rerank scores within 1e-4, 12 K4 launches per ITM forward.
+
+    At T=1 these random weights put the DTP threshold exactly on a token's
+    own score in several layers (the codebook's softmax over tokens is
+    one-hot there, so ``thr`` is that token's score), and the last bit of a
+    reduction then decides ``score > thr``: card and CPU kept 257 and 256
+    tokens at layer 6 in gather mode.  At T=3 the smallest gap between a
+    deciding token's score and the threshold is 1.7e-5 of the threshold
+    (image tower; 2.2e-6 text, 3.4e-4 ITM, measured on the CPU), far above
+    fp32 rounding."""
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.models.blip import init_retrieval_model
+    from madtp_tpu_torch.tasks.retrieval import encode_corpus, probe_capacities, rerank_scores
+
+    cpu_model = init_retrieval_model(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    images, ids, mask, _, _ = retrieval_corpus(cfg, 4, 2, seed=6)
+    enc_ids = ids.copy()
+    enc_ids[:, 0] = ENC_ID
+    caps = probe_capacities(cpu_model, [images], ids, mask, temperature, "ceil")
+    log(f"[r-parity] gather capacities vision {list(caps[0])} text {list(caps[1])}")
+    for mode, (cv, ct) in (("mask", (None, None)), ("gather", caps)):
+        res = {}
+        for where, model, dev in (("cpu", cpu_model, torch.device("cpu")),
+                                  ("card", gpu_model, device)):
+            kw = dict(temperature=temperature, prune_active=True)
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                _, iout = model.image_features(torch.from_numpy(images).to(dev),
+                                               capacities=cv, **kw)
+                _, tout = model.text_features(torch.from_numpy(ids).to(dev),
+                                              torch.from_numpy(mask).to(dev), capacities=ct, **kw)
+            feats = encode_corpus(model, [images], ids, mask, capacities_v=cv, capacities_t=ct,
+                                  **kw)
+            before = cross_attention_cuda.launches
+            scores = rerank_scores(model, *feats, enc_ids, mask, k_test=k_test,
+                                   capacities_t=ct, **kw)
+            res[where] = dict(kept=(iout.kept_counts.cpu(), tout.kept_counts.cpu()),
+                              feats=(feats[0], feats[2]), scores=scores,
+                              k4=cross_attention_cuda.launches - before,
+                              seconds=time.perf_counter() - t0)
+        cpu, card = res["cpu"], res["card"]
+        if not all(torch.equal(a, b) for a, b in zip(cpu["kept"], card["kept"])):
+            raise AssertionError(f"retrieval {mode}: kept counts differ: card {card['kept']} "
+                                 f"cpu {cpu['kept']}")
+        feat_err = max(float(np.abs(a - b).max()) for a, b in zip(card["feats"], cpu["feats"]))
+        if not feat_err <= 1e-5:
+            raise AssertionError(f"retrieval {mode}: features differ by {feat_err:.3e}")
+        score_err = 0.0
+        for g, w in zip(card["scores"], cpu["scores"]):
+            if not np.array_equal(g == -100.0, w == -100.0):
+                raise AssertionError(f"retrieval {mode}: candidate sets differ")
+            score_err = max(score_err, float(np.abs(g - w).max()))
+        if not score_err <= 1e-4:
+            raise AssertionError(f"retrieval {mode}: rerank scores differ by {score_err:.3e}")
+        n_forwards = sum(sc.shape[0] for sc in card["scores"])
+        if card["k4"] != cfg.med.num_hidden_layers * n_forwards:
+            raise AssertionError(f"retrieval {mode}: K4 launched {card['k4']} times in "
+                                 f"{n_forwards} ITM forwards, want 12 per forward")
+        log(f"[r-parity] {mode}: kept vision {card['kept'][0].tolist()} text "
+            f"{card['kept'][1].tolist()} equal on card and cpu; candidate sets equal; max|diff| "
+            f"features {feat_err:.2e}, scores {score_err:.2e}; K4 {card['k4']} launches in "
+            f"{n_forwards} ITM forwards; cpu {cpu['seconds']:.1f} s")
+
+
+def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=64,
+                         texts_per_image=5, batch=32, k_test=64, k_time=256, iters=5):
+    """BLIP retrieval eval at p=0.5, bf16: the temperature bisected toward
+    half the dense ``retrieval_gflops`` in mask mode, the ``--fast_eval``
+    capacities, then the gather-mode ``evaluate`` on a synthetic corpus (2
+    batches of 32 images, 5 texts each) at ``k_test`` 64, and the dense eval
+    (temperature 0); then one ITM forward at ``k_test`` 256, timed and
+    profiled.  Returns the K1 and K4 launch counts of the gather eval."""
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.models.blip import init_retrieval_model
+    from madtp_tpu_torch.prune.dtp import TokenState
+    from madtp_tpu_torch.prune.flops import retrieval_gflops
+    from madtp_tpu_torch.tasks.retrieval import evaluate, probe_capacities
+
+    log(f"[retrieval] {card_line()}")
+    model = init_retrieval_model(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    images, ids, mask, txt2img, img2txt = retrieval_corpus(cfg, n_images, texts_per_image,
+                                                           seed=7)
+    batches = [images[i:i + batch] for i in range(0, n_images, batch)]
+    text_len = ids.shape[1]
+    L = cfg.med.num_hidden_layers
+    ori = retrieval_gflops(cfg.vit, cfg.med, [cfg.vit.num_patches] * cfg.vit.depth,
+                           [text_len - 1] * L, text_len)
+    target = ori * (1.0 - p_target)
+    im0 = torch.from_numpy(batches[0]).to(device)
+    ids_d, mask_d = torch.from_numpy(ids).to(device), torch.from_numpy(mask).to(device)
+
+    lo, hi = 0.05, 60.0
+    with torch.inference_mode():
+        for _ in range(bisect_steps):
+            t = math.sqrt(lo * hi)
+            _, iout = model.image_features(im0, temperature=t, prune_active=True)
+            _, tout = model.text_features(ids_d[:batch], mask_d[:batch], temperature=t,
+                                          prune_active=True)
+            g = retrieval_gflops(cfg.vit, cfg.med, iout.kept_counts.cpu().numpy(),
+                                 tout.kept_counts.cpu().numpy(), text_len)
+            log(f"[retrieval] bisect T={t:.4f}: {g:.2f} GFLOPs (target {target:.2f})")
+            if g > target:
+                lo = t
+            else:
+                hi = t
+    t_star, g_star = t, g
+    caps_v, caps_t = probe_capacities(model, batches, ids, mask, t_star, "ceil")
+    log(f"[retrieval] T*={t_star:.4f}: {g_star:.2f} GFLOPs pruned / {ori:.2f} dense; "
+        f"capacities vision {list(caps_v)} text {list(caps_t)}")
+
+    def run_eval(temperature, cv, ct):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = evaluate(model, iter(batches), ids, mask, txt2img, img2txt, temperature,
+                         enc_token_id=ENC_ID, k_test=k_test, capacities_v=cv,
+                         capacities_t=ct, device=device)
+        return stats, time.perf_counter() - t0
+
+    attention_scores_cuda.launches = cross_attention_cuda.launches = 0
+    stats, eval_s = run_eval(t_star, caps_v, caps_t)
+    k1, k4 = attention_scores_cuda.launches, cross_attention_cuda.launches
+    n_texts = len(ids)
+    n_itm = n_images + n_texts  # one ITM forward per rerank row, both directions
+    if k4 != L * n_itm:
+        raise AssertionError(f"retrieval eval launched K4 {k4} times in {n_itm} ITM forwards, "
+                             f"want {L} per forward")
+    want_k1 = cfg.vit.depth * len(batches) + L * (-(-n_texts // 256) + n_itm)
+    if k1 != want_k1:
+        raise AssertionError(f"retrieval eval launched K1 {k1} times, want {want_k1} (every "
+                             "self-attention of the towers and the ITM forwards)")
+    if not all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in stats.values()):
+        raise AssertionError(f"retrieval stats out of range: {stats}")
+    log(f"[retrieval] gather eval: {n_images} images, {n_texts} texts, k_test {k_test}: "
+        f"{eval_s:.2f} s wall; r_mean {stats['r_mean']:.3f} (random weights); launches "
+        f"K1 {k1}, K4 {k4} ({k4 // n_itm} per ITM forward)")
+    dense_stats, dense_s = run_eval(0.0, None, None)
+    log(f"[retrieval] dense eval: {dense_s:.2f} s wall; r_mean {dense_stats['r_mean']:.3f}")
+
+    def encode_rates(temperature, cv, ct):
+        """images/s of the image tower over the corpus, texts/s of the text
+        tower in batches of 256 (the rates of encode_corpus's two loops)."""
+        prune = temperature > 0
+        with torch.inference_mode():
+            def img():
+                for b in batches:
+                    model.image_features(torch.from_numpy(b).to(device), temperature=temperature,
+                                         prune_active=prune, capacities=cv)
+
+            def txt():
+                for i in range(0, n_texts, 256):
+                    model.text_features(ids_d[i:i + 256], mask_d[i:i + 256],
+                                        temperature=temperature, prune_active=prune,
+                                        capacities=ct)
+            return (n_images / time_ms(img, 3) * 1e3, n_texts / time_ms(txt, 3) * 1e3)
+
+    # one ITM forward at k_test 256: text 0 against 256 image states (t2i's shape)
+    k = k_time
+
+    def itm_inputs(temperature, cv):
+        with torch.inference_mode():
+            _, out = model.image_features(im0, temperature=temperature,
+                                          prune_active=temperature > 0, capacities=cv)
+        idx = torch.arange(k, device=device) % out.state.x.shape[0]
+        sx, sa = out.state.x[idx], out.state.alive[idx]
+        eids = ids_d[:1].clone()
+        eids[:, 0] = ENC_ID
+        return eids.expand(k, -1), mask_d[:1].expand(k, -1), TokenState(sx, sa, None)
+
+    rates = {}
+    for name, temperature, cv, ct in (("gather", t_star, caps_v, caps_t),
+                                      ("dense", 0.0, None, None)):
+        e_ids, e_mask, st = itm_inputs(temperature, cv)
+        kw = dict(temperature=temperature, prune_active=temperature > 0, capacities=ct)
+
+        @torch.inference_mode()
+        def itm(e_ids=e_ids, e_mask=e_mask, st=st, kw=kw):
+            return model.itm_score(e_ids, e_mask, st, **kw)
+
+        if name == "gather":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")  # the ITM forward must not wait on the card
+            try:
+                score = itm()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if score.shape != (k,) or not torch.isfinite(score.float()).all():
+                raise AssertionError("ITM scores at k_test 256 are not finite [256]")
+        itm_ms = time_ms(itm, iters)
+        img_rate, txt_rate = encode_rates(temperature, cv, ct)
+        rates[name] = (img_rate, txt_rate, k / itm_ms * 1e3, itm_ms)
+        log(f"[retrieval] {name}: image encode {img_rate:.1f} images/s, text encode "
+            f"{txt_rate:.1f} texts/s, ITM forward at k={k} over {st.x.shape[1]} image slots "
+            f"{itm_ms:.2f} ms = {k / itm_ms * 1e3:.1f} candidates/s, host dispatch "
+            f"{host_ms(itm, iters):.2f} ms")
+        profile_step(f"{name} ITM forward, k={k}", itm, itm_ms)
+    g, d = rates["gather"], rates["dense"]
+    log(f"[retrieval] pruned/dense: eval wall {dense_s / eval_s:.3f}x, images/s "
+        f"{g[0] / d[0]:.3f}x, texts/s {g[1] / d[1]:.3f}x, ITM candidates/s {g[2] / d[2]:.3f}x")
+    return k1, k4
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -731,25 +1100,36 @@ def main():
     phase_build()
     record = phase_k1(device)
     record2 = phase_k2(device)
+    record4 = phase_k4(device)
     cfg = full_config()
     phase_model_parity(device, cfg)
-    eval_launches = phase_main_path(device, cfg)
+    k1_eval, k4_eval = phase_main_path(device, cfg)
     phase_train_parity(device, cfg)
-    k1_train, k2_train = phase_train_main(device, cfg)
+    k1_train, k2_train, k4_train = phase_train_main(device, cfg)
+    rcfg = retrieval_config()
+    phase_retrieval_parity(device, rcfg)
+    k1_ret, k4_ret = phase_retrieval_main(device, rcfg)
 
     kernels = [
         dict(name="attention_scores", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:595",
-             launches=eval_launches + k1_train,
-             launches_by_path={"eval": eval_launches, "train": k1_train}, **record,
-             library_note="library_ms is scaled_dot_product_attention, out only"),
+             launches=k1_eval + k1_train + k1_ret,
+             launches_by_path={"eval": k1_eval, "train": k1_train, "retrieval": k1_ret},
+             **record, library_note="library_ms is scaled_dot_product_attention, out only"),
         dict(name="attention_scores_bwd", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores_bwd.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:306",
              launches=k2_train, launches_by_path={"train": k2_train}, **record2,
              library_note="library_ms is scaled_dot_product_attention forward + backward, "
                           "out only"),
+        dict(name="cross_attention", route="cuda",
+             source="madtp_tpu_torch/csrc/cross_attention.cu",
+             replaces="madtp_tpu/ops/pallas/cross_attention.py:56",
+             launches=k4_eval + k4_train + k4_ret,
+             launches_by_path={"eval": k4_eval, "train": k4_train, "retrieval": k4_ret},
+             **record4, library_note="library_ms is scaled_dot_product_attention with the "
+                                     "same additive mask: the same function"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

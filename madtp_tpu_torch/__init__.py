@@ -9,13 +9,16 @@ function's counterpart is found at the same path:
 * :mod:`.kernels` / ``csrc/`` — hand-written Hopper kernels, built with
   ``nvcc`` at first use;
 * :mod:`.prune` — MAG query, DTP, capacity calibration, FLOPs model;
-* :mod:`.models` — ViT, MED and the NLVR model as ``nn.Module`` s;
+* :mod:`.models` — ViT, MED, the NLVR and the retrieval models as
+  ``nn.Module`` s;
 * :mod:`.ckpt` — weights from the JAX param tree or a reference ``.pth``,
   and the checkpoint a compression run writes;
+* :mod:`.eval` — retrieval recall (``itm_eval``);
 * :mod:`.train` — losses, AdamW and LR schedules, the temperature
   controller, the NLVR train step (fp32 or bf16 compute on fp32 masters);
 * :mod:`.tasks` — the NLVR2 eval step and loop, the train epoch and the
-  ``--fast_train`` capacity probe.
+  ``--fast_train`` capacity probe; BLIP retrieval eval (corpus encode, ITM
+  rerank, the ``--fast_eval`` probe).
 
 The package imports neither ``jax`` nor anything of :mod:`madtp_tpu`.
 Entry points run on ``device="cuda"`` unless the caller passes

@@ -1,16 +1,20 @@
-"""Weights into and out of the port's NLVR model.  In, from two sources that
-must give the same tensors:
+"""Weights into and out of the port's NLVR and retrieval models.  In, from
+two sources that must give the same tensors:
 
-* :func:`nlvr_from_jax_params` — the JAX package's NLVR param tree as numpy
-  arrays (layers stacked ``[L, ...]``, linear kernels ``[in, out]``);
-* :func:`load_nlvr_state_dict` — a state dict in the reference ``.pth`` key
-  layout (``madtp_tpu/ckpt/remap.py`` ``remap_vit``, ``remap_med`` with
-  ``twin_cross=True``, and ``load_blip_nlvr``'s head and codebook handling).
+* :func:`nlvr_from_jax_params`, :func:`retrieval_from_jax_params` — the JAX
+  package's param tree as numpy arrays (layers stacked ``[L, ...]``, linear
+  kernels ``[in, out]``);
+* :func:`load_nlvr_state_dict`, :func:`load_retrieval_state_dict` — a state
+  dict in the reference ``.pth`` key layout (``madtp_tpu/ckpt/remap.py``
+  ``remap_vit``, ``remap_med``, and the head and codebook handling of
+  ``load_blip_nlvr`` and ``load_blip_retrieval``).
 
-The reference layout carries ``crossattention.output.merge_layer`` only at
-layers >= ``merge_start_layer``, like the port's modules; a base checkpoint
+The reference NLVR layout carries ``crossattention.output.merge_layer`` only
+at layers >= ``merge_start_layer``, like the port's modules; a base checkpoint
 may carry ``self``/``dense`` where the twin layers need ``self0``/``self1`` and
-``dense0``/``dense1``, and both twins then start from the same weights.
+``dense0``/``dense1``, and both twins then start from the same weights.  A
+retrieval checkpoint's momentum towers (``*_m.``) and queues are read only by
+training and are ignored here.
 
 Out: :func:`save_nlvr_checkpoint` writes what a compression run leaves
 behind, the weights and the temperature, in the reference ``.pth`` layout.
@@ -25,7 +29,7 @@ import torch
 
 from madtp_tpu_torch.core.config import BlipConfig
 from madtp_tpu_torch.core.device import resolve_device
-from madtp_tpu_torch.models.blip import NLVRModel
+from madtp_tpu_torch.models.blip import NLVRModel, RetrievalModel
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -74,10 +78,24 @@ def _tensor(x) -> torch.Tensor:
     return torch.tensor(np.ascontiguousarray(x, dtype=np.float32))
 
 
+def _keys(model_fn) -> list:
+    """The state-dict keys of ``model_fn()``, built on the meta device."""
+    with torch.device("meta"):
+        return list(model_fn().state_dict())
+
+
+def _make(model_fn, dev: torch.device, sd: Dict[str, torch.Tensor]):
+    """``model_fn()`` built on the meta device, ``sd`` assigned (strict), on ``dev``."""
+    with torch.device("meta"):
+        model = model_fn()
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model.to(dev).eval()
+
+
 def _reference_key_map(cfg: BlipConfig) -> Dict[str, list]:
-    """Model key -> reference keys to try in order (twin fallbacks)."""
+    """NLVR model key -> reference keys to try in order (twin fallbacks)."""
     out = {}
-    for k in _model_keys(cfg):
+    for k in _keys(lambda: NLVRModel(cfg)):
         cands = [k]
         for twin, base in ((".self0.", ".self."), (".self1.", ".self."),
                            (".dense0.", ".dense."), (".dense1.", ".dense.")):
@@ -85,18 +103,6 @@ def _reference_key_map(cfg: BlipConfig) -> Dict[str, list]:
                 cands.append(k.replace(twin, base))
         out[k] = cands
     return out
-
-
-def _model_keys(cfg: BlipConfig):
-    with torch.device("meta"):
-        return list(NLVRModel(cfg).state_dict().keys())
-
-
-def _load(cfg: BlipConfig, sd: Dict[str, torch.Tensor], dev: torch.device) -> NLVRModel:
-    with torch.device("meta"):
-        model = NLVRModel(cfg)
-    model.load_state_dict(sd, strict=True, assign=True)
-    return model.to(dev).eval()
 
 
 def load_nlvr_state_dict(sd: Mapping[str, object], cfg: BlipConfig,
@@ -123,74 +129,127 @@ def load_nlvr_state_dict(sd: Mapping[str, object], cfg: BlipConfig,
             raise KeyError(f"state dict has no {k}")
     new["visual_encoder.pos_embed"] = interpolate_pos_embed(
         new["visual_encoder.pos_embed"], cfg.vit.num_patches)
-    return _load(cfg, new, dev)
+    return _make(lambda: NLVRModel(cfg), dev, new)
+
+
+def load_retrieval_state_dict(sd: Mapping[str, object], cfg: BlipConfig,
+                              device="cuda") -> RetrievalModel:
+    """A retrieval model from a reference-layout state dict (numpy arrays or
+    tensors), as ``load_blip_retrieval`` reads it (``madtp_tpu/models/
+    blip.py:292-326``): every key of the model must be there, the codebook
+    included; position embeddings are resized to ``cfg.vit``'s grid; the
+    momentum towers (``visual_encoder_m.`` ...), the queues, ``temp`` and
+    ``position_ids`` are ignored.  The projection width comes from
+    ``vision_proj.weight``."""
+    dev = resolve_device(device)
+    embed_dim = int(np.shape(sd["vision_proj.weight"])[0])
+    keys = _keys(lambda: RetrievalModel(cfg, embed_dim))
+    missing = [k for k in keys if k not in sd]
+    if missing:
+        raise KeyError(f"state dict has no {missing[0]} ({len(missing)} keys missing)")
+    new = {k: _tensor(sd[k]) for k in keys}
+    new["visual_encoder.pos_embed"] = interpolate_pos_embed(
+        new["visual_encoder.pos_embed"], cfg.vit.num_patches)
+    return _make(lambda: RetrievalModel(cfg, embed_dim), dev, new)
+
+
+class _JaxTree:
+    """Collects reference-named fp32 tensors from JAX param-tree leaves."""
+
+    def __init__(self):
+        self.sd: Dict[str, torch.Tensor] = {}
+
+    def lin(self, key, p, i=None):
+        k, b = np.asarray(p["kernel"]), np.asarray(p["bias"])
+        if i is not None:
+            k, b = k[i], b[i]
+        self.sd[key + ".weight"] = _tensor(k.T)
+        self.sd[key + ".bias"] = _tensor(b)
+
+    def ln(self, key, p, i=None):
+        s, b = np.asarray(p["scale"]), np.asarray(p["bias"])
+        if i is not None:
+            s, b = s[i], b[i]
+        self.sd[key + ".weight"] = _tensor(s)
+        self.sd[key + ".bias"] = _tensor(b)
+
+    def vit(self, v, cfg: BlipConfig):
+        sd, D, p = self.sd, cfg.vit.embed_dim, cfg.vit.patch_size
+        sd["visual_encoder.cls_token"] = _tensor(v["cls_token"])
+        sd["visual_encoder.pos_embed"] = _tensor(v["pos_embed"])
+        sd["visual_encoder.patch_embed.proj.weight"] = _tensor(
+            np.asarray(v["patch_embed"]["kernel"]).T.reshape(D, 3, p, p))
+        sd["visual_encoder.patch_embed.proj.bias"] = _tensor(v["patch_embed"]["bias"])
+        blocks = v["blocks"]
+        for i in range(cfg.vit.depth):
+            b = f"visual_encoder.blocks.{i}."
+            self.ln(b + "norm1", blocks["norm1"], i)
+            self.lin(b + "attn.qkv", blocks["attn"]["qkv"], i)
+            self.lin(b + "attn.proj", blocks["attn"]["proj"], i)
+            self.ln(b + "norm2", blocks["norm2"], i)
+            self.lin(b + "mlp.fc1", blocks["mlp"]["fc1"], i)
+            self.lin(b + "mlp.fc2", blocks["mlp"]["fc2"], i)
+        self.ln("visual_encoder.norm", v["norm"])
+
+    def med(self, t, cfg: BlipConfig):
+        """The text encoder, with twin or single-stream cross-attention."""
+        emb = t["embeddings"]
+        self.sd["text_encoder.embeddings.word_embeddings.weight"] = _tensor(
+            emb["word_embeddings"])
+        self.sd["text_encoder.embeddings.position_embeddings.weight"] = _tensor(
+            emb["position_embeddings"])
+        self.ln("text_encoder.embeddings.LayerNorm", emb["LayerNorm"])
+        L = t["layers"]
+        for i in range(cfg.med.num_hidden_layers):
+            b = f"text_encoder.encoder.layer.{i}."
+            for nm in ("query", "key", "value"):
+                self.lin(b + f"attention.self.{nm}", L["attention"]["self"][nm], i)
+            self.lin(b + "attention.output.dense", L["attention"]["output"]["dense"], i)
+            self.ln(b + "attention.output.LayerNorm", L["attention"]["output"]["LayerNorm"], i)
+            ca, c = L["crossattention"], b + "crossattention."
+            streams = ("self0", "self1") if cfg.med.twin_cross else ("self",)
+            for s in streams:
+                for nm in ("query", "key", "value"):
+                    self.lin(c + f"{s}.{nm}", ca[s][nm], i)
+            if cfg.med.twin_cross:
+                self.lin(c + "output.dense0", ca["output"]["dense0"], i)
+                self.lin(c + "output.dense1", ca["output"]["dense1"], i)
+                if i >= cfg.med.merge_start_layer:
+                    self.lin(c + "output.merge_layer", ca["output"]["merge_layer"], i)
+            else:
+                self.lin(c + "output.dense", ca["output"]["dense"], i)
+            self.ln(c + "output.LayerNorm", ca["output"]["LayerNorm"], i)
+            self.lin(b + "intermediate.dense", L["intermediate"]["dense"], i)
+            self.lin(b + "output.dense", L["output"]["dense"], i)
+            self.ln(b + "output.LayerNorm", L["output"]["LayerNorm"], i)
 
 
 def nlvr_from_jax_params(tree: Mapping, cfg: BlipConfig, device="cuda") -> NLVRModel:
     """An NLVR model from the JAX package's param tree (numpy leaves)."""
     dev = resolve_device(device)
-    sd: Dict[str, torch.Tensor] = {}
+    j = _JaxTree()
+    j.vit(tree["visual_encoder"], cfg)
+    j.med(tree["text_encoder"], cfg)
+    j.lin("cls_head.0", tree["cls_head"]["fc1"])
+    j.lin("cls_head.2", tree["cls_head"]["fc2"])
+    j.sd["space_dict"] = _tensor(tree["space_dict"])
+    return _make(lambda: NLVRModel(cfg), dev, j.sd)
 
-    def lin(key, p, i=None):
-        k = np.asarray(p["kernel"]) if i is None else np.asarray(p["kernel"])[i]
-        b = np.asarray(p["bias"]) if i is None else np.asarray(p["bias"])[i]
-        sd[key + ".weight"] = _tensor(k.T)
-        sd[key + ".bias"] = _tensor(b)
 
-    def ln(key, p, i=None):
-        s = np.asarray(p["scale"]) if i is None else np.asarray(p["scale"])[i]
-        b = np.asarray(p["bias"]) if i is None else np.asarray(p["bias"])[i]
-        sd[key + ".weight"] = _tensor(s)
-        sd[key + ".bias"] = _tensor(b)
-
-    v = tree["visual_encoder"]
-    D, p = cfg.vit.embed_dim, cfg.vit.patch_size
-    sd["visual_encoder.cls_token"] = _tensor(v["cls_token"])
-    sd["visual_encoder.pos_embed"] = _tensor(v["pos_embed"])
-    sd["visual_encoder.patch_embed.proj.weight"] = _tensor(
-        np.asarray(v["patch_embed"]["kernel"]).T.reshape(D, 3, p, p))
-    sd["visual_encoder.patch_embed.proj.bias"] = _tensor(v["patch_embed"]["bias"])
-    blocks = v["blocks"]
-    for i in range(cfg.vit.depth):
-        b = f"visual_encoder.blocks.{i}."
-        ln(b + "norm1", blocks["norm1"], i)
-        lin(b + "attn.qkv", blocks["attn"]["qkv"], i)
-        lin(b + "attn.proj", blocks["attn"]["proj"], i)
-        ln(b + "norm2", blocks["norm2"], i)
-        lin(b + "mlp.fc1", blocks["mlp"]["fc1"], i)
-        lin(b + "mlp.fc2", blocks["mlp"]["fc2"], i)
-    ln("visual_encoder.norm", v["norm"])
-
-    t = tree["text_encoder"]
-    emb = t["embeddings"]
-    sd["text_encoder.embeddings.word_embeddings.weight"] = _tensor(emb["word_embeddings"])
-    sd["text_encoder.embeddings.position_embeddings.weight"] = _tensor(
-        emb["position_embeddings"])
-    ln("text_encoder.embeddings.LayerNorm", emb["LayerNorm"])
-    L = t["layers"]
-    for i in range(cfg.med.num_hidden_layers):
-        b = f"text_encoder.encoder.layer.{i}."
-        for nm in ("query", "key", "value"):
-            lin(b + f"attention.self.{nm}", L["attention"]["self"][nm], i)
-        lin(b + "attention.output.dense", L["attention"]["output"]["dense"], i)
-        ln(b + "attention.output.LayerNorm", L["attention"]["output"]["LayerNorm"], i)
-        ca = L["crossattention"]
-        for s in ("self0", "self1"):
-            for nm in ("query", "key", "value"):
-                lin(b + f"crossattention.{s}.{nm}", ca[s][nm], i)
-        lin(b + "crossattention.output.dense0", ca["output"]["dense0"], i)
-        lin(b + "crossattention.output.dense1", ca["output"]["dense1"], i)
-        if i >= cfg.med.merge_start_layer:
-            lin(b + "crossattention.output.merge_layer", ca["output"]["merge_layer"], i)
-        ln(b + "crossattention.output.LayerNorm", ca["output"]["LayerNorm"], i)
-        lin(b + "intermediate.dense", L["intermediate"]["dense"], i)
-        lin(b + "output.dense", L["output"]["dense"], i)
-        ln(b + "output.LayerNorm", L["output"]["LayerNorm"], i)
-
-    lin("cls_head.0", tree["cls_head"]["fc1"])
-    lin("cls_head.2", tree["cls_head"]["fc2"])
-    sd["space_dict"] = _tensor(tree["space_dict"])
-    return _load(cfg, sd, dev)
+def retrieval_from_jax_params(tree: Mapping, cfg: BlipConfig,
+                              device="cuda") -> RetrievalModel:
+    """A retrieval model from the JAX package's param tree (numpy leaves;
+    ``init_blip_params(heads=("retrieval",))`` or ``load_blip_retrieval``'s
+    layout).  The projection width comes from ``vision_proj``."""
+    dev = resolve_device(device)
+    j = _JaxTree()
+    j.vit(tree["visual_encoder"], cfg)
+    j.med(tree["text_encoder"], cfg)
+    for name in ("vision_proj", "text_proj", "itm_head"):
+        j.lin(name, tree[name])
+    j.sd["space_dict"] = _tensor(tree["space_dict"])
+    embed_dim = j.sd["vision_proj.weight"].shape[0]
+    return _make(lambda: RetrievalModel(cfg, embed_dim), dev, j.sd)
 
 
 def save_nlvr_checkpoint(model: NLVRModel, path: str, *, epoch: int,

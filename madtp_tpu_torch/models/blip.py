@@ -1,7 +1,12 @@
-"""BLIP-NLVR: the ViT image tower over both images of each pair, then the
-twin cross-attention MED and the 2-way head
-(counterpart of ``madtp_tpu/models/blip.py:39-124``, eval and train
-branches)."""
+"""BLIP task models on the ViT image tower and the MED
+(counterpart of ``madtp_tpu/models/blip.py``):
+
+* :class:`NLVRModel` — both images of each pair through the ViT, then the
+  twin cross-attention MED and the 2-way head (``:39-124``, eval and train
+  branches);
+* :class:`RetrievalModel` — image and text features for the ITC shortlist
+  and the ITM score of the rerank (``:216-262``), eval only.
+"""
 
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ from torch import nn
 from madtp_tpu_torch.core.config import BlipConfig
 from madtp_tpu_torch.core.device import resolve_device
 from madtp_tpu_torch.models.med import MedEncoder
-from madtp_tpu_torch.models.vit import VisionTransformer
+from madtp_tpu_torch.models.vit import EncoderOut, VisionTransformer
 from madtp_tpu_torch.ops.layers import cosine_embedding_loss, linear
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.train.losses import cross_entropy
@@ -97,14 +102,11 @@ class NLVRModel(nn.Module):
         return NLVROut(logits, v.kept_counts, t.kept_counts, overflow)
 
 
-def init_nlvr_model(cfg: BlipConfig, seed: int = 0, device="cuda",
-                    dtype=torch.float32) -> NLVRModel:
-    """An NLVR model with random weights drawn from a ``torch.Generator``
-    seeded with ``seed`` on the CPU, so every device gets the same weights:
-    linear, conv, embedding and token weights N(0, 0.02), biases 0,
-    LayerNorm scales 1, the codebook N(0, 1) (the JAX package's init)."""
-    dev = resolve_device(device)
-    model = NLVRModel(cfg)
+def _init_weights(model: nn.Module, seed: int) -> None:
+    """Random weights drawn from a ``torch.Generator`` seeded with ``seed`` on
+    the CPU, so every device gets the same weights: linear, conv, embedding
+    and token weights N(0, 0.02), biases 0, LayerNorm scales 1, the codebook
+    N(0, 1) (the JAX package's init)."""
     g = torch.Generator().manual_seed(seed)
     norms = {id(m.weight) for m in model.modules() if isinstance(m, nn.LayerNorm)}
     with torch.no_grad():
@@ -117,4 +119,86 @@ def init_nlvr_model(cfg: BlipConfig, seed: int = 0, device="cuda",
                 p.copy_(torch.randn(p.shape, generator=g))
             else:
                 p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+
+
+def init_nlvr_model(cfg: BlipConfig, seed: int = 0, device="cuda",
+                    dtype=torch.float32) -> NLVRModel:
+    """An NLVR model with seeded random weights (:func:`_init_weights`)."""
+    dev = resolve_device(device)
+    model = NLVRModel(cfg)
+    _init_weights(model, seed)
+    return model.to(device=dev, dtype=dtype).eval()
+
+
+class RetrievalModel(nn.Module):
+    """BLIP retrieval, eval side.  Parameter names follow the reference
+    BLIP-retrieval state dict (``visual_encoder.``, ``text_encoder.`` with
+    single-stream cross-attention, ``vision_proj``, ``text_proj``,
+    ``itm_head``, ``space_dict``); the momentum towers and queues exist only
+    in training and are not here.  The model computes in the dtype of its
+    weights."""
+
+    def __init__(self, cfg: BlipConfig, embed_dim: int = 256):
+        super().__init__()
+        if cfg.med.twin_cross:
+            raise ValueError("retrieval uses single-stream cross-attention (twin_cross=False)")
+        self.cfg = cfg
+        D = cfg.med.hidden_size
+        self.visual_encoder = VisionTransformer(cfg.vit)
+        self.text_encoder = MedEncoder(cfg.med)
+        self.vision_proj = nn.Linear(cfg.vit.embed_dim, embed_dim)
+        self.text_proj = nn.Linear(D, embed_dim)
+        self.itm_head = nn.Linear(D, 2)
+        self.space_dict = nn.Parameter(torch.zeros(cfg.sd_num, cfg.sd_dim))
+
+    def image_features(self, images: torch.Tensor, *, temperature=0.0,
+                       prune_active: bool = False,
+                       capacities: Optional[Sequence[int]] = None
+                       ) -> Tuple[torch.Tensor, EncoderOut]:
+        """Image tower and projection (``blip_retrieval_image_features``):
+        ``(feat [B, E] L2-normalized, EncoderOut)``; ``out.state`` is the
+        memory the ITM attends to, ``out.kept_counts`` the GFLOPs input."""
+        out = self.visual_encoder(images, space_dict=self.space_dict,
+                                  temperature=temperature, prune_active=prune_active,
+                                  capacities=capacities)
+        return _unit(linear(out.state.x[:, 0, :], self.vision_proj.weight,
+                            self.vision_proj.bias)), out
+
+    def text_features(self, text_ids: torch.Tensor, text_mask: torch.Tensor, *,
+                      temperature=0.0, prune_active: bool = False,
+                      capacities: Optional[Sequence[int]] = None
+                      ) -> Tuple[torch.Tensor, EncoderOut]:
+        """Text tower in text mode and projection
+        (``blip_retrieval_text_features``): ``(feat [B, E], EncoderOut)``."""
+        out = self.text_encoder(text_ids, text_mask, space_dict=self.space_dict,
+                                temperature=temperature, prune_active=prune_active,
+                                capacities=capacities)
+        return _unit(linear(out.state.x[:, 0, :], self.text_proj.weight,
+                            self.text_proj.bias)), out
+
+    def itm_score(self, text_ids: torch.Tensor, text_mask: torch.Tensor,
+                  image_state: TokenState, *, temperature=0.0, prune_active: bool = False,
+                  capacities: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """The ITM head's match logit ``logits[:, 1]`` over the multimodal CLS
+        (``blip_itm_score``); ``text_ids`` carry the encoder token at slot
+        0.  [B]."""
+        out = self.text_encoder(text_ids, text_mask, encoder_state=image_state,
+                                space_dict=self.space_dict, temperature=temperature,
+                                prune_active=prune_active, capacities=capacities)
+        logits = linear(out.state.x[:, 0, :], self.itm_head.weight, self.itm_head.bias)
+        return logits[:, 1]
+
+
+def _unit(feat: torch.Tensor) -> torch.Tensor:
+    return feat / torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
+
+
+def init_retrieval_model(cfg: BlipConfig, seed: int = 0, device="cuda",
+                         dtype=torch.float32) -> RetrievalModel:
+    """A retrieval model with seeded random weights (:func:`_init_weights`;
+    the counterpart of ``init_blip_params(heads=("retrieval",))``), with the
+    reference's 256-wide projections."""
+    dev = resolve_device(device)
+    model = RetrievalModel(cfg)
+    _init_weights(model, seed)
     return model.to(device=dev, dtype=dtype).eval()

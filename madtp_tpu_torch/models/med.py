@@ -19,7 +19,7 @@ from torch import nn
 
 from madtp_tpu_torch.core.config import MedConfig
 from madtp_tpu_torch.models.vit import EncoderOut, _signals, _zeros_sd
-from madtp_tpu_torch.ops.attention import multi_head_attention
+from madtp_tpu_torch.ops.attention import cross_attention, multi_head_attention
 from madtp_tpu_torch.ops.layers import layer_norm, linear, mlp
 from madtp_tpu_torch.prune.dtp import (TokenState, dtp_prune, dtp_prune_gather,
                                        init_token_state)
@@ -34,6 +34,15 @@ def _lin(x, mod: nn.Linear):
 
 def _ln(x, mod: nn.LayerNorm):
     return layer_norm(x, mod.weight, mod.bias, mod.eps)
+
+
+def _attend_memory(x, p: QKV, enc: TokenState, num_heads: int):
+    """Text queries over an image memory through :func:`cross_attention`
+    (kernel K4 on the card): ``x`` [B, Nq, D] -> [B, Nq, D].  Dead memory
+    slots get weight exactly 0; the memory carries no bias."""
+    q, k, v = (_lin(t, m).unflatten(-1, (num_heads, -1))
+               for t, m in ((x, p.query), (enc.x, p.key), (enc.x, p.value)))
+    return cross_attention(q, k, v, enc.alive)
 
 
 class BertEmbeddings(nn.Module):
@@ -68,7 +77,8 @@ class DenseNorm(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Self- or single-stream cross-attention + output dense + residual LN."""
+    """Self-attention (``forward``) or single-stream cross-attention
+    (``cross``), then output dense and residual LN."""
 
     def __init__(self, cfg: MedConfig, kv_dim: int):
         super().__init__()
@@ -76,12 +86,18 @@ class AttentionBlock(nn.Module):
         self.self = QKV(cfg.hidden_size, kv_dim)
         self.output = DenseNorm(cfg, cfg.hidden_size)
 
-    def forward(self, x, kv, *, key_alive, key_bias=None, need_scores=False):
+    def forward(self, x, *, key_alive, key_bias=None, need_scores=False):
+        """Self-attention over ``x``; the scoring attention when ``need_scores``."""
         p = self.self
         out, aux = multi_head_attention(
-            _lin(x, p.query), _lin(kv, p.key), _lin(kv, p.value), self.num_heads,
+            _lin(x, p.query), _lin(x, p.key), _lin(x, p.value), self.num_heads,
             key_alive=key_alive, key_bias=key_bias, need_scores=need_scores)
         return _ln(_lin(out, self.output.dense) + x, self.output.LayerNorm), aux
+
+    def cross(self, x, enc: TokenState):
+        """Single-stream cross-attention over ``enc`` + output dense + residual LN."""
+        out = _attend_memory(x, self.self, enc, self.num_heads)
+        return _ln(_lin(out, self.output.dense) + x, self.output.LayerNorm)
 
 
 class TwinOutput(nn.Module):
@@ -107,15 +123,9 @@ class TwinCrossAttention(nn.Module):
         self.output = TwinOutput(cfg, merge)
 
     def forward(self, x, enc0: TokenState, enc1: TokenState):
-        def one(p: QKV, enc: TokenState):
-            out, _ = multi_head_attention(
-                _lin(x, p.query), _lin(enc.x, p.key), _lin(enc.x, p.value),
-                self.num_heads, key_alive=enc.alive)
-            return out
-
         o = self.output
-        h0 = _lin(one(self.self0, enc0), o.dense0)
-        h1 = _lin(one(self.self1, enc1), o.dense1)
+        h0 = _lin(_attend_memory(x, self.self0, enc0, self.num_heads), o.dense0)
+        h1 = _lin(_attend_memory(x, self.self1, enc1, self.num_heads), o.dense1)
         if self.merge:
             h = _lin(torch.cat([h0, h1], dim=-1), o.merge_layer)
         else:
@@ -140,8 +150,7 @@ class Layer(nn.Module):
     def cross(self, x, enc0: TokenState, enc1: Optional[TokenState]):
         if enc1 is not None:
             return self.crossattention(x, enc0, enc1)
-        h, _ = self.crossattention(x, enc0.x, key_alive=enc0.alive)
-        return h
+        return self.crossattention.cross(x, enc0)
 
     def ffn(self, x):
         h = mlp(x, self.intermediate.dense, self.output.dense)
@@ -194,7 +203,7 @@ class MedEncoder(nn.Module):
             if use_fdt:
                 token_attn, sd_ft = query_model(x[:, 1:], space_dict, alive[:, 1:])
                 sd_all = sd_all + sd_ft
-            h, aux = layer.attention(x, x, key_alive=alive, key_bias=bias,
+            h, aux = layer.attention(x, key_alive=alive, key_bias=bias,
                                      need_scores=prune_active)
             state = TokenState(h, alive, bias)
             kept = alive[0, 1:].sum()

@@ -16,10 +16,14 @@ gives zeros, not NaN.
 layer runs: on CUDA tensors it launches kernel K1 (through
 :class:`ScoringAttention`, K1 forward and K2 backward, when a gradient is
 needed), on CPU tensors it runs :func:`attention_scores_plain`, which autograd
-differentiates by itself.  The JAX package's dispatch thresholds
-(``FUSED_MIN_N``, ``FUSED_FULL_MAX_N``) were set for the TPU's lanes and do
-not apply: every scoring attention on the card goes through K1, the text
-side's short buffers included.
+differentiates by itself.  :func:`cross_attention` is the text-over-image
+cross-attention of the MED, routed the same way to kernel K4 (through
+:class:`CrossAttention` when a gradient is needed) or to
+:func:`cross_attention_plain`.  The JAX package's dispatch thresholds
+(``FUSED_MIN_N``, ``FUSED_FULL_MAX_N``, and ``_cross_fused_eligible``'s Nq >=
+8, S >= 256 and ``MADTP_FUSED_CROSS``) were set for the TPU and do not apply:
+every scoring attention on the card goes through K1, the text side's short
+buffers included, and every cross-attention through K4.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
 from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
 from madtp_tpu_torch.ops.layers import linear
 
 
@@ -165,6 +170,65 @@ def attention_scores(q, k, v, key_alive, key_bias=None, scale=None):
     if q.device.type != "cpu":
         raise ValueError(f"attention_scores runs on CUDA or CPU tensors, got {q.device}")
     return attention_scores_plain(q, k, v, key_alive, key_bias, scale)
+
+
+def cross_attention_plain(q, k, v, key_alive, key_bias, scale: float):
+    """K4's plain version: :func:`attention_core` without scores.  ``q``
+    [B, Nq, H, Dh], ``k, v`` [B, S, H, Dh]; returns ``out`` [B, Nq, H*Dh]."""
+    out, _ = attention_core(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                            scale=scale, key_bias=key_bias, key_alive=key_alive)
+    return out
+
+
+class CrossAttention(torch.autograd.Function):
+    """K4 forward; the backward recomputes the plain version and
+    differentiates it (counterpart of ``_cross_fused_diff``,
+    ``madtp_tpu/ops/attention.py:131-170``: the JAX package has no backward
+    kernel for K4 either)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_alive, key_bias, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, key_alive, key_bias)
+        return cross_attention_cuda(q, k, v, key_alive, key_bias, scale)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, key_alive, key_bias = ctx.saved_tensors
+        need = ctx.needs_input_grad  # q, k, v, key_alive, key_bias, scale
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip((q, k, v, key_bias), need[:3] + need[4:5])]
+            out = cross_attention_plain(ins[0], ins[1], ins[2], key_alive, ins[3], ctx.scale)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in ins if t is not None and t.requires_grad], d_out))
+        dq, dk, dv, dbias = (next(grads) if t is not None and t.requires_grad else None
+                             for t in ins)
+        return dq, dk, dv, None, dbias, None
+
+
+def cross_attention(q, k, v, key_alive, key_bias=None, scale=None):
+    """Cross-attention of ``q`` [B, Nq, H, Dh] over ``k, v`` [B, S, H, Dh]
+    (counterpart of the ``_cross_fused_diff`` branch of ``attention_core``);
+    ``key_alive`` bool [B, S], ``key_bias`` [B, S] or None.  Returns ``out``
+    [B, Nq, H*Dh].
+
+    CUDA tensors go to K4, which raises on what it does not take: through
+    :class:`CrossAttention` when grad mode is on and an input requires a
+    gradient, else straight to the kernel.  CPU tensors go to the plain
+    version."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.is_cuda:
+        alive = key_alive.contiguous()
+        bias = None if key_bias is None else key_bias.float().contiguous()
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (q, k, v, bias)):
+            return CrossAttention.apply(q, k, v, alive, bias, scale)
+        return cross_attention_cuda(q, k, v, alive, bias, scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"cross_attention runs on CUDA or CPU tensors, got {q.device}")
+    return cross_attention_plain(q, k, v, key_alive, key_bias, scale)
 
 
 def multi_head_attention(q, k, v, num_heads: int, *, key_alive=None,

@@ -1,6 +1,9 @@
 """Capacity-schedule calibration for gather-mode DTP
 (copy of ``madtp_tpu/prune/calibrate.py:18-58``): per-layer buffer sizes from
-mask-mode kept counts, with a margin, rounded to a multiple."""
+mask-mode kept counts, with a margin, rounded to a multiple; and the
+``--fast_eval`` / ``--fast_train`` schedules of both towers
+(``madtp_tpu/cli/common.py:234-276``), which the NLVR and retrieval tasks
+share."""
 
 from __future__ import annotations
 
@@ -37,3 +40,20 @@ def calibrate_capacities(
     for i in range(1, len(caps)):
         caps[i] = min(caps[i], caps[i - 1])
     return tuple(caps)
+
+
+def fast_capacity_schedule(vk, tk, cap_mode: str, *, margin_v: int = 16,
+                           margin_t: int = 4):
+    """Capacity schedules from mask-mode kept counts: vision at
+    ``"nearest"``-128 or lossless ``"ceil"``-64, text at ceil-8.  ``tk=None``
+    skips the text schedule."""
+    vk = np.asarray(vk)
+    cv = calibrate_capacities(
+        vk if vk.ndim == 2 else vk[None, :], margin=margin_v,
+        multiple=128 if cap_mode == "nearest" else 64, mode=cap_mode)
+    if tk is None:
+        return cv, None
+    tk = np.asarray(tk)
+    ct = calibrate_capacities(tk if tk.ndim == 2 else tk[None, :],
+                              margin=margin_t, multiple=8)
+    return cv, ct

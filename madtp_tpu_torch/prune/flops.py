@@ -1,5 +1,5 @@
 """Closed-form compute model, one multiply-add = one FLOP as fvcore counts
-(copy of ``madtp_tpu/prune/flops.py:23-96``).  Per-layer kept counts fix the
+(copy of ``madtp_tpu/prune/flops.py:23-118``).  Per-layer kept counts fix the
 compute of a transformer stack, so the GFLOPs the temperature controller reads
 need no tracing."""
 
@@ -65,3 +65,15 @@ def nlvr_gflops(vit_cfg: ViTConfig, med_cfg: MedConfig, v_kept: Sequence[int],
     cross_kv = float(v_kept[-1]) + 1
     t = med_flops(med_cfg, t_kept, n_text0, cross_kv=cross_kv, twin=True)
     return (v + t) / 1e9
+
+
+def retrieval_gflops(vit_cfg: ViTConfig, med_cfg: MedConfig, v_kept: Sequence[int],
+                     t_kept: Sequence[int], n_text0: int) -> float:
+    """BLIP retrieval's *training* forward, which the reference's controller
+    traces: the online and momentum towers (x2) and ITM on the positive pair
+    and two negatives (3 passes per sample); the reference's baseline is 153.2."""
+    v = vit_flops(vit_cfg, v_kept)
+    t = med_flops(med_cfg, t_kept, n_text0)
+    cross_kv = float(v_kept[-1]) + 1
+    itm = med_flops(med_cfg, t_kept, n_text0, cross_kv=cross_kv)
+    return (2 * v + 2 * t + 3 * itm) / 1e9

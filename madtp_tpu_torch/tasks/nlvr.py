@@ -1,9 +1,10 @@
 """NLVR2 evaluation and compression training
 (counterpart of ``madtp_tpu/tasks/nlvr.py:27-257``): the eval step, the
 single-process eval loop that returns the analytic per-sample GFLOPs, the
-single-process train epoch, and the capacity helpers of ``--fast_eval`` and
-``--fast_train`` (``madtp_tpu/cli/common.py:234-276``,
-``madtp_tpu/cli/compress_nlvr.py:270-300``)."""
+single-process train epoch, and the ``--fast_train`` capacity probe
+(``madtp_tpu/cli/compress_nlvr.py:270-300``).  ``fast_capacity_schedule``
+lives in :mod:`madtp_tpu_torch.prune.calibrate` and is importable from here
+too."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from madtp_tpu_torch.models.blip import NLVRModel, NLVROut
-from madtp_tpu_torch.prune.calibrate import calibrate_capacities
+from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.flops import nlvr_gflops
 
 
@@ -94,23 +95,6 @@ def evaluate(model: NLVRModel, loader_fn: Callable[[], Iterable], tokenize,
     if capacities_v is not None and prune_active:
         stats["overflow"] = str(overflow)
     return stats, cur_gflops
-
-
-def fast_capacity_schedule(vk, tk, cap_mode: str, *, margin_v: int = 16,
-                           margin_t: int = 4):
-    """Capacity schedules from mask-mode kept counts: vision at
-    ``"nearest"``-128 or lossless ``"ceil"``-64, text at ceil-8.  ``tk=None``
-    skips the text schedule."""
-    vk = np.asarray(vk)
-    cv = calibrate_capacities(
-        vk if vk.ndim == 2 else vk[None, :], margin=margin_v,
-        multiple=128 if cap_mode == "nearest" else 64, mode=cap_mode)
-    if tk is None:
-        return cv, None
-    tk = np.asarray(tk)
-    ct = calibrate_capacities(tk if tk.ndim == 2 else tk[None, :],
-                              margin=margin_t, multiple=8)
-    return cv, ct
 
 
 def train_epoch(model: NLVRModel, train_step, loader_fn: Callable[[], Iterable], tokenize,

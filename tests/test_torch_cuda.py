@@ -1,6 +1,7 @@
-"""Kernels K1 and K2 against their plain PyTorch versions on the card (the
-checks of ``chip_smoke.py``), the autograd pairing of the two, and the
-refusals.  Needs an NVIDIA GPU with nvcc; skipped elsewhere.
+"""Kernels K1, K2 and K4 against their plain PyTorch versions on the card
+(the checks of ``chip_smoke.py``), the autograd pairings (K1 with K2, K4 with
+the plain version's backward), and the refusals.  Needs an NVIDIA GPU with
+nvcc; skipped elsewhere.
 
 Run on the card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
@@ -8,12 +9,15 @@ Run on the card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 import pytest
 import torch
 
-from chip_smoke import compare_k2, k1_case, k2_case
+from chip_smoke import compare_k2, k1_case, k2_case, k4_case
 from madtp_tpu_torch.kernels import attention_scores_bwd as k2
+from madtp_tpu_torch.kernels import cross_attention as k4
 from madtp_tpu_torch.kernels.attention_scores import TOLERANCES, attention_scores_cuda
 from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
 from madtp_tpu_torch.ops.attention import (attention_scores, attention_scores_bwd_plain,
-                                           attention_scores_plain)
+                                           attention_scores_plain, cross_attention,
+                                           cross_attention_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -228,3 +232,95 @@ def test_k2_refusals(cuda):
         attention_scores_bwd_cuda(*(wide[n] for n in ("q", "k", "v", "alive", "bias_in",
                                                       "scale", "out", "stats", "d_out",
                                                       "d_cls", "d_col")))
+
+
+def _k4_compare(q, k, v, alive, bias):
+    scale = q.shape[-1] ** -0.5
+    with torch.no_grad():
+        got = cross_attention_cuda(q, k, v, alive, bias, scale)
+    want = cross_attention_plain(q, k, v, alive, bias, scale)
+    torch.cuda.synchronize()
+    rtol, atol = k4.TOLERANCES[q.dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("B,Nq,S,packed_q", [
+    (256, 35, 592, False), (256, 35, 320, False), (32, 32, 320, False), (4, 1, 100, False),
+    (4, 7, 130, True), (3, 65, 64, False), (2, 130, 1, True)])
+def test_k4_matches_plain(cuda, B, Nq, S, packed_q, with_bias, dtype):
+    """The ITM and twin-cross shapes; ragged Nq (1, 7, and past one 64-row
+    query tile), S not a multiple of the 64-key tile, a strided q view."""
+    _k4_compare(*k4_case(B, Nq, S, with_bias=with_bias, dtype=dtype, device=cuda,
+                         packed_q=packed_q))
+
+
+def test_k4_dead_rows_determinism_and_count(cuda):
+    """A batch row with no alive key gives zeros (the plain version's rule);
+    a second launch gives the same bits; each launch adds one to the count."""
+    q, k, v, alive, bias = k4_case(4, 40, 150, with_bias=True, dtype=torch.float32,
+                                   device=cuda)
+    alive[1] = False
+    before = cross_attention_cuda.launches
+    out = _k4_compare(q, k, v, alive, bias)
+    assert not out[1].any() and torch.isfinite(out).all()
+    again = cross_attention_cuda(q, k, v, alive, bias, q.shape[-1] ** -0.5)
+    assert torch.equal(out, again)
+    assert cross_attention_cuda.launches == before + 2
+
+
+def test_k4_refusals(cuda):
+    """K4 raises on what it does not take: CPU tensors, another dtype or
+    head width, mismatched shapes or strides, and inputs that need a
+    gradient while grad mode is on."""
+    q, k, v, alive, bias = k4_case(2, 9, 70, with_bias=True, dtype=torch.float32, device=cuda)
+    scale = 0.125
+
+    def call(**repl):
+        a = dict(q=q, k=k, v=v, alive=alive, bias=bias)
+        a.update(repl)
+        return cross_attention_cuda(a["q"], a["k"], a["v"], a["alive"], a["bias"], scale)
+
+    for bad in (dict(q=q.cpu(), k=k.cpu(), v=v.cpu(), alive=alive.cpu(), bias=bias.cpu()),
+                dict(q=q.half(), k=k.half(), v=v.half()),
+                dict(q=q[..., :32], k=k[..., :32], v=v[..., :32]),
+                dict(v=v[:, :-1]),
+                dict(k=k.transpose(1, 2).contiguous().transpose(1, 2)),
+                dict(alive=alive[:, :-1]),
+                dict(bias=bias.double())):
+        with pytest.raises(ValueError):
+            call(**bad)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        call(q=q.detach().requires_grad_())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_dispatch_and_gradients(cuda, dtype):
+    """cross_attention on CUDA tensors: under inference_mode straight to K4;
+    with inputs that need a gradient through CrossAttention (one K4 launch),
+    whose gradients are the plain version's autograd gradients."""
+    q, k, v, alive, bias = k4_case(3, 26, 200, with_bias=True, dtype=dtype, device=cuda,
+                                   packed_q=True)
+    before = cross_attention_cuda.launches
+    with torch.inference_mode():
+        out = cross_attention(q, k, v, alive, bias)
+    assert out.grad_fn is None and cross_attention_cuda.launches == before + 1
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    bias_g = bias.clone().requires_grad_()
+    w = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(0),
+                    device=cuda)
+    got_out = cross_attention(*leaves, alive, bias_g)
+    assert "CrossAttention" in type(got_out.grad_fn).__name__
+    assert cross_attention_cuda.launches == before + 2
+    got = torch.autograd.grad((got_out.float() * w).sum(), (*leaves, bias_g))
+    ref = [t.detach().requires_grad_() for t in (q, k, v)]
+    ref_b = bias.clone().requires_grad_()
+    want_out = cross_attention_plain(*ref, alive, ref_b, q.shape[-1] ** -0.5)
+    want = torch.autograd.grad((want_out.float() * w).sum(), (*ref, ref_b))
+    rtol, atol = k4.TOLERANCES[dtype]
+    torch.testing.assert_close(got_out.float(), want_out.float(), rtol=rtol, atol=atol)
+    for g, wnt in zip(got, want):  # both backward passes are the plain version's
+        torch.testing.assert_close(g, wnt, rtol=1e-5, atol=1e-6)
