@@ -14,10 +14,10 @@ Phases, each fatal on failure:
 3. K2 against its plain version (autograd through K1's) at the train step's
    shapes, fp32 and bf16, two launches bit-identical, with times, the bound,
    and SDPA forward + backward for the ``out`` part alone (partial again);
-3b. K4 against its plain version at the ITM rerank's, the NLVR twin cross's
-   and ragged shapes, with and without bias, fp32 and bf16, two launches
-   bit-identical, with times, the bound, and SDPA with the same additive mask
-   (the same function);
+3b. K4 against its plain version on synthetic inputs at the ITM rerank's,
+   the NLVR twin cross's and ragged shapes, with and without bias, fp32 and
+   bf16, two launches bit-identical, with times, the bound, and SDPA with the
+   same additive mask (the same function);
 4. the full-width NLVR model (ViT-B/16@384 + 12-layer twin MED, seeded random
    weights, 2 pairs, fp32) on the card against the same model on the CPU, in
    mask and gather mode: equal kept counts, logits within 1e-4, K1 launched in
@@ -38,18 +38,21 @@ Phases, each fatal on failure:
 8. the full-width BLIP retrieval model (ViT-B/16@384 + 12-layer MED with
    single-stream cross-attention, the width of ``configs/retrieval_coco.yaml``,
    seeded random weights, fp32) on the card against the CPU: 4 images, 8
-   texts, ``k_test`` 4, mask and gather mode: equal kept counts and
+   texts, ``k_test`` 4, mask and gather mode, at a temperature whose DTP
+   decisions on the CPU stand clear of fp32 rounding: equal kept counts and
    candidate sets, features within 1e-5, rerank scores within 1e-4, 12 K4
    launches per ITM forward;
 9. the retrieval main path in bf16 at p=0.5: temperature bisection toward half
    the dense ``retrieval_gflops`` in mask mode, the ``--fast_eval`` capacities,
-   ``tasks.retrieval.evaluate`` in gather mode on 64 synthetic images (2
-   batches of 32) and 320 texts at ``k_test`` 64, the dense eval, and one ITM
-   forward at ``k_test`` 256: images/s, texts/s, ITM candidates/s, eval wall
-   time, a profile of the ITM forward.
+   ``tasks.retrieval.evaluate`` in gather mode on 256 synthetic images (8
+   batches of 32) and 1,280 texts at ``k_test`` 256, the dense eval, and one
+   ITM forward at ``k_test`` 256: images/s, texts/s, ITM candidates/s, eval
+   wall time, a profile of the ITM forward.
 
 The NLVR phases (4-7) also hold K4 to 24 launches per forward: the twin
-cross-attention's two streams in each of the 12 MED layers.
+cross-attention's two streams in each of the 12 MED layers.  Each main path
+(5, 7, 9) also holds K4 against its plain version on the inputs that path
+gave it, one case per distinct shape.
 
 Prints the card's name and power limit, a JSON line of kernel measurements,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -58,6 +61,7 @@ device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import collections
 import copy
 import json
 import math
@@ -219,6 +223,85 @@ def sdpa_mask(alive, bias, dtype):
     if bias is not None:
         mask = mask + bias
     return mask[:, None, None, :].to(dtype)
+
+
+class K4Capture:
+    """While active, records the inputs of the first cross-attention call of
+    each distinct (B, Nq, S, dtype, bias or none) that the MED makes, and
+    counts the calls of each; every call goes on to K4 unchanged, so the
+    launch counts are those of the path itself."""
+
+    def __enter__(self):
+        from madtp_tpu_torch.models import med
+
+        self.cases, self.calls = {}, collections.Counter()
+        self._med, self._orig = med, med.cross_attention
+
+        def record(q, k, v, key_alive, key_bias=None):
+            key = (q.shape[0], q.shape[1], k.shape[1], q.dtype, key_bias is not None)
+            self.calls[key] += 1
+            if key not in self.cases:
+                self.cases[key] = tuple(None if t is None else t.detach()
+                                        for t in (q, k, v, key_alive, key_bias))
+            return self._orig(q, k, v, key_alive, key_bias)
+
+        med.cross_attention = record
+        return self
+
+    def __exit__(self, *exc):
+        self._med.cross_attention = self._orig
+
+
+def check_k4_cases(label, capture, iters=20):
+    """K4 against its plain version on the inputs a main path gave it (one
+    case per distinct shape, dtype and bias, as ``capture`` recorded them):
+    in their own dtype within ``TOLERANCES``, bf16 cases also cast to fp32
+    within the fp32 tolerance, two launches bit-identical; with the times of
+    K4, the plain version and SDPA (the same function), and the bound.
+    Returns the record of the most-called case for the kernels line."""
+    import torch.nn.functional as F
+
+    from madtp_tpu_torch.kernels.cross_attention import TOLERANCES, cross_attention_cuda
+    from madtp_tpu_torch.ops.attention import cross_attention_plain
+
+    records = {}
+    with torch.inference_mode():
+        for key, (q, k, v, alive, bias) in capture.cases.items():
+            B, Nq, S, dtype, _ = key
+            alive = alive.contiguous()
+            bias = None if bias is None else bias.float().contiguous()
+            scale = q.shape[-1] ** -0.5
+            name = (f"{label} B={B} Nq={Nq} S={S} bias={bias is not None} "
+                    f"({capture.calls[key]} calls)")
+            errs = []
+            for dt in dict.fromkeys((dtype, torch.float32)):
+                qd, kd, vd = (t.to(dt) for t in (q, k, v))
+                got = cross_attention_cuda(qd, kd, vd, alive, bias, scale)
+                want = cross_attention_plain(qd, kd, vd, alive, bias, scale)
+                errs.append(check_close(f"K4 {name} {str(dt)[6:]}", got, want, *TOLERANCES[dt]))
+                if not torch.equal(got, cross_attention_cuda(qd, kd, vd, alive, bias, scale)):
+                    raise AssertionError(f"K4 {name} {str(dt)[6:]}: two launches differ")
+                del qd, kd, vd, got, want
+            ms = time_ms(lambda: cross_attention_cuda(q, k, v, alive, bias, scale), iters)
+            plain_ms = time_ms(lambda: cross_attention_plain(q, k, v, alive, bias, scale), 5)
+            mask = sdpa_mask(alive, bias, dtype)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, scale=scale), iters)
+            bound_ms, bound_by = bound(*k4_work(q, k, alive, bias), dtype)
+            log(f"[k4-main] {name} {str(dtype)[6:]}: max|err| {errs[0]:.2e}"
+                + (f" (as fp32 {errs[1]:.2e})" if len(errs) > 1 else "")
+                + f", bit-identical relaunch | K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by}), sdpa (same function) {sdpa_ms:.4f} ms")
+            records[key] = dict(max_abs_err=errs[0], ms=ms, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms,
+                                shape=dict(B=B, Nq=Nq, S=S, dtype=str(dtype)[6:]))
+            del mask, qh, kh, vh
+    capture.cases.clear()
+    torch.cuda.empty_cache()
+    if not records:
+        raise AssertionError(f"{label}: the path made no cross-attention call")
+    return records[capture.calls.most_common(1)[0][0]]
 
 
 def bound(flops, nbytes, dtype):
@@ -428,21 +511,20 @@ def phase_k2(device, main_n=592):
     return record
 
 
-def phase_k4(device, main=(256, 35, 320)):
-    """K4 vs plain at the ITM rerank's shapes (256 candidates, 35 text
-    queries, 592 image slots in mask mode and 320 in gather mode), the NLVR
-    twin cross's (32 pairs, 32 text slots, 320 image slots) and ragged ones
-    (Nq 1 and 7, S not a multiple of the 64-key tile), with and without bias,
-    fp32 and bf16; two launches bit-identical.  Returns the bf16 record at
-    (B, Nq, S) = ``main`` without bias (the gather-mode ITM) for the kernels
-    line."""
+def phase_k4(device):
+    """K4 vs plain on synthetic inputs at the ITM rerank's shapes (256
+    candidates, 35 text queries, 592 image slots in mask mode and 320 in
+    gather mode), the NLVR twin cross's (32 pairs, 32 text slots, 320 image
+    slots) and ragged ones (Nq 1 and 7, S not a multiple of the 64-key
+    tile), with and without bias, fp32 and bf16; two launches bit-identical.
+    The shapes the main paths really give K4 are checked on their own inputs
+    (``check_k4_cases``)."""
     import torch.nn.functional as F
 
     from madtp_tpu_torch.kernels.cross_attention import TOLERANCES, cross_attention_cuda
     from madtp_tpu_torch.ops.attention import cross_attention_plain
 
     cases = [(256, 35, 592), (256, 35, 320), (32, 32, 320), (8, 1, 100), (8, 7, 130)]
-    record = None
     for dtype in (torch.float32, torch.bfloat16):
         for B, Nq, S in cases:
             for with_bias in (False, True):
@@ -466,12 +548,8 @@ def phase_k4(device, main=(256, 35, 320)):
                 log(f"[k4] {label}: max|err| {err:.2e}, bit-identical relaunch | K4 {ms:.4f} ms, "
                     f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
                     f"sdpa (same function) {sdpa_ms:.4f} ms")
-                if dtype == torch.bfloat16 and (B, Nq, S) == main and not with_bias:
-                    record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, library_ms=sdpa_ms)
                 del q, k, v, got, want, mask
                 torch.cuda.empty_cache()
-    return record
 
 
 def full_config():
@@ -558,21 +636,6 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
     target = ori * (1.0 - p_target)
     step_mask = make_eval_step(model, prune_active=True)
 
-    attention_scores_cuda.launches = cross_attention_cuda.launches = 0
-    lo, hi = 0.05, 60.0
-    for _ in range(bisect_steps):
-        t = math.sqrt(lo * hi)
-        out = step_mask(images, ids, mask, t)
-        vk, tk = out.v_kept.cpu().numpy(), out.t_kept.cpu().numpy()
-        g = nlvr_gflops(cfg.vit, cfg.med, vk, tk, text_len)
-        log(f"[main] bisect T={t:.4f}: {g:.2f} GFLOPs (target {target:.2f})")
-        if g > target:
-            lo = t
-        else:
-            hi = t
-    t_star, g_star = t, g
-    caps_v, caps_t = fast_capacity_schedule(vk, tk, "ceil")
-
     rng = np.random.default_rng(3)
     s = cfg.vit.image_size
 
@@ -586,9 +649,25 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
         return (rng.integers(1, cfg.med.vocab_size, size=(len(sentences), text_len)),
                 np.ones((len(sentences), text_len), np.int64))
 
-    stats, cur_gflops = evaluate(model, loader, tokenize, t_star, prune_active=True,
-                                 enc_token_id=2, capacities_v=caps_v, capacities_t=caps_t,
-                                 print_fn=lambda m: log(f"[main] {m}"), print_freq=1)
+    attention_scores_cuda.launches = cross_attention_cuda.launches = 0
+    with K4Capture() as capture:  # the path's own K4 inputs, checked below
+        lo, hi = 0.05, 60.0
+        for _ in range(bisect_steps):
+            t = math.sqrt(lo * hi)
+            out = step_mask(images, ids, mask, t)
+            vk, tk = out.v_kept.cpu().numpy(), out.t_kept.cpu().numpy()
+            g = nlvr_gflops(cfg.vit, cfg.med, vk, tk, text_len)
+            log(f"[main] bisect T={t:.4f}: {g:.2f} GFLOPs (target {target:.2f})")
+            if g > target:
+                lo = t
+            else:
+                hi = t
+        t_star, g_star = t, g
+        caps_v, caps_t = fast_capacity_schedule(vk, tk, "ceil")
+
+        stats, cur_gflops = evaluate(model, loader, tokenize, t_star, prune_active=True,
+                                     enc_token_id=2, capacities_v=caps_v, capacities_t=caps_t,
+                                     print_fn=lambda m: log(f"[main] {m}"), print_freq=1)
     torch.cuda.synchronize()
     launches, k4 = attention_scores_cuda.launches, cross_attention_cuda.launches
     per_forward = cfg.vit.depth + cfg.med.num_hidden_layers
@@ -599,6 +678,7 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
         raise AssertionError(f"main path launched K4 {k4} times, want 24 per forward")
     if not (math.isfinite(cur_gflops) and 0 < cur_gflops < ori):
         raise AssertionError(f"gather eval GFLOPs {cur_gflops} not in (0, {ori})")
+    check_k4_cases("nlvr eval", capture)
 
     step_gather = make_eval_step(model, True, caps_v, caps_t)
     step_dense = make_eval_step(model, False)
@@ -747,38 +827,39 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
 
     attention_scores_cuda.launches = attention_scores_bwd_cuda.launches = 0
     cross_attention_cuda.launches = 0
-    step_mask = make_nlvr_train_step(model, opt)  # mask mode, fp32: compress_nlvr's default
-    cur_g = ori
-    for epoch in range(epochs):
-        if epoch > 0:
-            controller.update(cur_g)
-        temperature = controller.temperature
-        lr = cosine_lr(epoch, epochs, 3e-6, 0.0)
-        set_lr(opt, lr)
-        stats = train_epoch(model, step_mask, loader_fn(batches), tokenize, enc_token_id,
-                            temperature, lr=lr, **quiet)
-        _, cur_g = evaluate(model, loader_fn(1), tokenize, temperature, prune_active=True,
-                            enc_token_id=enc_token_id, **quiet)
-        log(f"[train] epoch {epoch}: T={temperature:.2f} lr={lr:.3e} loss {stats['loss']} "
-            f"(ori {stats['loss_ori']}, fdt {stats['loss_fdt']}); eval GFLOPs {cur_g:.2f} "
-            f"(target {controller.target_gflops:.2f}, dense {ori:.2f})")
-        if not (all(math.isfinite(float(stats[k])) for k in ("loss", "loss_ori", "loss_fdt"))
-                and stats["batches_done"] == batches and 0 < cur_g <= ori):
-            raise AssertionError(f"epoch {epoch}: stats {stats}, GFLOPs {cur_g}")
-    probe = cached_probe_batches([None], loader_fn(2), n=2)
-    caps_v, caps_t = probe_capacities(model, probe, tokenize, enc_token_id, temperature, "ceil")
-    log(f"[train] fast_train capacities vision {list(caps_v)} text {list(caps_t)}")
-    steps = {}
-    for amp in (False, True):
-        name = "gather " + ("amp" if amp else "fp32")
-        steps[name] = make_nlvr_train_step(model, opt, capacities_v=caps_v,
-                                           capacities_t=caps_t, amp=amp)
-        stats = train_epoch(model, steps[name], loader_fn(batches), tokenize, enc_token_id,
-                            temperature, lr=lr, **quiet)
-        log(f"[train] fast_train epoch, {name}: loss {stats['loss']} (ori {stats['loss_ori']}, "
-            f"fdt {stats['loss_fdt']})")
-        if not math.isfinite(float(stats["loss"])):
-            raise AssertionError(f"{name}: loss {stats['loss']}")
+    with K4Capture() as capture:  # the path's own K4 inputs, checked below
+        step_mask = make_nlvr_train_step(model, opt)  # mask mode, fp32: compress_nlvr's default
+        cur_g = ori
+        for epoch in range(epochs):
+            if epoch > 0:
+                controller.update(cur_g)
+            temperature = controller.temperature
+            lr = cosine_lr(epoch, epochs, 3e-6, 0.0)
+            set_lr(opt, lr)
+            stats = train_epoch(model, step_mask, loader_fn(batches), tokenize, enc_token_id,
+                                temperature, lr=lr, **quiet)
+            _, cur_g = evaluate(model, loader_fn(1), tokenize, temperature, prune_active=True,
+                                enc_token_id=enc_token_id, **quiet)
+            log(f"[train] epoch {epoch}: T={temperature:.2f} lr={lr:.3e} loss {stats['loss']} "
+                f"(ori {stats['loss_ori']}, fdt {stats['loss_fdt']}); eval GFLOPs {cur_g:.2f} "
+                f"(target {controller.target_gflops:.2f}, dense {ori:.2f})")
+            if not (all(math.isfinite(float(stats[k])) for k in ("loss", "loss_ori", "loss_fdt"))
+                    and stats["batches_done"] == batches and 0 < cur_g <= ori):
+                raise AssertionError(f"epoch {epoch}: stats {stats}, GFLOPs {cur_g}")
+        probe = cached_probe_batches([None], loader_fn(2), n=2)
+        caps_v, caps_t = probe_capacities(model, probe, tokenize, enc_token_id, temperature, "ceil")
+        log(f"[train] fast_train capacities vision {list(caps_v)} text {list(caps_t)}")
+        steps = {}
+        for amp in (False, True):
+            name = "gather " + ("amp" if amp else "fp32")
+            steps[name] = make_nlvr_train_step(model, opt, capacities_v=caps_v,
+                                               capacities_t=caps_t, amp=amp)
+            stats = train_epoch(model, steps[name], loader_fn(batches), tokenize, enc_token_id,
+                                temperature, lr=lr, **quiet)
+            log(f"[train] fast_train epoch, {name}: loss {stats['loss']} (ori {stats['loss_ori']}, "
+                f"fdt {stats['loss_fdt']})")
+            if not math.isfinite(float(stats["loss"])):
+                raise AssertionError(f"{name}: loss {stats['loss']}")
     torch.cuda.synchronize()
     launches = (attention_scores_cuda.launches, attention_scores_bwd_cuda.launches,
                 cross_attention_cuda.launches)
@@ -787,6 +868,7 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     if min(launches) == 0 or launches[2] != launches[0]:
         raise AssertionError(f"training main path launched K1/K2/K4 {launches} times "
                              "(K4 should match K1: 24 of each per forward)")
+    check_k4_cases("nlvr train", capture)
 
     # one fixed batch on the card for the guard, the timings and the profile
     im0, im1, _, tg = next(iter(loader_fn(1)()))
@@ -871,20 +953,99 @@ def retrieval_corpus(cfg, n_images, texts_per_image, seed, text_len=35):
     return images, ids, mask, txt2img, img2txt
 
 
-def phase_retrieval_parity(device, cfg, temperature=3.0, k_test=4):
+FP32_ULP = 2.0 ** -23  # relative rounding step of fp32
+GAP_MIN = 64 * FP32_ULP  # least relative DTP margin the parity phase runs at
+DRIFT_FACTOR = 4  # the margin must also hold this many times the card's drift
+PARITY_TEMPERATURES = (4.0, 5.0, 3.5, 3.0, 6.0, 2.5)
+
+
+class DTPRecorder:
+    """While active, records every DTP keep decision as CPU tensors: the
+    scores, each row's threshold, the alive mask, the ranking, the batch keep
+    count and whether the step applies."""
+
+    def __enter__(self):
+        from madtp_tpu_torch.prune import dtp
+
+        self.records = []
+        self._dtp, self._orig = dtp, dtp._keep_rule
+
+        def record(score, signals, palive, temperature, row_independent):
+            order, topk_num, alive_cnt, apply = self._orig(score, signals, palive, temperature,
+                                                           row_independent)
+            t = torch.as_tensor(temperature, dtype=torch.float32, device=score.device)
+            thr = dtp.dtp_threshold(signals.token_attn, score, palive, t)
+            self.records.append((score.float().cpu(), thr.float().cpu(), palive.cpu(),
+                                 order.cpu(), int(topk_num), bool(apply)))
+            return order, topk_num, alive_cnt, apply
+
+        dtp._keep_rule = record
+        return self
+
+    def __exit__(self, *exc):
+        self._dtp._keep_rule = self._orig
+
+
+def dtp_margins(records):
+    """The smallest relative margins of recorded DTP decisions: the distance
+    of a score from its row's threshold, over the rows that hold the batch's
+    largest keep count (the rows that set it), and, in every row that drops
+    tokens, the gap between the last kept and the first dropped score.  A
+    rounding error smaller than both changes no decision."""
+    thr_gap = rank_gap = math.inf
+    for score, thr, palive, order, k, apply in records:
+        counts = (palive & (score > thr[:, None])).sum(dim=1)
+        deciding = palive & (counts == counts.max())[:, None]
+        if deciding.any():
+            rel = (score - thr[:, None]).abs() / thr.abs()[:, None]
+            thr_gap = min(thr_gap, float(rel[deciding].min()))
+        drops = palive.sum(dim=1) > k
+        if apply and k >= 1 and drops.any():
+            ranked = torch.gather(score, 1, order)[drops]
+            gap = (ranked[:, k - 1] - ranked[:, k]) / ranked[:, k - 1].abs()
+            rank_gap = min(rank_gap, float(gap.min()))
+    return thr_gap, rank_gap
+
+
+def dtp_drift(want, got):
+    """The largest change of (score - threshold) between two runs' recorded
+    decisions, relative to the larger of the score and the threshold (the
+    scale of both roundings), bounded by |change of score| + |change of
+    threshold|.  Each row's alive scores are compared in sorted order:
+    gather mode places kept tokens by rank, so two near-equal scores may
+    trade slots between runs without changing any decision."""
+    if len(want) != len(got):
+        raise AssertionError(f"{len(got)} DTP decisions against {len(want)}")
+    drift = 0.0
+    for (s0, t0, a0, *_), (s1, t1, a1, *_) in zip(want, got):
+        n_alive = a0.sum(dim=1, keepdim=True)
+        if s0.shape != s1.shape or not torch.equal(n_alive, a1.sum(dim=1, keepdim=True)):
+            raise AssertionError("a DTP decision ran on another number of alive tokens")
+        r0, r1 = (s.masked_fill(~a, -math.inf).sort(dim=1, descending=True).values
+                  for s, a in ((s0, a0), (s1, a1)))
+        alive = torch.arange(s0.shape[1])[None, :] < n_alive
+        if alive.any():
+            d = (((r1 - r0).abs() + (t1 - t0).abs()[:, None])
+                 / torch.maximum(r0.abs(), t0.abs()[:, None]))
+            drift = max(drift, float(d[alive].max()))
+    return drift
+
+
+def phase_retrieval_parity(device, cfg, k_test=4):
     """The full-width retrieval model on the card (K1, K4) and the CPU
     (plain), fp32, seeded weights: 4 images, 8 texts, ``k_test`` 4, in mask
     and gather mode.  Equal kept counts and candidate sets, features within
     1e-5, rerank scores within 1e-4, 12 K4 launches per ITM forward.
 
-    At T=1 these random weights put the DTP threshold exactly on a token's
-    own score in several layers (the codebook's softmax over tokens is
-    one-hot there, so ``thr`` is that token's score), and the last bit of a
-    reduction then decides ``score > thr``: card and CPU kept 257 and 256
-    tokens at layer 6 in gather mode.  At T=3 the smallest gap between a
-    deciding token's score and the threshold is 1.7e-5 of the threshold
-    (image tower; 2.2e-6 text, 3.4e-4 ITM, measured on the CPU), far above
-    fp32 rounding."""
+    Equal kept counts hold only where no DTP decision sits within rounding
+    of its edge.  Random weights can put one there: at T=1 the threshold is
+    exactly one token's own score in several layers (the codebook's softmax
+    over tokens is one-hot), and card and CPU kept 257 and 256 tokens.  So
+    the phase measures, on the CPU runs, the smallest margin of every
+    decision (``dtp_margins``) at the first of ``PARITY_TEMPERATURES`` where
+    it reaches ``GAP_MIN`` (64 fp32 rounding steps), and holds the card to
+    it: the largest drift of the card's (score - threshold) from the CPU's
+    must stay ``DRIFT_FACTOR`` times below that margin."""
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.models.blip import init_retrieval_model
     from madtp_tpu_torch.tasks.retrieval import encode_corpus, probe_capacities, rerank_scores
@@ -894,14 +1055,11 @@ def phase_retrieval_parity(device, cfg, temperature=3.0, k_test=4):
     images, ids, mask, _, _ = retrieval_corpus(cfg, 4, 2, seed=6)
     enc_ids = ids.copy()
     enc_ids[:, 0] = ENC_ID
-    caps = probe_capacities(cpu_model, [images], ids, mask, temperature, "ceil")
-    log(f"[r-parity] gather capacities vision {list(caps[0])} text {list(caps[1])}")
-    for mode, (cv, ct) in (("mask", (None, None)), ("gather", caps)):
-        res = {}
-        for where, model, dev in (("cpu", cpu_model, torch.device("cpu")),
-                                  ("card", gpu_model, device)):
-            kw = dict(temperature=temperature, prune_active=True)
-            t0 = time.perf_counter()
+
+    def run(model, dev, temperature, cv, ct):
+        kw = dict(temperature=temperature, prune_active=True)
+        t0 = time.perf_counter()
+        with DTPRecorder() as rec:
             with torch.inference_mode():
                 _, iout = model.image_features(torch.from_numpy(images).to(dev),
                                                capacities=cv, **kw)
@@ -912,14 +1070,40 @@ def phase_retrieval_parity(device, cfg, temperature=3.0, k_test=4):
             before = cross_attention_cuda.launches
             scores = rerank_scores(model, *feats, enc_ids, mask, k_test=k_test,
                                    capacities_t=ct, **kw)
-            res[where] = dict(kept=(iout.kept_counts.cpu(), tout.kept_counts.cpu()),
-                              feats=(feats[0], feats[2]), scores=scores,
-                              k4=cross_attention_cuda.launches - before,
-                              seconds=time.perf_counter() - t0)
-        cpu, card = res["cpu"], res["card"]
+            k4 = cross_attention_cuda.launches - before
+        return dict(kept=(iout.kept_counts.cpu(), tout.kept_counts.cpu()),
+                    feats=(feats[0], feats[2]), scores=scores, k4=k4, dtp=rec.records,
+                    seconds=time.perf_counter() - t0)
+
+    for temperature in PARITY_TEMPERATURES:
+        caps = probe_capacities(cpu_model, [images], ids, mask, temperature, "ceil")
+        modes = {"mask": (None, None), "gather": caps}
+        cpu_runs = {mode: run(cpu_model, torch.device("cpu"), temperature, *c)
+                    for mode, c in modes.items()}
+        thr_gap, rank_gap = (min(g) for g in zip(*(dtp_margins(r["dtp"])
+                                                   for r in cpu_runs.values())))
+        margin = min(thr_gap, rank_gap)
+        cpu_s = sum(r["seconds"] for r in cpu_runs.values())
+        log(f"[r-parity] T={temperature}: smallest DTP margins on the CPU: threshold "
+            f"{thr_gap:.3e}, rank {rank_gap:.3e} ({margin / FP32_ULP:.0f} fp32 steps, want "
+            f">= {GAP_MIN / FP32_ULP:.0f}); cpu {cpu_s:.1f} s")
+        if margin >= GAP_MIN:
+            break
+    else:
+        raise AssertionError(f"no temperature of {PARITY_TEMPERATURES} keeps every DTP decision "
+                             f"{GAP_MIN / FP32_ULP:.0f} fp32 steps from its edge")
+    log(f"[r-parity] T={temperature}: gather capacities vision {list(caps[0])} text "
+        f"{list(caps[1])}")
+    for mode, (cv, ct) in modes.items():
+        cpu, card = cpu_runs[mode], run(gpu_model, device, temperature, cv, ct)
         if not all(torch.equal(a, b) for a, b in zip(cpu["kept"], card["kept"])):
             raise AssertionError(f"retrieval {mode}: kept counts differ: card {card['kept']} "
                                  f"cpu {cpu['kept']}")
+        drift = dtp_drift(cpu["dtp"], card["dtp"])
+        if not drift * DRIFT_FACTOR <= margin:
+            raise AssertionError(f"retrieval {mode}: the card's DTP scores drift {drift:.3e} "
+                                 f"from the CPU's, more than 1/{DRIFT_FACTOR} of the margin "
+                                 f"{margin:.3e}")
         feat_err = max(float(np.abs(a - b).max()) for a, b in zip(card["feats"], cpu["feats"]))
         if not feat_err <= 1e-5:
             raise AssertionError(f"retrieval {mode}: features differ by {feat_err:.3e}")
@@ -936,18 +1120,22 @@ def phase_retrieval_parity(device, cfg, temperature=3.0, k_test=4):
                                  f"{n_forwards} ITM forwards, want 12 per forward")
         log(f"[r-parity] {mode}: kept vision {card['kept'][0].tolist()} text "
             f"{card['kept'][1].tolist()} equal on card and cpu; candidate sets equal; max|diff| "
-            f"features {feat_err:.2e}, scores {score_err:.2e}; K4 {card['k4']} launches in "
-            f"{n_forwards} ITM forwards; cpu {cpu['seconds']:.1f} s")
+            f"features {feat_err:.2e}, scores {score_err:.2e}; DTP drift {drift:.2e} "
+            f"({margin / drift if drift else math.inf:.0f}x below the margin); K4 {card['k4']} launches "
+            f"in {n_forwards} ITM forwards; cpu {cpu['seconds']:.1f} s")
 
 
-def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=64,
-                         texts_per_image=5, batch=32, k_test=64, k_time=256, iters=5):
+def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256,
+                         texts_per_image=5, batch=32, k_test=256, iters=5):
     """BLIP retrieval eval at p=0.5, bf16: the temperature bisected toward
     half the dense ``retrieval_gflops`` in mask mode, the ``--fast_eval``
-    capacities, then the gather-mode ``evaluate`` on a synthetic corpus (2
-    batches of 32 images, 5 texts each) at ``k_test`` 64, and the dense eval
-    (temperature 0); then one ITM forward at ``k_test`` 256, timed and
-    profiled.  Returns the K1 and K4 launch counts of the gather eval."""
+    capacities, then the gather-mode ``evaluate`` on a synthetic corpus (8
+    batches of 32 images, 5 texts each) at ``k_test`` 256, so that every
+    rerank row in both directions scores 256 candidates, and the dense eval
+    (temperature 0); K4 against its plain version on the inputs each eval
+    gave it; then one ITM forward at ``k_test`` 256, timed and profiled.
+    Returns the K1 and K4 launch counts of the gather eval and the K4 record
+    of its ITM shape."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.models.blip import init_retrieval_model
@@ -990,13 +1178,14 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=64,
     def run_eval(temperature, cv, ct):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats = evaluate(model, iter(batches), ids, mask, txt2img, img2txt, temperature,
-                         enc_token_id=ENC_ID, k_test=k_test, capacities_v=cv,
-                         capacities_t=ct, device=device)
-        return stats, time.perf_counter() - t0
+        with K4Capture() as capture:  # the eval's own K4 inputs, checked below
+            stats = evaluate(model, iter(batches), ids, mask, txt2img, img2txt, temperature,
+                             enc_token_id=ENC_ID, k_test=k_test, capacities_v=cv,
+                             capacities_t=ct)
+        return stats, time.perf_counter() - t0, capture
 
     attention_scores_cuda.launches = cross_attention_cuda.launches = 0
-    stats, eval_s = run_eval(t_star, caps_v, caps_t)
+    stats, eval_s, gather_capture = run_eval(t_star, caps_v, caps_t)
     k1, k4 = attention_scores_cuda.launches, cross_attention_cuda.launches
     n_texts = len(ids)
     n_itm = n_images + n_texts  # one ITM forward per rerank row, both directions
@@ -1012,8 +1201,10 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=64,
     log(f"[retrieval] gather eval: {n_images} images, {n_texts} texts, k_test {k_test}: "
         f"{eval_s:.2f} s wall; r_mean {stats['r_mean']:.3f} (random weights); launches "
         f"K1 {k1}, K4 {k4} ({k4 // n_itm} per ITM forward)")
-    dense_stats, dense_s = run_eval(0.0, None, None)
+    dense_stats, dense_s, dense_capture = run_eval(0.0, None, None)
     log(f"[retrieval] dense eval: {dense_s:.2f} s wall; r_mean {dense_stats['r_mean']:.3f}")
+    record = check_k4_cases("retrieval gather eval", gather_capture)
+    check_k4_cases("retrieval dense eval", dense_capture)
 
     def encode_rates(temperature, cv, ct):
         """images/s of the image tower over the corpus, texts/s of the text
@@ -1033,7 +1224,7 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=64,
             return (n_images / time_ms(img, 3) * 1e3, n_texts / time_ms(txt, 3) * 1e3)
 
     # one ITM forward at k_test 256: text 0 against 256 image states (t2i's shape)
-    k = k_time
+    k = k_test
 
     def itm_inputs(temperature, cv):
         with torch.inference_mode():
@@ -1075,7 +1266,7 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=64,
     g, d = rates["gather"], rates["dense"]
     log(f"[retrieval] pruned/dense: eval wall {dense_s / eval_s:.3f}x, images/s "
         f"{g[0] / d[0]:.3f}x, texts/s {g[1] / d[1]:.3f}x, ITM candidates/s {g[2] / d[2]:.3f}x")
-    return k1, k4
+    return k1, k4, record
 
 
 def card_line():
@@ -1100,7 +1291,7 @@ def main():
     phase_build()
     record = phase_k1(device)
     record2 = phase_k2(device)
-    record4 = phase_k4(device)
+    phase_k4(device)
     cfg = full_config()
     phase_model_parity(device, cfg)
     k1_eval, k4_eval = phase_main_path(device, cfg)
@@ -1108,7 +1299,7 @@ def main():
     k1_train, k2_train, k4_train = phase_train_main(device, cfg)
     rcfg = retrieval_config()
     phase_retrieval_parity(device, rcfg)
-    k1_ret, k4_ret = phase_retrieval_main(device, rcfg)
+    k1_ret, k4_ret, record4 = phase_retrieval_main(device, rcfg)
 
     kernels = [
         dict(name="attention_scores", route="cuda",

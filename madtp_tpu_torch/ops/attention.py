@@ -207,18 +207,17 @@ class CrossAttention(torch.autograd.Function):
         return dq, dk, dv, None, dbias, None
 
 
-def cross_attention(q, k, v, key_alive, key_bias=None, scale=None):
+def cross_attention(q, k, v, key_alive, key_bias=None):
     """Cross-attention of ``q`` [B, Nq, H, Dh] over ``k, v`` [B, S, H, Dh]
-    (counterpart of the ``_cross_fused_diff`` branch of ``attention_core``);
-    ``key_alive`` bool [B, S], ``key_bias`` [B, S] or None.  Returns ``out``
-    [B, Nq, H*Dh].
+    (counterpart of the ``_cross_fused_diff`` branch of ``attention_core``),
+    scaled by ``Dh ** -0.5``; ``key_alive`` bool [B, S], ``key_bias`` [B, S]
+    or None.  Returns ``out`` [B, Nq, H*Dh].
 
     CUDA tensors go to K4, which raises on what it does not take: through
     :class:`CrossAttention` when grad mode is on and an input requires a
     gradient, else straight to the kernel.  CPU tensors go to the plain
     version."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5
     if q.is_cuda:
         alive = key_alive.contiguous()
         bias = None if key_bias is None else key_bias.float().contiguous()

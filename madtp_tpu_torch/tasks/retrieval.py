@@ -25,7 +25,6 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from madtp_tpu_torch.core.device import resolve_device
 from madtp_tpu_torch.eval.metrics import itm_eval
 from madtp_tpu_torch.models.blip import RetrievalModel
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
@@ -141,18 +140,14 @@ def evaluate(model: RetrievalModel, image_batches: Iterable[np.ndarray],
              text_ids: np.ndarray, text_mask: np.ndarray, txt2img: Sequence[int],
              img2txt: Sequence[Sequence[int]], temperature: float, *, enc_token_id: int,
              k_test: int = 256, capacities_v: Optional[Sequence[int]] = None,
-             capacities_t: Optional[Sequence[int]] = None, text_batch: int = 256,
-             device="cuda") -> Dict[str, float]:
+             capacities_t: Optional[Sequence[int]] = None, text_batch: int = 256
+             ) -> Dict[str, float]:
     """The retrieval eval of ``compress_retrieval`` (single process): prune
     when ``temperature > 0`` (gather mode with capacities), encode the
     corpus, rerank with the encoder token in slot 0 of the ITM's text
     (``madtp_tpu/cli/compress_retrieval.py:211-213``) and ``k_test`` capped
-    at the number of texts, and return ``itm_eval``'s recalls.  ``device``
-    is where the model must live: ``"cuda"`` (the default) raises without a
-    card."""
-    dev = resolve_device(device)
-    if model.space_dict.device.type != dev.type:
-        raise ValueError(f"the model lives on {model.space_dict.device}, not {dev}")
+    at the number of texts, and return ``itm_eval``'s recalls.  It runs
+    where the model lives, which its constructor chose."""
     prune = temperature > 0
     img_feats, img_states, txt_feats = encode_corpus(
         model, image_batches, text_ids, text_mask, temperature=temperature,

@@ -304,7 +304,7 @@ def test_probe_and_evaluate_match_jax(setup, reranked):
     want = j_itm_eval(*reranked["gather"]["j_scores"], setup["txt2img"], setup["img2txt"])
     got = TR.evaluate(setup["model"], iter(setup["images"]), setup["ids"], setup["mask"],
                       setup["txt2img"], setup["img2txt"], TEMPERATURE, enc_token_id=ENC_ID,
-                      k_test=K_TEST, capacities_v=cv, capacities_t=ct, device="cpu")
+                      k_test=K_TEST, capacities_v=cv, capacities_t=ct)
     assert got == want
 
 
@@ -323,22 +323,19 @@ def test_itm_eval_and_gflops_match_jax():
 
 
 def test_entry_points_refuse_without_gpu(setup, monkeypatch):
-    """init_retrieval_model, both loaders and evaluate default to the card
-    and raise without one; given device="cpu" they run on the CPU."""
+    """init_retrieval_model and both loaders default to the card and raise
+    without one; given device="cpu" they build a CPU model, and evaluate
+    runs where the model lives."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: init_retrieval_model(TCFG),
                  lambda: retrieval_from_jax_params(setup["tree"], TCFG),
-                 lambda: load_retrieval_state_dict({}, TCFG),
-                 lambda: TR.evaluate(setup["model"], iter(setup["images"]), setup["ids"],
-                                     setup["mask"], setup["txt2img"], setup["img2txt"], 0.0,
-                                     enc_token_id=ENC_ID)):
+                 lambda: load_retrieval_state_dict({}, TCFG)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     model = init_retrieval_model(TCFG, device="cpu")
     assert model.space_dict.device.type == "cpu" and model.vision_proj.out_features == 256
     stats = TR.evaluate(model, iter(setup["images"]), setup["ids"], setup["mask"],
-                        setup["txt2img"], setup["img2txt"], 0.0, enc_token_id=ENC_ID,
-                        device="cpu")
+                        setup["txt2img"], setup["img2txt"], 0.0, enc_token_id=ENC_ID)
     assert set(stats) >= {"txt_r1", "img_r1", "r_mean"} and 0 <= stats["r_mean"] <= 100
     with pytest.raises(ValueError, match="twin_cross"):
         init_retrieval_model(TCFG._replace(med=dataclasses.replace(TCFG.med, twin_cross=True)),
