@@ -5,8 +5,8 @@
 Phases, each fatal on failure:
 
 1. build kernels K1 (``madtp_tpu_torch/csrc/attention_scores.cu``), K2
-   (``csrc/attention_scores_bwd.cu``) and K4 (``csrc/cross_attention.cu``)
-   with nvcc, one process each, together;
+   (``csrc/attention_scores_bwd.cu``), K4 (``csrc/cross_attention.cu``) and
+   K5 (``csrc/ffn.cu``) with nvcc, one process each, together;
 2. K1 against its plain PyTorch version on the card at the NLVR shapes, fp32
    and bf16, with times, the card's bound, and the time of
    ``F.scaled_dot_product_attention`` for the ``out`` part alone (a yardstick
@@ -18,6 +18,11 @@ Phases, each fatal on failure:
    the NLVR twin cross's and ragged shapes, with and without bias, fp32 and
    bf16, two launches bit-identical, with times, the bound, and SDPA with the
    same additive mask (the same function);
+3c. K5 against its plain version at the CLIP vision (M = 32 x 584, 1024 /
+   4096), CLIP text (M = 32 x 96, 768 / 3072), BLIP (M = 64 x 584, 768 /
+   3072) and a ragged shape, GELU and QuickGELU, two launches bit-identical,
+   with times, the bound, and the library call (two ``F.linear`` and the
+   activation: the same function);
 4. the full-width NLVR model (ViT-B/16@384 + 12-layer twin MED, seeded random
    weights, 2 pairs, fp32) on the card against the same model on the CPU, in
    mask and gather mode: equal kept counts, logits within 1e-4, K1 launched in
@@ -47,12 +52,26 @@ Phases, each fatal on failure:
    ``tasks.retrieval.evaluate`` in gather mode on 256 synthetic images (8
    batches of 32) and 1,280 texts at ``k_test`` 256, the dense eval, and one
    ITM forward at ``k_test`` 256: images/s, texts/s, ITM candidates/s, eval
-   wall time, a profile of the ITM forward.
+   wall time, a profile of the ITM forward;
+10. the CLIP ViT-L/14@336 retrieval eval main path in bf16 at p=0.5
+   (``tools/bench_clip.py``'s configuration, seeded random weights): the
+   temperature bisected toward half the dense ``clip_gflops`` in mask mode,
+   the ``--fast_eval`` capacities, ``tasks.clip_retrieval.evaluate`` in
+   gather mode on 1,024 synthetic uint8 images (32 batches of 32) and 5,120
+   token-id texts, and the dense eval; images/s, texts/s, eval wall time, a
+   profile of one image batch;
+11. the full-width CLIP model on the card against the CPU, fp32, 2 images
+   and 4 texts, mask and gather mode, at the first temperature near the main
+   path's whose DTP decisions stand clear of fp32 rounding (as phase 8):
+   equal kept counts in both towers, features within 1e-5, equal rankings.
 
 The NLVR phases (4-7) also hold K4 to 24 launches per forward: the twin
 cross-attention's two streams in each of the 12 MED layers.  Each main path
-(5, 7, 9) also holds K4 against its plain version on the inputs that path
-gave it, one case per distinct shape.
+(5, 7, 9, 10) also holds K4 and K5 against their plain versions on the
+inputs that path gave them, one case per distinct shape (K4 where the path
+has cross-attention), and phase 10 holds K1 on the CLIP vision tower's own
+H = 16 inputs; each path times its step with the FFNs on K5 and on two
+linears (the path before K5), in turns.
 
 Prints the card's name and power limit, a JSON line of kernel measurements,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -63,6 +82,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import importlib
 import json
 import math
 import subprocess
@@ -225,31 +245,110 @@ def sdpa_mask(alive, bias, dtype):
     return mask[:, None, None, :].to(dtype)
 
 
-class K4Capture:
-    """While active, records the inputs of the first cross-attention call of
-    each distinct (B, Nq, S, dtype, bias or none) that the MED makes, and
-    counts the calls of each; every call goes on to K4 unchanged, so the
-    launch counts are those of the path itself."""
+class _Capture:
+    """While active, replaces ``module.attr`` with a recorder that keeps the
+    inputs of the first call of each distinct ``key`` (detached, completed
+    to ``len(defaults)`` arguments) and counts the calls of each; every call
+    goes on to the original unchanged, so the launch counts are those of the
+    path itself."""
+
+    module = attr = None
+    defaults = ()  # (name, default) of each argument, in order
+
+    def key(self, *args):
+        raise NotImplementedError
 
     def __enter__(self):
-        from madtp_tpu_torch.models import med
-
+        self._mod = importlib.import_module(self.module)
+        self._orig = getattr(self._mod, self.attr)
         self.cases, self.calls = {}, collections.Counter()
-        self._med, self._orig = med, med.cross_attention
 
-        def record(q, k, v, key_alive, key_bias=None):
-            key = (q.shape[0], q.shape[1], k.shape[1], q.dtype, key_bias is not None)
+        def record(*args, **kw):
+            full = list(args) + [kw.get(n, d) for n, d in self.defaults[len(args):]]
+            key = self.key(*full)
             self.calls[key] += 1
             if key not in self.cases:
-                self.cases[key] = tuple(None if t is None else t.detach()
-                                        for t in (q, k, v, key_alive, key_bias))
-            return self._orig(q, k, v, key_alive, key_bias)
+                self.cases[key] = tuple(t.detach() if torch.is_tensor(t) else t for t in full)
+            return self._orig(*args, **kw)
 
-        med.cross_attention = record
+        setattr(self._mod, self.attr, record)
         return self
 
     def __exit__(self, *exc):
-        self._med.cross_attention = self._orig
+        setattr(self._mod, self.attr, self._orig)
+
+
+class K4Capture(_Capture):
+    """The MED's cross-attention calls, by (B, Nq, S, dtype, bias or none)."""
+
+    module, attr = "madtp_tpu_torch.models.med", "cross_attention"
+    defaults = (("q", None), ("k", None), ("v", None), ("key_alive", None), ("key_bias", None))
+
+    def key(self, q, k, v, key_alive, key_bias):
+        return (q.shape[0], q.shape[1], k.shape[1], q.dtype, key_bias is not None)
+
+
+class K5Capture(_Capture):
+    """K5's calls (from ``ops.layers.mlp`` and ``FusedMLP``), by (M, D, F,
+    act)."""
+
+    module, attr = "madtp_tpu_torch.ops.layers", "ffn_cuda"
+    defaults = (("x", None), ("w1", None), ("b1", None), ("w2", None), ("b2", None),
+                ("act", "gelu"))
+
+    def key(self, x, w1, b1, w2, b2, act):
+        return (x.shape[0], x.shape[1], w1.shape[0], act)
+
+
+class K1Capture(_Capture):
+    """The scoring attention's calls, by (B, N, H, dtype, bias or none)."""
+
+    module, attr = "madtp_tpu_torch.ops.attention", "attention_scores"
+    defaults = (("q", None), ("k", None), ("v", None), ("key_alive", None),
+                ("key_bias", None), ("scale", None))
+
+    def key(self, q, k, v, key_alive, key_bias, scale):
+        return (q.shape[0], q.shape[1], q.shape[2], q.dtype, key_bias is not None)
+
+
+class PlainFFN:
+    """While active, the models' FFNs run their plain version (two linears)
+    on the card too: the path before K5, for an A/B inside one run."""
+
+    MODULES = ("madtp_tpu_torch.models.vit", "madtp_tpu_torch.models.med",
+               "madtp_tpu_torch.models.clip")
+
+    def __enter__(self):
+        from madtp_tpu_torch.ops.layers import mlp_plain
+
+        def plain(x, fc1, fc2, act="gelu"):
+            return mlp_plain(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias, act)
+
+        self._saved = [(m, m.mlp) for m in map(importlib.import_module, self.MODULES)]
+        for m, _ in self._saved:
+            m.mlp = plain
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in self._saved:
+            m.mlp = f
+
+
+def ffn_ab(label, fn, iters):
+    """``fn``'s CUDA-event time with the FFNs on K5 and on two linears (the
+    path before K5), in turns plain, K5, K5, plain.  Returns the two means."""
+    times = {"k5": [], "plain": []}
+    for which in ("plain", "k5", "k5", "plain"):
+        if which == "plain":
+            with PlainFFN():
+                times[which].append(time_ms(fn, iters))
+        else:
+            times[which].append(time_ms(fn, iters))
+    k5, plain = (sum(times[w]) / 2 for w in ("k5", "plain"))
+    log(f"[ffn-ab] {label}: FFNs on K5 {k5:.2f} ms ({times['k5'][0]:.2f}, {times['k5'][1]:.2f}), "
+        f"on two linears (before K5) {plain:.2f} ms ({times['plain'][0]:.2f}, "
+        f"{times['plain'][1]:.2f}): {plain / k5:.3f}x")
+    return k5, plain
 
 
 def check_k4_cases(label, capture, iters=20):
@@ -322,6 +421,19 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def enqueue_ms(fn, iters):
+    """Host time per call for ``fn`` to enqueue its kernels, the card left
+    to drain only after the last call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
 def host_ms(fn, iters):
     """Host time for ``fn`` to return (to dispatch its kernels), with the card
     drained before each call: near the step's CUDA-event time when the step
@@ -361,9 +473,9 @@ def profile_step(label, fn, step_ms, top=10):
 
 
 def kernel_totals(kernels, busy_ms):
-    """Device time of K1's, K2's and K4's passes among profiler averages."""
+    """Device time of K1's, K2's, K4's and K5's passes among profiler averages."""
     out = []
-    for name, tag in (("K1", "::k1_"), ("K2", "::k2_"), ("K4", "::k4_")):
+    for name, tag in (("K1", "::k1_"), ("K2", "::k2_"), ("K4", "::k4_"), ("K5", "::k5_")):
         ms = sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
         out.append(f"{name} {ms:.2f} ms ({ms / max(busy_ms, 1e-9):.1%})")
     return ", ".join(out)
@@ -402,10 +514,11 @@ def phase_build():
     from madtp_tpu_torch.kernels import attention_scores as k1
     from madtp_tpu_torch.kernels import attention_scores_bwd as k2
     from madtp_tpu_torch.kernels import cross_attention as k4
+    from madtp_tpu_torch.kernels import ffn as k5
     from madtp_tpu_torch.kernels.build import build_all
 
     t0 = time.perf_counter()
-    built = build_all([k1.SOURCE, k2.SOURCE, k4.SOURCE])
+    built = build_all([k1.SOURCE, k2.SOURCE, k4.SOURCE, k5.SOURCE])
     log(f"[build] {time.perf_counter() - t0:.2f} s wall for {len(built)} kernel source(s)")
     for name, b in built.items():
         log(f"[build] {name}: nvcc {b.seconds:.2f} s -> {b.path.name}")
@@ -552,6 +665,158 @@ def phase_k4(device):
                 torch.cuda.empty_cache()
 
 
+def k5_case(M, D, F, device, seed=0):
+    """K5 inputs: x N(0, 1), W1 and W2 N(0, 1/fan_in), biases N(0, 0.01),
+    all bf16 on the card."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=device) * scale).to(torch.bfloat16)
+
+    return r(M, D), r(F, D, scale=D ** -0.5), r(F, scale=0.1), r(D, F, scale=F ** -0.5), \
+        r(D, scale=0.1)
+
+
+def k5_work(M, D, F):
+    """(flops, bytes): 2 M D F for each product; x, W1, b1, W2, b2 read once
+    and y written once, bf16 (the hidden is the kernel's own traffic)."""
+    return 4.0 * M * D * F, 2 * (2 * M * D + 2 * D * F + D + F)
+
+
+def ffn_library(x, w1, b1, w2, b2, act):
+    """The same function as K5 in PyTorch calls: two ``F.linear`` and the
+    activation (QuickGELU as the reference ``clip/model.py`` writes it)."""
+    import torch.nn.functional as F
+
+    h = F.linear(x, w1, b1)
+    h = F.gelu(h) if act == "gelu" else h * torch.sigmoid(1.702 * h)
+    return F.linear(h, w2, b2)
+
+
+def hold_k5(name, x, w1, b1, w2, b2, act, iters):
+    """K5 against its plain version on one set of inputs, within
+    ``TOLERANCES``, a relaunch bit-identical; times of K5, the plain version
+    and the library call, and the bound.  Returns the record."""
+    from madtp_tpu_torch.kernels.ffn import TOLERANCES, ffn_cuda
+    from madtp_tpu_torch.ops.layers import mlp_plain
+
+    args = (x, w1, b1, w2, b2, act)
+    with torch.inference_mode():
+        got, want = ffn_cuda(*args), mlp_plain(*args)
+        err = check_close(f"K5 {name}", got, want, *TOLERANCES[torch.bfloat16])
+        if not torch.equal(got, ffn_cuda(*args)):
+            raise AssertionError(f"K5 {name}: two launches on the same inputs differ")
+        del got, want
+        ms = time_ms(lambda: ffn_cuda(*args), iters)
+        plain_ms = time_ms(lambda: mlp_plain(*args), max(3, iters // 4))
+        library_ms = time_ms(lambda: ffn_library(*args), iters)
+    M, D = x.shape
+    F = w1.shape[0]
+    bound_ms, bound_by = bound(*k5_work(M, D, F), torch.bfloat16)
+    log(f"[k5] {name}: max|err| {err:.2e}, bit-identical relaunch | K5 {ms:.4f} ms "
+        f"({4.0 * M * D * F / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), library (same function) {library_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, shape=dict(M=M, D=D, F=F, act=act))
+
+
+def phase_k5(device, iters=20):
+    """K5 vs plain on synthetic inputs at the CLIP vision tower's gather
+    shape (32 images x 584 slots, 1024 / 4096), the text tower's mask-mode
+    shape (32 x 96, 768 / 3072), BLIP's (64 x 584, 768 / 3072) and a ragged
+    M, both activations.  Returns the CLIP vision QuickGELU record."""
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+    from madtp_tpu_torch.ops.layers import mlp_plain
+
+    cases = [("clip vision", 32 * 584, 1024, 4096), ("clip text", 32 * 96, 768, 3072),
+             ("blip", 64 * 584, 768, 3072), ("ragged", 1000, 768, 3072)]
+    args = k5_case(256, 768, 3072, device)
+    with torch.inference_mode():
+        host = {name: enqueue_ms(lambda: fn(*args, "gelu"), 200)
+                for name, fn in (("K5", ffn_cuda), ("plain", mlp_plain))}
+    log(f"[k5] host time to enqueue one FFN (M=256, 768/3072): K5's wrapper "
+        f"{host['K5']:.4f} ms, the plain version {host['plain']:.4f} ms")
+    record = None
+    for label, M, D, F in cases:
+        args = k5_case(M, D, F, device)
+        for act in ("quick_gelu", "gelu"):
+            rec = hold_k5(f"{label} M={M} D={D} F={F} {act}", *args, act, iters)
+            if label == "clip vision" and act == "quick_gelu":
+                record = rec
+        del args
+        torch.cuda.empty_cache()
+    return record
+
+
+def check_k5_cases(label, capture, iters=5):
+    """K5 against its plain version on the inputs a main path gave it (one
+    case per distinct (M, D, F, act), as ``capture`` recorded them), and
+    the FFNs' device time over the path's calls on K5, on the plain version
+    and on the library call.  Returns the record of the most-called case."""
+    records = {key: hold_k5(f"{label} M={key[0]} D={key[1]} F={key[2]} {key[3]} "
+                            f"({capture.calls[key]} calls)", *case, iters)
+               for key, case in capture.cases.items()}
+    capture.cases.clear()
+    torch.cuda.empty_cache()
+    if not records:
+        raise AssertionError(f"{label}: the path made no K5 call")
+    total = {k: sum(capture.calls[key] * r[k] for key, r in records.items())
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"[k5-path] {label}: the FFNs' device time over {sum(capture.calls.values())} calls: "
+        f"K5 {total['ms']:.2f} ms, plain {total['plain_ms']:.2f} ms, library "
+        f"{total['library_ms']:.2f} ms, bound {total['bound_ms']:.2f} ms")
+    return records[capture.calls.most_common(1)[0][0]]
+
+
+def check_k1_cases(label, capture, iters=10):
+    """K1 against its plain version on the inputs a main path gave it (one
+    case per distinct (B, N, H, dtype, bias)); the most-called case also
+    timed with its plain version, SDPA (out only) and the bound.  Returns
+    that case's record."""
+    import torch.nn.functional as F
+
+    from madtp_tpu_torch.kernels.attention_scores import TOLERANCES, attention_scores_cuda
+    from madtp_tpu_torch.ops.attention import attention_scores_plain
+
+    top = capture.calls.most_common(1)[0][0] if capture.calls else None
+    record = None
+    with torch.inference_mode():
+        for key, (q, k, v, alive, bias, scale) in capture.cases.items():
+            B, N, H, dtype, _ = key
+            alive = alive.contiguous()
+            scale = q.shape[-1] ** -0.5 if scale is None else scale
+            bias_in = torch.zeros(alive.shape, device=q.device) if bias is None \
+                else bias.float().contiguous()
+            got = attention_scores_cuda(q, k, v, alive, bias_in, scale)
+            want = attention_scores_plain(q, k, v, alive, bias, scale)
+            name = f"{label} B={B} N={N} H={H} {str(dtype)[6:]} ({capture.calls[key]} calls)"
+            errs = {n: check_close(f"K1 {n} {name}", g, w, *TOLERANCES[dtype][n])
+                    for n, g, w in zip(("out", "cls_attn", "col_mass"), got, want)}
+            del got, want
+            line = (f"[k1-main] {name}: max|err| out {errs['out']:.2e} col "
+                    f"{errs['col_mass']:.2e} cls {errs['cls_attn']:.2e}")
+            if key == top:
+                ms = time_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), iters)
+                plain_ms = time_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
+                mask = sdpa_mask(alive, bias_in, dtype)
+                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+                sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, scale=scale), iters)
+                bound_ms, bound_by = bound(*k1_work(q, alive), dtype)
+                record = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms,
+                              shape=dict(B=B, N=N, H=H, dtype=str(dtype)[6:]))
+                line += (f" | K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({bound_by}), sdpa(out only) {sdpa_ms:.4f} ms")
+                del mask, qh, kh, vh
+            log(line)
+    capture.cases.clear()
+    torch.cuda.empty_cache()
+    if record is None:
+        raise AssertionError(f"{label}: the path made no scoring-attention call")
+    return record
+
+
 def full_config():
     from madtp_tpu_torch.core.config import BlipConfig, MedConfig, ViTConfig
 
@@ -618,9 +883,10 @@ def phase_model_parity(device, cfg, temperature=1.0):
 def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_steps=8,
                     eval_batches=3, iters=10):
     """NLVR2 eval at p=0.5, bf16: bisection, capacities, gather eval.
-    Returns the K1 and K4 launch counts of that run."""
+    Returns the K1, K4 and K5 launch counts of that run."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
     from madtp_tpu_torch.models.blip import init_nlvr_model
     from madtp_tpu_torch.prune.flops import nlvr_gflops
     from madtp_tpu_torch.tasks.nlvr import evaluate, fast_capacity_schedule, make_eval_step
@@ -649,8 +915,8 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
         return (rng.integers(1, cfg.med.vocab_size, size=(len(sentences), text_len)),
                 np.ones((len(sentences), text_len), np.int64))
 
-    attention_scores_cuda.launches = cross_attention_cuda.launches = 0
-    with K4Capture() as capture:  # the path's own K4 inputs, checked below
+    attention_scores_cuda.launches = cross_attention_cuda.launches = ffn_cuda.launches = 0
+    with K4Capture() as capture, K5Capture() as k5_capture:  # the path's own inputs
         lo, hi = 0.05, 60.0
         for _ in range(bisect_steps):
             t = math.sqrt(lo * hi)
@@ -669,16 +935,20 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
                                      enc_token_id=2, capacities_v=caps_v, capacities_t=caps_t,
                                      print_fn=lambda m: log(f"[main] {m}"), print_freq=1)
     torch.cuda.synchronize()
-    launches, k4 = attention_scores_cuda.launches, cross_attention_cuda.launches
+    launches, k4, k5 = attention_scores_cuda.launches, cross_attention_cuda.launches, \
+        ffn_cuda.launches
     per_forward = cfg.vit.depth + cfg.med.num_hidden_layers
     want = per_forward * (bisect_steps + eval_batches)
     if launches < want:
         raise AssertionError(f"main path launched K1 {launches} times, want >= {want}")
     if k4 != 2 * cfg.med.num_hidden_layers * (bisect_steps + eval_batches):
         raise AssertionError(f"main path launched K4 {k4} times, want 24 per forward")
+    if k5 != want:
+        raise AssertionError(f"main path launched K5 {k5} times, want {want} (every FFN)")
     if not (math.isfinite(cur_gflops) and 0 < cur_gflops < ori):
         raise AssertionError(f"gather eval GFLOPs {cur_gflops} not in (0, {ori})")
     check_k4_cases("nlvr eval", capture)
+    check_k5_cases("nlvr eval", k5_capture)
 
     step_gather = make_eval_step(model, True, caps_v, caps_t)
     step_dense = make_eval_step(model, False)
@@ -699,10 +969,11 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
         f"dense bf16 {dense_ms:.2f} ms = {pairs / dense_ms * 1e3:.1f} samples/s; "
         f"ratio {dense_ms / gather_ms:.3f}")
     log(f"[main] gather step host dispatch time {gather_host_ms:.2f} ms")
-    log(f"[main] launches on the main path: K1 {launches}, K4 {k4}")
+    log(f"[main] launches on the main path: K1 {launches}, K4 {k4}, K5 {k5}")
+    ffn_ab("nlvr eval gather step", lambda: step_gather(images, ids, mask, t_star), iters)
     profile_step("gather step", lambda: step_gather(images, ids, mask, t_star), gather_ms)
     profile_step("dense step", lambda: step_dense(images, ids, mask, 0.0), dense_ms)
-    return launches, k4
+    return launches, k4, k5
 
 
 GRAD_PARAMS = ("visual_encoder.patch_embed.proj.weight", "visual_encoder.blocks.0.attn.qkv.weight",
@@ -785,14 +1056,15 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
                      p_target=0.5, enc_token_id=2):
     """Compression training as ``madtp_tpu/cli/compress_nlvr.py:335-384``
     runs it, on synthetic data: controller epochs in mask mode fp32, then a
-    ``--fast_train`` epoch in fp32 and with ``amp``.  Returns the K1, K2 and
-    K4 launch counts of that run."""
+    ``--fast_train`` epoch in fp32 and with ``amp``.  Returns the K1, K2, K4
+    and K5 launch counts of that run (K5: the amp epoch's FFNs)."""
     import tempfile
 
     from madtp_tpu_torch.ckpt.convert import load_nlvr_state_dict, save_nlvr_checkpoint
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
     from madtp_tpu_torch.models.blip import init_nlvr_model
     from madtp_tpu_torch.prune.flops import nlvr_gflops
     from madtp_tpu_torch.tasks.nlvr import (cached_probe_batches, evaluate, probe_capacities,
@@ -826,8 +1098,8 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     quiet = dict(print_fn=lambda m: log(f"[train]   {m}"), print_freq=0)
 
     attention_scores_cuda.launches = attention_scores_bwd_cuda.launches = 0
-    cross_attention_cuda.launches = 0
-    with K4Capture() as capture:  # the path's own K4 inputs, checked below
+    cross_attention_cuda.launches = ffn_cuda.launches = 0
+    with K4Capture() as capture, K5Capture() as k5_capture:  # the path's own inputs
         step_mask = make_nlvr_train_step(model, opt)  # mask mode, fp32: compress_nlvr's default
         cur_g = ori
         for epoch in range(epochs):
@@ -862,13 +1134,18 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
                 raise AssertionError(f"{name}: loss {stats['loss']}")
     torch.cuda.synchronize()
     launches = (attention_scores_cuda.launches, attention_scores_bwd_cuda.launches,
-                cross_attention_cuda.launches)
+                cross_attention_cuda.launches, ffn_cuda.launches)
     log(f"[train] launches on the training main path: K1 {launches[0]}, K2 {launches[1]}, "
-        f"K4 {launches[2]}")
+        f"K4 {launches[2]}, K5 {launches[3]}")
     if min(launches) == 0 or launches[2] != launches[0]:
-        raise AssertionError(f"training main path launched K1/K2/K4 {launches} times "
+        raise AssertionError(f"training main path launched K1/K2/K4/K5 {launches} times "
                              "(K4 should match K1: 24 of each per forward)")
+    want_k5 = (cfg.vit.depth + cfg.med.num_hidden_layers) * batches
+    if launches[3] != want_k5:
+        raise AssertionError(f"training main path launched K5 {launches[3]} times, want "
+                             f"{want_k5}: every FFN of the amp epoch, none of the fp32 steps")
     check_k4_cases("nlvr train", capture)
+    check_k5_cases("nlvr train amp", k5_capture)
 
     # one fixed batch on the card for the guard, the timings and the profile
     im0, im1, _, tg = next(iter(loader_fn(1)()))
@@ -903,6 +1180,7 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
         profile_backward(name, steps[name], batch)
     host = host_ms(lambda: steps["gather amp"](*batch), iters)
     log(f"[train] gather amp step host dispatch time {host:.2f} ms")
+    ffn_ab("train gather amp step", lambda: steps["gather amp"](*batch), iters)
     profile_step("gather amp train step", lambda: steps["gather amp"](*batch),
                  times["gather amp"], top=12)
 
@@ -970,9 +1248,9 @@ class DTPRecorder:
         self.records = []
         self._dtp, self._orig = dtp, dtp._keep_rule
 
-        def record(score, signals, palive, temperature, row_independent):
+        def record(score, signals, palive, temperature, *rest):
             order, topk_num, alive_cnt, apply = self._orig(score, signals, palive, temperature,
-                                                           row_independent)
+                                                           *rest)
             t = torch.as_tensor(temperature, dtype=torch.float32, device=score.device)
             thr = dtp.dtp_threshold(signals.token_attn, score, palive, t)
             self.records.append((score.float().cpu(), thr.float().cpu(), palive.cpu(),
@@ -1134,10 +1412,11 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
     rerank row in both directions scores 256 candidates, and the dense eval
     (temperature 0); K4 against its plain version on the inputs each eval
     gave it; then one ITM forward at ``k_test`` 256, timed and profiled.
-    Returns the K1 and K4 launch counts of the gather eval and the K4 record
-    of its ITM shape."""
+    Returns the K1, K4 and K5 launch counts of the gather eval and the K4
+    record of its ITM shape."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
     from madtp_tpu_torch.models.blip import init_retrieval_model
     from madtp_tpu_torch.prune.dtp import TokenState
     from madtp_tpu_torch.prune.flops import retrieval_gflops
@@ -1178,15 +1457,15 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
     def run_eval(temperature, cv, ct):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with K4Capture() as capture:  # the eval's own K4 inputs, checked below
+        with K4Capture() as capture, K5Capture() as k5_capture:  # the eval's own inputs
             stats = evaluate(model, iter(batches), ids, mask, txt2img, img2txt, temperature,
                              enc_token_id=ENC_ID, k_test=k_test, capacities_v=cv,
                              capacities_t=ct)
-        return stats, time.perf_counter() - t0, capture
+        return stats, time.perf_counter() - t0, capture, k5_capture
 
-    attention_scores_cuda.launches = cross_attention_cuda.launches = 0
-    stats, eval_s, gather_capture = run_eval(t_star, caps_v, caps_t)
-    k1, k4 = attention_scores_cuda.launches, cross_attention_cuda.launches
+    attention_scores_cuda.launches = cross_attention_cuda.launches = ffn_cuda.launches = 0
+    stats, eval_s, gather_capture, gather_k5 = run_eval(t_star, caps_v, caps_t)
+    k1, k4, k5 = attention_scores_cuda.launches, cross_attention_cuda.launches, ffn_cuda.launches
     n_texts = len(ids)
     n_itm = n_images + n_texts  # one ITM forward per rerank row, both directions
     if k4 != L * n_itm:
@@ -1196,15 +1475,20 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
     if k1 != want_k1:
         raise AssertionError(f"retrieval eval launched K1 {k1} times, want {want_k1} (every "
                              "self-attention of the towers and the ITM forwards)")
+    if k5 != k1:
+        raise AssertionError(f"retrieval eval launched K5 {k5} times, want {k1}: one FFN "
+                             "beside every scoring attention")
     if not all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in stats.values()):
         raise AssertionError(f"retrieval stats out of range: {stats}")
     log(f"[retrieval] gather eval: {n_images} images, {n_texts} texts, k_test {k_test}: "
         f"{eval_s:.2f} s wall; r_mean {stats['r_mean']:.3f} (random weights); launches "
-        f"K1 {k1}, K4 {k4} ({k4 // n_itm} per ITM forward)")
-    dense_stats, dense_s, dense_capture = run_eval(0.0, None, None)
+        f"K1 {k1}, K4 {k4} ({k4 // n_itm} per ITM forward), K5 {k5}")
+    dense_stats, dense_s, dense_capture, dense_k5 = run_eval(0.0, None, None)
     log(f"[retrieval] dense eval: {dense_s:.2f} s wall; r_mean {dense_stats['r_mean']:.3f}")
     record = check_k4_cases("retrieval gather eval", gather_capture)
     check_k4_cases("retrieval dense eval", dense_capture)
+    check_k5_cases("retrieval gather eval", gather_k5)
+    check_k5_cases("retrieval dense eval", dense_k5)
 
     def encode_rates(temperature, cv, ct):
         """images/s of the image tower over the corpus, texts/s of the text
@@ -1262,11 +1546,239 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
             f"{txt_rate:.1f} texts/s, ITM forward at k={k} over {st.x.shape[1]} image slots "
             f"{itm_ms:.2f} ms = {k / itm_ms * 1e3:.1f} candidates/s, host dispatch "
             f"{host_ms(itm, iters):.2f} ms")
+        if name == "gather":
+            ffn_ab(f"retrieval gather ITM forward, k={k}", itm, iters)
         profile_step(f"{name} ITM forward, k={k}", itm, itm_ms)
     g, d = rates["gather"], rates["dense"]
     log(f"[retrieval] pruned/dense: eval wall {dense_s / eval_s:.3f}x, images/s "
         f"{g[0] / d[0]:.3f}x, texts/s {g[1] / d[1]:.3f}x, ITM candidates/s {g[2] / d[2]:.3f}x")
-    return k1, k4, record
+    return k1, k4, k5, record
+
+
+def clip_config():
+    """CLIP ViT-L/14@336, the model of ``configs/retrieval_*_clip.yaml``, as
+    ``tools/bench_clip.py:38-41`` configures it: vision 24 x 1024 (16 heads,
+    patch 14, 577 tokens), text 12 x 768 (12 heads, context 77), embed 768,
+    codebook 100 x 768."""
+    from madtp_tpu_torch.core.config import CLIPConfig
+
+    return CLIPConfig(embed_dim=768, image_resolution=336, vision_layers=24, vision_width=1024,
+                      vision_patch_size=14, transformer_width=768, transformer_heads=12,
+                      transformer_layers=12, sd_dim=768)
+
+
+CLIP_EOT = 49407  # the CLIP BPE vocabulary's end-of-text id, its highest
+
+
+def clip_corpus(cfg, n_images, texts_per_image, seed):
+    """A synthetic CLIP corpus: uint8 [H, W, 3] images (the ``--uint8_feed``
+    layout) and ``texts_per_image`` texts each, token ids as
+    ``tools/bench_clip.py:45-49`` makes them (random ids, EOT ending a length
+    in [8, 20), zeros after).  Returns ``(images, text, txt2img, img2txt)``."""
+    rng = np.random.default_rng(seed)
+    s = cfg.image_resolution
+    images = rng.integers(0, 256, size=(n_images, s, s, 3), dtype=np.uint8)
+    n_texts = n_images * texts_per_image
+    lengths = rng.integers(8, 20, size=n_texts)
+    ids = rng.integers(1, 40000, size=(n_texts, cfg.context_length))
+    text = np.where(np.arange(cfg.context_length)[None, :] < lengths[:, None], ids, 0)
+    text[np.arange(n_texts), lengths - 1] = CLIP_EOT
+    txt2img = [t // texts_per_image for t in range(n_texts)]
+    img2txt = [list(range(i * texts_per_image, (i + 1) * texts_per_image))
+               for i in range(n_images)]
+    return images, text, txt2img, img2txt
+
+
+def phase_clip_main(device, cfg, p_target=0.5, bisect_steps=10, n_images=1024,
+                    texts_per_image=5, batch=32, rate_batches=8, iters=5):
+    """CLIP retrieval eval at p=0.5, bf16: the temperature bisected toward
+    half the dense ``clip_gflops`` in mask mode (``tools/bench_clip.py:
+    80-91``; first image batch and first 32 texts), the ``--fast_eval``
+    capacities, ``evaluate`` in gather mode on a synthetic corpus cut from
+    COCO's 5,000 images and 25,000 texts to 1,024 and 5,120 (1:5), and the
+    dense eval.  K5 and K1 (at H=16) held against their plain versions on
+    the inputs the evals gave them.  Returns the temperature, the K1 and K5
+    launch counts of the gather eval and the K5 and K1 records."""
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+    from madtp_tpu_torch.models.clip import init_clip_model
+    from madtp_tpu_torch.prune.flops import clip_gflops
+    from madtp_tpu_torch.tasks.clip_retrieval import evaluate, probe_capacities
+
+    log(f"[clip] {card_line()}")
+    model = init_clip_model(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    images, text, txt2img, img2txt = clip_corpus(cfg, n_images, texts_per_image, seed=9)
+    batches = [images[i:i + batch] for i in range(0, n_images, batch)]
+    Lv, Lt = cfg.vision_layers, cfg.transformer_layers
+    ori = clip_gflops(cfg, [cfg.vision_num_patches] * Lv, [cfg.context_length - 1] * Lt)
+    target = ori * (1.0 - p_target)
+    im0 = torch.from_numpy(batches[0]).to(device)
+    tx = torch.from_numpy(text).to(device)
+
+    lo, hi = 0.05, 60.0
+    with torch.inference_mode():
+        for _ in range(bisect_steps):
+            t = math.sqrt(lo * hi)
+            vk = model.encode_image(im0, temperature=t, prune_active=True).kept_counts
+            tk = model.encode_text(tx[:batch], temperature=t, prune_active=True).kept_counts
+            g = clip_gflops(cfg, vk.cpu().numpy(), tk.cpu().numpy())
+            log(f"[clip] bisect T={t:.4f}: {g:.2f} GFLOPs (target {target:.2f}); kept vision "
+                f"{vk.tolist()[::4]}... text {tk.tolist()[::3]}...")
+            if g > target:
+                lo = t
+            else:
+                hi = t
+    t_star, g_star = t, g
+    caps_v = probe_capacities(model, batches, t_star, "ceil")
+    log(f"[clip] T*={t_star:.4f}: {g_star:.2f} GFLOPs pruned / {ori:.2f} dense; "
+        f"capacities vision {list(caps_v)}")
+
+    def run_eval(temperature, cv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with K5Capture() as k5_capture, K1Capture() as k1_capture:  # the eval's own inputs
+            stats, gflops = evaluate(model, iter(batches), text, txt2img, img2txt, temperature,
+                                     capacities_v=cv, batch_size=batch)
+        return stats, gflops, time.perf_counter() - t0, k5_capture, k1_capture
+
+    attention_scores_cuda.launches = ffn_cuda.launches = 0
+    stats, cur_g, eval_s, k5_capture, k1_capture = run_eval(t_star, caps_v)
+    k1, k5 = attention_scores_cuda.launches, ffn_cuda.launches
+    n_texts = len(text)
+    n_tb = -(-n_texts // batch)
+    if k1 != Lv * len(batches):
+        raise AssertionError(f"clip eval launched K1 {k1} times, want {Lv * len(batches)}: "
+                             "every vision layer (the causal text attention stays plain)")
+    if k5 != Lv * len(batches) + Lt * n_tb:
+        raise AssertionError(f"clip eval launched K5 {k5} times, want every FFN of both towers "
+                             f"({Lv * len(batches) + Lt * n_tb})")
+    if not all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in stats.values()):
+        raise AssertionError(f"clip stats out of range: {stats}")
+    if not (math.isfinite(cur_g) and 0 < cur_g < ori):
+        raise AssertionError(f"clip eval GFLOPs {cur_g} not in (0, {ori})")
+    log(f"[clip] gather eval: {n_images} images, {n_texts} texts: {eval_s:.2f} s wall = "
+        f"{n_images / eval_s:.1f} images/s with their texts; r_mean {stats['r_mean']:.3f} "
+        f"(random weights); Cur_Gflops {cur_g:.2f}; launches K1 {k1}, K5 {k5}")
+    dense_stats, dense_g, dense_s, dense_k5, dense_k1 = run_eval(0.0, None)
+    if dense_k1.calls or abs(dense_g - ori) > 1e-6 * ori:
+        raise AssertionError(f"dense eval: {sum(dense_k1.calls.values())} scoring attentions, "
+                             f"GFLOPs {dense_g} (want none, {ori})")
+    log(f"[clip] dense eval: {dense_s:.2f} s wall; r_mean {dense_stats['r_mean']:.3f}; "
+        f"pruned/dense eval wall {dense_s / eval_s:.3f}x")
+    record5 = check_k5_cases("clip gather eval", k5_capture)
+    check_k5_cases("clip dense eval", dense_k5)
+    record1 = check_k1_cases("clip vision gather eval", k1_capture)
+
+    def tower_rates(temperature, cv):
+        """images/s of the vision tower over ``rate_batches`` batches and
+        texts/s of the text tower over 4x as many, batches of ``batch``."""
+        kw = dict(temperature=temperature, prune_active=temperature > 0)
+        ims = [torch.from_numpy(b).to(device) for b in batches[:rate_batches]]
+
+        @torch.inference_mode()
+        def img():
+            for im in ims:
+                model.encode_image(im, capacities=cv, **kw)
+
+        @torch.inference_mode()
+        def txt():
+            for i in range(0, 4 * rate_batches * batch, batch):
+                model.encode_text(tx[i:i + batch], **kw)
+
+        return (rate_batches * batch / time_ms(img, 2) * 1e3,
+                4 * rate_batches * batch / time_ms(txt, 2) * 1e3)
+
+    rates = {}
+    for name, temperature, cv in (("gather", t_star, caps_v), ("dense", 0.0, None)):
+        kw = dict(temperature=temperature, prune_active=temperature > 0, capacities=cv)
+
+        @torch.inference_mode()
+        def one_batch(kw=kw):
+            return model.encode_image(im0, **kw)
+
+        rates[name] = tower_rates(temperature, cv)
+        batch_ms = time_ms(one_batch, iters)
+        log(f"[clip] {name}: vision {rates[name][0]:.1f} images/s, text {rates[name][1]:.1f} "
+            f"texts/s; one image batch of {batch} {batch_ms:.2f} ms, host dispatch "
+            f"{host_ms(one_batch, iters):.2f} ms")
+        if name == "gather":
+            ffn_ab(f"clip gather image batch of {batch}", one_batch, iters)
+        profile_step(f"clip {name} image batch of {batch}", one_batch, batch_ms, top=8)
+    g, d = rates["gather"], rates["dense"]
+    log(f"[clip] pruned/dense: images/s {g[0] / d[0]:.3f}x, texts/s {g[1] / d[1]:.3f}x")
+    return t_star, k1, k5, record5, record1
+
+
+def phase_clip_parity(device, cfg, t_main, n_images=2, texts_per_image=2):
+    """The full-width CLIP model on the card (K1 in the vision tower) and
+    the CPU (plain), fp32, seeded weights: 2 images and 4 texts, mask and
+    gather mode.  Equal kept counts in both towers, unit features within
+    1e-5, equal rankings of ``sims`` in both directions, one K1 launch per
+    vision layer.  The temperature is the first of a few around the main
+    path's ``t_main`` at which the vision tower prunes on the CPU and every
+    DTP decision stands ``GAP_MIN`` from its edge, with the card's drift
+    ``DRIFT_FACTOR`` times below that margin (as phase 8)."""
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.models.clip import init_clip_model
+    from madtp_tpu_torch.tasks.clip_retrieval import encode_towers, probe_capacities
+
+    cpu_model = init_clip_model(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(device)
+    images, text, _, _ = clip_corpus(cfg, n_images, texts_per_image, seed=8)
+
+    def run(model, temperature, cv):
+        t0 = time.perf_counter()
+        before = attention_scores_cuda.launches
+        with DTPRecorder() as rec:
+            img, txt, vk, tk = encode_towers(model, [images], text, temperature=temperature,
+                                             prune_active=True, capacities_v=cv,
+                                             batch_size=len(text))
+        return dict(kept=(vk, tk), feats=(img, txt), sims=img @ txt.T, dtp=rec.records,
+                    k1=attention_scores_cuda.launches - before,
+                    seconds=time.perf_counter() - t0)
+
+    for temperature in (t_main * f for f in (1.0, 1.25, 0.8, 1.6, 0.6, 2.0)):
+        caps = probe_capacities(cpu_model, [images], temperature)
+        modes = {"mask": None, "gather": caps}
+        cpu_runs = {mode: run(cpu_model, temperature, cv) for mode, cv in modes.items()}
+        thr_gap, rank_gap = (min(g) for g in zip(*(dtp_margins(r["dtp"])
+                                                   for r in cpu_runs.values())))
+        margin = min(thr_gap, rank_gap)
+        vk = cpu_runs["mask"]["kept"][0]
+        log(f"[clip-parity] T={temperature:.4f}: smallest DTP margins on the CPU: threshold "
+            f"{thr_gap:.3e}, rank {rank_gap:.3e} ({margin / FP32_ULP:.0f} fp32 steps, want "
+            f">= {GAP_MIN / FP32_ULP:.0f}); vision keeps {int(vk[-1])} of "
+            f"{cfg.vision_num_patches}; cpu {sum(r['seconds'] for r in cpu_runs.values()):.1f} s")
+        if margin >= GAP_MIN and vk[-1] < cfg.vision_num_patches:
+            break
+    else:
+        raise AssertionError("no temperature near the main path's prunes with every DTP "
+                             f"decision {GAP_MIN / FP32_ULP:.0f} fp32 steps from its edge")
+    log(f"[clip-parity] T={temperature:.4f}: gather capacities vision {list(caps)}")
+    for mode, cv in modes.items():
+        cpu, card = cpu_runs[mode], run(gpu_model, temperature, cv)
+        if not all(np.array_equal(a, b) for a, b in zip(cpu["kept"], card["kept"])):
+            raise AssertionError(f"clip {mode}: kept counts differ: card {card['kept']} "
+                                 f"cpu {cpu['kept']}")
+        drift = dtp_drift(cpu["dtp"], card["dtp"])
+        if not drift * DRIFT_FACTOR <= margin:
+            raise AssertionError(f"clip {mode}: the card's DTP scores drift {drift:.3e} from "
+                                 f"the CPU's, more than 1/{DRIFT_FACTOR} of the margin {margin:.3e}")
+        feat_err = max(float(np.abs(a - b).max()) for a, b in zip(card["feats"], cpu["feats"]))
+        if not feat_err <= 1e-5:
+            raise AssertionError(f"clip {mode}: features differ by {feat_err:.3e} (limit 1e-5)")
+        for s_card, s_cpu in ((card["sims"], cpu["sims"]), (card["sims"].T, cpu["sims"].T)):
+            if not np.array_equal(np.argsort(-s_card, axis=1, kind="stable"),
+                                  np.argsort(-s_cpu, axis=1, kind="stable")):
+                raise AssertionError(f"clip {mode}: the rankings of sims differ")
+        if card["k1"] != cfg.vision_layers:
+            raise AssertionError(f"clip {mode}: K1 launched {card['k1']} times, want "
+                                 f"{cfg.vision_layers} (one image batch)")
+        log(f"[clip-parity] {mode}: kept vision {card['kept'][0].tolist()} text "
+            f"{card['kept'][1].tolist()} equal on card and cpu; rankings equal; max|diff| "
+            f"features {feat_err:.2e}; DTP drift {drift:.2e} "
+            f"({margin / drift if drift else math.inf:.0f}x below the margin); K1 {card['k1']}; "
+            f"cpu {cpu['seconds']:.1f} s")
 
 
 def card_line():
@@ -1292,22 +1804,28 @@ def main():
     record = phase_k1(device)
     record2 = phase_k2(device)
     phase_k4(device)
+    record5 = phase_k5(device)
     cfg = full_config()
     phase_model_parity(device, cfg)
-    k1_eval, k4_eval = phase_main_path(device, cfg)
+    k1_eval, k4_eval, k5_eval = phase_main_path(device, cfg)
     phase_train_parity(device, cfg)
-    k1_train, k2_train, k4_train = phase_train_main(device, cfg)
+    k1_train, k2_train, k4_train, k5_train = phase_train_main(device, cfg)
     rcfg = retrieval_config()
     phase_retrieval_parity(device, rcfg)
-    k1_ret, k4_ret, record4 = phase_retrieval_main(device, rcfg)
+    k1_ret, k4_ret, k5_ret, record4 = phase_retrieval_main(device, rcfg)
+    ccfg = clip_config()
+    t_clip, k1_clip, k5_clip, record5_clip, record1_clip = phase_clip_main(device, ccfg)
+    phase_clip_parity(device, ccfg, t_clip)
 
     kernels = [
         dict(name="attention_scores", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:595",
-             launches=k1_eval + k1_train + k1_ret,
-             launches_by_path={"eval": k1_eval, "train": k1_train, "retrieval": k1_ret},
-             **record, library_note="library_ms is scaled_dot_product_attention, out only"),
+             launches=k1_eval + k1_train + k1_ret + k1_clip,
+             launches_by_path={"eval": k1_eval, "train": k1_train, "retrieval": k1_ret,
+                               "clip": k1_clip},
+             **record, at_clip_vision_h16=record1_clip,
+             library_note="library_ms is scaled_dot_product_attention, out only"),
         dict(name="attention_scores_bwd", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores_bwd.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:306",
@@ -1321,6 +1839,13 @@ def main():
              launches_by_path={"eval": k4_eval, "train": k4_train, "retrieval": k4_ret},
              **record4, library_note="library_ms is scaled_dot_product_attention with the "
                                      "same additive mask: the same function"),
+        dict(name="ffn", route="cuda", source="madtp_tpu_torch/csrc/ffn.cu",
+             replaces="madtp_tpu/ops/pallas/fused_ffn.py:79",
+             launches=k5_eval + k5_train + k5_ret + k5_clip,
+             launches_by_path={"eval": k5_eval, "train": k5_train, "retrieval": k5_ret,
+                               "clip": k5_clip},
+             **record5, at_clip_gather_eval=record5_clip,
+             library_note="library_ms is two F.linear and the activation: the same function"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """madtp-tpu in PyTorch and CUDA for one NVIDIA H100.
 
-The same system as :mod:`madtp_tpu` (BLIP with dynamic token pruning at every
-layer), written in PyTorch.  Module names mirror the JAX package so each
+The same system as :mod:`madtp_tpu` (BLIP and CLIP with dynamic token
+pruning at every layer), written in PyTorch.  Module names mirror the JAX package so each
 function's counterpart is found at the same path:
 
 * :mod:`.core` — configs and device selection;
@@ -9,8 +9,8 @@ function's counterpart is found at the same path:
 * :mod:`.kernels` / ``csrc/`` — hand-written Hopper kernels, built with
   ``nvcc`` at first use;
 * :mod:`.prune` — MAG query, DTP, capacity calibration, FLOPs model;
-* :mod:`.models` — ViT, MED, the NLVR and the retrieval models as
-  ``nn.Module`` s;
+* :mod:`.models` — ViT, MED, the NLVR and the retrieval models, and CLIP's
+  two towers, as ``nn.Module`` s;
 * :mod:`.ckpt` — weights from the JAX param tree or a reference ``.pth``,
   and the checkpoint a compression run writes;
 * :mod:`.eval` — retrieval recall (``itm_eval``);
@@ -18,7 +18,8 @@ function's counterpart is found at the same path:
   controller, the NLVR train step (fp32 or bf16 compute on fp32 masters);
 * :mod:`.tasks` — the NLVR2 eval step and loop, the train epoch and the
   ``--fast_train`` capacity probe; BLIP retrieval eval (corpus encode, ITM
-  rerank, the ``--fast_eval`` probe).
+  rerank, the ``--fast_eval`` probe); CLIP retrieval eval (both towers,
+  ``itm_eval`` of the similarities, the ``--fast_eval`` probe).
 
 The package imports neither ``jax`` nor anything of :mod:`madtp_tpu`.
 Entry points run on ``device="cuda"`` unless the caller passes

@@ -1,13 +1,14 @@
-"""Weights into and out of the port's NLVR and retrieval models.  In, from
-two sources that must give the same tensors:
+"""Weights into and out of the port's NLVR, retrieval and CLIP models.  In,
+from two sources that must give the same tensors:
 
-* :func:`nlvr_from_jax_params`, :func:`retrieval_from_jax_params` — the JAX
-  package's param tree as numpy arrays (layers stacked ``[L, ...]``, linear
-  kernels ``[in, out]``);
-* :func:`load_nlvr_state_dict`, :func:`load_retrieval_state_dict` — a state
-  dict in the reference ``.pth`` key layout (``madtp_tpu/ckpt/remap.py``
-  ``remap_vit``, ``remap_med``, and the head and codebook handling of
-  ``load_blip_nlvr`` and ``load_blip_retrieval``).
+* :func:`nlvr_from_jax_params`, :func:`retrieval_from_jax_params`,
+  :func:`clip_from_jax_params` — the JAX package's param tree as numpy
+  arrays (layers stacked ``[L, ...]``, linear kernels ``[in, out]``);
+* :func:`load_nlvr_state_dict`, :func:`load_retrieval_state_dict`,
+  :func:`load_clip_state_dict` — a state dict in the reference ``.pth`` key
+  layout (``madtp_tpu/ckpt/remap.py`` ``remap_vit``, ``remap_med``,
+  ``remap_clip``, and the head and codebook handling of ``load_blip_nlvr``
+  and ``load_blip_retrieval``).
 
 The reference NLVR layout carries ``crossattention.output.merge_layer`` only
 at layers >= ``merge_start_layer``, like the port's modules; a base checkpoint
@@ -27,9 +28,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from madtp_tpu_torch.core.config import BlipConfig
+from madtp_tpu_torch.core.config import BlipConfig, CLIPConfig
 from madtp_tpu_torch.core.device import resolve_device
 from madtp_tpu_torch.models.blip import NLVRModel, RetrievalModel
+from madtp_tpu_torch.models.clip import CLIPModel
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -74,8 +76,9 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, num_patches: int,
 
 
 def _tensor(x) -> torch.Tensor:
-    """A contiguous fp32 copy (the model must not alias the caller's arrays)."""
-    return torch.tensor(np.ascontiguousarray(x, dtype=np.float32))
+    """A contiguous fp32 copy (the model must not alias the caller's arrays);
+    0-d stays 0-d."""
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C"))
 
 
 def _keys(model_fn) -> list:
@@ -153,6 +156,29 @@ def load_retrieval_state_dict(sd: Mapping[str, object], cfg: BlipConfig,
     return _make(lambda: RetrievalModel(cfg, embed_dim), dev, new)
 
 
+def load_clip_state_dict(sd: Mapping[str, object], cfg: CLIPConfig,
+                         device="cuda") -> CLIPModel:
+    """A CLIP model from a state dict in the reference ``clip/model.py``
+    layout (numpy arrays or tensors; fp16 weights are upcast), as
+    ``remap_clip`` reads it: a block without ``query_model.q_map.0`` gets a
+    zero map, and the codebook ``space_dict`` is taken when present (without
+    it the model runs dense only).  Keys the model does not have are
+    ignored.  ``cfg`` usually comes from :func:`~madtp_tpu_torch.core.config.
+    infer_clip_config`."""
+    dev = resolve_device(device)
+    sd_num = int(np.shape(sd["space_dict"])[0]) if "space_dict" in sd else 0
+    new: Dict[str, torch.Tensor] = {}
+    for k in _keys(lambda: CLIPModel(cfg, sd_num)):
+        if k in sd:
+            new[k] = _tensor(sd[k])
+        elif ".query_model.q_map.0." in k:
+            width = cfg.vision_width if k.startswith("visual.") else cfg.transformer_width
+            new[k] = torch.zeros((cfg.sd_dim, width) if k.endswith("weight") else (cfg.sd_dim,))
+        else:
+            raise KeyError(f"state dict has no {k}")
+    return _make(lambda: CLIPModel(cfg, sd_num), dev, new)
+
+
 class _JaxTree:
     """Collects reference-named fp32 tensors from JAX param-tree leaves."""
 
@@ -224,6 +250,20 @@ class _JaxTree:
             self.ln(b + "output.LayerNorm", L["output"]["LayerNorm"], i)
 
 
+    def clip_blocks(self, prefix: str, blocks, depth: int):
+        for i in range(depth):
+            b = f"{prefix}.resblocks.{i}."
+            self.ln(b + "ln_1", blocks["ln_1"], i)
+            ip = blocks["attn"]["in_proj"]
+            self.sd[b + "attn.in_proj_weight"] = _tensor(np.asarray(ip["kernel"])[i].T)
+            self.sd[b + "attn.in_proj_bias"] = _tensor(np.asarray(ip["bias"])[i])
+            self.lin(b + "attn.out_proj", blocks["attn"]["out_proj"], i)
+            self.ln(b + "ln_2", blocks["ln_2"], i)
+            self.lin(b + "mlp.c_fc", blocks["mlp"]["c_fc"], i)
+            self.lin(b + "mlp.c_proj", blocks["mlp"]["c_proj"], i)
+            self.lin(b + "query_model.q_map.0", blocks["query_model"]["q_map"], i)
+
+
 def nlvr_from_jax_params(tree: Mapping, cfg: BlipConfig, device="cuda") -> NLVRModel:
     """An NLVR model from the JAX package's param tree (numpy leaves)."""
     dev = resolve_device(device)
@@ -250,6 +290,33 @@ def retrieval_from_jax_params(tree: Mapping, cfg: BlipConfig,
     j.sd["space_dict"] = _tensor(tree["space_dict"])
     embed_dim = j.sd["vision_proj.weight"].shape[0]
     return _make(lambda: RetrievalModel(cfg, embed_dim), dev, j.sd)
+
+
+def clip_from_jax_params(tree: Mapping, cfg: CLIPConfig, space_dict=None,
+                         device="cuda") -> CLIPModel:
+    """A CLIP model from the JAX package's param tree (numpy leaves;
+    ``init_clip_params`` or ``remap_clip``'s layout) and the codebook, which
+    the JAX package keeps outside the tree (``None``: a dense-only model)."""
+    dev = resolve_device(device)
+    j = _JaxTree()
+    v = tree["visual"]
+    W, p = cfg.vision_width, cfg.vision_patch_size
+    j.sd["visual.conv1.weight"] = _tensor(np.asarray(v["conv1"]["kernel"]).T.reshape(W, 3, p, p))
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        j.sd[f"visual.{name}"] = _tensor(v[name])
+    j.ln("visual.ln_pre", v["ln_pre"])
+    j.clip_blocks("visual.transformer", v["blocks"], cfg.vision_layers)
+    j.ln("visual.ln_post", v["ln_post"])
+    j.sd["token_embedding.weight"] = _tensor(tree["token_embedding"])
+    for name in ("positional_embedding", "text_projection", "logit_scale"):
+        j.sd[name] = _tensor(tree[name])
+    j.clip_blocks("transformer", tree["blocks"], cfg.transformer_layers)
+    j.ln("ln_final", tree["ln_final"])
+    sd_num = 0
+    if space_dict is not None:
+        j.sd["space_dict"] = _tensor(space_dict)
+        sd_num = j.sd["space_dict"].shape[0]
+    return _make(lambda: CLIPModel(cfg, sd_num), dev, j.sd)
 
 
 def save_nlvr_checkpoint(model: NLVRModel, path: str, *, epoch: int,

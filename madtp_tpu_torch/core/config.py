@@ -3,7 +3,8 @@
 Copies of the JAX package's dataclasses (``madtp_tpu/core/config.py:16-163``)
 with the same fields and defaults, plus ``BlipConfig``
 (``madtp_tpu/models/blip.py:32-36``), so one set of keyword arguments builds
-either package's model.
+either package's model; and :func:`infer_clip_config`, a CLIP checkpoint's
+architecture from its weight shapes.
 """
 
 from __future__ import annotations
@@ -57,6 +58,74 @@ class MedConfig:
     twin_cross: bool = False
     merge_start_layer: int = 6
     dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """OpenAI-CLIP dual-tower config (``madtp_tpu/core/config.py:97-134``),
+    normally inferred from a checkpoint's weight shapes.  The ViT visual
+    tower only: a ``resnet_layers`` config (ModifiedResNet) raises, since that
+    tower is not ported yet."""
+
+    embed_dim: int = 512
+    image_resolution: int = 224
+    vision_layers: int = 12
+    vision_width: int = 768
+    vision_patch_size: int = 16
+    context_length: int = 77
+    vocab_size: int = 49408
+    transformer_width: int = 512
+    transformer_heads: int = 8
+    transformer_layers: int = 12
+    sd_dim: int = 768
+    dtype: str = "float32"
+    vision_heads_override: int = 0  # 0: vision_width // 64
+    resnet_layers: tuple = ()
+
+    def __post_init__(self):
+        if self.resnet_layers:
+            raise NotImplementedError(
+                "the ModifiedResNet visual tower is not ported to madtp_tpu_torch yet")
+
+    @property
+    def vision_heads(self) -> int:
+        return self.vision_heads_override or max(1, self.vision_width // 64)
+
+    @property
+    def vision_num_patches(self) -> int:
+        return (self.image_resolution // self.vision_patch_size) ** 2
+
+
+def infer_clip_config(sd, sd_dim: int = 768) -> CLIPConfig:
+    """The ViT CLIP architecture from a reference-layout state dict's shapes
+    (``madtp_tpu/cli/compress_retrieval_clip.py:54-72``; reference
+    ``clip/model.py:678-701``).  A ModifiedResNet checkpoint (no
+    ``visual.proj``) raises."""
+    if "visual.proj" not in sd:
+        raise NotImplementedError(
+            "a ModifiedResNet CLIP checkpoint: that tower is not ported to madtp_tpu_torch yet")
+
+    def shape(k):
+        return tuple(sd[k].shape)
+
+    conv = shape("visual.conv1.weight")
+    grid = round((shape("visual.positional_embedding")[0] - 1) ** 0.5)
+    width = shape("ln_final.weight")[0]
+    return CLIPConfig(
+        embed_dim=shape("text_projection")[1],
+        image_resolution=conv[-1] * grid,
+        vision_layers=len([k for k in sd if k.startswith("visual.")
+                           and k.endswith(".attn.in_proj_weight")]),
+        vision_width=conv[0],
+        vision_patch_size=conv[-1],
+        context_length=shape("positional_embedding")[0],
+        vocab_size=shape("token_embedding.weight")[0],
+        transformer_width=width,
+        transformer_heads=width // 64,
+        transformer_layers=len({k.split(".")[2] for k in sd
+                                if k.startswith("transformer.resblocks")}),
+        sd_dim=sd_dim,
+    )
 
 
 @dataclasses.dataclass(frozen=True)

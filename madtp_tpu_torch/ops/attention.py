@@ -22,8 +22,13 @@ cross-attention of the MED, routed the same way to kernel K4 (through
 :func:`cross_attention_plain`.  The JAX package's dispatch thresholds
 (``FUSED_MIN_N``, ``FUSED_FULL_MAX_N``, and ``_cross_fused_eligible``'s Nq >=
 8, S >= 256 and ``MADTP_FUSED_CROSS``) were set for the TPU and do not apply:
-every scoring attention on the card goes through K1, the text side's short
-buffers included, and every cross-attention through K4.
+every scoring attention without an ``attn_bias`` goes through K1 on the card,
+the text side's short buffers included, at any head count (CLIP's vision
+tower runs it at H = 16), and every cross-attention through K4.  A scoring
+attention with an ``attn_bias`` (CLIP's causal text tower) runs
+:func:`attention_core` on the card too, as the JAX package's
+``attention_core`` leaves its fused path whenever ``attn_bias`` is given:
+K1 has no causal mask.
 """
 
 from __future__ import annotations

@@ -92,9 +92,15 @@ def _merge_dropped(w: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bp,bpd->bd", w, patches.float()).to(patches.dtype)
 
 
-def _keep_rule(score, signals, palive, temperature, row_independent):
+def _keep_rule(score, signals, palive, temperature, row_independent, variant="vit",
+               max_keep=None):
     """The decision both modes share: ``(order, topk_num, alive_cnt,
-    apply)``, with ``order`` the stable descending ranking of alive slots."""
+    apply)``, with ``order`` the stable descending ranking of alive slots.
+
+    The step applies when it keeps at least one token (``variant="vit"``,
+    the ViT and MED) or more than ``max_keep`` (``variant="clip"``, default
+    1; the text tower passes ``max(eot_pos) + 2`` as a device tensor, so the
+    guard keeps the EOT token without a host sync), and drops at least two."""
     if torch.is_tensor(temperature):
         temperature = temperature.to(torch.float32)
     else:
@@ -110,19 +116,25 @@ def _keep_rule(score, signals, palive, temperature, row_independent):
     else:
         topk_num = counts.amax()
         alive_cnt = palive.sum(dim=1).amax()
-    apply = (topk_num >= 1) & (alive_cnt - topk_num >= 2)
+    if variant == "clip":
+        apply = (topk_num > (1 if max_keep is None else max_keep)) & (alive_cnt - topk_num >= 2)
+    elif variant == "vit":
+        apply = (topk_num >= 1) & (alive_cnt - topk_num >= 2)
+    else:
+        raise ValueError(f"unknown DTP variant {variant!r}")
     score_ranked = torch.where(palive, score, torch.full_like(score, NEG_INF))
     order = torch.argsort(-score_ranked, dim=-1, stable=True)
     return order, topk_num, alive_cnt, apply
 
 
 def dtp_prune(state: TokenState, signals: DTPSignals, temperature, merge_slot: int,
-              *, row_independent: bool = False) -> Tuple[TokenState, torch.Tensor]:
-    """One mask-mode DTP step (ViT/MED variant).  Returns ``(new_state,
-    kept)``: ``kept`` is the batch-uniform count of alive non-CLS slots after
-    pruning, merged token included (per row ``[B]`` when
-    ``row_independent``).  Skipped when nothing or almost everything would
-    be pruned."""
+              *, variant: str = "vit", max_keep=None,
+              row_independent: bool = False) -> Tuple[TokenState, torch.Tensor]:
+    """One mask-mode DTP step.  Returns ``(new_state, kept)``: ``kept`` is
+    the batch-uniform count of alive non-CLS slots after pruning, merged
+    token included (per row ``[B]`` when ``row_independent``).  Skipped when
+    nothing or almost everything would be pruned (``variant`` and
+    ``max_keep``: :func:`_keep_rule`)."""
     x, alive, bias = state
     B, S, D = x.shape
     palive = alive[:, 1:]
@@ -130,7 +142,7 @@ def dtp_prune(state: TokenState, signals: DTPSignals, temperature, merge_slot: i
 
     score = importance_score(signals, palive)
     order, topk_num, alive_cnt, apply = _keep_rule(
-        score, signals, palive, temperature, row_independent)
+        score, signals, palive, temperature, row_independent, variant, max_keep)
     ranks = _invert_permutation(order)
     kcol = topk_num[:, None] if row_independent else topk_num
     keep = palive & (ranks < kcol)
@@ -182,7 +194,8 @@ def compact(state: TokenState, capacity: int) -> Tuple[TokenState, torch.Tensor]
 
 
 def dtp_prune_gather(state: TokenState, signals: DTPSignals, temperature,
-                     capacity: int, *, row_independent: bool = False
+                     capacity: int, *, variant: str = "vit", max_keep=None,
+                     row_independent: bool = False
                      ) -> Tuple[TokenState, torch.Tensor, torch.Tensor]:
     """DTP step plus compaction to ``capacity`` slots: slot 0 = CLS, slots
     ``1..capacity-2`` the highest-scored tokens (alive for the first
@@ -198,7 +211,7 @@ def dtp_prune_gather(state: TokenState, signals: DTPSignals, temperature,
 
     score = importance_score(signals, palive)
     order, topk_num, alive_cnt, apply = _keep_rule(
-        score, signals, palive, temperature, row_independent)
+        score, signals, palive, temperature, row_independent, variant, max_keep)
 
     eff_keep = torch.where(apply, topk_num.clamp_max(cap_p), alive_cnt.clamp_max(cap_p))
     overflow = (torch.where(apply, topk_num, alive_cnt) - cap_p).clamp_min(0)

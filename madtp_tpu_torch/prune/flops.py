@@ -1,5 +1,5 @@
 """Closed-form compute model, one multiply-add = one FLOP as fvcore counts
-(copy of ``madtp_tpu/prune/flops.py:23-118``).  Per-layer kept counts fix the
+(copy of ``madtp_tpu/prune/flops.py:23-164``, the ViT branch of CLIP).  Per-layer kept counts fix the
 compute of a transformer stack, so the GFLOPs the temperature controller reads
 need no tracing."""
 
@@ -7,7 +7,11 @@ from __future__ import annotations
 
 from typing import Sequence
 
-from madtp_tpu_torch.core.config import MedConfig, ViTConfig
+from madtp_tpu_torch.core.config import CLIPConfig, MedConfig, ViTConfig
+
+# the reference's dense CLIP ViT-L/14@336 GFLOPs, the base of its compression
+# target (madtp_tpu/cli/compress_retrieval_clip.py:26)
+ORI_GFLOPS = 395.7
 
 
 def _layer_macs(n_in: float, n_out: float, D: int, I: int, n_kv: float = None):
@@ -77,3 +81,26 @@ def retrieval_gflops(vit_cfg: ViTConfig, med_cfg: MedConfig, v_kept: Sequence[in
     cross_kv = float(v_kept[-1]) + 1
     itm = med_flops(med_cfg, t_kept, n_text0, cross_kv=cross_kv)
     return (2 * v + 2 * t + 3 * itm) / 1e9
+
+
+def clip_gflops(cfg: CLIPConfig, v_kept: Sequence[int], t_kept: Sequence[int]) -> float:
+    """Both CLIP towers per sample, twice: the reference's controller traces
+    ``CLIP.forward``, which also runs the momentum towers
+    (``clip/model.py:549-550``); 395.7 for ViT-L/14@336 in the reference."""
+    Dv, Iv = cfg.vision_width, cfg.vision_width * 4
+    Dt, It = cfg.transformer_width, cfg.transformer_width * 4
+    total = cfg.vision_num_patches * (3 * cfg.vision_patch_size ** 2) * Dv
+    n_prev = cfg.vision_num_patches + 1
+    for k in v_kept:
+        n_out = float(k) + 1
+        total += _layer_macs(n_prev, n_out, Dv, Iv)
+        total += n_out * 100 * Dv * 2
+        n_prev = n_out
+    total += n_prev * Dv * cfg.embed_dim
+    n_prev = float(cfg.context_length)
+    for k in t_kept:
+        n_out = float(k) + 1
+        total += _layer_macs(n_prev, n_out, Dt, It)
+        total += n_out * 100 * Dt * 2
+        n_prev = n_out
+    return 2 * float(total) / 1e9

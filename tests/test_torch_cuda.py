@@ -1,7 +1,7 @@
-"""Kernels K1, K2 and K4 against their plain PyTorch versions on the card
-(the checks of ``chip_smoke.py``), the autograd pairings (K1 with K2, K4 with
-the plain version's backward), and the refusals.  Needs an NVIDIA GPU with
-nvcc; skipped elsewhere.
+"""Kernels K1, K2, K4 and K5 against their plain PyTorch versions on the card
+(the checks of ``chip_smoke.py``), the autograd pairings (K1 with K2, K4 and
+K5 with the plain version's backward), the FFN routing rule, and the
+refusals.  Needs an NVIDIA GPU with nvcc; skipped elsewhere.
 
 Run on the card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
@@ -9,9 +9,11 @@ Run on the card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 import pytest
 import torch
 
-from chip_smoke import compare_k2, k1_case, k2_case, k4_case
+from chip_smoke import compare_k2, k1_case, k2_case, k4_case, k5_case
 from madtp_tpu_torch.kernels import attention_scores_bwd as k2
 from madtp_tpu_torch.kernels import cross_attention as k4
+from madtp_tpu_torch.kernels import ffn as k5
+from madtp_tpu_torch.ops import layers
 from madtp_tpu_torch.kernels.attention_scores import TOLERANCES, attention_scores_cuda
 from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
 from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
@@ -49,6 +51,14 @@ def _compare(q, k, v, alive, bias):
     (3, 2, True), (3, 65, False)])
 def test_k1_matches_plain(cuda, B, N, with_bias, dtype):
     _compare(*k1_case(B, N, with_bias=with_bias, dtype=dtype, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N", [(8, 584), (4, 608), (2, 130)])
+def test_k1_at_sixteen_heads(cuda, B, N, dtype):
+    """K1 at the CLIP ViT-L vision tower's head count, H = 16 (gather 584
+    and mask-mode 608 slots), which no BLIP path reaches."""
+    _compare(*k1_case(B, N, with_bias=False, dtype=dtype, device=cuda, H=16))
 
 
 def test_k1_dead_rows_and_determinism(cuda):
@@ -324,3 +334,104 @@ def test_cross_attention_dispatch_and_gradients(cuda, dtype):
     torch.testing.assert_close(got_out.float(), want_out.float(), rtol=rtol, atol=atol)
     for g, wnt in zip(got, want):  # both backward passes are the plain version's
         torch.testing.assert_close(g, wnt, rtol=1e-5, atol=1e-6)
+
+
+def _k5_compare(x, w1, b1, w2, b2, act):
+    with torch.no_grad():
+        got = k5.ffn_cuda(x, w1, b1, w2, b2, act)
+    want = layers.mlp_plain(x, w1, b1, w2, b2, act)
+    torch.cuda.synchronize()
+    rtol, atol = k5.TOLERANCES[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+    return got
+
+
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
+@pytest.mark.parametrize("M,D,F", [
+    (32 * 584, 1024, 4096), (32 * 96, 768, 3072), (8 * 584, 768, 3072), (1000, 768, 3072),
+    (1, 128, 128), (130, 256, 384)])
+def test_k5_matches_plain(cuda, M, D, F, act):
+    """The CLIP vision and text towers' widths, BLIP's, and ragged M (one
+    row, and past one 128-row tile)."""
+    _k5_compare(*k5_case(M, D, F, cuda), act)
+
+
+def test_k5_determinism_and_count(cuda):
+    """A second launch gives the same bits; each call adds one to the count."""
+    args = k5_case(300, 256, 512, cuda)
+    before = k5.ffn_cuda.launches
+    out = _k5_compare(*args, "quick_gelu")
+    assert torch.equal(out, k5.ffn_cuda(*args, "quick_gelu"))
+    assert k5.ffn_cuda.launches == before + 2
+
+
+def test_k5_refusals(cuda):
+    """K5 raises on what it does not take: CPU tensors, fp32, mismatched
+    dtypes, a missing bias, widths off its 128 tile, a strided input, an
+    unknown activation, and inputs that need a gradient while grad mode is
+    on."""
+    x, w1, b1, w2, b2 = k5_case(40, 256, 512, cuda)
+    off_d = k5_case(40, 192, 512, cuda)
+    off_f = k5_case(40, 256, 320, cuda)
+    bad = [dict(x=x.cpu(), w1=w1.cpu(), b1=b1.cpu(), w2=w2.cpu(), b2=b2.cpu()),
+           dict(x=x.float(), w1=w1.float(), b1=b1.float(), w2=w2.float(), b2=b2.float()),
+           dict(w1=w1.float()), dict(b2=None), dict(b1=b1[:-1]),
+           dict(zip(("x", "w1", "b1", "w2", "b2"), off_d)),
+           dict(zip(("x", "w1", "b1", "w2", "b2"), off_f)),
+           dict(x=torch.cat([x, x], dim=1)[:, ::2]), dict(act="relu")]
+    base = dict(x=x, w1=w1, b1=b1, w2=w2, b2=b2, act="gelu")
+    for repl in bad:
+        a = dict(base, **repl)
+        with pytest.raises(ValueError):
+            k5.ffn_cuda(a["x"], a["w1"], a["b1"], a["w2"], a["b2"], a["act"])
+    with pytest.raises(RuntimeError, match="no gradient"):
+        k5.ffn_cuda(x.detach().requires_grad_(), w1, b1, w2, b2)
+
+
+def _linears(w1, b1, w2, b2):
+    fc1, fc2 = torch.nn.Linear(1, 1), torch.nn.Linear(1, 1)
+    fc1.weight, fc1.bias = torch.nn.Parameter(w1), torch.nn.Parameter(b1)
+    fc2.weight, fc2.bias = torch.nn.Parameter(w2), torch.nn.Parameter(b2)
+    return fc1, fc2
+
+
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
+def test_fused_mlp_gradients(cuda, act):
+    """mlp on bf16 inputs that need a gradient goes through FusedMLP (one K5
+    launch); its gradients are those autograd finds through the plain
+    version, whose recompute its backward is."""
+    x, w1, b1, w2, b2 = k5_case(3 * 70, 256, 512, cuda, seed=1)
+    x = x.view(3, 70, 256)
+    fc1, fc2 = _linears(w1, b1, w2, b2)
+    xg = x.clone().requires_grad_()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.randn(x.shape, generator=gen, device=cuda)
+    before = k5.ffn_cuda.launches
+    y = layers.mlp(xg, fc1, fc2, act=act)
+    fused = y.grad_fn.next_functions[0][0]  # y is a view of FusedMLP's 2-D output
+    assert "FusedMLP" in type(fused).__name__ and k5.ffn_cuda.launches == before + 1
+    params = [xg, fc1.weight, fc1.bias, fc2.weight, fc2.bias]
+    got = torch.autograd.grad((y.float() * w).sum(), params)
+    ref = [t.detach().clone().requires_grad_() for t in params]
+    want_y = layers.mlp_plain(*ref, act)
+    want = torch.autograd.grad((want_y.float() * w).sum(), ref)
+    rtol, atol = k5.TOLERANCES[torch.bfloat16]
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=rtol, atol=atol)
+    for g, wnt in zip(got, want):  # both backward passes are the plain version's
+        torch.testing.assert_close(g, wnt)
+
+
+def test_mlp_routing_rule(cuda):
+    """On the card a bf16 FFN goes to K5 (straight to the kernel under
+    inference_mode) and an fp32 one stays on two linears."""
+    x, w1, b1, w2, b2 = k5_case(64, 256, 512, cuda)
+    fc1, fc2 = _linears(w1, b1, w2, b2)
+    before = k5.ffn_cuda.launches
+    with torch.inference_mode():
+        y = layers.mlp(x.view(4, 16, 256), fc1, fc2)
+    assert k5.ffn_cuda.launches == before + 1 and y.shape == (4, 16, 256)
+    assert y.grad_fn is None
+    fc1_32, fc2_32 = _linears(w1.float(), b1.float(), w2.float(), b2.float())
+    with torch.inference_mode():
+        y32 = layers.mlp(x.float(), fc1_32, fc2_32, act="quick_gelu")
+    assert k5.ffn_cuda.launches == before + 1 and y32.dtype == torch.float32
