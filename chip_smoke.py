@@ -23,6 +23,9 @@ Phases, each fatal on failure:
    3072) and a ragged shape, GELU and QuickGELU, two launches bit-identical,
    with times, the bound, and the library call (two ``F.linear`` and the
    activation: the same function);
+3d. K1 in K3's range, N = 1,537 to 4,096, fp32 and bf16, with and without
+   bias, two launches bit-identical, each counted as one of K3's; time, bound
+   and SDPA (``out`` only) at the VQA-640 gather path's first layer;
 4. the full-width NLVR model (ViT-B/16@384 + 12-layer twin MED, seeded random
    weights, 2 pairs, fp32) on the card against the same model on the CPU, in
    mask and gather mode: equal kept counts, logits within 1e-4, K1 launched in
@@ -43,14 +46,15 @@ Phases, each fatal on failure:
 8. the full-width BLIP retrieval model (ViT-B/16@384 + 12-layer MED with
    single-stream cross-attention, the width of ``configs/retrieval_coco.yaml``,
    seeded random weights, fp32) on the card against the CPU: 4 images, 8
-   texts, ``k_test`` 4, mask and gather mode, at a temperature whose DTP
-   decisions on the CPU stand clear of fp32 rounding: equal kept counts and
+   texts, ``k_test`` 4, mask and gather mode, at the first temperature near
+   phase 9's whose DTP decisions on the CPU stand clear of fp32 rounding
+   (so it runs after phase 9): equal kept counts and
    candidate sets, features within 1e-5, rerank scores within 1e-4, 12 K4
    launches per ITM forward;
 9. the retrieval main path in bf16 at p=0.5: temperature bisection toward half
    the dense ``retrieval_gflops`` in mask mode, the ``--fast_eval`` capacities,
    ``tasks.retrieval.evaluate`` in gather mode on 256 synthetic images (8
-   batches of 32) and 1,280 texts at ``k_test`` 256, the dense eval, and one
+   batches of 32) and 512 texts at ``k_test`` 256, the dense eval, and one
    ITM forward at ``k_test`` 256: images/s, texts/s, ITM candidates/s, eval
    wall time, a profile of the ITM forward;
 10. the CLIP ViT-L/14@336 retrieval eval main path in bf16 at p=0.5
@@ -63,15 +67,38 @@ Phases, each fatal on failure:
 11. the full-width CLIP model on the card against the CPU, fp32, 2 images
    and 4 texts, mask and gather mode, at the first temperature near the main
    path's whose DTP decisions stand clear of fp32 rounding (as phase 8):
-   equal kept counts in both towers, features within 1e-5, equal rankings.
+   equal kept counts in both towers, features within 1e-5, equal rankings;
+12. the full-width BLIP VQA model (ViT-B/16 and the BERT-base MED as question
+   encoder and answer decoder) on the card against the CPU, fp32, at 480 px
+   and at 640 px (the 480-px weights loaded with the position grid resized):
+   2 questions, 64 answers with shared first tokens, ``k_test`` 8, mask and
+   gather mode, each of the four runs at its own first temperature near
+   phase 13's whose DTP decisions stand clear of fp32 rounding (as phase 8;
+   so it runs after phase 13): equal kept counts, question states within
+   1e-5, equal top-k lists and best answers, candidate losses within 1e-4,
+   and at 640 px K1 at N > 1536 in every mask-mode ViT layer;
+13. the VQA-480 eval main path (``configs/vqa.yaml``'s width, 3,128 answers,
+   ``k_test`` 128) in bf16 at p=0.5: the temperature bisected toward half
+   the two pruned towers' dense GFLOPs in mask mode, ``probe_capacities``,
+   ``tasks.vqa.evaluate`` in gather mode on 256 synthetic questions (16
+   batches of 16) and the dense eval; questions/s, wall times, exact launch
+   counts, a profile of one batch, the LM head's time;
+14. the VQA-640 path (1,601 tokens, the 480-px weights through
+   ``load_vqa_state_dict``), bf16: ``evaluate`` on 64 questions in mask and
+   gather mode at phase 13's temperature; every K1 launch at N > 1536 is one
+   of K3's (the TPU's query-tiled kernel), and K1 is held on those inputs.
 
 The NLVR phases (4-7) also hold K4 to 24 launches per forward: the twin
 cross-attention's two streams in each of the 12 MED layers.  Each main path
-(5, 7, 9, 10) also holds K4 and K5 against their plain versions on the
-inputs that path gave them, one case per distinct shape (K4 where the path
-has cross-attention), and phase 10 holds K1 on the CLIP vision tower's own
-H = 16 inputs; each path times its step with the FFNs on K5 and on two
-linears (the path before K5), in turns.
+(5, 7, 9, 10, 13, 14; phases 9, 10 and 13 their dense evals too) also
+holds K4 and K5 against their plain versions on the inputs that path gave
+it, one case per
+distinct shape (K4 where the path has cross-attention); phases 10 and 13
+hold K1 on their own inputs (the CLIP vision tower's at H = 16) and phase 14
+on its N > 1536 inputs; the paths of phases 5-10 time their step with the
+FFNs on K5 and on two linears (the path before K5), in turns.  Each main
+path zeroes the launch counts just before it runs and reads them just after.
+Every phase logs its wall time (``[time]``).
 
 Prints the card's name and power limit, a JSON line of kernel measurements,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -83,6 +110,7 @@ from __future__ import annotations
 import collections
 import copy
 import importlib
+import itertools
 import json
 import math
 import subprocess
@@ -94,6 +122,7 @@ import torch
 
 PAD_BIAS = -10000.0
 CLS_ID, SEP_ID, ENC_ID = 101, 102, 30523  # BERT's [CLS], [SEP]; BLIP's added [ENC]
+DEC_ID = 30522  # BLIP's added [DEC], the answers' BOS
 MEM_RATE = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; fp32 CUDA cores
 
@@ -106,20 +135,20 @@ def k1_case(B, N, *, with_bias, dtype, device, H=12, Dh=64, seed=0):
     """K1 inputs at one shape: q, k, v as [B, N, H, Dh] views of one packed
     [B, N, 3*H*Dh] tensor (the qkv linear's layout), about a quarter of slots
     1.. dead plus a dead tail like a mask-mode buffer's, and with
-    ``with_bias`` PAD_BIAS on about a fifth of the keys."""
-    rng = np.random.RandomState(seed)
-    packed = torch.from_numpy(rng.randn(B, N, 3 * H * Dh).astype(np.float32))
-    packed = packed.to(device=device, dtype=dtype)
+    ``with_bias`` PAD_BIAS on about a fifth of the keys.  Drawn on the
+    device from a seeded generator (numpy's draws took a minute of host time
+    at the larger shapes)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    packed = torch.randn(B, N, 3 * H * Dh, generator=g, device=device).to(dtype)
     q, k, v = (packed[..., i * H * Dh:(i + 1) * H * Dh].unflatten(-1, (H, Dh))
                for i in range(3))
-    alive = rng.rand(B, N) > 0.25
+    alive = torch.rand(B, N, generator=g, device=device) > 0.25
     alive[:, 0] = True
     alive[:, N - max(1, N // 50):] = False
     bias = None
     if with_bias:
-        bias = torch.from_numpy(
-            (rng.rand(B, N) < 0.2).astype(np.float32) * PAD_BIAS).to(device)
-    return q, k, v, torch.from_numpy(alive).to(device), bias
+        bias = (torch.rand(B, N, generator=g, device=device) < 0.2).float() * PAD_BIAS
+    return q, k, v, alive, bias
 
 
 def k2_case(B, N, *, with_bias, dtype, device, H=12, seed=0):
@@ -134,10 +163,9 @@ def k2_case(B, N, *, with_bias, dtype, device, H=12, seed=0):
     with torch.no_grad():
         out, _, _, stats = attention_scores_cuda(q, k, v, alive, bias_in, scale,
                                                  return_stats=True)
-    rng = np.random.RandomState(seed + 1)
-    d_out = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(device, dtype)
-    d_cls, d_col = (torch.from_numpy(rng.randn(B, N - 1).astype(np.float32)).to(device)
-                    for _ in range(2))
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    d_out = torch.randn(out.shape, generator=g, device=device).to(dtype)
+    d_cls, d_col = (torch.randn(B, N - 1, generator=g, device=device) for _ in range(2))
     return dict(q=q, k=k, v=v, alive=alive, bias=bias, bias_in=bias_in, scale=scale,
                 out=out, stats=stats, d_out=d_out, d_cls=d_cls, d_col=d_col)
 
@@ -206,22 +234,22 @@ def k4_case(B, Nq, S, *, with_bias, dtype, device, H=12, Dh=64, seed=0, packed_q
     output (with ``packed_q``, of a packed [B, Nq, 3*H*Dh] tensor: strided),
     k and v views of two separate [B, S, H*Dh] tensors (the key and value
     linears' outputs), a quarter of the keys dead (slot 0 alive, so every row
-    has a live key), and with ``with_bias`` PAD_BIAS on about a fifth."""
-    rng = np.random.RandomState(seed)
+    has a live key), and with ``with_bias`` PAD_BIAS on about a fifth; drawn
+    on the device, as ``k1_case``."""
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def heads(*shape):
-        t = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(device=device, dtype=dtype)
+        t = torch.randn(shape, generator=g, device=device).to(dtype)
         return t[..., :H * Dh].unflatten(-1, (H, Dh))
 
     q = heads(B, Nq, (3 if packed_q else 1) * H * Dh)
     k, v = heads(B, S, H * Dh), heads(B, S, H * Dh)
-    alive = rng.rand(B, S) > 0.25
+    alive = torch.rand(B, S, generator=g, device=device) > 0.25
     alive[:, 0] = True
     bias = None
     if with_bias:
-        bias = torch.from_numpy(
-            (rng.rand(B, S) < 0.2).astype(np.float32) * PAD_BIAS).to(device)
-    return q, k, v, torch.from_numpy(alive).to(device), bias
+        bias = (torch.rand(B, S, generator=g, device=device) < 0.2).float() * PAD_BIAS
+    return q, k, v, alive, bias
 
 
 def k4_work(q, k, alive, bias):
@@ -351,13 +379,24 @@ def ffn_ab(label, fn, iters):
     return k5, plain
 
 
-def check_k4_cases(label, capture, iters=20):
+def pick_record(records, calls, where=None):
+    """The record of the most-called case whose ``shape`` holds every item
+    of ``where`` (all cases when it is None)."""
+    keys = [k for k in records
+            if all(records[k]["shape"][f] == v for f, v in (where or {}).items())]
+    if not keys:
+        raise AssertionError(f"no case of shape {where} among {[r['shape'] for r in records.values()]}")
+    return records[max(keys, key=calls.__getitem__)]
+
+
+def check_k4_cases(label, capture, iters=20, where=None):
     """K4 against its plain version on the inputs a main path gave it (one
     case per distinct shape, dtype and bias, as ``capture`` recorded them):
     in their own dtype within ``TOLERANCES``, bf16 cases also cast to fp32
     within the fp32 tolerance, two launches bit-identical; with the times of
     K4, the plain version and SDPA (the same function), and the bound.
-    Returns the record of the most-called case for the kernels line."""
+    Returns the record of the most-called case (of those matching ``where``,
+    as ``pick_record``) for the kernels line."""
     import torch.nn.functional as F
 
     from madtp_tpu_torch.kernels.cross_attention import TOLERANCES, cross_attention_cuda
@@ -400,7 +439,7 @@ def check_k4_cases(label, capture, iters=20):
     torch.cuda.empty_cache()
     if not records:
         raise AssertionError(f"{label}: the path made no cross-attention call")
-    return records[capture.calls.most_common(1)[0][0]]
+    return pick_record(records, capture.calls, where)
 
 
 def bound(flops, nbytes, dtype):
@@ -748,40 +787,44 @@ def phase_k5(device, iters=20):
     return record
 
 
-def check_k5_cases(label, capture, iters=5):
+def check_k5_cases(label, capture, iters=5, where=None):
     """K5 against its plain version on the inputs a main path gave it (one
     case per distinct (M, D, F, act), as ``capture`` recorded them), and
     the FFNs' device time over the path's calls on K5, on the plain version
-    and on the library call.  Returns the record of the most-called case."""
-    records = {key: hold_k5(f"{label} M={key[0]} D={key[1]} F={key[2]} {key[3]} "
-                            f"({capture.calls[key]} calls)", *case, iters)
-               for key, case in capture.cases.items()}
+    and on the library call.  Returns the record of the most-called case
+    (of those matching ``where``, as ``pick_record``)."""
+    records = {c: hold_k5(f"{label} M={c[0]} D={c[1]} F={c[2]} {c[3]} "
+                          f"({capture.calls[c]} calls)", *case, iters)
+               for c, case in capture.cases.items()}
     capture.cases.clear()
     torch.cuda.empty_cache()
     if not records:
         raise AssertionError(f"{label}: the path made no K5 call")
-    total = {k: sum(capture.calls[key] * r[k] for key, r in records.items())
+    total = {k: sum(capture.calls[c] * r[k] for c, r in records.items())
              for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     log(f"[k5-path] {label}: the FFNs' device time over {sum(capture.calls.values())} calls: "
         f"K5 {total['ms']:.2f} ms, plain {total['plain_ms']:.2f} ms, library "
         f"{total['library_ms']:.2f} ms, bound {total['bound_ms']:.2f} ms")
-    return records[capture.calls.most_common(1)[0][0]]
+    return pick_record(records, capture.calls, where)
 
 
-def check_k1_cases(label, capture, iters=10):
+def check_k1_cases(label, capture, iters=10, min_n=0):
     """K1 against its plain version on the inputs a main path gave it (one
-    case per distinct (B, N, H, dtype, bias)); the most-called case also
-    timed with its plain version, SDPA (out only) and the bound.  Returns
-    that case's record."""
+    case per distinct (B, N, H, dtype, bias), those with N >= ``min_n``);
+    the most-called of them also timed with its plain version, SDPA (out
+    only) and the bound.  Returns that case's record."""
     import torch.nn.functional as F
 
     from madtp_tpu_torch.kernels.attention_scores import TOLERANCES, attention_scores_cuda
     from madtp_tpu_torch.ops.attention import attention_scores_plain
 
-    top = capture.calls.most_common(1)[0][0] if capture.calls else None
+    calls = collections.Counter({key: n for key, n in capture.calls.items() if key[1] >= min_n})
+    top = calls.most_common(1)[0][0] if calls else None
     record = None
     with torch.inference_mode():
         for key, (q, k, v, alive, bias, scale) in capture.cases.items():
+            if key[1] < min_n:
+                continue
             B, N, H, dtype, _ = key
             alive = alive.contiguous()
             scale = q.shape[-1] ** -0.5 if scale is None else scale
@@ -814,6 +857,68 @@ def check_k1_cases(label, capture, iters=10):
     torch.cuda.empty_cache()
     if record is None:
         raise AssertionError(f"{label}: the path made no scoring-attention call")
+    return record
+
+
+def phase_k1_large(device, main=(16, 1608)):
+    """3d. K1 in K3's range (N > 1536, where the TPU runs
+    ``fused_attention_scores_tiled``) against its plain version, fp32 and
+    bf16, with and without bias, the alive masks of ``k1_case`` (a quarter
+    dead at random, a dead tail: ragged across the 64-wide tiles): one slot
+    past 1,536, the VQA-640 gather path's first layer (1,608) and mask-mode
+    buffer (1,616), a ragged 2,305 and K3's ceiling 4,096, at 16 images where
+    the plain version's [B, H, N, N] tensors allow.  Two launches
+    bit-identical, each counted in ``large_n_launches``.  Returns the bf16
+    record at ``main`` (B, N) with K1's, the plain version's and SDPA's
+    (``out`` only) times and the bound, for the K3 entry of the kernels
+    line."""
+    import torch.nn.functional as F
+
+    from madtp_tpu_torch.kernels.attention_scores import TOLERANCES, attention_scores_cuda
+    from madtp_tpu_torch.ops.attention import attention_scores_plain
+
+    cases = [(16, 1537, True), (16, 1608, False), (16, 1616, False), (8, 2305, True),
+             (2, 4096, False)]
+    record = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, N, with_bias in cases:
+            q, k, v, alive, bias = k1_case(B, N, with_bias=with_bias, dtype=dtype, device=device)
+            bias_in = torch.zeros(alive.shape, device=device) if bias is None else bias
+            scale = q.shape[-1] ** -0.5
+            large = attention_scores_cuda.large_n_launches
+            got = attention_scores_cuda(q, k, v, alive, bias_in, scale)
+            want = attention_scores_plain(q, k, v, alive, bias, scale)
+            torch.cuda.synchronize()
+            name = f"B={B} N={N} bias={with_bias} {str(dtype)[6:]}"
+            errs = {n: check_close(f"K1 {n} {name}", g, w, *TOLERANCES[dtype][n])
+                    for n, g, w in zip(("out", "cls_attn", "col_mass"), got, want)}
+            del want
+            again = attention_scores_cuda(q, k, v, alive, bias_in, scale)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K1 {name}: two launches on the same inputs differ")
+            if attention_scores_cuda.large_n_launches != large + 2:
+                raise AssertionError(f"K1 {name}: {attention_scores_cuda.large_n_launches - large} "
+                                     "launches counted in K3's range, want 2")
+            del got, again
+            line = (f"[k1-large] {name}: max|err| out {errs['out']:.2e} col "
+                    f"{errs['col_mass']:.2e} cls {errs['cls_attn']:.2e}, bit-identical relaunch")
+            if dtype == torch.bfloat16 and (B, N) == main:
+                ms = time_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), 10)
+                plain_ms = time_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
+                mask = sdpa_mask(alive, bias_in, dtype)
+                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+                sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, scale=scale), 10)
+                bound_ms, bound_by = bound(*k1_work(q, alive), dtype)
+                record = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms,
+                              shape=dict(B=B, N=N, H=q.shape[2], dtype=str(dtype)[6:]))
+                line += (f" | K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                         f"({bound_by}), sdpa(out only, computes less than K1) {sdpa_ms:.4f} ms")
+                del mask, qh, kh, vh
+            log(line)
+            del q, k, v, alive, bias, bias_in
+            torch.cuda.empty_cache()
     return record
 
 
@@ -1234,7 +1339,9 @@ def retrieval_corpus(cfg, n_images, texts_per_image, seed, text_len=35):
 FP32_ULP = 2.0 ** -23  # relative rounding step of fp32
 GAP_MIN = 64 * FP32_ULP  # least relative DTP margin the parity phase runs at
 DRIFT_FACTOR = 4  # the margin must also hold this many times the card's drift
-PARITY_TEMPERATURES = (4.0, 5.0, 3.5, 3.0, 6.0, 2.5)
+# the card-against-CPU phases run near their main path's temperature T*: at
+# the first of these multiples of it whose DTP decisions clear the margin
+PARITY_FACTORS = (1.0, 1.25, 0.8, 1.6, 0.6, 2.0, 2.5, 3.2)
 
 
 class DTPRecorder:
@@ -1309,7 +1416,20 @@ def dtp_drift(want, got):
     return drift
 
 
-def phase_retrieval_parity(device, cfg, k_test=4):
+def card_drift(label, margin, pairs):
+    """The card's largest drift (``dtp_drift``) over ``(CPU run, card
+    run)`` pairs, and whether it stays ``DRIFT_FACTOR`` times below the
+    CPU's ``margin``.  Where it does not, the temperature is not clear of
+    rounding and the parity phase tries the next one."""
+    drift = max(dtp_drift(want["dtp"], got["dtp"]) for want, got in pairs)
+    clear = drift * DRIFT_FACTOR <= margin
+    log(f"{label}: the card's DTP scores drift {drift:.3e} from the CPU's, "
+        f"{margin / drift if drift else math.inf:.1f}x below the margin (want >= {DRIFT_FACTOR}x)"
+        + ("" if clear else ": the next temperature"))
+    return drift, clear
+
+
+def phase_retrieval_parity(device, cfg, t_main, k_test=4):
     """The full-width retrieval model on the card (K1, K4) and the CPU
     (plain), fp32, seeded weights: 4 images, 8 texts, ``k_test`` 4, in mask
     and gather mode.  Equal kept counts and candidate sets, features within
@@ -1320,10 +1440,11 @@ def phase_retrieval_parity(device, cfg, k_test=4):
     exactly one token's own score in several layers (the codebook's softmax
     over tokens is one-hot), and card and CPU kept 257 and 256 tokens.  So
     the phase measures, on the CPU runs, the smallest margin of every
-    decision (``dtp_margins``) at the first of ``PARITY_TEMPERATURES`` where
-    it reaches ``GAP_MIN`` (64 fp32 rounding steps), and holds the card to
-    it: the largest drift of the card's (score - threshold) from the CPU's
-    must stay ``DRIFT_FACTOR`` times below that margin."""
+    decision (``dtp_margins``) at the first temperature ``t_main`` times one
+    of ``PARITY_FACTORS`` (``t_main`` the main path's T*) where it reaches
+    ``GAP_MIN`` (64 fp32 rounding steps) and the largest drift of the
+    card's (score - threshold) from the CPU's stays ``DRIFT_FACTOR`` times
+    below it (``card_drift``), and compares card and CPU there."""
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.models.blip import init_retrieval_model
     from madtp_tpu_torch.tasks.retrieval import encode_corpus, probe_capacities, rerank_scores
@@ -1353,7 +1474,7 @@ def phase_retrieval_parity(device, cfg, k_test=4):
                     feats=(feats[0], feats[2]), scores=scores, k4=k4, dtp=rec.records,
                     seconds=time.perf_counter() - t0)
 
-    for temperature in PARITY_TEMPERATURES:
+    for temperature in (t_main * f for f in PARITY_FACTORS):
         caps = probe_capacities(cpu_model, [images], ids, mask, temperature, "ceil")
         modes = {"mask": (None, None), "gather": caps}
         cpu_runs = {mode: run(cpu_model, torch.device("cpu"), temperature, *c)
@@ -1362,26 +1483,28 @@ def phase_retrieval_parity(device, cfg, k_test=4):
                                                    for r in cpu_runs.values())))
         margin = min(thr_gap, rank_gap)
         cpu_s = sum(r["seconds"] for r in cpu_runs.values())
-        log(f"[r-parity] T={temperature}: smallest DTP margins on the CPU: threshold "
+        log(f"[r-parity] T={temperature:.4f}: smallest DTP margins on the CPU: threshold "
             f"{thr_gap:.3e}, rank {rank_gap:.3e} ({margin / FP32_ULP:.0f} fp32 steps, want "
             f">= {GAP_MIN / FP32_ULP:.0f}); cpu {cpu_s:.1f} s")
-        if margin >= GAP_MIN:
+        if margin < GAP_MIN:
+            continue
+        card_runs = {mode: run(gpu_model, device, temperature, *c) for mode, c in modes.items()}
+        for mode, card in card_runs.items():
+            if not all(torch.equal(a, b) for a, b in zip(cpu_runs[mode]["kept"], card["kept"])):
+                raise AssertionError(f"retrieval {mode}: kept counts differ: card {card['kept']} "
+                                     f"cpu {cpu_runs[mode]['kept']}")
+        drift, clear = card_drift(f"[r-parity] T={temperature:.4f}", margin,
+                                  [(cpu_runs[m], card_runs[m]) for m in modes])
+        if clear:
             break
     else:
-        raise AssertionError(f"no temperature of {PARITY_TEMPERATURES} keeps every DTP decision "
-                             f"{GAP_MIN / FP32_ULP:.0f} fp32 steps from its edge")
-    log(f"[r-parity] T={temperature}: gather capacities vision {list(caps[0])} text "
+        raise AssertionError("no temperature near the main path's keeps every DTP decision "
+                             f"{GAP_MIN / FP32_ULP:.0f} fp32 steps and {DRIFT_FACTOR}x the card's "
+                             "drift from its edge")
+    log(f"[r-parity] T={temperature:.4f}: gather capacities vision {list(caps[0])} text "
         f"{list(caps[1])}")
-    for mode, (cv, ct) in modes.items():
-        cpu, card = cpu_runs[mode], run(gpu_model, device, temperature, cv, ct)
-        if not all(torch.equal(a, b) for a, b in zip(cpu["kept"], card["kept"])):
-            raise AssertionError(f"retrieval {mode}: kept counts differ: card {card['kept']} "
-                                 f"cpu {cpu['kept']}")
-        drift = dtp_drift(cpu["dtp"], card["dtp"])
-        if not drift * DRIFT_FACTOR <= margin:
-            raise AssertionError(f"retrieval {mode}: the card's DTP scores drift {drift:.3e} "
-                                 f"from the CPU's, more than 1/{DRIFT_FACTOR} of the margin "
-                                 f"{margin:.3e}")
+    for mode, card in card_runs.items():
+        cpu = cpu_runs[mode]
         feat_err = max(float(np.abs(a - b).max()) for a, b in zip(card["feats"], cpu["feats"]))
         if not feat_err <= 1e-5:
             raise AssertionError(f"retrieval {mode}: features differ by {feat_err:.3e}")
@@ -1404,16 +1527,17 @@ def phase_retrieval_parity(device, cfg, k_test=4):
 
 
 def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256,
-                         texts_per_image=5, batch=32, k_test=256, iters=5):
+                         texts_per_image=2, batch=32, k_test=256, iters=5):
     """BLIP retrieval eval at p=0.5, bf16: the temperature bisected toward
     half the dense ``retrieval_gflops`` in mask mode, the ``--fast_eval``
     capacities, then the gather-mode ``evaluate`` on a synthetic corpus (8
-    batches of 32 images, 5 texts each) at ``k_test`` 256, so that every
+    batches of 32 images, 2 texts each: COCO has 5, cut to keep the script
+    inside its time limit) at ``k_test`` 256, so that every
     rerank row in both directions scores 256 candidates, and the dense eval
     (temperature 0); K4 against its plain version on the inputs each eval
     gave it; then one ITM forward at ``k_test`` 256, timed and profiled.
-    Returns the K1, K4 and K5 launch counts of the gather eval and the K4
-    record of its ITM shape."""
+    Returns the temperature, the K1, K4 and K5 launch counts of the gather
+    eval and the K4 record of its ITM shape."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.kernels.ffn import ffn_cuda
@@ -1552,7 +1676,7 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
     g, d = rates["gather"], rates["dense"]
     log(f"[retrieval] pruned/dense: eval wall {dense_s / eval_s:.3f}x, images/s "
         f"{g[0] / d[0]:.3f}x, texts/s {g[1] / d[1]:.3f}x, ITM candidates/s {g[2] / d[2]:.3f}x")
-    return k1, k4, k5, record
+    return t_star, k1, k4, k5, record
 
 
 def clip_config():
@@ -1737,7 +1861,7 @@ def phase_clip_parity(device, cfg, t_main, n_images=2, texts_per_image=2):
                     k1=attention_scores_cuda.launches - before,
                     seconds=time.perf_counter() - t0)
 
-    for temperature in (t_main * f for f in (1.0, 1.25, 0.8, 1.6, 0.6, 2.0)):
+    for temperature in (t_main * f for f in PARITY_FACTORS):
         caps = probe_capacities(cpu_model, [images], temperature)
         modes = {"mask": None, "gather": caps}
         cpu_runs = {mode: run(cpu_model, temperature, cv) for mode, cv in modes.items()}
@@ -1749,21 +1873,24 @@ def phase_clip_parity(device, cfg, t_main, n_images=2, texts_per_image=2):
             f"{thr_gap:.3e}, rank {rank_gap:.3e} ({margin / FP32_ULP:.0f} fp32 steps, want "
             f">= {GAP_MIN / FP32_ULP:.0f}); vision keeps {int(vk[-1])} of "
             f"{cfg.vision_num_patches}; cpu {sum(r['seconds'] for r in cpu_runs.values()):.1f} s")
-        if margin >= GAP_MIN and vk[-1] < cfg.vision_num_patches:
+        if margin < GAP_MIN or vk[-1] >= cfg.vision_num_patches:
+            continue
+        card_runs = {mode: run(gpu_model, temperature, cv) for mode, cv in modes.items()}
+        for mode, card in card_runs.items():
+            if not all(np.array_equal(a, b) for a, b in zip(cpu_runs[mode]["kept"], card["kept"])):
+                raise AssertionError(f"clip {mode}: kept counts differ: card {card['kept']} "
+                                     f"cpu {cpu_runs[mode]['kept']}")
+        drift, clear = card_drift(f"[clip-parity] T={temperature:.4f}", margin,
+                                  [(cpu_runs[m], card_runs[m]) for m in modes])
+        if clear:
             break
     else:
         raise AssertionError("no temperature near the main path's prunes with every DTP "
-                             f"decision {GAP_MIN / FP32_ULP:.0f} fp32 steps from its edge")
+                             f"decision {GAP_MIN / FP32_ULP:.0f} fp32 steps and {DRIFT_FACTOR}x "
+                             "the card's drift from its edge")
     log(f"[clip-parity] T={temperature:.4f}: gather capacities vision {list(caps)}")
-    for mode, cv in modes.items():
-        cpu, card = cpu_runs[mode], run(gpu_model, temperature, cv)
-        if not all(np.array_equal(a, b) for a, b in zip(cpu["kept"], card["kept"])):
-            raise AssertionError(f"clip {mode}: kept counts differ: card {card['kept']} "
-                                 f"cpu {cpu['kept']}")
-        drift = dtp_drift(cpu["dtp"], card["dtp"])
-        if not drift * DRIFT_FACTOR <= margin:
-            raise AssertionError(f"clip {mode}: the card's DTP scores drift {drift:.3e} from "
-                                 f"the CPU's, more than 1/{DRIFT_FACTOR} of the margin {margin:.3e}")
+    for mode, card in card_runs.items():
+        cpu = cpu_runs[mode]
         feat_err = max(float(np.abs(a - b).max()) for a, b in zip(card["feats"], cpu["feats"]))
         if not feat_err <= 1e-5:
             raise AssertionError(f"clip {mode}: features differ by {feat_err:.3e} (limit 1e-5)")
@@ -1779,6 +1906,375 @@ def phase_clip_parity(device, cfg, t_main, n_images=2, texts_per_image=2):
             f"features {feat_err:.2e}; DTP drift {drift:.2e} "
             f"({margin / drift if drift else math.inf:.0f}x below the margin); K1 {card['k1']}; "
             f"cpu {cpu['seconds']:.1f} s")
+
+
+def vqa_questions(rng, n, lo=8, hi=20):
+    """Synthetic question ids: [ENC], ``lo``-``hi`` random wordpieces and
+    [SEP], padded to the longest (the tokenizer's ``padding="longest"``, [ENC]
+    in slot 0 as ``compress_vqa`` sets it).  Returns ``(ids, mask)``."""
+    lengths = rng.integers(lo, hi + 1, size=n) + 2
+    ids = np.where(np.arange(lengths.max())[None, :] < lengths[:, None],
+                   rng.integers(1000, 30000, size=(n, lengths.max())), 0)
+    ids[:, 0] = ENC_ID
+    ids[np.arange(n), lengths - 1] = SEP_ID
+    return ids, (ids > 0).astype(np.int64)
+
+
+def vqa_answers(rng, n, pool, la=8):
+    """A synthetic tokenized answer list [n, ``la``]: [DEC] (the BOS), 1-5
+    random wordpieces, the first drawn from a pool of ``pool`` ids so that
+    answers share first tokens, [SEP], padding 0 (``tokenize_answers``'s
+    layout).  Returns ``(ids, mask)``."""
+    lengths = rng.integers(1, 6, size=n)
+    ids = rng.integers(1000, 30000, size=(n, la))
+    ids[:, 1] = rng.choice(rng.integers(1000, 30000, size=pool), size=n)
+    ids = np.where(np.arange(la)[None, :] <= lengths[:, None], ids, 0)
+    ids[:, 0] = DEC_ID
+    ids[np.arange(n), lengths + 1] = SEP_ID
+    return ids, (ids > 0).astype(np.int64)
+
+
+def vqa_batches(rng, image_size, n_batches, batch):
+    """``n_batches`` synthetic eval batches ``(images, q_ids, q_mask,
+    question_ids)`` in ``tasks.vqa``'s layout."""
+    out = []
+    for i in range(n_batches):
+        ids, mask = vqa_questions(rng, batch)
+        images = rng.standard_normal((batch, 3, image_size, image_size), dtype=np.float32)
+        out.append((images, ids, mask, np.arange(i * batch, (i + 1) * batch)))
+    return out
+
+
+def zero_launch_counts():
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+
+    attention_scores_cuda.launches = attention_scores_cuda.large_n_launches = 0
+    attention_scores_bwd_cuda.launches = cross_attention_cuda.launches = ffn_cuda.launches = 0
+
+
+def launch_counts():
+    """(K1, K3's range of K1, K4, K5) launches since the last zeroing."""
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+
+    torch.cuda.synchronize()
+    return (attention_scores_cuda.launches, attention_scores_cuda.large_n_launches,
+            cross_attention_cuda.launches, ffn_cuda.launches)
+
+
+def phase_vqa_parity(device, t_main, k_test=8, n_answers=64):
+    """12. The full-width VQA model (``vqa_config``: ViT-B/16 and the
+    BERT-base MED as question encoder and answer decoder, seeded random
+    weights, fp32) on the card (K1, K4) against the CPU (plain), at 480 px
+    and at 640 px (the 480-px weights through ``load_vqa_state_dict``, the
+    position grid resized 30 x 30 -> 40 x 40): 2 questions, 64 synthetic
+    answers over 16 first tokens (ties in the first-token ranking),
+    ``k_test`` 8, mask and gather mode.  Equal kept counts in both towers,
+    question states within 1e-5, equal top-k lists in order, candidate
+    losses within 1e-4, equal best answers; at 640 every mask-mode ViT layer
+    launches K1 at N > 1536.  Each of the four runs (size, mode) has its
+    own temperature: the first ``t_main`` (the main path's T*) times one of
+    ``PARITY_FACTORS`` at which the ViT prunes and every DTP decision of
+    both towers in that run stands ``GAP_MIN`` from its edge on the CPU,
+    with the card's drift ``DRIFT_FACTOR`` times below that margin (as
+    phase 8).  Gather mode takes its capacities from the CPU's mask-mode run
+    at its temperature.  Each run logs the share of the ViT's tokens it
+    keeps at its last layer."""
+    from madtp_tpu_torch.ckpt.convert import load_vqa_state_dict
+    from madtp_tpu_torch.core.config import vqa_config
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.models.blip import init_vqa_model
+    from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
+    from madtp_tpu_torch.tasks.vqa import candidate_losses
+
+    cpu480 = init_vqa_model(vqa_config(480), seed=0, device="cpu")
+    cpu = {480: cpu480, 640: load_vqa_state_dict(cpu480.state_dict(), vqa_config(640),
+                                                 device="cpu")}
+    card = {res: copy.deepcopy(m).to(device) for res, m in cpu.items()}
+    rng = np.random.default_rng(12)
+    q_ids, q_mask = vqa_questions(rng, 2)
+    a_ids, a_mask = vqa_answers(rng, n_answers, pool=16)
+    images = {res: rng.standard_normal((2, 3, res, res), dtype=np.float32) for res in cpu}
+
+    def run(model, res, temperature, caps):
+        dev = model.space_dict.device
+        x = [torch.from_numpy(a).to(dev) for a in (images[res], q_ids, q_mask)]
+        answers = [torch.from_numpy(a).to(dev) for a in (a_ids, a_mask)]
+        large = attention_scores_cuda.large_n_launches
+        t0 = time.perf_counter()
+        with DTPRecorder() as rec, torch.inference_mode():
+            out, _, vk = model.encode(*x, temperature=temperature, prune_active=True,
+                                      capacities_v=caps[0], capacities_t=caps[1])
+            loss, topk = candidate_losses(model.text_decoder, out.state, *answers, k=k_test)
+            best = topk.gather(1, torch.argmax(-loss, dim=1)[:, None])[:, 0]
+        return dict(kept=(vk.cpu(), out.kept_counts.cpu()), x=out.state.x.cpu(),
+                    alive=out.state.alive.cpu(), loss=loss.cpu(), topk=topk.cpu(),
+                    best=best.cpu(), dtp=rec.records,
+                    large=attention_scores_cuda.large_n_launches - large,
+                    seconds=time.perf_counter() - t0)
+
+    mask_runs = {}  # (size, T) -> the CPU's mask-mode run, which both modes' searches read
+
+    def cpu_mask(res, temperature):
+        if (res, temperature) not in mask_runs:
+            mask_runs[res, temperature] = run(cpu[res], res, temperature, (None, None))
+        return mask_runs[res, temperature]
+
+    def search(res, mode):
+        """The CPU's and the card's runs of (``res``, ``mode``) at its
+        temperature, the CPU's margin and the card's drift."""
+        label, n = f"vqa {res} px {mode}", cpu[res].cfg.vit.num_patches
+        for temperature in (t_main * f for f in PARITY_FACTORS):
+            want, caps = cpu_mask(res, temperature), (None, None)
+            if mode == "gather":
+                caps = fast_capacity_schedule(want["kept"][0].numpy(), want["kept"][1].numpy(),
+                                              "ceil")
+                want = run(cpu[res], res, temperature, caps)
+            thr_gap, rank_gap = dtp_margins(want["dtp"])
+            margin = min(thr_gap, rank_gap)
+            kept = int(want["kept"][0][-1])
+            log(f"[vqa-parity] {label} T={temperature:.4f}: smallest DTP margins on the CPU "
+                f"(both towers): threshold {thr_gap:.3e}, rank {rank_gap:.3e} "
+                f"({margin / FP32_ULP:.0f} fp32 steps, want >= {GAP_MIN / FP32_ULP:.0f}); the "
+                f"ViT keeps {kept} of {n} at its last layer; cpu {want['seconds']:.1f} s")
+            if margin < GAP_MIN or kept >= n:
+                continue
+            got = run(card[res], res, temperature, caps)
+            if not all(torch.equal(a, b) for a, b in zip(want["kept"], got["kept"])):
+                raise AssertionError(f"{label}: kept counts differ: card {got['kept']} cpu "
+                                     f"{want['kept']}")
+            drift, clear = card_drift(f"[vqa-parity] {label} T={temperature:.4f}", margin,
+                                      [(want, got)])
+            if clear:
+                return temperature, want, got, margin, drift
+        raise AssertionError(f"{label}: no temperature near the main path's prunes with every "
+                             f"DTP decision {GAP_MIN / FP32_ULP:.0f} fp32 steps and "
+                             f"{DRIFT_FACTOR}x the card's drift from its edge")
+
+    for res, mode in itertools.product(cpu, ("mask", "gather")):
+        temperature, want, got, margin, drift = search(res, mode)
+        label = f"vqa {res} px {mode}"
+        share = int(want["kept"][0][-1]) / cpu[res].cfg.vit.num_patches
+        if not torch.equal(want["alive"], got["alive"]):
+            raise AssertionError(f"{label}: the question states' alive slots differ")
+        state_err = float((got["x"] - want["x"])[want["alive"]].abs().max())
+        if not state_err <= 1e-5:
+            raise AssertionError(f"{label}: question states differ by {state_err:.3e}")
+        if not torch.equal(want["topk"], got["topk"]):
+            raise AssertionError(f"{label}: top-k lists differ: card {got['topk'].tolist()} "
+                                 f"cpu {want['topk'].tolist()}")
+        loss_err = float((got["loss"] - want["loss"]).abs().max())
+        if not loss_err <= 1e-4:
+            raise AssertionError(f"{label}: candidate losses differ by {loss_err:.3e}")
+        if not torch.equal(want["best"], got["best"]):
+            raise AssertionError(f"{label}: best answers differ: card {got['best'].tolist()} "
+                                 f"cpu {want['best'].tolist()}")
+        # 640 px: every mask-mode ViT layer holds 1,616 slots, gather layer 0 1,608
+        if res == 480:
+            large_ok = got["large"] == 0
+        elif mode == "mask":
+            large_ok = got["large"] == cpu[res].cfg.vit.depth
+        else:
+            large_ok = got["large"] >= 1
+        if not large_ok:
+            raise AssertionError(f"{label}: K1 launched {got['large']} times at N > 1536")
+        gaps = want["loss"].sort(dim=1).values
+        log(f"[vqa-parity] {label} T={temperature:.4f} ({temperature / t_main:.2f} T*): kept "
+            f"vision {got['kept'][0].tolist()} ({share:.1%} at the last layer) text "
+            f"{got['kept'][1].tolist()} equal on card and cpu; top-k and best answers "
+            f"{got['best'].tolist()} equal; max|diff| states {state_err:.2e}, losses "
+            f"{loss_err:.2e} (best-to-second loss gap "
+            f"{float((gaps[:, 1] - gaps[:, 0]).min()):.3e}); "
+            f"DTP drift {drift:.2e} ({margin / drift if drift else math.inf:.0f}x below the "
+            f"margin); K1 launches at N > 1536: {got['large']}; cpu {want['seconds']:.1f} s")
+
+
+def phase_vqa_main(device, cfg, p_target=0.5, bisect_steps=8, n_batches=16, batch=16,
+                   n_answers=3128, k_test=128, iters=3):
+    """13. BLIP VQA-480 eval (``configs/vqa.yaml``'s width: ViT-B/16@480, the
+    BERT-base MED as question encoder and answer decoder, 3,128 answers,
+    ``k_test`` 128, batch 16) in bf16 at p=0.5, seeded random weights: the
+    temperature bisected in mask mode toward half the dense GFLOPs of the two
+    pruned towers (``vqa_gflops`` with ``n_answers=0``: the answer decoder
+    is not pruned), ``probe_capacities``, ``tasks.vqa.evaluate`` in gather
+    mode on 256 synthetic questions (16 batches of 16), and the dense eval;
+    questions/s, eval wall times, the launches of each kernel (exact: per
+    batch 24 scoring attentions, 24 cross-attentions, 48 FFNs), K1, K4 and
+    K5 held against their plain versions on the gather eval's own inputs,
+    K4 and K5 on the dense eval's (which runs no scoring attention), a
+    profile of one gather batch, its host dispatch time, and the LM head's
+    time at the candidate pass's shape.  Returns the temperature, the model,
+    the launch counts (K1, K4, K5), the gather eval's K1, K4 and K5 records
+    and the dense eval's K4 and K5 records."""
+    from madtp_tpu_torch.models.blip import init_vqa_model
+    from madtp_tpu_torch.prune.flops import vqa_gflops
+    from madtp_tpu_torch.tasks.vqa import evaluate, probe_capacities, rank_answers
+
+    log(f"[vqa] {card_line()}")
+    model = init_vqa_model(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    rng = np.random.default_rng(13)
+    batches = vqa_batches(rng, cfg.vit.image_size, n_batches, batch)
+    a_ids, a_mask = vqa_answers(rng, n_answers, pool=1000)
+    Lv, L = cfg.vit.depth, cfg.med.num_hidden_layers
+    im0, q0, m0 = (torch.from_numpy(a).to(device) for a in batches[0][:3])
+    n_q0 = q0.shape[1]
+
+    def gflops(vk, tk, n):
+        return vqa_gflops(cfg.vit, cfg.med, vk, tk, n_q0, n_answers=n)
+
+    dense_kept = ([cfg.vit.num_patches] * Lv, [n_q0 - 1] * L)
+    target = gflops(*dense_kept, 0) * (1.0 - p_target)
+    lo, hi = 0.05, 60.0
+    with torch.inference_mode():
+        for _ in range(bisect_steps):
+            t = math.sqrt(lo * hi)
+            out, _, vk = model.encode(im0, q0, m0, temperature=t, prune_active=True)
+            vk, tk = vk.cpu().numpy(), out.kept_counts.cpu().numpy()
+            g = gflops(vk, tk, 0)
+            log(f"[vqa] bisect T={t:.4f}: towers {g:.2f} GFLOPs (target {target:.2f}); with "
+                f"{k_test} decoder passes {gflops(vk, tk, k_test):.2f}")
+            if g > target:
+                lo = t
+            else:
+                hi = t
+    t_star = t
+    caps_v, caps_t = probe_capacities(model, iter(batches), t_star, "ceil")
+    log(f"[vqa] T*={t_star:.4f}: towers {g:.2f} / {gflops(*dense_kept, 0):.2f} GFLOPs dense; "
+        f"with {k_test} decoder passes {gflops(vk, tk, k_test):.2f} / "
+        f"{gflops(*dense_kept, k_test):.2f}; capacities vision {list(caps_v)} text {list(caps_t)}")
+
+    def run_eval(temperature, cv, ct):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, cur_g = evaluate(model, iter(batches), a_ids, a_mask, temperature=temperature,
+                                  k_test=k_test, capacities_v=cv, capacities_t=ct)
+        return results, cur_g, time.perf_counter() - t0
+
+    n_q = n_batches * batch
+    zero_launch_counts()
+    with K1Capture() as k1_capture, K4Capture() as k4_capture, K5Capture() as k5_capture:
+        results, cur_g, eval_s = run_eval(t_star, caps_v, caps_t)
+    k1, large, k4, k5 = launch_counts()
+    if (k1, large, k4, k5) != (n_batches * (Lv + L), 0, n_batches * 2 * L,
+                               n_batches * (Lv + 3 * L)):
+        raise AssertionError(f"vqa eval launched K1 {k1} ({large} at N > 1536), K4 {k4}, K5 {k5} "
+                             f"times, want {n_batches} x ({Lv + L}, 0, {2 * L}, {Lv + 3 * L})")
+    if len(results) != n_q or not all(0 <= a < n_answers for _, a in results):
+        raise AssertionError(f"vqa eval: {len(results)} results, want {n_q} in range")
+    if not (math.isfinite(cur_g) and 0 < cur_g < gflops(*dense_kept, k_test)):
+        raise AssertionError(f"vqa eval GFLOPs {cur_g}")
+    log(f"[vqa] gather eval: {n_q} questions, {n_answers} answers, k_test {k_test}: "
+        f"{eval_s:.2f} s wall = {n_q / eval_s:.2f} questions/s; Cur_Gflops {cur_g:.2f}; "
+        f"{len(set(a for _, a in results))} distinct answers; launches K1 {k1}, K4 {k4}, K5 {k5}")
+    zero_launch_counts()
+    with K4Capture() as dense_k4, K5Capture() as dense_k5:
+        dense_results, dense_g, dense_s = run_eval(0.0, None, None)
+    d_launches = launch_counts()
+    log(f"[vqa] dense eval: {dense_s:.2f} s wall = {n_q / dense_s:.2f} questions/s; Cur_Gflops "
+        f"{dense_g:.2f}; launches K1 {d_launches[0]}, K4 {d_launches[2]}, K5 {d_launches[3]}; "
+        f"pruned/dense wall {dense_s / eval_s:.3f}x; answers equal to the pruned eval's: "
+        f"{sum(a == b for a, b in zip(results, dense_results))} of {n_q}")
+    record1 = check_k1_cases("vqa gather eval", k1_capture, iters=5)
+    record4 = check_k4_cases("vqa gather eval", k4_capture)
+    # the records of the candidate pass's FFNs, which carry most of the path's FFN work
+    cand = dict(M=batch * min(k_test, n_answers) * (a_ids.shape[1] - 1))
+    record5 = check_k5_cases("vqa gather eval", k5_capture, where=cand)
+    # the dense ViT holds every token, so its K4 cases are those at the widest image memory
+    widest = dict(S=max(key[2] for key in dense_k4.cases))
+    dense4 = check_k4_cases("vqa dense eval", dense_k4, where=widest)
+    dense5 = check_k5_cases("vqa dense eval", dense_k5, where=cand)
+
+    a_dev = [torch.from_numpy(a).to(device) for a in (a_ids, a_mask)]
+    for name, temperature, cv, ct in (("gather", t_star, caps_v, caps_t),
+                                      ("dense", 0.0, None, None)):
+        @torch.inference_mode()
+        def one_batch(temperature=temperature, cv=cv, ct=ct):
+            out, _, _ = model.encode(im0, q0, m0, temperature=temperature,
+                                     prune_active=temperature > 0, capacities_v=cv,
+                                     capacities_t=ct)
+            return rank_answers(model.text_decoder, out.state, *a_dev, k=k_test)
+
+        if name == "gather":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")  # the batch must not wait on the card
+            try:
+                one_batch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        batch_ms = time_ms(one_batch, iters)
+        log(f"[vqa] {name}: one batch of {batch} {batch_ms:.2f} ms = "
+            f"{batch / batch_ms * 1e3:.2f} questions/s, host dispatch "
+            f"{host_ms(one_batch, iters):.2f} ms")
+        profile_step(f"vqa {name} batch of {batch}", one_batch, batch_ms, top=12)
+    hidden = torch.randn(batch * k_test, 6, cfg.med.hidden_size, device=device,
+                         dtype=torch.bfloat16)
+    with torch.inference_mode():
+        lm_ms = time_ms(lambda: model.text_decoder.lm_head(hidden), iters)
+    log(f"[vqa] LM head at the candidate pass's shape ({batch * k_test} x 6 rows, vocab "
+        f"{cfg.med.vocab_size}, fp32 logits): {lm_ms:.2f} ms")
+    return t_star, model, (k1, k4, k5), (record1, record4, record5), (dense4, dense5)
+
+
+def phase_vqa_640(device, model480, temperature, n_batches=4, batch=16, n_answers=3128,
+                  k_test=128):
+    """14. BLIP VQA at 640 px (1,601 tokens), bf16: the VQA-480 weights
+    through ``load_vqa_state_dict`` at 640 px, then ``tasks.vqa.evaluate``
+    on 64 synthetic questions (4 batches of 16) at phase 13's temperature in
+    mask mode (every ViT layer at 1,616 slots) and in gather mode (the probe's
+    capacities; 1,608 slots at layer 0).  Every K1 launch with N > 1536 is a
+    launch of K3's counterpart.  Held against their plain versions on this
+    path's own inputs: K1 at N > 1536, and K4 and K5 in both modes (K4 over
+    the mask-mode image memory of 1,616 slots, K5 over its 16 x 1,616
+    rows).  Returns the K1 launches, K3's (N > 1536), the K4 and K5
+    launches, and the records of K1 at N > 1536, of K4 at the widest image
+    memory and of K5 at the widest ViT rows."""
+    from madtp_tpu_torch.ckpt.convert import load_vqa_state_dict
+    from madtp_tpu_torch.core.config import vqa_config
+    from madtp_tpu_torch.kernels.attention_scores import LARGE_N
+    from madtp_tpu_torch.tasks.vqa import evaluate, probe_capacities
+
+    log(f"[vqa640] {card_line()}")
+    cfg = vqa_config(640)
+    sd = {k: v.float().cpu() for k, v in model480.state_dict().items()}
+    model = load_vqa_state_dict(sd, cfg, device=device).to(torch.bfloat16)
+    rng = np.random.default_rng(14)
+    batches = vqa_batches(rng, cfg.vit.image_size, n_batches, batch)
+    a_ids, a_mask = vqa_answers(rng, n_answers, pool=1000)
+    n_q = n_batches * batch
+    caps_v, caps_t = probe_capacities(model, iter(batches), temperature, "ceil")
+    log(f"[vqa640] T={temperature:.4f}: capacities vision {list(caps_v)} text {list(caps_t)}")
+    zero_launch_counts()
+    runs = {}
+    with K1Capture() as capture, K4Capture() as k4_capture, K5Capture() as k5_capture:
+        for mode, cv, ct in (("mask", None, None), ("gather", caps_v, caps_t)):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            results, cur_g = evaluate(model, iter(batches), a_ids, a_mask,
+                                      temperature=temperature, k_test=k_test,
+                                      capacities_v=cv, capacities_t=ct)
+            torch.cuda.synchronize()
+            runs[mode] = time.perf_counter() - t0
+            k1, large, k4, k5 = (a - b for a, b in zip(launch_counts(), before))
+            if len(results) != n_q:
+                raise AssertionError(f"vqa640 {mode}: {len(results)} results, want {n_q}")
+            want_large = cfg.vit.depth * n_batches if mode == "mask" else n_batches
+            if large < want_large or (mode == "mask" and large != want_large):
+                raise AssertionError(f"vqa640 {mode}: K1 launched {large} times at N > 1536, "
+                                     f"want {want_large}")
+            log(f"[vqa640] {mode} eval: {n_q} questions: {runs[mode]:.2f} s wall = "
+                f"{n_q / runs[mode]:.2f} questions/s; Cur_Gflops {cur_g:.2f}; launches K1 "
+                f"{k1} ({large} at N > 1536: K3's), K4 {k4}, K5 {k5}")
+    totals = launch_counts()
+    record = check_k1_cases("vqa640 eval, N > 1536", capture, iters=5, min_n=LARGE_N + 1)
+    widest = dict(S=max(key[2] for key in k4_capture.cases))
+    record4 = check_k4_cases("vqa640 eval", k4_capture, where=widest)
+    rows = dict(M=max(key[0] for key in k5_capture.cases))
+    record5 = check_k5_cases("vqa640 eval", k5_capture, where=rows)
+    return totals, (record, record4, record5)
 
 
 def card_line():
@@ -1800,32 +2296,57 @@ def main():
         f"python {sys.version.split()[0]}")
     log(card_line())
 
-    phase_build()
-    record = phase_k1(device)
-    record2 = phase_k2(device)
-    phase_k4(device)
-    record5 = phase_k5(device)
+    start = time.perf_counter()
+
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s "
+            f"(script at {time.perf_counter() - start:.1f} s)")
+        return out
+
+    timed(phase_build)
+    record = timed(phase_k1, device)
+    record2 = timed(phase_k2, device)
+    timed(phase_k4, device)
+    record5 = timed(phase_k5, device)
+    record3 = timed(phase_k1_large, device)
     cfg = full_config()
-    phase_model_parity(device, cfg)
-    k1_eval, k4_eval, k5_eval = phase_main_path(device, cfg)
-    phase_train_parity(device, cfg)
-    k1_train, k2_train, k4_train, k5_train = phase_train_main(device, cfg)
+    timed(phase_model_parity, device, cfg)
+    k1_eval, k4_eval, k5_eval = timed(phase_main_path, device, cfg)
+    timed(phase_train_parity, device, cfg)
+    k1_train, k2_train, k4_train, k5_train = timed(phase_train_main, device, cfg)
     rcfg = retrieval_config()
-    phase_retrieval_parity(device, rcfg)
-    k1_ret, k4_ret, k5_ret, record4 = phase_retrieval_main(device, rcfg)
+    t_ret, k1_ret, k4_ret, k5_ret, record4 = timed(phase_retrieval_main, device, rcfg)
+    timed(phase_retrieval_parity, device, rcfg, t_ret)
     ccfg = clip_config()
-    t_clip, k1_clip, k5_clip, record5_clip, record1_clip = phase_clip_main(device, ccfg)
-    phase_clip_parity(device, ccfg, t_clip)
+    t_clip, k1_clip, k5_clip, record5_clip, record1_clip = timed(phase_clip_main, device, ccfg)
+    timed(phase_clip_parity, device, ccfg, t_clip)
+    from madtp_tpu_torch.core.config import vqa_config
+
+    t_vqa, vqa_model, (k1_vqa, k4_vqa, k5_vqa), (record1_vqa, record4_vqa, record5_vqa), \
+        (dense4_vqa, dense5_vqa) = timed(phase_vqa_main, device, vqa_config(480))
+    timed(phase_vqa_parity, device, t_vqa)
+    (k1_640, k3_640, k4_640, k5_640), (record3_640, record4_640, record5_640) = \
+        timed(phase_vqa_640, device, vqa_model, t_vqa)
 
     kernels = [
         dict(name="attention_scores", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:595",
-             launches=k1_eval + k1_train + k1_ret + k1_clip,
+             launches=k1_eval + k1_train + k1_ret + k1_clip + k1_vqa + k1_640,
              launches_by_path={"eval": k1_eval, "train": k1_train, "retrieval": k1_ret,
-                               "clip": k1_clip},
-             **record, at_clip_vision_h16=record1_clip,
-             library_note="library_ms is scaled_dot_product_attention, out only"),
+                               "clip": k1_clip, "vqa": k1_vqa, "vqa640": k1_640},
+             **record, at_clip_vision_h16=record1_clip, at_vqa_gather_eval=record1_vqa,
+             library_note="library_ms is scaled_dot_product_attention, out only; vqa640 "
+                          "counts the launches in K3's range too (attention_scores_large_n)"),
+        dict(name="attention_scores_large_n", route="cuda",
+             source="madtp_tpu_torch/csrc/attention_scores.cu",
+             replaces="madtp_tpu/ops/pallas/fused_attention.py:522",
+             launches=k3_640, launches_by_path={"vqa640": k3_640}, **record3,
+             at_vqa640_eval=record3_640,
+             library_note="K1 launched at N > 1536, where the TPU runs its query-tiled kernel; "
+                          "library_ms is scaled_dot_product_attention, out only"),
         dict(name="attention_scores_bwd", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores_bwd.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:306",
@@ -1835,16 +2356,20 @@ def main():
         dict(name="cross_attention", route="cuda",
              source="madtp_tpu_torch/csrc/cross_attention.cu",
              replaces="madtp_tpu/ops/pallas/cross_attention.py:56",
-             launches=k4_eval + k4_train + k4_ret,
-             launches_by_path={"eval": k4_eval, "train": k4_train, "retrieval": k4_ret},
-             **record4, library_note="library_ms is scaled_dot_product_attention with the "
-                                     "same additive mask: the same function"),
+             launches=k4_eval + k4_train + k4_ret + k4_vqa + k4_640,
+             launches_by_path={"eval": k4_eval, "train": k4_train, "retrieval": k4_ret,
+                               "vqa": k4_vqa, "vqa640": k4_640},
+             **record4, at_vqa_gather_eval=record4_vqa, at_vqa_dense_eval=dense4_vqa,
+             at_vqa640_eval=record4_640,
+             library_note="library_ms is scaled_dot_product_attention with the "
+                          "same additive mask: the same function"),
         dict(name="ffn", route="cuda", source="madtp_tpu_torch/csrc/ffn.cu",
              replaces="madtp_tpu/ops/pallas/fused_ffn.py:79",
-             launches=k5_eval + k5_train + k5_ret + k5_clip,
+             launches=k5_eval + k5_train + k5_ret + k5_clip + k5_vqa + k5_640,
              launches_by_path={"eval": k5_eval, "train": k5_train, "retrieval": k5_ret,
-                               "clip": k5_clip},
-             **record5, at_clip_gather_eval=record5_clip,
+                               "clip": k5_clip, "vqa": k5_vqa, "vqa640": k5_640},
+             **record5, at_clip_gather_eval=record5_clip, at_vqa_gather_eval=record5_vqa,
+             at_vqa_dense_eval=dense5_vqa, at_vqa640_eval=record5_640,
              library_note="library_ms is two F.linear and the activation: the same function"),
     ]
     log(card_line())

@@ -1,14 +1,16 @@
-"""Weights into and out of the port's NLVR, retrieval and CLIP models.  In,
-from two sources that must give the same tensors:
+"""Weights into and out of the port's NLVR, retrieval, VQA and CLIP models.
+In, from two sources that must give the same tensors:
 
 * :func:`nlvr_from_jax_params`, :func:`retrieval_from_jax_params`,
-  :func:`clip_from_jax_params` — the JAX package's param tree as numpy
-  arrays (layers stacked ``[L, ...]``, linear kernels ``[in, out]``);
+  :func:`vqa_from_jax_params`, :func:`clip_from_jax_params` — the JAX
+  package's param tree as numpy arrays (layers stacked ``[L, ...]``, linear
+  kernels ``[in, out]``);
 * :func:`load_nlvr_state_dict`, :func:`load_retrieval_state_dict`,
-  :func:`load_clip_state_dict` — a state dict in the reference ``.pth`` key
-  layout (``madtp_tpu/ckpt/remap.py`` ``remap_vit``, ``remap_med``,
-  ``remap_clip``, and the head and codebook handling of ``load_blip_nlvr``
-  and ``load_blip_retrieval``).
+  :func:`load_vqa_state_dict`, :func:`load_clip_state_dict` — a state dict in
+  the reference ``.pth`` key layout (``madtp_tpu/ckpt/remap.py``
+  ``remap_vit``, ``remap_med``, ``remap_clip``, and the head and codebook
+  handling of ``load_blip_nlvr``, ``load_blip_retrieval`` and
+  ``load_blip_vqa``).
 
 The reference NLVR layout carries ``crossattention.output.merge_layer`` only
 at layers >= ``merge_start_layer``, like the port's modules; a base checkpoint
@@ -30,7 +32,7 @@ import torch
 
 from madtp_tpu_torch.core.config import BlipConfig, CLIPConfig
 from madtp_tpu_torch.core.device import resolve_device
-from madtp_tpu_torch.models.blip import NLVRModel, RetrievalModel
+from madtp_tpu_torch.models.blip import NLVRModel, RetrievalModel, VQAModel
 from madtp_tpu_torch.models.clip import CLIPModel
 
 
@@ -146,14 +148,34 @@ def load_retrieval_state_dict(sd: Mapping[str, object], cfg: BlipConfig,
     ``vision_proj.weight``."""
     dev = resolve_device(device)
     embed_dim = int(np.shape(sd["vision_proj.weight"])[0])
-    keys = _keys(lambda: RetrievalModel(cfg, embed_dim))
+    return _load_every_key(sd, lambda: RetrievalModel(cfg, embed_dim), cfg, dev)
+
+
+def _load_every_key(sd: Mapping[str, object], model_fn, cfg: BlipConfig,
+                    dev: torch.device):
+    """``model_fn()`` with every one of its keys read from ``sd`` (other keys
+    ignored) and the position embeddings resized to ``cfg.vit``'s grid."""
+    keys = _keys(model_fn)
     missing = [k for k in keys if k not in sd]
     if missing:
         raise KeyError(f"state dict has no {missing[0]} ({len(missing)} keys missing)")
     new = {k: _tensor(sd[k]) for k in keys}
     new["visual_encoder.pos_embed"] = interpolate_pos_embed(
         new["visual_encoder.pos_embed"], cfg.vit.num_patches)
-    return _make(lambda: RetrievalModel(cfg, embed_dim), dev, new)
+    return _make(model_fn, dev, new)
+
+
+def load_vqa_state_dict(sd: Mapping[str, object], cfg: BlipConfig,
+                        device="cuda") -> VQAModel:
+    """A VQA model from a reference-layout state dict (numpy arrays or
+    tensors), as ``load_blip_vqa`` reads it (``madtp_tpu/models/blip.py:
+    341-351``): every key of the model must be there, the codebook included;
+    the decoder comes from ``text_decoder.bert.*`` and
+    ``text_decoder.cls.predictions.{transform.*, bias}``; the tied exports
+    ``cls.predictions.decoder.*``, ``position_ids`` and a pooler are
+    ignored; position embeddings are resized to ``cfg.vit``'s grid (a
+    480-px checkpoint loads at 640 px: 30 x 30 -> 40 x 40)."""
+    return _load_every_key(sd, lambda: VQAModel(cfg), cfg, resolve_device(device))
 
 
 def load_clip_state_dict(sd: Mapping[str, object], cfg: CLIPConfig,
@@ -217,17 +239,18 @@ class _JaxTree:
             self.lin(b + "mlp.fc2", blocks["mlp"]["fc2"], i)
         self.ln("visual_encoder.norm", v["norm"])
 
-    def med(self, t, cfg: BlipConfig):
-        """The text encoder, with twin or single-stream cross-attention."""
+    def med(self, t, cfg: BlipConfig, prefix: str = "text_encoder."):
+        """A MED under ``prefix`` (``text_decoder.bert.`` for the decoder),
+        with twin or single-stream cross-attention."""
         emb = t["embeddings"]
-        self.sd["text_encoder.embeddings.word_embeddings.weight"] = _tensor(
+        self.sd[prefix + "embeddings.word_embeddings.weight"] = _tensor(
             emb["word_embeddings"])
-        self.sd["text_encoder.embeddings.position_embeddings.weight"] = _tensor(
+        self.sd[prefix + "embeddings.position_embeddings.weight"] = _tensor(
             emb["position_embeddings"])
-        self.ln("text_encoder.embeddings.LayerNorm", emb["LayerNorm"])
+        self.ln(prefix + "embeddings.LayerNorm", emb["LayerNorm"])
         L = t["layers"]
         for i in range(cfg.med.num_hidden_layers):
-            b = f"text_encoder.encoder.layer.{i}."
+            b = f"{prefix}encoder.layer.{i}."
             for nm in ("query", "key", "value"):
                 self.lin(b + f"attention.self.{nm}", L["attention"]["self"][nm], i)
             self.lin(b + "attention.output.dense", L["attention"]["output"]["dense"], i)
@@ -249,6 +272,13 @@ class _JaxTree:
             self.lin(b + "output.dense", L["output"]["dense"], i)
             self.ln(b + "output.LayerNorm", L["output"]["LayerNorm"], i)
 
+    def lm_head(self, t, prefix: str = "text_decoder.cls.predictions."):
+        """The LM head's transform and output bias (its decoder weight is
+        the tied word embeddings)."""
+        c = t["cls"]
+        self.lin(prefix + "transform.dense", c["transform"]["dense"])
+        self.ln(prefix + "transform.LayerNorm", c["transform"]["LayerNorm"])
+        self.sd[prefix + "bias"] = _tensor(c["bias"])
 
     def clip_blocks(self, prefix: str, blocks, depth: int):
         for i in range(depth):
@@ -290,6 +320,22 @@ def retrieval_from_jax_params(tree: Mapping, cfg: BlipConfig,
     j.sd["space_dict"] = _tensor(tree["space_dict"])
     embed_dim = j.sd["vision_proj.weight"].shape[0]
     return _make(lambda: RetrievalModel(cfg, embed_dim), dev, j.sd)
+
+
+def vqa_from_jax_params(tree: Mapping, cfg: BlipConfig, device="cuda") -> VQAModel:
+    """A VQA model from the JAX package's param tree (numpy leaves;
+    ``init_blip_params(heads=(), with_decoder=True)`` or ``load_blip_vqa``'s
+    layout: ``visual_encoder``, ``text_encoder``, ``text_decoder`` with its
+    ``cls`` head, ``space_dict``).  The decoder's pooler, if any, is not
+    read."""
+    dev = resolve_device(device)
+    j = _JaxTree()
+    j.vit(tree["visual_encoder"], cfg)
+    j.med(tree["text_encoder"], cfg)
+    j.med(tree["text_decoder"], cfg, prefix="text_decoder.bert.")
+    j.lm_head(tree["text_decoder"])
+    j.sd["space_dict"] = _tensor(tree["space_dict"])
+    return _make(lambda: VQAModel(cfg), dev, j.sd)
 
 
 def clip_from_jax_params(tree: Mapping, cfg: CLIPConfig, space_dict=None,

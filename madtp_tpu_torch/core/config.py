@@ -3,8 +3,9 @@
 Copies of the JAX package's dataclasses (``madtp_tpu/core/config.py:16-163``)
 with the same fields and defaults, plus ``BlipConfig``
 (``madtp_tpu/models/blip.py:32-36``), so one set of keyword arguments builds
-either package's model; and :func:`infer_clip_config`, a CLIP checkpoint's
-architecture from its weight shapes.
+either package's model; :func:`vqa_config`, BLIP VQA's model at an image
+size; and :func:`infer_clip_config`, a CLIP checkpoint's architecture from
+its weight shapes.
 """
 
 from __future__ import annotations
@@ -146,3 +147,13 @@ class BlipConfig(NamedTuple):
     med: MedConfig
     sd_num: int = 100
     sd_dim: int = 768
+
+
+def vqa_config(image_size: int = 480) -> BlipConfig:
+    """BLIP VQA's model, as ``build_blip_cfg({"vit": "base"}, image_size)``
+    builds it (``madtp_tpu/cli/common.py:396-480``, ``configs/vqa.yaml``):
+    ViT-B/16 at ``image_size`` (480: 901 tokens) and the BERT-base MED with
+    single-stream cross-attention, which serves as the question encoder and,
+    with its LM head, as the answer decoder; codebook 100 x 768."""
+    vit = ViTConfig(image_size=image_size)
+    return BlipConfig(vit=vit, med=MedConfig(encoder_width=vit.embed_dim))

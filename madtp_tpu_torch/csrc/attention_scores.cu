@@ -1,7 +1,12 @@
 // K1 on Hopper: multi-head attention with the DTP scoring side outputs.
 //
-// Replaces the TPU kernel madtp_tpu/ops/pallas/fused_attention.py
-// `fused_attention_scores` (kernel body `_kernel`).  For every head h:
+// Replaces the TPU kernels madtp_tpu/ops/pallas/fused_attention.py
+// `fused_attention_scores` (kernel body `_kernel`, padded N <= 1536) and
+// `fused_attention_scores_tiled` (`:522`, kernel body `_kernel_tiled`, padded
+// N in (1536, 4096], "K3").  The TPU split the two only because the full
+// kernel's [N, N] head-max plane outgrows VMEM past 1536 slots; this kernel
+// keeps no such plane (below), so it serves both ranges unchanged.  For
+// every head h:
 //   P_h      = softmax(scale * q_h k_h^T + key_bias), dead keys exactly 0,
 //              a row with no alive key all 0;
 //   out_h    = P_h v_h, accumulated in fp32, stored in the input dtype;
@@ -33,12 +38,18 @@
 // ms at 3.35 TB/s.  This first version multiplies in fp32 on the CUDA cores
 // (67 TFLOP/s peak) and recomputes q k^T in pass B, so it is bound by its own
 // fp32 arithmetic, far above both; tensor cores (mma / wgmma), TMA and
-// pipelining are left to later work.
+// pipelining are left to later work.  In K3's range, at the VQA-640 gather
+// path's first layer (ViT-B/16 at 640 px: B = 16 images, H = 12, N = 1608,
+// bf16), the work is about 127 GFLOP, 0.128 ms of bf16 tensor cores, against
+// about 158 MB moved, 0.047 ms: bound by operations.  Both passes grow as N^2
+// (pass B walks every query tile and head for each key tile), so the fp32
+// arithmetic binds there too.
 //
 // Launch count: the Python wrapper
 // madtp_tpu_torch/kernels/attention_scores.py (`attention_scores_cuda`) adds
 // one to `attention_scores_cuda.launches` per successful call of
-// `k1_attention_scores` below, which launches both passes.
+// `k1_attention_scores` below, which launches both passes, and, when
+// N > 1536, one to `attention_scores_cuda.large_n_launches` (K3's count).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

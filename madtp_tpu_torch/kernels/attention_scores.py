@@ -1,6 +1,11 @@
 """K1: attention with the DTP scoring outputs, as a CUDA kernel for Hopper.
 
-Replaces ``madtp_tpu/ops/pallas/fused_attention.py`` ``fused_attention_scores``.
+Replaces ``madtp_tpu/ops/pallas/fused_attention.py`` ``fused_attention_scores``
+and, above ``LARGE_N`` slots, ``fused_attention_scores_tiled`` (K3): the TPU
+kernel was split in two only because its [N, N] head-max plane outgrows VMEM
+past 1,536 slots (``_needs_tiling``), and K1 keeps no such plane (it tiles
+queries and keys and takes any N >= 2), so one kernel serves both ranges.
+``attention_scores_cuda.large_n_launches`` counts the launches in K3's range.
 The source, its design and its bound are in ``csrc/attention_scores.cu``.  The
 plain PyTorch version of the same function is
 :func:`madtp_tpu_torch.ops.attention.attention_scores_plain`;
@@ -16,6 +21,9 @@ import torch
 
 SOURCE = "attention_scores.cu"
 HEAD_DIM = 64  # the one head width the kernel is built for
+# the TPU sends a padded N above this to the tiled kernel K3
+# (madtp_tpu/ops/attention.py:56-76: N rounded up to 128 > 1536, i.e. N > 1536)
+LARGE_N = 1536
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # (rtol, atol) of K1 against the plain version on the same inputs.
@@ -110,8 +118,11 @@ def attention_scores_cuda(q, k, v, key_alive, key_bias, scale: float, *,
     if err != 0:
         raise RuntimeError(f"K1 launch failed with cudaError_t {err}")
     attention_scores_cuda.launches += 1
+    if N > LARGE_N:
+        attention_scores_cuda.large_n_launches += 1
     res = (out.view(B, N, H * Dh), cls[:, 1:], col[:, 1:])
     return res + (stats,) if return_stats else res
 
 
 attention_scores_cuda.launches = 0
+attention_scores_cuda.large_n_launches = 0  # K3's range, N > LARGE_N

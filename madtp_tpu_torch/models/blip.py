@@ -5,7 +5,9 @@
   twin cross-attention MED and the 2-way head (``:39-124``, eval and train
   branches);
 * :class:`RetrievalModel` — image and text features for the ITC shortlist
-  and the ITM score of the rerank (``:216-262``), eval only.
+  and the ITM score of the rerank (``:216-262``), eval only;
+* :class:`VQAModel` — the image tower, the question encoder over the image
+  (``blip_vqa_encode``, ``:180-208``) and the answer decoder, eval only.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from torch import nn
 
 from madtp_tpu_torch.core.config import BlipConfig
 from madtp_tpu_torch.core.device import resolve_device
-from madtp_tpu_torch.models.med import MedEncoder
+from madtp_tpu_torch.models.med import MedDecoder, MedEncoder
 from madtp_tpu_torch.models.vit import EncoderOut, VisionTransformer
 from madtp_tpu_torch.ops.layers import cosine_embedding_loss, linear
 from madtp_tpu_torch.prune.dtp import TokenState
@@ -200,5 +202,51 @@ def init_retrieval_model(cfg: BlipConfig, seed: int = 0, device="cuda",
     reference's 256-wide projections."""
     dev = resolve_device(device)
     model = RetrievalModel(cfg)
+    _init_weights(model, seed)
+    return model.to(device=dev, dtype=dtype).eval()
+
+
+class VQAModel(nn.Module):
+    """BLIP VQA, eval side.  Parameter names follow the reference BLIP-VQA
+    state dict (``visual_encoder.``, ``text_encoder.`` with single-stream
+    cross-attention, ``text_decoder.bert.`` and ``text_decoder.cls.``,
+    ``space_dict``).  The encoder and the decoder share ``cfg.med``.  The
+    model computes in the dtype of its weights."""
+
+    def __init__(self, cfg: BlipConfig):
+        super().__init__()
+        if cfg.med.twin_cross:
+            raise ValueError("VQA uses single-stream cross-attention (twin_cross=False)")
+        self.cfg = cfg
+        self.visual_encoder = VisionTransformer(cfg.vit)
+        self.text_encoder = MedEncoder(cfg.med)
+        self.text_decoder = MedDecoder(cfg.med)
+        self.space_dict = nn.Parameter(torch.zeros(cfg.sd_num, cfg.sd_dim))
+
+    def encode(self, images: torch.Tensor, q_ids: torch.Tensor, q_mask: torch.Tensor, *,
+               temperature=0.0, prune_active: bool = False,
+               capacities_v: Optional[Sequence[int]] = None,
+               capacities_t: Optional[Sequence[int]] = None
+               ) -> Tuple[EncoderOut, Optional[torch.Tensor], torch.Tensor]:
+        """The image tower, then the question encoder with cross-attention
+        over the image (``blip_vqa_encode``); ``q_ids`` carry the encoder
+        token at slot 0; ``capacities_v``/``capacities_t`` switch the towers
+        to gather mode.  Returns ``(out, sd_img_ft, v_kept)``: ``out.state``
+        is the decoder's memory, ``out.kept_counts`` and ``v_kept`` the
+        GFLOPs inputs."""
+        v = self.visual_encoder(images, space_dict=self.space_dict, temperature=temperature,
+                                prune_active=prune_active, capacities=capacities_v)
+        out = self.text_encoder(q_ids, q_mask, encoder_state=v.state,
+                                space_dict=self.space_dict, temperature=temperature,
+                                prune_active=prune_active, capacities=capacities_t)
+        return out, v.sd_ft, v.kept_counts
+
+
+def init_vqa_model(cfg: BlipConfig, seed: int = 0, device="cuda",
+                   dtype=torch.float32) -> VQAModel:
+    """A VQA model with seeded random weights (:func:`_init_weights`; the
+    counterpart of ``init_blip_params(heads=(), with_decoder=True)``)."""
+    dev = resolve_device(device)
+    model = VQAModel(cfg)
     _init_weights(model, seed)
     return model.to(device=dev, dtype=dtype).eval()

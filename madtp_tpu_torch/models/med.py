@@ -8,6 +8,13 @@ score as in the reference, while pruned slots are masked exactly.  With twin
 cross-attention (NLVR) the two image streams are averaged below
 ``merge_start_layer`` and concatenated through ``merge_layer`` from it on; as
 in the reference, ``merge_layer`` exists only at those layers.
+
+:class:`MedDecoder` is the answer decoder of VQA (the reference's
+``BertLMHeadModel`` layout, ``madtp_tpu/models/med.py:328-593``): causal
+self-attention on the plain attention core (K1 has no causal mask),
+cross-attention over the question state through :func:`cross_attention` with
+the state's key bias, the FFN through :func:`mlp`, and the LM head on the
+tied word embeddings.
 """
 
 from __future__ import annotations
@@ -19,8 +26,9 @@ from torch import nn
 
 from madtp_tpu_torch.core.config import MedConfig
 from madtp_tpu_torch.models.vit import EncoderOut, _signals, _zeros_sd
-from madtp_tpu_torch.ops.attention import cross_attention, multi_head_attention
-from madtp_tpu_torch.ops.layers import layer_norm, linear, mlp
+from madtp_tpu_torch.ops.attention import (attention_core, cross_attention,
+                                           multi_head_attention)
+from madtp_tpu_torch.ops.layers import gelu, layer_norm, linear, mlp
 from madtp_tpu_torch.prune.dtp import (TokenState, dtp_prune, dtp_prune_gather,
                                        init_token_state)
 from madtp_tpu_torch.prune.query import query_model
@@ -36,13 +44,20 @@ def _ln(x, mod: nn.LayerNorm):
     return layer_norm(x, mod.weight, mod.bias, mod.eps)
 
 
-def _attend_memory(x, p: QKV, enc: TokenState, num_heads: int):
-    """Text queries over an image memory through :func:`cross_attention`
-    (kernel K4 on the card): ``x`` [B, Nq, D] -> [B, Nq, D].  Dead memory
-    slots get weight exactly 0; the memory carries no bias."""
+def _attend_memory(x, p: QKV, enc: TokenState, num_heads: int, key_bias=None):
+    """Text queries over a memory through :func:`cross_attention` (kernel K4
+    on the card): ``x`` [B, Nq, D] -> [B, Nq, D].  Dead memory slots get
+    weight exactly 0.  The encoder's image memories are attended without a
+    bias, as in the JAX package; the decoder passes the question state's
+    ``key_bias`` (``PAD_BIAS`` on padded question tokens)."""
     q, k, v = (_lin(t, m).unflatten(-1, (num_heads, -1))
                for t, m in ((x, p.query), (enc.x, p.key), (enc.x, p.value)))
-    return cross_attention(q, k, v, enc.alive)
+    return cross_attention(q, k, v, enc.alive, key_bias)
+
+
+def _heads(x, num_heads: int):
+    """[B, N, D] -> [B, H, N, Dh]."""
+    return x.unflatten(-1, (num_heads, -1)).transpose(1, 2)
 
 
 class BertEmbeddings(nn.Module):
@@ -53,11 +68,12 @@ class BertEmbeddings(nn.Module):
                                                 cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Word + absolute position embeddings, then LayerNorm."""
+    def forward(self, input_ids: torch.Tensor, position_offset: int = 0) -> torch.Tensor:
+        """Word + absolute position embeddings from ``position_offset`` on,
+        then LayerNorm."""
         N = input_ids.shape[1]
         x = (self.word_embeddings.weight[input_ids]
-             + self.position_embeddings.weight[:N][None])
+             + self.position_embeddings.weight[position_offset:position_offset + N][None])
         return _ln(x, self.LayerNorm)
 
 
@@ -92,11 +108,28 @@ class AttentionBlock(nn.Module):
         out, aux = multi_head_attention(
             _lin(x, p.query), _lin(x, p.key), _lin(x, p.value), self.num_heads,
             key_alive=key_alive, key_bias=key_bias, need_scores=need_scores)
-        return _ln(_lin(out, self.output.dense) + x, self.output.LayerNorm), aux
+        return self.close(out, x), aux
 
-    def cross(self, x, enc: TokenState):
+    def cross(self, x, enc: TokenState, key_bias=None):
         """Single-stream cross-attention over ``enc`` + output dense + residual LN."""
-        out = _attend_memory(x, self.self, enc, self.num_heads)
+        out = _attend_memory(x, self.self, enc, self.num_heads, key_bias)
+        return self.close(out, x)
+
+    def causal(self, x, attn_bias=None, prefix_kv=None):
+        """Decoder self-attention on the plain attention core with the
+        additive ``attn_bias`` [B, 1, Nq, Nk] (causal and padding);
+        ``prefix_kv`` ([B, H, P, Dh] each) is prepended to the keys and
+        values (``self_attn_prefix``, ``madtp_tpu/models/med.py:464-478``)."""
+        p, H = self.self, self.num_heads
+        q, k, v = (_heads(_lin(x, m), H) for m in (p.query, p.key, p.value))
+        if prefix_kv is not None:
+            k = torch.cat([prefix_kv[0].to(k.dtype), k], dim=2)
+            v = torch.cat([prefix_kv[1].to(v.dtype), v], dim=2)
+        out, _ = attention_core(q, k, v, attn_bias=attn_bias)
+        return self.close(out, x)
+
+    def close(self, out, x):
+        """Output dense, residual, LayerNorm."""
         return _ln(_lin(out, self.output.dense) + x, self.output.LayerNorm)
 
 
@@ -222,3 +255,132 @@ class MedEncoder(nn.Module):
             kept_list.append(kept)
         return EncoderOut(state, sd_all, torch.stack(kept_list),
                           overflow if gather else None)
+
+
+def causal_bias(attention_mask: torch.Tensor) -> torch.Tensor:
+    """[B, N] padding mask -> [B, 1, N, N] additive causal and padding bias,
+    finite ``PAD_BIAS`` where masked (``madtp_tpu/models/med.py:328-335``)."""
+    N = attention_mask.shape[1]
+    causal = torch.ones(N, N, device=attention_mask.device).tril()
+    m = causal[None] * attention_mask[:, None, :].float()
+    return ((1.0 - m) * PAD_BIAS)[:, None]
+
+
+class LMPredictionHead(nn.Module):
+    """``cls.predictions``: transform (dense, GELU, LayerNorm) and the
+    output bias; the decoder weight is tied to the word embeddings."""
+
+    def __init__(self, cfg: MedConfig):
+        super().__init__()
+        self.transform = DenseNorm(cfg, cfg.hidden_size)
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+
+
+class MedDecoder(nn.Module):
+    """The MED as a causal LM over a cross-attention memory: the VQA answer
+    decoder (reference ``BertLMHeadModel``; ``bert.embeddings``,
+    ``bert.encoder.layer.{i}``, ``cls.predictions.transform.*``,
+    ``cls.predictions.bias``).  Computes in the dtype of its weights; the
+    memory's cross-attention attends with its key bias."""
+
+    def __init__(self, cfg: MedConfig):
+        super().__init__()
+        if not cfg.add_cross_attention or cfg.twin_cross:
+            raise ValueError("the decoder needs single-stream cross-attention "
+                             "(add_cross_attention=True, twin_cross=False)")
+        self.cfg = cfg
+        self.bert = nn.Module()
+        self.bert.embeddings = BertEmbeddings(cfg)
+        self.bert.encoder = Encoder(cfg)
+        self.cls = nn.Module()
+        self.cls.predictions = LMPredictionHead(cfg)
+
+    def _memory(self, encoder_state: TokenState, dtype) -> TokenState:
+        # the memory computes in the decoder's dtype (``_align``)
+        return TokenState(encoder_state.x.to(dtype), encoder_state.alive, encoder_state.bias)
+
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                encoder_state: TokenState) -> torch.Tensor:
+        """Full-sequence pass -> hidden states [B, N, D]
+        (``med_decoder_forward``, ``madtp_tpu/models/med.py:338-370``)."""
+        x = self.bert.embeddings(input_ids)
+        enc = self._memory(encoder_state, x.dtype)
+        bias = causal_bias(attention_mask)
+        for layer in self.bert.encoder.layer:
+            h = layer.attention.causal(x, bias)
+            h = layer.crossattention.cross(h, enc, enc.bias)
+            x = layer.ffn(h)
+        return x
+
+    def bos_step(self, bos_ids: torch.Tensor, encoder_state: TokenState):
+        """One decoder step at position 0 that also returns each layer's
+        self-attention key and value there (``med_bos_step``,
+        ``madtp_tpu/models/med.py:373-402``): every ranked candidate shares
+        this prefix.  Returns ``(hidden [B, 1, D], ks, vs)``, ``ks`` and
+        ``vs`` [L, B, H, 1, Dh]."""
+        x = self.bert.embeddings(bos_ids)
+        enc = self._memory(encoder_state, x.dtype)
+        ks, vs = [], []
+        for layer in self.bert.encoder.layer:
+            blk = layer.attention
+            p, H = blk.self, blk.num_heads
+            q, k, v = (_heads(_lin(x, m), H) for m in (p.query, p.key, p.value))
+            out, _ = attention_core(q, k, v)
+            h = layer.crossattention.cross(blk.close(out, x), enc, enc.bias)
+            x = layer.ffn(h)
+            ks.append(k)
+            vs.append(v)
+        return x, torch.stack(ks), torch.stack(vs)
+
+    def rank_forward(self, cand_ids: torch.Tensor, cand_mask: torch.Tensor,
+                     encoder_state: TokenState, prefix_kv=None) -> torch.Tensor:
+        """The decoder over ``k`` candidate answers per question
+        (``cand_ids`` [B, k, La]) that share one memory per question
+        (``med_rank_forward``, ``madtp_tpu/models/med.py:405-523``): each
+        layer projects the memory's key and value once per question, and
+        the k candidates' queries attend to them in one batched product with
+        the numerics of :func:`attention_core` (fp32 logits, the memory's
+        key bias, ``-inf`` at dead slots).  With ``prefix_kv`` (``bos_step``'s
+        ``ks, vs``) the pass runs over positions 1..La-1 only, the BOS key
+        and value prepended.  Returns hidden states [B*k, La, D], or
+        [B*k, La-1, D] with ``prefix_kv``."""
+        B, k, La = cand_ids.shape
+        mask = cand_mask.reshape(B * k, La)
+        if prefix_kv is None:
+            Lq = La
+            x = self.bert.embeddings(cand_ids.reshape(B * k, La))
+            bias = causal_bias(mask)
+        else:
+            Lq = La - 1
+            x = self.bert.embeddings(cand_ids[:, :, 1:].reshape(B * k, Lq), position_offset=1)
+            # queries: positions 1..La-1; keys: BOS, then positions 1..La-1
+            allow = torch.cat([torch.ones(Lq, 1, device=x.device),
+                               torch.ones(Lq, Lq, device=x.device).tril()], dim=1)
+            bias = ((1.0 - allow[None] * mask[:, None, :].float()) * PAD_BIAS)[:, None]
+        enc = self._memory(encoder_state, x.dtype)
+        for i, layer in enumerate(self.bert.encoder.layer):
+            blk = layer.attention
+            prefix = None
+            if prefix_kv is not None:
+                prefix = tuple(t[i].repeat_interleave(k, dim=0) for t in prefix_kv)
+            h = blk.causal(x, bias, prefix)
+            ca = layer.crossattention
+            H = ca.num_heads
+            q = _lin(h, ca.self.query).view(B, k, Lq, H, -1).permute(0, 3, 1, 2, 4)
+            kb, vb = (_heads(_lin(enc.x, m), H) for m in (ca.self.key, ca.self.value))
+            out, _ = attention_core(q.reshape(B, H, k * Lq, -1), kb, vb,
+                                    key_bias=enc.bias, key_alive=enc.alive)
+            x = layer.ffn(ca.close(out.reshape(B * k, Lq, -1), h))
+        return x
+
+    def lm_head(self, hidden: torch.Tensor) -> torch.Tensor:
+        """``BertLMPredictionHead`` (``madtp_tpu/models/med.py:583-593``):
+        dense, exact GELU, LayerNorm, then the tied word embeddings plus
+        the bias.  The logits are fp32 sums of the products of the
+        transformed state and the embeddings in their own dtype (exact in
+        fp32 for bf16), as ``preferred_element_type=float32`` gives, not
+        logits rounded to bf16.  [..., vocab] fp32."""
+        p = self.cls.predictions
+        h = _ln(gelu(_lin(hidden, p.transform.dense)), p.transform.LayerNorm)
+        w = self.bert.embeddings.word_embeddings.weight
+        return torch.matmul(h.float(), w.float().t()) + p.bias.float()

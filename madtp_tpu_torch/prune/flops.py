@@ -12,6 +12,8 @@ from madtp_tpu_torch.core.config import CLIPConfig, MedConfig, ViTConfig
 # the reference's dense CLIP ViT-L/14@336 GFLOPs, the base of its compression
 # target (madtp_tpu/cli/compress_retrieval_clip.py:26)
 ORI_GFLOPS = 395.7
+# the reference's dense BLIP VQA GFLOPs (madtp_tpu/cli/compress_vqa.py:30)
+ORI_GFLOPS_VQA = 186.1
 
 
 def _layer_macs(n_in: float, n_out: float, D: int, I: int, n_kv: float = None):
@@ -81,6 +83,22 @@ def retrieval_gflops(vit_cfg: ViTConfig, med_cfg: MedConfig, v_kept: Sequence[in
     cross_kv = float(v_kept[-1]) + 1
     itm = med_flops(med_cfg, t_kept, n_text0, cross_kv=cross_kv)
     return (2 * v + 2 * t + 3 * itm) / 1e9
+
+
+def vqa_gflops(vit_cfg: ViTConfig, med_cfg: MedConfig, v_kept: Sequence[int],
+               q_kept: Sequence[int], n_q0: int, *, n_answers: float = 1.0,
+               n_ans_tokens: float = 8.0) -> float:
+    """BLIP VQA per question: the image tower, the question encoder over the
+    image, and ``n_answers`` passes of the answer decoder over the question
+    state, ``n_ans_tokens`` tokens each (``madtp_tpu/prune/flops.py:121-135``;
+    the reference's baseline is 186.1)."""
+    v = vit_flops(vit_cfg, v_kept)
+    cross_kv = float(v_kept[-1]) + 1
+    q = med_flops(med_cfg, q_kept, n_q0, cross_kv=cross_kv)
+    q_len = float(q_kept[-1]) + 1
+    dec = n_answers * med_flops(med_cfg, [n_ans_tokens - 1] * med_cfg.num_hidden_layers,
+                                int(n_ans_tokens), cross_kv=q_len)
+    return (v + q + dec) / 1e9
 
 
 def clip_gflops(cfg: CLIPConfig, v_kept: Sequence[int], t_kept: Sequence[int]) -> float:

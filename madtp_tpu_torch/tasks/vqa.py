@@ -1,0 +1,167 @@
+"""BLIP VQAv2 evaluation by answer ranking, ``inference: 'rank'``
+(counterpart of ``madtp_tpu/tasks/vqa.py:25-93`` and of the eval half of
+``madtp_tpu/cli/compress_vqa.py:114-215``), single process.
+
+* :func:`candidate_losses` and :func:`rank_answers`: one BOS decoder step
+  gives the first-token distribution, restricted to the answer list's first
+  tokens, and each question's top ``k`` answers; one decoder pass over the
+  k candidates (the question memory shared, the BOS prefix reused) gives
+  each candidate's label-smoothed loss; the lowest wins.
+* :func:`probe_capacities` is ``--fast_eval``'s calibration, and
+  :func:`evaluate` the whole eval with the analytic GFLOPs.
+
+Batches are ``(images [b, 3, H, W], q_ids [b, N], q_mask [b, N],
+question_ids)`` numpy arrays, ``q_ids`` with the encoder token at slot 0 and
+padded to the batch's longest question (the tokenizer's
+``padding="longest"``).  The answer list comes tokenized: ``answer_ids``
+[nA, La] with BOS at slot 0, as ``tokenize_answers`` makes it
+(``madtp_tpu/cli/compress_vqa.py:33-37``), and its mask.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from madtp_tpu_torch.models.blip import VQAModel
+from madtp_tpu_torch.models.med import MedDecoder
+from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
+from madtp_tpu_torch.prune.dtp import TokenState
+from madtp_tpu_torch.prune.flops import vqa_gflops
+
+LABEL_SMOOTHING = 0.1  # reference models/med.py:1045
+
+
+def _ids(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), dtype=torch.long).to(device)
+
+
+def candidate_losses(decoder: MedDecoder, q_state: TokenState, answer_ids: torch.Tensor,
+                     answer_mask: torch.Tensor, *, k: int = 128, pad_token_id: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each question's top ``k`` answers by first-token probability and
+    their summed label-smoothed losses (``rank_answers`` up to its argmax):
+    ``q_state`` the question encoder's output (the decoder's memory,
+    [B, S, D]); ``answer_ids`` and ``answer_mask`` [nA, La] long tensors on
+    the model's device.  Returns ``(loss [B, k] fp32, topk_ids [B, k])``.
+
+    The top k is a stable descending sort: every answer that shares a first
+    token has the same first-token probability, and ``jax.lax.top_k`` puts
+    the lower index first among equal values, which ``torch.topk`` does not
+    promise.  Nothing here waits on the card."""
+    eps = LABEL_SMOOTHING
+    B = q_state.x.shape[0]
+    La = answer_ids.shape[1]
+    start = answer_ids[:1, :1].expand(B, 1)  # BOS
+    hidden, bos_k, bos_v = decoder.bos_step(start, q_state)
+    logp0 = torch.log_softmax(decoder.lm_head(hidden)[:, 0].float(), dim=-1)  # [B, V]
+    prob_first = logp0.exp()[:, answer_ids[:, 1]]  # [B, nA]
+    topk_ids = torch.sort(prob_first, dim=1, descending=True, stable=True).indices[:, :k]
+    cand_ids, cand_mask = answer_ids[topk_ids], answer_mask[topk_ids]  # [B, k, La]
+
+    # the loss term of position 0 from the BOS step's logits: the label is
+    # the candidate's first token
+    first = cand_ids[:, :, 1]
+    term0 = (1.0 - eps) * -logp0.gather(1, first) + eps * -logp0.mean(dim=-1, keepdim=True)
+    term0 = torch.where(first == pad_token_id, torch.zeros_like(term0), term0)
+
+    hidden = decoder.rank_forward(cand_ids, cand_mask, q_state, prefix_kv=(bos_k, bos_v))
+    # positions 1..La-2 predict tokens 2..La-1; position La-1 has no label
+    logp2 = torch.log_softmax(decoder.lm_head(hidden[:, :La - 2]).float(), dim=-1)
+    labels = cand_ids.reshape(B * k, La)[:, 2:]
+    valid = labels != pad_token_id
+    nll = -logp2.gather(-1, torch.where(valid, labels, torch.zeros_like(labels))[..., None])[..., 0]
+    loss2 = torch.where(valid, (1.0 - eps) * nll + eps * -logp2.mean(dim=-1),
+                        torch.zeros_like(nll))
+    return term0 + loss2.sum(dim=1).view(B, k), topk_ids
+
+
+def rank_answers(decoder: MedDecoder, q_state: TokenState, answer_ids: torch.Tensor,
+                 answer_mask: torch.Tensor, *, k: int = 128, pad_token_id: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each question's answer (``rank_answers``): the candidate of
+    :func:`candidate_losses` with the lowest loss, the first of equals as
+    ``jnp.argmax`` takes it.  Returns ``(best [B] indices into the answer
+    list, topk_ids [B, k])``."""
+    loss, topk_ids = candidate_losses(decoder, q_state, answer_ids, answer_mask, k=k,
+                                      pad_token_id=pad_token_id)
+    best = torch.argmax(-loss, dim=1)
+    return topk_ids.gather(1, best[:, None])[:, 0], topk_ids
+
+
+def _pad_to(a: np.ndarray, n: int) -> np.ndarray:
+    a = np.asarray(a)
+    return np.pad(a, ((0, 0), (0, max(0, n - a.shape[1]))))
+
+
+@torch.inference_mode()
+def probe_capacities(model: VQAModel, batches: Iterable, temperature: float,
+                     cap_mode: str = "ceil", max_length: int = 35):
+    """``--fast_eval``'s calibration (``madtp_tpu/cli/compress_vqa.py:
+    148-178``): the mask-mode towers on the first 4 batches, the questions
+    padded to ``max_length`` (one probe shape, as ``compress_vqa`` pads them),
+    at ``temperature``, then :func:`fast_capacity_schedule` over both towers'
+    kept counts.  Returns ``(capacities_v, capacities_t)``."""
+    dev = model.space_dict.device
+    vks, tks = [], []
+    for images, q_ids, q_mask, _ in itertools.islice(batches, 4):
+        out, _, vk = model.encode(torch.from_numpy(np.asarray(images)).to(dev),
+                                  _ids(_pad_to(q_ids, max_length), dev),
+                                  _ids(_pad_to(q_mask, max_length), dev),
+                                  temperature=temperature, prune_active=True)
+        vks.append(vk.cpu().numpy())
+        tks.append(out.kept_counts.cpu().numpy())
+    return fast_capacity_schedule(np.stack(vks), np.stack(tks), cap_mode)
+
+
+def evaluate(model: VQAModel, batches: Iterable, answer_ids, answer_mask, *,
+             temperature: float, k_test: int = 128,
+             capacities_v: Optional[Sequence[int]] = None,
+             capacities_t: Optional[Sequence[int]] = None, pad_token_id: int = 0
+             ) -> Tuple[List[Tuple[int, int]], float]:
+    """The VQA eval of ``compress_vqa`` (single process): prune when
+    ``temperature > 0`` (gather mode with capacities), rank each batch's
+    questions against the answer list at ``k_test`` (capped at the list's
+    length), and average ``vqa_gflops`` over the batches with
+    ``n_answers=k_test``.  Batch ``i+1`` is dispatched before batch ``i`` is
+    read back.  Returns ``(results, Cur_Gflops)``, ``results`` the
+    ``(question_id, answer index)`` pairs in order.  It runs where the model
+    lives."""
+    cfg = model.cfg
+    dev = model.space_dict.device
+    a_ids, a_mask = _ids(answer_ids, dev), _ids(answer_mask, dev)
+    k = min(k_test, a_ids.shape[0])
+    prune = temperature > 0
+    results: List[Tuple[int, int]] = []
+    g_sum, n = 0.0, 0
+
+    @torch.inference_mode()
+    def step(images, q_ids, q_mask):
+        out, _, v_kept = model.encode(
+            torch.from_numpy(np.asarray(images)).to(dev), _ids(q_ids, dev), _ids(q_mask, dev),
+            temperature=temperature, prune_active=prune, capacities_v=capacities_v,
+            capacities_t=capacities_t)
+        best, _ = rank_answers(model.text_decoder, out.state, a_ids, a_mask, k=k,
+                               pad_token_id=pad_token_id)
+        return best, v_kept, out.kept_counts
+
+    def consume(pend):
+        nonlocal g_sum, n
+        (best, v_kept, q_kept), qids, text_w = pend
+        results.extend((int(q), int(b)) for q, b in zip(qids, best.cpu().numpy()))
+        g_sum += vqa_gflops(cfg.vit, cfg.med, v_kept.cpu().numpy(), q_kept.cpu().numpy(),
+                            text_w, n_answers=k_test)
+        n += 1
+
+    pending = None
+    for images, q_ids, q_mask, qids in batches:
+        out = step(images, q_ids, q_mask)
+        if pending is not None:
+            consume(pending)
+        pending = (out, qids, np.shape(q_ids)[1])
+    if pending is not None:
+        consume(pending)
+    return results, g_sum / max(n, 1)

@@ -21,6 +21,7 @@ def _port_modules():
 
 
 def test_port_imports_without_jax():
+    assert {"madtp_tpu_torch.tasks.vqa", "madtp_tpu_torch.models.med"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError

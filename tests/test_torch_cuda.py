@@ -1,6 +1,7 @@
 """Kernels K1, K2, K4 and K5 against their plain PyTorch versions on the card
-(the checks of ``chip_smoke.py``), the autograd pairings (K1 with K2, K4 and
-K5 with the plain version's backward), the FFN routing rule, and the
+(the checks of ``chip_smoke.py``), K1 also in K3's range (N > 1536, where
+the TPU runs its query-tiled kernel), the autograd pairings (K1 with K2, K4
+and K5 with the plain version's backward), the FFN routing rule, and the
 refusals.  Needs an NVIDIA GPU with nvcc; skipped elsewhere.
 
 Run on the card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
@@ -14,7 +15,8 @@ from madtp_tpu_torch.kernels import attention_scores_bwd as k2
 from madtp_tpu_torch.kernels import cross_attention as k4
 from madtp_tpu_torch.kernels import ffn as k5
 from madtp_tpu_torch.ops import layers
-from madtp_tpu_torch.kernels.attention_scores import TOLERANCES, attention_scores_cuda
+from madtp_tpu_torch.kernels.attention_scores import (LARGE_N, TOLERANCES,
+                                                      attention_scores_cuda)
 from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
 from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
 from madtp_tpu_torch.ops.attention import (attention_scores, attention_scores_bwd_plain,
@@ -59,6 +61,38 @@ def test_k1_at_sixteen_heads(cuda, B, N, dtype):
     """K1 at the CLIP ViT-L vision tower's head count, H = 16 (gather 584
     and mask-mode 608 slots), which no BLIP path reaches."""
     _compare(*k1_case(B, N, with_bias=False, dtype=dtype, device=cuda, H=16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,with_bias", [
+    (2, 1537, True), (2, 1608, False), (1, 2305, True), (1, 4096, False)])
+def test_k1_in_k3_range(cuda, B, N, with_bias, dtype):
+    """K1 where the TPU runs K3 (``fused_attention_scores_tiled``): one slot
+    past 1,536, the VQA-640 gather path's first layer (1,608), a ragged
+    2,305 and K3's ceiling 4,096; random dead keys and a dead tail cross the
+    64-wide tiles.  Each launch counts as one of K3's, and a second launch
+    gives the same bits."""
+    q, k, v, alive, bias = k1_case(B, N, with_bias=with_bias, dtype=dtype, device=cuda)
+    before = attention_scores_cuda.large_n_launches
+    got = _compare(q, k, v, alive, bias)
+    bias_in = torch.zeros(alive.shape, device=cuda) if bias is None else bias
+    again = attention_scores_cuda(q, k, v, alive, bias_in, q.shape[-1] ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert attention_scores_cuda.large_n_launches == before + 2
+
+
+def test_k1_large_n_count(cuda):
+    """The count of K3's range follows the TPU's rule: N = 1536 is the full
+    kernel's, N = 1537 the tiled one's."""
+    assert LARGE_N == 1536
+    for N, step in ((LARGE_N, 0), (LARGE_N + 1, 1)):
+        q, k, v, alive, _ = k1_case(1, N, with_bias=False, dtype=torch.bfloat16, device=cuda,
+                                    H=2)
+        launches, large = attention_scores_cuda.launches, attention_scores_cuda.large_n_launches
+        with torch.inference_mode():
+            attention_scores(q, k, v, alive)
+        assert attention_scores_cuda.launches == launches + 1
+        assert attention_scores_cuda.large_n_launches == large + step
 
 
 def test_k1_dead_rows_and_determinism(cuda):
@@ -259,10 +293,12 @@ def _k4_compare(q, k, v, alive, bias):
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("B,Nq,S,packed_q", [
     (256, 35, 592, False), (256, 35, 320, False), (32, 32, 320, False), (4, 1, 100, False),
-    (4, 7, 130, True), (3, 65, 64, False), (2, 130, 1, True)])
+    (4, 7, 130, True), (3, 65, 64, False), (2, 130, 1, True), (16, 1, 40, False)])
 def test_k4_matches_plain(cuda, B, Nq, S, packed_q, with_bias, dtype):
     """The ITM and twin-cross shapes; ragged Nq (1, 7, and past one 64-row
-    query tile), S not a multiple of the 64-key tile, a strided q view."""
+    query tile), S not a multiple of the 64-key tile, a strided q view; the
+    VQA decoder's BOS step (one query over a ~40-slot question state, whose
+    padding rides as the key bias)."""
     _k4_compare(*k4_case(B, Nq, S, with_bias=with_bias, dtype=dtype, device=cuda,
                          packed_q=packed_q))
 
