@@ -6,7 +6,9 @@ Phases, each fatal on failure:
 
 1. build kernels K1 (``madtp_tpu_torch/csrc/attention_scores.cu``), K2
    (``csrc/attention_scores_bwd.cu``), K4 (``csrc/cross_attention.cu``) and
-   K5 (``csrc/ffn.cu``) with nvcc, one process each, together;
+   K5 (``csrc/ffn.cu``), and the designs K4 and K5 replaced
+   (``csrc/previous/``, yardsticks timed beside them as ``previous_ms``),
+   with nvcc, one process each, together;
 2. K1 against its plain PyTorch version on the card at the NLVR shapes, fp32
    and bf16, with times, the card's bound, and the time of
    ``F.scaled_dot_product_attention`` for the ``out`` part alone (a yardstick
@@ -15,14 +17,18 @@ Phases, each fatal on failure:
    shapes, fp32 and bf16, two launches bit-identical, with times, the bound,
    and SDPA forward + backward for the ``out`` part alone (partial again);
 3b. K4 against its plain version on synthetic inputs at the ITM rerank's,
-   the NLVR twin cross's and ragged shapes, with and without bias, fp32 and
-   bf16, two launches bit-identical, with times, the bound, and SDPA with the
-   same additive mask (the same function);
+   the NLVR twin cross's, the VQA-640 memory's and ragged shapes (bf16
+   splitting the keys into chunks), with and without bias, fp32 and bf16,
+   a row with no alive key, two launches bit-identical, with times, the
+   replaced design's, the bound, and SDPA with the same additive mask (the
+   same function);
 3c. K5 against its plain version at the CLIP vision (M = 32 x 584, 1024 /
    4096), CLIP text (M = 32 x 96, 768 / 3072), BLIP (M = 64 x 584, 768 /
-   3072) and a ragged shape, GELU and QuickGELU, two launches bit-identical,
-   with times, the bound, and the library call (two ``F.linear`` and the
-   activation: the same function);
+   3072), a ragged, the BOS step's and a half-tile shape in bf16, the fp32
+   train step's (M = 32 x 592, 768 / 3072), a ragged and the BOS shape in
+   fp32, GELU and QuickGELU, two launches bit-identical, with times, the
+   replaced design's, the bound, and the library call (two ``F.linear`` and
+   the activation: the same function); the host time to enqueue one FFN;
 3d. K1 in K3's range, N = 1,537 to 4,096, fp32 and bf16, with and without
    bias, two launches bit-identical, each counted as one of K3's; time, bound
    and SDPA (``out`` only) at the VQA-640 gather path's first layer;
@@ -89,16 +95,22 @@ Phases, each fatal on failure:
    of K3's (the TPU's query-tiled kernel), and K1 is held on those inputs.
 
 The NLVR phases (4-7) also hold K4 to 24 launches per forward: the twin
-cross-attention's two streams in each of the 12 MED layers.  Each main path
-(5, 7, 9, 10, 13, 14; phases 9, 10 and 13 their dense evals too) also
-holds K4 and K5 against their plain versions on the inputs that path gave
-it, one case per
-distinct shape (K4 where the path has cross-attention); phases 10 and 13
+cross-attention's two streams in each of the 12 MED layers.  Every fp32
+FFN on the card runs K5 too: the parity phases (4, 6, 8, 11, 12) and the
+training path's fp32 steps count those launches apart (``fp32_launches``)
+and hold fp32 K5 against its plain version on their own inputs.  Each
+main path (5, 7, 9, 10, 13, 14; phases 9, 10 and 13 their dense evals too)
+also holds K4 and K5 against their plain versions on the inputs that path
+gave it, one case per distinct shape (K4 where the path has
+cross-attention), each timed beside the replaced design; phases 10 and 13
 hold K1 on their own inputs (the CLIP vision tower's at H = 16) and phase 14
 on its N > 1536 inputs; the paths of phases 5-10 time their step with the
-FFNs on K5 and on two linears (the path before K5), in turns.  Each main
+FFNs on K5 and on two linears (the path before K5), in turns, phase 7 its
+mask-mode fp32 step too.  Each main
 path zeroes the launch counts just before it runs and reads them just after.
-Every phase logs its wall time (``[time]``).
+Kernel times are device times (``kernel_ms``: the launches queue behind a
+spin kernel, so the host's enqueue time is not counted); step times are
+wall times.  Every phase logs its wall time (``[time]``).
 
 Prints the card's name and power limit, a JSON line of kernel measurements,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -318,14 +330,14 @@ class K4Capture(_Capture):
 
 class K5Capture(_Capture):
     """K5's calls (from ``ops.layers.mlp`` and ``FusedMLP``), by (M, D, F,
-    act)."""
+    act, dtype)."""
 
     module, attr = "madtp_tpu_torch.ops.layers", "ffn_cuda"
     defaults = (("x", None), ("w1", None), ("b1", None), ("w2", None), ("b2", None),
                 ("act", "gelu"))
 
     def key(self, x, w1, b1, w2, b2, act):
-        return (x.shape[0], x.shape[1], w1.shape[0], act)
+        return (x.shape[0], x.shape[1], w1.shape[0], act, x.dtype)
 
 
 class K1Capture(_Capture):
@@ -394,7 +406,8 @@ def check_k4_cases(label, capture, iters=20, where=None):
     case per distinct shape, dtype and bias, as ``capture`` recorded them):
     in their own dtype within ``TOLERANCES``, bf16 cases also cast to fp32
     within the fp32 tolerance, two launches bit-identical; with the times of
-    K4, the plain version and SDPA (the same function), and the bound.
+    K4, the replaced design (``previous_k4``), the plain version and SDPA
+    (the same function), and the bound.
     Returns the record of the most-called case (of those matching ``where``,
     as ``pick_record``) for the kernels line."""
     import torch.nn.functional as F
@@ -420,19 +433,22 @@ def check_k4_cases(label, capture, iters=20, where=None):
                 if not torch.equal(got, cross_attention_cuda(qd, kd, vd, alive, bias, scale)):
                     raise AssertionError(f"K4 {name} {str(dt)[6:]}: two launches differ")
                 del qd, kd, vd, got, want
-            ms = time_ms(lambda: cross_attention_cuda(q, k, v, alive, bias, scale), iters)
-            plain_ms = time_ms(lambda: cross_attention_plain(q, k, v, alive, bias, scale), 5)
+            ms = kernel_ms(lambda: cross_attention_cuda(q, k, v, alive, bias, scale), iters)
+            previous_ms = kernel_ms(lambda: previous_k4(q, k, v, alive, bias, scale), iters)
+            plain_ms = kernel_ms(lambda: cross_attention_plain(q, k, v, alive, bias, scale), 5)
             mask = sdpa_mask(alive, bias, dtype)
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask, scale=scale), iters)
             bound_ms, bound_by = bound(*k4_work(q, k, alive, bias), dtype)
             log(f"[k4-main] {name} {str(dtype)[6:]}: max|err| {errs[0]:.2e}"
                 + (f" (as fp32 {errs[1]:.2e})" if len(errs) > 1 else "")
-                + f", bit-identical relaunch | K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}), sdpa (same function) {sdpa_ms:.4f} ms")
-            records[key] = dict(max_abs_err=errs[0], ms=ms, plain_ms=plain_ms,
-                                bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms,
+                + f", bit-identical relaunch | K4 {ms:.4f} ms, previous {previous_ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), sdpa (same "
+                f"function) {sdpa_ms:.4f} ms")
+            records[key] = dict(max_abs_err=errs[0], ms=ms, previous_ms=previous_ms,
+                                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=sdpa_ms,
                                 shape=dict(B=B, Nq=Nq, S=S, dtype=str(dtype)[6:]))
             del mask, qh, kh, vh
     capture.cases.clear()
@@ -452,6 +468,30 @@ def time_ms(fn, iters):
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+SPIN_HZ = 2.0e9  # cycles a second of torch.cuda._sleep's spin: the H100's top SM clock
+
+
+def kernel_ms(fn, iters):
+    """Device time per call of ``fn`` (kernels and their yardsticks), ms:
+    the launches queue up behind a spin kernel that lasts longer than their
+    enqueue, so the host's time to enqueue them, which binds small kernels
+    and is measured apart (``enqueue_ms``), is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    spin_s = min(0.5, 1.5 * iters * (time.perf_counter() - t0) + 1e-3)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * SPIN_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -538,6 +578,59 @@ def profile_backward(label, step, batch):
         + kernel_totals(kernels, busy_ms))
 
 
+PREVIOUS = {"K4": "previous/cross_attention.cu", "K5": "previous/ffn.cu"}
+
+
+def previous_k4(q, k, v, alive, bias, scale):
+    """The K4 design that ``csrc/cross_attention.cu`` replaced
+    (``csrc/previous/cross_attention.cu``), on the same inputs: the yardstick
+    of ``previous_ms``.  Its launches count nowhere."""
+    from madtp_tpu_torch.kernels.build import build
+
+    fn = build(PREVIOUS["K4"]).lib.k4_cross_attention
+    if fn.argtypes is None:
+        import ctypes
+
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [i32, p, p, p, i64, i64, i64, i64, p, p, p,
+                       i32, i32, i32, i32, i32, ctypes.c_float, p]
+        fn.restype = i32
+    B, Nq, H, Dh = q.shape
+    out = torch.empty((B, Nq, H, Dh), dtype=q.dtype, device=q.device)
+    err = fn(0 if q.dtype == torch.float32 else 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             q.stride(0), q.stride(1), k.stride(0), k.stride(1), alive.data_ptr(),
+             None if bias is None else bias.data_ptr(), out.data_ptr(), B, Nq, k.shape[1], H,
+             Dh, float(scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"previous K4 launch failed with cudaError_t {err}")
+    return out.view(B, Nq, H * Dh)
+
+
+def previous_k5(x, w1, b1, w2, b2, act):
+    """The K5 design that ``csrc/ffn.cu`` replaced (``csrc/previous/ffn.cu``,
+    bf16 only), on the same inputs: the yardstick of ``previous_ms``."""
+    from madtp_tpu_torch.kernels.build import build
+    from madtp_tpu_torch.kernels.ffn import ACTS
+
+    fn = build(PREVIOUS["K5"]).lib.k5_ffn
+    if fn.argtypes is None:
+        import ctypes
+
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, p]
+        fn.restype = i32
+    M, D = x.shape
+    F = w1.shape[0]
+    hidden = torch.empty((M, F), dtype=x.dtype, device=x.device)
+    y = torch.empty((M, D), dtype=x.dtype, device=x.device)
+    err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+             hidden.data_ptr(), y.data_ptr(), M, D, F, ACTS[act],
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"previous K5 launch failed with cudaError_t {err}")
+    return y
+
+
 def check_close(name, got, want, rtol, atol):
     got, want = got.float(), want.float()
     err = (got - want).abs()
@@ -549,6 +642,22 @@ def check_close(name, got, want, rtol, atol):
     return float(err.max())
 
 
+def fp32_k5_held(label, phase, *args):
+    """Runs ``phase`` (a card-against-CPU phase in fp32) with K5's calls
+    captured, then holds fp32 K5 against its plain version on the inputs the
+    card side gave it.  Returns the phase's result, its fp32 K5 launches and
+    the record of its most-called K5 case."""
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+
+    before = ffn_cuda.fp32_launches
+    with K5Capture() as capture:
+        out = phase(*args)
+    launches = ffn_cuda.fp32_launches - before
+    if launches == 0:
+        raise AssertionError(f"{label}: the card side launched no fp32 K5")
+    return out, launches, check_k5_cases(label, capture, where=dict(dtype="float32"))
+
+
 def phase_build():
     from madtp_tpu_torch.kernels import attention_scores as k1
     from madtp_tpu_torch.kernels import attention_scores_bwd as k2
@@ -557,7 +666,7 @@ def phase_build():
     from madtp_tpu_torch.kernels.build import build_all
 
     t0 = time.perf_counter()
-    built = build_all([k1.SOURCE, k2.SOURCE, k4.SOURCE, k5.SOURCE])
+    built = build_all([k1.SOURCE, k2.SOURCE, k4.SOURCE, k5.SOURCE, *PREVIOUS.values()])
     log(f"[build] {time.perf_counter() - t0:.2f} s wall for {len(built)} kernel source(s)")
     for name, b in built.items():
         log(f"[build] {name}: nvcc {b.seconds:.2f} s -> {b.path.name}")
@@ -588,11 +697,11 @@ def phase_k1(device, main_n=584):
             torch.cuda.synchronize()
             errs = {name: check_close(f"K1 {name} B={B} N={N} {dtype}", g, w, *tol[name])
                     for name, g, w in zip(("out", "cls_attn", "col_mass"), got, want)}
-            ms = time_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), 10)
-            plain_ms = time_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
+            ms = kernel_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), 10)
+            plain_ms = kernel_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
             mask = sdpa_mask(alive, bias_in, dtype)
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask, scale=scale), 10)
             bound_ms, bound_by = bound(*k1_work(q, alive), dtype)
             log(f"[k1] {str(dtype)[6:]} B={B} N={N} bias={with_bias}: "
@@ -638,8 +747,8 @@ def phase_k2(device, main_n=592):
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"K2 {label}: two launches on the same inputs differ")
             del got, want, again
-            ms = time_ms(lambda: k2.attention_scores_bwd_cuda(*args), 5)
-            plain_ms = time_ms(lambda: attention_scores_bwd_plain(*plain_args), 2)
+            ms = kernel_ms(lambda: k2.attention_scores_bwd_cuda(*args), 5)
+            plain_ms = kernel_ms(lambda: attention_scores_bwd_plain(*plain_args), 2)
             mask = sdpa_mask(c["alive"], c["bias_in"], dtype)
             qh, kh, vh = (c[n].transpose(1, 2).detach().requires_grad_() for n in "qkv")
             do = c["d_out"].view(c["q"].shape).transpose(1, 2)
@@ -648,7 +757,7 @@ def phase_k2(device, main_n=592):
                 o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=c["scale"])
                 torch.autograd.grad(o, (qh, kh, vh), do)
 
-            sdpa_ms = time_ms(sdpa, 5)
+            sdpa_ms = kernel_ms(sdpa, 5)
             bound_ms, bound_by = bound(*k2_work(c["q"], c["alive"]), dtype)
             log(f"[k2] {label} bias={with_bias}: max|err| dq {errs['dq']:.2e} dk {errs['dk']:.2e} "
                 f"dv {errs['dv']:.2e} dbias {errs['dbias']:.2e} ({near} head-max near ties "
@@ -667,59 +776,70 @@ def phase_k4(device):
     """K4 vs plain on synthetic inputs at the ITM rerank's shapes (256
     candidates, 35 text queries, 592 image slots in mask mode and 320 in
     gather mode), the NLVR twin cross's (32 pairs, 32 text slots, 320 image
-    slots) and ragged ones (Nq 1 and 7, S not a multiple of the 64-key
-    tile), with and without bias, fp32 and bf16; two launches bit-identical.
-    The shapes the main paths really give K4 are checked on their own inputs
-    (``check_k4_cases``)."""
+    slots), the VQA-640 mask memory's (16 questions, 40 query slots, 1,616
+    image slots) and ragged ones (Nq 1, 7, 22 and 70, S not a multiple of
+    the 64-key tile), with and without bias, fp32 and bf16; in bf16 the
+    VQA-640 case and B=4, Nq=22, S=600 split the keys (``split_chunks``); a
+    batch row with no alive key gives zeros; two launches bit-identical.  The shapes the main paths
+    really give K4 are checked on their own inputs (``check_k4_cases``)."""
     import torch.nn.functional as F
 
-    from madtp_tpu_torch.kernels.cross_attention import TOLERANCES, cross_attention_cuda
+    from madtp_tpu_torch.kernels.cross_attention import (TOLERANCES, cross_attention_cuda,
+                                                         split_chunks)
     from madtp_tpu_torch.ops.attention import cross_attention_plain
 
-    cases = [(256, 35, 592), (256, 35, 320), (32, 32, 320), (8, 1, 100), (8, 7, 130)]
+    cases = [(256, 35, 592), (256, 35, 320), (32, 32, 320), (16, 40, 1616), (8, 1, 100),
+             (8, 7, 130), (4, 70, 200), (4, 22, 600)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, Nq, S in cases:
             for with_bias in (False, True):
                 q, k, v, alive, bias = k4_case(B, Nq, S, with_bias=with_bias, dtype=dtype,
                                                device=device, packed_q=Nq == 7)
+                alive[-1] = with_bias  # no alive key in the last row: zeros out
                 scale = q.shape[-1] ** -0.5
                 got = cross_attention_cuda(q, k, v, alive, bias, scale)
                 want = cross_attention_plain(q, k, v, alive, bias, scale)
                 torch.cuda.synchronize()
-                label = f"B={B} Nq={Nq} S={S} bias={with_bias} {str(dtype)[6:]}"
+                chunks = split_chunks(B, q.shape[2], Nq, S)[0] if dtype == torch.bfloat16 else 1
+                label = (f"B={B} Nq={Nq} S={S} bias={with_bias} {str(dtype)[6:]} "
+                         f"({chunks} key chunk{'s' if chunks > 1 else ''})")
                 err = check_close(f"K4 {label}", got, want, *TOLERANCES[dtype])
+                if not with_bias and got[-1].abs().max() != 0:
+                    raise AssertionError(f"K4 {label}: a row with no alive key is not zero")
                 if not torch.equal(got, cross_attention_cuda(q, k, v, alive, bias, scale)):
                     raise AssertionError(f"K4 {label}: two launches on the same inputs differ")
-                ms = time_ms(lambda: cross_attention_cuda(q, k, v, alive, bias, scale), 20)
-                plain_ms = time_ms(lambda: cross_attention_plain(q, k, v, alive, bias, scale), 5)
+                ms = kernel_ms(lambda: cross_attention_cuda(q, k, v, alive, bias, scale), 20)
+                previous_ms = kernel_ms(lambda: previous_k4(q, k, v, alive, bias, scale), 20)
+                plain_ms = kernel_ms(lambda: cross_attention_plain(q, k, v, alive, bias, scale), 5)
                 mask = sdpa_mask(alive, bias, dtype)
                 qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-                sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=mask, scale=scale), 20)
                 bound_ms, bound_by = bound(*k4_work(q, k, alive, bias), dtype)
                 log(f"[k4] {label}: max|err| {err:.2e}, bit-identical relaunch | K4 {ms:.4f} ms, "
-                    f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                    f"sdpa (same function) {sdpa_ms:.4f} ms")
+                    f"previous {previous_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{bound_ms:.4f} ms ({bound_by}), sdpa (same function) {sdpa_ms:.4f} ms")
                 del q, k, v, got, want, mask
                 torch.cuda.empty_cache()
 
 
-def k5_case(M, D, F, device, seed=0):
+def k5_case(M, D, F, device, seed=0, dtype=torch.bfloat16):
     """K5 inputs: x N(0, 1), W1 and W2 N(0, 1/fan_in), biases N(0, 0.01),
-    all bf16 on the card."""
+    all in ``dtype`` on the card."""
     g = torch.Generator(device=device).manual_seed(seed)
 
     def r(*shape, scale=1.0):
-        return (torch.randn(shape, generator=g, device=device) * scale).to(torch.bfloat16)
+        return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
 
     return r(M, D), r(F, D, scale=D ** -0.5), r(F, scale=0.1), r(D, F, scale=F ** -0.5), \
         r(D, scale=0.1)
 
 
-def k5_work(M, D, F):
+def k5_work(M, D, F, el=2):
     """(flops, bytes): 2 M D F for each product; x, W1, b1, W2, b2 read once
-    and y written once, bf16 (the hidden is the kernel's own traffic)."""
-    return 4.0 * M * D * F, 2 * (2 * M * D + 2 * D * F + D + F)
+    and y written once, ``el`` bytes each (the hidden is the kernel's own
+    traffic)."""
+    return 4.0 * M * D * F, el * (2 * M * D + 2 * D * F + D + F)
 
 
 def ffn_library(x, w1, b1, w2, b2, act):
@@ -734,65 +854,88 @@ def ffn_library(x, w1, b1, w2, b2, act):
 
 def hold_k5(name, x, w1, b1, w2, b2, act, iters):
     """K5 against its plain version on one set of inputs, within
-    ``TOLERANCES``, a relaunch bit-identical; times of K5, the plain version
-    and the library call, and the bound.  Returns the record."""
+    ``TOLERANCES`` of their dtype, a relaunch bit-identical; times of K5,
+    the plain version, the library call and, in bf16, the replaced design
+    (``previous_k5``; in fp32 the FFNs ran as two linears before K5 took
+    them, so ``previous_ms`` is the library call's time), and the bound.
+    Returns the record."""
     from madtp_tpu_torch.kernels.ffn import TOLERANCES, ffn_cuda
     from madtp_tpu_torch.ops.layers import mlp_plain
 
     args = (x, w1, b1, w2, b2, act)
     with torch.inference_mode():
         got, want = ffn_cuda(*args), mlp_plain(*args)
-        err = check_close(f"K5 {name}", got, want, *TOLERANCES[torch.bfloat16])
+        err = check_close(f"K5 {name}", got, want, *TOLERANCES[x.dtype])
         if not torch.equal(got, ffn_cuda(*args)):
             raise AssertionError(f"K5 {name}: two launches on the same inputs differ")
         del got, want
-        ms = time_ms(lambda: ffn_cuda(*args), iters)
-        plain_ms = time_ms(lambda: mlp_plain(*args), max(3, iters // 4))
-        library_ms = time_ms(lambda: ffn_library(*args), iters)
+        ms = kernel_ms(lambda: ffn_cuda(*args), iters)
+        plain_ms = kernel_ms(lambda: mlp_plain(*args), max(3, iters // 4))
+        library_ms = kernel_ms(lambda: ffn_library(*args), iters)
+        previous_ms = (kernel_ms(lambda: previous_k5(*args), iters) if x.dtype == torch.bfloat16
+                       else library_ms)
     M, D = x.shape
     F = w1.shape[0]
-    bound_ms, bound_by = bound(*k5_work(M, D, F), torch.bfloat16)
-    log(f"[k5] {name}: max|err| {err:.2e}, bit-identical relaunch | K5 {ms:.4f} ms "
-        f"({4.0 * M * D * F / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}), library (same function) {library_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms, shape=dict(M=M, D=D, F=F, act=act))
+    bound_ms, bound_by = bound(*k5_work(M, D, F, x.element_size()), x.dtype)
+    log(f"[k5] {name} {str(x.dtype)[6:]}: max|err| {err:.2e}, bit-identical relaunch | K5 "
+        f"{ms:.4f} ms ({4.0 * M * D * F / ms / 1e9:.1f} TFLOP/s), previous {previous_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), library (same "
+        f"function) {library_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, previous_ms=previous_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=dict(M=M, D=D, F=F, act=act, dtype=str(x.dtype)[6:]))
 
 
 def phase_k5(device, iters=20):
-    """K5 vs plain on synthetic inputs at the CLIP vision tower's gather
-    shape (32 images x 584 slots, 1024 / 4096), the text tower's mask-mode
-    shape (32 x 96, 768 / 3072), BLIP's (64 x 584, 768 / 3072) and a ragged
-    M, both activations.  Returns the CLIP vision QuickGELU record."""
+    """K5 vs plain on synthetic inputs, bf16 at the CLIP vision tower's
+    gather shape (32 images x 584 slots, 1024 / 4096), the text tower's
+    mask-mode shape (32 x 96, 768 / 3072), BLIP's (64 x 584, 768 / 3072), a
+    ragged M, the BOS step's M = 16 and a width that is a multiple of 128
+    but not of the 256-wide tile; fp32 at the mask-mode train step's ViT
+    rows (32 x 592, 768 / 3072), a ragged M and M = 16; both activations.
+    Returns the CLIP vision QuickGELU record and the fp32 train-step GELU
+    record."""
     from madtp_tpu_torch.kernels.ffn import ffn_cuda
     from madtp_tpu_torch.ops.layers import mlp_plain
 
-    cases = [("clip vision", 32 * 584, 1024, 4096), ("clip text", 32 * 96, 768, 3072),
-             ("blip", 64 * 584, 768, 3072), ("ragged", 1000, 768, 3072)]
+    cases = [("clip vision", 32 * 584, 1024, 4096, torch.bfloat16),
+             ("clip text", 32 * 96, 768, 3072, torch.bfloat16),
+             ("blip", 64 * 584, 768, 3072, torch.bfloat16),
+             ("ragged", 1000, 768, 3072, torch.bfloat16),
+             ("bos", 16, 768, 3072, torch.bfloat16),
+             ("half tile", 1000, 384, 1152, torch.bfloat16),
+             ("train fp32", 32 * 592, 768, 3072, torch.float32),
+             ("ragged", 1000, 768, 3072, torch.float32),
+             ("bos", 16, 768, 3072, torch.float32)]
     args = k5_case(256, 768, 3072, device)
     with torch.inference_mode():
         host = {name: enqueue_ms(lambda: fn(*args, "gelu"), 200)
-                for name, fn in (("K5", ffn_cuda), ("plain", mlp_plain))}
-    log(f"[k5] host time to enqueue one FFN (M=256, 768/3072): K5's wrapper "
-        f"{host['K5']:.4f} ms, the plain version {host['plain']:.4f} ms")
-    record = None
-    for label, M, D, F in cases:
-        args = k5_case(M, D, F, device)
+                for name, fn in (("K5", ffn_cuda), ("previous", previous_k5),
+                                 ("plain", mlp_plain))}
+    log(f"[k5] host time to enqueue one FFN (M=256, 768/3072, bf16): K5's wrapper "
+        f"{host['K5']:.4f} ms, the replaced design {host['previous']:.4f} ms, the plain "
+        f"version {host['plain']:.4f} ms")
+    record = record32 = None
+    for label, M, D, F, dtype in cases:
+        args = k5_case(M, D, F, device, dtype=dtype)
         for act in ("quick_gelu", "gelu"):
             rec = hold_k5(f"{label} M={M} D={D} F={F} {act}", *args, act, iters)
             if label == "clip vision" and act == "quick_gelu":
                 record = rec
+            if label == "train fp32" and act == "gelu":
+                record32 = rec
         del args
         torch.cuda.empty_cache()
-    return record
+    return record, record32
 
 
 def check_k5_cases(label, capture, iters=5, where=None):
     """K5 against its plain version on the inputs a main path gave it (one
-    case per distinct (M, D, F, act), as ``capture`` recorded them), and
-    the FFNs' device time over the path's calls on K5, on the plain version
-    and on the library call.  Returns the record of the most-called case
-    (of those matching ``where``, as ``pick_record``)."""
+    case per distinct (M, D, F, act, dtype), as ``capture`` recorded them),
+    and the FFNs' device time over the path's calls of each dtype on K5, on
+    the replaced design, on the plain version and on the library call.
+    Returns the record of the most-called case (of those matching ``where``,
+    as ``pick_record``)."""
     records = {c: hold_k5(f"{label} M={c[0]} D={c[1]} F={c[2]} {c[3]} "
                           f"({capture.calls[c]} calls)", *case, iters)
                for c, case in capture.cases.items()}
@@ -800,11 +943,14 @@ def check_k5_cases(label, capture, iters=5, where=None):
     torch.cuda.empty_cache()
     if not records:
         raise AssertionError(f"{label}: the path made no K5 call")
-    total = {k: sum(capture.calls[c] * r[k] for c, r in records.items())
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log(f"[k5-path] {label}: the FFNs' device time over {sum(capture.calls.values())} calls: "
-        f"K5 {total['ms']:.2f} ms, plain {total['plain_ms']:.2f} ms, library "
-        f"{total['library_ms']:.2f} ms, bound {total['bound_ms']:.2f} ms")
+    for dtype in dict.fromkeys(c[4] for c in records):
+        mine = {c: r for c, r in records.items() if c[4] == dtype}
+        total = {k: sum(capture.calls[c] * r[k] for c, r in mine.items())
+                 for k in ("ms", "previous_ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"[k5-path] {label} {str(dtype)[6:]}: the FFNs' device time over "
+            f"{sum(capture.calls[c] for c in mine)} calls: K5 {total['ms']:.2f} ms, previous "
+            f"{total['previous_ms']:.2f} ms, plain {total['plain_ms']:.2f} ms, library "
+            f"{total['library_ms']:.2f} ms, bound {total['bound_ms']:.2f} ms")
     return pick_record(records, capture.calls, where)
 
 
@@ -839,11 +985,11 @@ def check_k1_cases(label, capture, iters=10, min_n=0):
             line = (f"[k1-main] {name}: max|err| out {errs['out']:.2e} col "
                     f"{errs['col_mass']:.2e} cls {errs['cls_attn']:.2e}")
             if key == top:
-                ms = time_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), iters)
-                plain_ms = time_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
+                ms = kernel_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), iters)
+                plain_ms = kernel_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
                 mask = sdpa_mask(alive, bias_in, dtype)
                 qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-                sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=mask, scale=scale), iters)
                 bound_ms, bound_by = bound(*k1_work(q, alive), dtype)
                 record = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
@@ -903,11 +1049,11 @@ def phase_k1_large(device, main=(16, 1608)):
             line = (f"[k1-large] {name}: max|err| out {errs['out']:.2e} col "
                     f"{errs['col_mass']:.2e} cls {errs['cls_attn']:.2e}, bit-identical relaunch")
             if dtype == torch.bfloat16 and (B, N) == main:
-                ms = time_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), 10)
-                plain_ms = time_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
+                ms = kernel_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), 10)
+                plain_ms = kernel_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
                 mask = sdpa_mask(alive, bias_in, dtype)
                 qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-                sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=mask, scale=scale), 10)
                 bound_ms, bound_by = bound(*k1_work(q, alive), dtype)
                 record = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
@@ -941,9 +1087,11 @@ def synthetic_inputs(cfg, pairs, text_len, seed):
 
 
 def phase_model_parity(device, cfg, temperature=1.0):
-    """The full-width model on the card (K1, K4) and the CPU (plain), fp32."""
+    """The full-width model on the card (K1, K4, fp32 K5) and the CPU
+    (plain), fp32."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
     from madtp_tpu_torch.models.blip import init_nlvr_model
     from madtp_tpu_torch.tasks.nlvr import fast_capacity_schedule
 
@@ -961,10 +1109,12 @@ def phase_model_parity(device, cfg, temperature=1.0):
             ref = cpu_model(images, ids, mask, **kw)
             cpu_s = time.perf_counter() - t0
             before, k4_before = attention_scores_cuda.launches, cross_attention_cuda.launches
+            k5_before = ffn_cuda.fp32_launches
             out = gpu_model(images.to(device), ids.to(device), mask.to(device), **kw)
             torch.cuda.synchronize()
             launches = attention_scores_cuda.launches - before
             k4 = cross_attention_cuda.launches - k4_before
+            k5 = ffn_cuda.fp32_launches - k5_before
         vk, tk = out.v_kept.cpu(), out.t_kept.cpu()
         if not (torch.equal(vk, ref.v_kept) and torch.equal(tk, ref.t_kept)):
             raise AssertionError(f"{mode}: kept counts differ: card {vk.tolist()} "
@@ -977,9 +1127,11 @@ def phase_model_parity(device, cfg, temperature=1.0):
         if k4 != 2 * cfg.med.num_hidden_layers:
             raise AssertionError(f"{mode}: K4 launched {k4} times, want "
                                  f"{2 * cfg.med.num_hidden_layers} (two streams per layer)")
+        if k5 != per_forward:
+            raise AssertionError(f"{mode}: fp32 K5 launched {k5} times, want {per_forward}")
         log(f"[parity] {mode}: kept vision {vk.tolist()} text {tk.tolist()} equal on card "
-            f"and cpu; max|logit diff| {err:.3e}; K1 launches {launches}, K4 {k4}; "
-            f"cpu {cpu_s:.1f} s")
+            f"and cpu; max|logit diff| {err:.3e}; K1 launches {launches}, K4 {k4}, fp32 K5 "
+            f"{k5}; cpu {cpu_s:.1f} s")
         if mode == "mask":
             caps = fast_capacity_schedule(ref.v_kept.numpy(), ref.t_kept.numpy(), "ceil")
             log(f"[parity] gather capacities vision {list(caps[0])} text {list(caps[1])}")
@@ -1090,11 +1242,12 @@ GRAD_TOL = 1e-3  # of the largest |gradient| of the tensor: fp32 on both, sums i
 
 def phase_train_parity(device, cfg, temperature=1.0):
     """One fp32 train forward and backward of the full-width model, 1 pair,
-    on the card (K1 forward, K2 backward) and on the CPU (plain), in mask
-    mode and in gather mode at lossless capacities."""
+    on the card (K1 forward, K2 backward, K4, fp32 K5) and on the CPU
+    (plain), in mask mode and in gather mode at lossless capacities."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
     from madtp_tpu_torch.models.blip import init_nlvr_model
     from madtp_tpu_torch.tasks.nlvr import fast_capacity_schedule
 
@@ -1118,6 +1271,7 @@ def phase_train_parity(device, cfg, temperature=1.0):
             k1_before = attention_scores_cuda.launches
             k2_before = attention_scores_bwd_cuda.launches
             k4_before = cross_attention_cuda.launches
+            k5_before = ffn_cuda.fp32_launches
             model.zero_grad(set_to_none=True)
             lo, lf, _ = model(*x, targets=targets.to(dev), **kw)
             (lo + 0.1 * lf).backward()
@@ -1127,7 +1281,8 @@ def phase_train_parity(device, cfg, temperature=1.0):
                               grads={n: named[n].grad.cpu() for n in GRAD_PARAMS},
                               k1=attention_scores_cuda.launches - k1_before,
                               k2=attention_scores_bwd_cuda.launches - k2_before,
-                              k4=cross_attention_cuda.launches - k4_before)
+                              k4=cross_attention_cuda.launches - k4_before,
+                              k5=ffn_cuda.fp32_launches - k5_before)
         cpu, card = res["cpu"], res["card"]
         if not all(torch.equal(a, b) for a, b in zip(cpu["kept"], card["kept"])):
             raise AssertionError(f"train {mode}: kept counts differ: card {card['kept']} "
@@ -1148,10 +1303,13 @@ def phase_train_parity(device, cfg, temperature=1.0):
                                  f"want {per_forward} each")
         if card["k4"] != 2 * cfg.med.num_hidden_layers:
             raise AssertionError(f"train {mode}: K4 {card['k4']} launches, want 24 per step")
+        if card["k5"] != per_forward:  # the backward recomputes the plain version
+            raise AssertionError(f"train {mode}: fp32 K5 {card['k5']} launches, want "
+                                 f"{per_forward} per step")
         log(f"[train-parity] {mode}: kept vision {card['kept'][0].tolist()} text "
             f"{card['kept'][1].tolist()} equal; losses card {card['losses']} cpu "
             f"{cpu['losses']} (max diff {loss_err:.2e}); K1 {card['k1']} K2 {card['k2']} "
-            f"K4 {card['k4']} launches per step")
+            f"K4 {card['k4']} fp32 K5 {card['k5']} launches per step")
         log("[train-parity]   grad max|diff| / max|grad|: " + ", ".join(
             f"{n.replace('visual_encoder.', 'v.').replace('text_encoder.encoder.', 't.')} "
             f"{r:.2e}" for n, r in rel.items()))
@@ -1162,7 +1320,9 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     """Compression training as ``madtp_tpu/cli/compress_nlvr.py:335-384``
     runs it, on synthetic data: controller epochs in mask mode fp32, then a
     ``--fast_train`` epoch in fp32 and with ``amp``.  Returns the K1, K2, K4
-    and K5 launch counts of that run (K5: the amp epoch's FFNs)."""
+    and bf16 K5 launch counts of that run (the amp epoch's FFNs), the fp32 K5
+    launches (every other FFN of the run) and K5's fp32 record at the
+    path's most-called fp32 shape."""
     import tempfile
 
     from madtp_tpu_torch.ckpt.convert import load_nlvr_state_dict, save_nlvr_checkpoint
@@ -1203,7 +1363,7 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     quiet = dict(print_fn=lambda m: log(f"[train]   {m}"), print_freq=0)
 
     attention_scores_cuda.launches = attention_scores_bwd_cuda.launches = 0
-    cross_attention_cuda.launches = ffn_cuda.launches = 0
+    cross_attention_cuda.launches = ffn_cuda.launches = ffn_cuda.fp32_launches = 0
     with K4Capture() as capture, K5Capture() as k5_capture:  # the path's own inputs
         step_mask = make_nlvr_train_step(model, opt)  # mask mode, fp32: compress_nlvr's default
         cur_g = ori
@@ -1238,19 +1398,24 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
             if not math.isfinite(float(stats["loss"])):
                 raise AssertionError(f"{name}: loss {stats['loss']}")
     torch.cuda.synchronize()
+    k5_fp32 = ffn_cuda.fp32_launches
     launches = (attention_scores_cuda.launches, attention_scores_bwd_cuda.launches,
-                cross_attention_cuda.launches, ffn_cuda.launches)
+                cross_attention_cuda.launches, ffn_cuda.launches - k5_fp32)
     log(f"[train] launches on the training main path: K1 {launches[0]}, K2 {launches[1]}, "
-        f"K4 {launches[2]}, K5 {launches[3]}")
+        f"K4 {launches[2]}, K5 {launches[3]} in bf16 and {k5_fp32} in fp32")
     if min(launches) == 0 or launches[2] != launches[0]:
         raise AssertionError(f"training main path launched K1/K2/K4/K5 {launches} times "
                              "(K4 should match K1: 24 of each per forward)")
-    want_k5 = (cfg.vit.depth + cfg.med.num_hidden_layers) * batches
-    if launches[3] != want_k5:
-        raise AssertionError(f"training main path launched K5 {launches[3]} times, want "
-                             f"{want_k5}: every FFN of the amp epoch, none of the fp32 steps")
+    per_forward = cfg.vit.depth + cfg.med.num_hidden_layers
+    if launches[3] != per_forward * batches:
+        raise AssertionError(f"training main path launched bf16 K5 {launches[3]} times, want "
+                             f"{per_forward * batches}: every FFN of the amp epoch")
+    if k5_fp32 == 0 or k5_fp32 % per_forward:
+        raise AssertionError(f"training main path launched fp32 K5 {k5_fp32} times, want a "
+                             f"positive multiple of {per_forward}: every FFN of the fp32 "
+                             "forwards")
     check_k4_cases("nlvr train", capture)
-    check_k5_cases("nlvr train amp", k5_capture)
+    record32 = check_k5_cases("nlvr train", k5_capture, where=dict(dtype="float32"))
 
     # one fixed batch on the card for the guard, the timings and the profile
     im0, im1, _, tg = next(iter(loader_fn(1)()))
@@ -1286,6 +1451,7 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     host = host_ms(lambda: steps["gather amp"](*batch), iters)
     log(f"[train] gather amp step host dispatch time {host:.2f} ms")
     ffn_ab("train gather amp step", lambda: steps["gather amp"](*batch), iters)
+    ffn_ab("train mask fp32 step", lambda: steps["mask fp32"](*batch), iters)
     profile_step("gather amp train step", lambda: steps["gather amp"](*batch),
                  times["gather amp"], top=12)
 
@@ -1300,7 +1466,7 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     if not (torch.equal(a.logits, b.logits) and ck["temperature"] == temperature):
         raise AssertionError("the reloaded checkpoint gives other logits or temperature")
     log(f"[train] checkpoint round trip: identical logits, temperature {ck['temperature']:.2f}")
-    return launches
+    return launches, k5_fp32, record32
 
 
 def retrieval_config():
@@ -1953,6 +2119,7 @@ def zero_launch_counts():
 
     attention_scores_cuda.launches = attention_scores_cuda.large_n_launches = 0
     attention_scores_bwd_cuda.launches = cross_attention_cuda.launches = ffn_cuda.launches = 0
+    ffn_cuda.fp32_launches = 0
 
 
 def launch_counts():
@@ -2301,7 +2468,8 @@ def main():
     def timed(phase, *args):
         t0 = time.perf_counter()
         out = phase(*args)
-        log(f"[time] {phase.__name__}: {time.perf_counter() - t0:.1f} s "
+        name = phase.__name__ if phase is not fp32_k5_held else args[1].__name__
+        log(f"[time] {name}: {time.perf_counter() - t0:.1f} s "
             f"(script at {time.perf_counter() - start:.1f} s)")
         return out
 
@@ -2309,24 +2477,31 @@ def main():
     record = timed(phase_k1, device)
     record2 = timed(phase_k2, device)
     timed(phase_k4, device)
-    record5 = timed(phase_k5, device)
+    record5, record5_fp32 = timed(phase_k5, device)
     record3 = timed(phase_k1_large, device)
     cfg = full_config()
-    timed(phase_model_parity, device, cfg)
+    fp32_k5 = {}  # fp32 K5 launches of each fp32 path, counted apart
+    _, fp32_k5["nlvr_parity"], _ = timed(fp32_k5_held, "nlvr parity", phase_model_parity,
+                                         device, cfg)
     k1_eval, k4_eval, k5_eval = timed(phase_main_path, device, cfg)
-    timed(phase_train_parity, device, cfg)
-    k1_train, k2_train, k4_train, k5_train = timed(phase_train_main, device, cfg)
+    _, fp32_k5["train_parity"], _ = timed(fp32_k5_held, "nlvr train parity", phase_train_parity,
+                                          device, cfg)
+    (k1_train, k2_train, k4_train, k5_train), fp32_k5["train"], record5_train = \
+        timed(phase_train_main, device, cfg)
     rcfg = retrieval_config()
     t_ret, k1_ret, k4_ret, k5_ret, record4 = timed(phase_retrieval_main, device, rcfg)
-    timed(phase_retrieval_parity, device, rcfg, t_ret)
+    _, fp32_k5["retrieval_parity"], _ = timed(fp32_k5_held, "retrieval parity",
+                                              phase_retrieval_parity, device, rcfg, t_ret)
     ccfg = clip_config()
     t_clip, k1_clip, k5_clip, record5_clip, record1_clip = timed(phase_clip_main, device, ccfg)
-    timed(phase_clip_parity, device, ccfg, t_clip)
+    _, fp32_k5["clip_parity"], _ = timed(fp32_k5_held, "clip parity", phase_clip_parity,
+                                         device, ccfg, t_clip)
     from madtp_tpu_torch.core.config import vqa_config
 
     t_vqa, vqa_model, (k1_vqa, k4_vqa, k5_vqa), (record1_vqa, record4_vqa, record5_vqa), \
         (dense4_vqa, dense5_vqa) = timed(phase_vqa_main, device, vqa_config(480))
-    timed(phase_vqa_parity, device, t_vqa)
+    _, fp32_k5["vqa_parity"], _ = timed(fp32_k5_held, "vqa parity", phase_vqa_parity, device,
+                                        t_vqa)
     (k1_640, k3_640, k4_640, k5_640), (record3_640, record4_640, record5_640) = \
         timed(phase_vqa_640, device, vqa_model, t_vqa)
 
@@ -2362,7 +2537,10 @@ def main():
              **record4, at_vqa_gather_eval=record4_vqa, at_vqa_dense_eval=dense4_vqa,
              at_vqa640_eval=record4_640,
              library_note="library_ms is scaled_dot_product_attention with the "
-                          "same additive mask: the same function"),
+                          "same additive mask: the same function",
+             previous_note="previous_ms is the replaced design "
+                           "(madtp_tpu_torch/csrc/previous/cross_attention.cu) on the same "
+                           "inputs and card"),
         dict(name="ffn", route="cuda", source="madtp_tpu_torch/csrc/ffn.cu",
              replaces="madtp_tpu/ops/pallas/fused_ffn.py:79",
              launches=k5_eval + k5_train + k5_ret + k5_clip + k5_vqa + k5_640,
@@ -2370,7 +2548,14 @@ def main():
                                "clip": k5_clip, "vqa": k5_vqa, "vqa640": k5_640},
              **record5, at_clip_gather_eval=record5_clip, at_vqa_gather_eval=record5_vqa,
              at_vqa_dense_eval=dense5_vqa, at_vqa640_eval=record5_640,
-             library_note="library_ms is two F.linear and the activation: the same function"),
+             fp32=record5_fp32, fp32_at_train_main=record5_train,
+             fp32_launches=sum(fp32_k5.values()), fp32_launches_by_path=fp32_k5,
+             library_note="library_ms is two F.linear and the activation: the same function",
+             previous_note="previous_ms is the replaced design (madtp_tpu_torch/csrc/previous/"
+                           "ffn.cu, bf16 only) on the same inputs and card; in fp32 the FFNs "
+                           "ran as two linears before K5 took them, so there it is library_ms; "
+                           "launches counts the bf16 main paths, fp32_launches the fp32 "
+                           "paths"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -21,9 +21,70 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (rtol, atol) of K4's out against the plain version on the same inputs.
 # float32: both take fp32 logits, softmax and sums and differ only in
 # summation order.  bfloat16: the logits are fp32 sums of exact products of
-# the same bf16 values; the plain version rounds P to bf16 before P.v, K4
-# keeps P in fp32, and both round out to bf16 once (up to ~2^-8 of |v|).
+# the same bf16 values; both round P to bf16 before P.v, the plain version
+# after normalising, K4 before (it divides by the row sum at the end), so
+# a weight may round one bf16 step apart; both round out to bf16 once (up
+# to ~2^-8 of |v|).
 TOLERANCES = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
+
+# The bf16 kernel's split of the keys (``split_chunks``): a block holds up
+# to 64 query rows of one (b, h).  Where that gives fewer than MIN_BLOCKS
+# blocks (2 on each of the H100's 132 SMs), the keys are cut into chunks of
+# whole 64-key tiles until there are about TARGET_BLOCKS blocks (8 an SM),
+# at most one chunk for every MIN_CHUNK_KEYS keys.  Measured on the H100:
+# splitting where B H already fills the card, or into chunks of 128 keys,
+# costs more in partials and merging than it gains.
+KEY_TILE = 64
+QUERY_TILE = 64
+MIN_BLOCKS = 2 * 132
+TARGET_BLOCKS = 8 * 132
+MIN_CHUNK_KEYS = 256
+
+
+def split_chunks(B: int, H: int, Nq: int, S: int):
+    """(chunks, chunk_keys) of the bf16 kernel: chunk c covers keys
+    ``[c chunk_keys, min(S, (c + 1) chunk_keys))``, a function of the
+    shape alone, so a relaunch splits alike.  With blocks = B H ceil(Nq /
+    64): one chunk if blocks >= MIN_BLOCKS, else chunks =
+    min(ceil(TARGET_BLOCKS / blocks), ceil(S / MIN_CHUNK_KEYS)), then
+    rounded so that every chunk is a whole number of 64-key tiles and none
+    is empty."""
+    blocks = B * H * -(-Nq // QUERY_TILE)
+    chunks = 1
+    if blocks < MIN_BLOCKS:
+        chunks = max(1, min(-(-TARGET_BLOCKS // blocks), -(-S // MIN_CHUNK_KEYS)))
+    tiles = -(-S // KEY_TILE)
+    chunk_keys = -(-tiles // chunks) * KEY_TILE
+    return -(-S // chunk_keys), chunk_keys
+
+
+def cross_attention_split_plain(q, k, v, key_alive, key_bias, scale: float, chunks: int,
+                                chunk_keys: int):
+    """The bf16 kernel's split in plain PyTorch, in fp32: for each chunk of
+    ``chunk_keys`` keys the running max, the sum and the unnormalised out of
+    its alive keys, then the merge of ``k4_combine`` in chunk order 0, 1, ...
+    Equals :func:`madtp_tpu_torch.ops.attention.cross_attention_plain` up to
+    fp32 rounding; shapes as there."""
+    B, Nq, H, Dh = q.shape
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # [B, H, N, Dh]
+    s = scale * qf @ kf.transpose(-1, -2)
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    s = s.masked_fill(~key_alive[:, None, None, :], float("-inf"))
+    parts = []
+    for c in range(chunks):
+        sc = s[..., c * chunk_keys:(c + 1) * chunk_keys]
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.where(sc == float("-inf"), torch.zeros_like(sc), torch.exp(sc - m))
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      p @ vf[..., c * chunk_keys:(c + 1) * chunk_keys, :]))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    total_l, total_o = torch.zeros_like(m_all), torch.zeros_like(parts[0][2])
+    for m, l, o in parts:
+        w = torch.where(m == float("-inf"), torch.zeros_like(m), torch.exp(m - m_all))
+        total_l, total_o = total_l + w * l, total_o + w * o
+    out = total_o / total_l.clamp_min(1e-30)
+    return out.transpose(1, 2).reshape(B, Nq, H * Dh).to(q.dtype)
 
 
 def _load():
@@ -32,8 +93,8 @@ def _load():
     fn = build(SOURCE).lib.k4_cross_attention
     if fn.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [i32, p, p, p, i64, i64, i64, i64, p, p, p,
-                       i32, i32, i32, i32, i32, ctypes.c_float, p]
+        fn.argtypes = [i32, p, p, p, i64, i64, i64, i64, p, p, p, p,
+                       i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, p]
         fn.restype = i32
     return fn
 
@@ -61,6 +122,11 @@ def _check(q, k, v, key_alive, key_bias):
         if t.stride(3) != 1 or t.stride(2) != Dh:
             raise ValueError(f"{name} needs contiguous [H, Dh] rows (a view of a "
                              "[B, N, H*Dh] tensor)")
+    if q.dtype == torch.bfloat16:  # 16-byte copies of k and v rows, 4-byte reads of q
+        if any(t.data_ptr() % 16 for t in (k, v)) or k.stride(0) % 8 or k.stride(1) % 8:
+            raise ValueError("bf16 k and v need 16-byte aligned rows (base and strides)")
+        if q.data_ptr() % 4 or q.stride(0) % 2 or q.stride(1) % 2:
+            raise ValueError("bf16 q needs 4-byte aligned rows (base and strides)")
     if key_alive.dtype != torch.bool or key_alive.shape != (B, S) \
             or not key_alive.is_contiguous() or key_alive.device != q.device:
         raise ValueError("key_alive must be a contiguous bool [B, S] tensor on q's device")
@@ -92,12 +158,17 @@ def cross_attention_cuda(q, k, v, key_alive, key_bias, scale: float):
     S = k.shape[1]
     dev = q.device
     out = torch.empty((B, Nq, H, Dh), dtype=q.dtype, device=dev)
+    chunks, chunk_keys = split_chunks(B, H, Nq, S) if q.dtype == torch.bfloat16 else (1, S)
+    part = None  # fp32 partials of the chunks: out unnormalised, then (max, sum)
+    if chunks > 1:
+        part = torch.empty(chunks * B * H * Nq * (Dh + 2), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  q.stride(0), q.stride(1), k.stride(0), k.stride(1), key_alive.data_ptr(),
                  None if key_bias is None else key_bias.data_ptr(), out.data_ptr(),
-                 B, Nq, S, H, Dh, float(scale), stream)
+                 None if part is None else part.data_ptr(),
+                 B, Nq, S, H, Dh, chunks, chunk_keys, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed with cudaError_t {err}")
     cross_attention_cuda.launches += 1

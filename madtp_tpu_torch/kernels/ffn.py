@@ -1,5 +1,6 @@
 """K5: the transformer FFN ``act(x W1^T + b1) W2^T + b2``, as a CUDA kernel
-for Hopper on tensor cores.
+for Hopper: bf16 on the tensor cores (wgmma fed by TMA), fp32 on the CUDA
+cores (no TF32).
 
 Replaces ``madtp_tpu/ops/pallas/fused_ffn.py`` ``fused_mlp_2d``.  The source,
 its design and its bound are in ``csrc/ffn.cu``.  The plain PyTorch version
@@ -15,16 +16,23 @@ import ctypes
 import torch
 
 SOURCE = "ffn.cu"
-TILE = 128  # D and F must be multiples of the kernel's 128-wide output tile
+TILE = 128  # D and F must be multiples of 128
 ACTS = {"gelu": 1, "quick_gelu": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# (rtol, atol) of K5's y against the plain version on the same bf16 inputs.
-# Both take exact products of the same bf16 values, sum them in fp32 (in
-# another order) and round h, g and y to bf16 at the same places, so a sum
-# that lands next to a rounding edge may round one bf16 step apart (2^-8
-# relative) in h, g or y; cuBLAS may also reduce split-K partial sums in
-# reduced precision for the plain version.
-TOLERANCES = {torch.bfloat16: (2e-2, 2e-2)}
+# (rtol, atol) of K5's y against the plain version on the same inputs.
+# bfloat16: both take exact products of the same bf16 values, sum them in
+# fp32 (in another order) and round h, g and y to bf16 at the same places,
+# so a sum that lands next to a rounding edge may round one bf16 step
+# apart (2^-8 relative) in h, g or y; so may the activation, which K5
+# evaluates with fast intrinsics and, for GELU, the TPU kernel's erf
+# polynomial (errors ~1e-7); cuBLAS may also reduce split-K partial sums in
+# reduced precision for the plain version.  float32: both sum fp32
+# products in fp32 (no TF32 on either side) and differ only in summation
+# order and in the last bit of erf / exp, ~1e-7 relative over sums of up
+# to 4,096 terms; 1e-5 is the limit the fp32 parity checks hold features
+# to, and the JAX package's own fp32 K5 test.
+TOLERANCES = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 
 
 def _load():
@@ -33,7 +41,7 @@ def _load():
     fn = build(SOURCE).lib.k5_ffn
     if fn.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, p]
+        fn.argtypes = [i32, p, p, p, p, p, p, p, i32, i32, i32, i32, p]
         fn.restype = i32
     return fn
 
@@ -52,11 +60,13 @@ def _check(x, w1, b1, w2, b2, act):
     if M < 1 or D % TILE or F % TILE or D < TILE or F < TILE:
         raise ValueError(f"ffn_cuda needs M >= 1 and D, F multiples of {TILE}, "
                          f"got M={M}, D={D}, F={F}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"ffn_cuda takes float32 or bfloat16, got x in {x.dtype}")
     for name, t, shape in (("x", x, (M, D)), ("w1", w1, (F, D)), ("b1", b1, (F,)),
                            ("w2", w2, (D, F)), ("b2", b2, (D,))):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"ffn_cuda takes bfloat16 only (fp32 FFNs stay on two "
-                             f"linears), got {name} in {t.dtype}")
+        if t.dtype != x.dtype:
+            raise ValueError(f"ffn_cuda needs weights and biases in x's dtype {x.dtype}, "
+                             f"got {name} in {t.dtype}")
         if tuple(t.shape) != shape or t.device != x.device:
             raise ValueError(f"{name} must be {shape} on {x.device}, got "
                              f"{tuple(t.shape)} on {t.device}")
@@ -66,10 +76,11 @@ def _check(x, w1, b1, w2, b2, act):
 
 def ffn_cuda(x, w1, b1, w2, b2, act: str = "gelu"):
     """Launch K5.  ``x`` [M, D], ``w1`` [F, D], ``b1`` [F], ``w2`` [D, F],
-    ``b2`` [D]: contiguous bfloat16 CUDA tensors, D and F multiples of 128,
-    any M >= 1; ``act`` ``"gelu"`` (exact erf) or ``"quick_gelu"``.
+    ``b2`` [D]: contiguous CUDA tensors, all bfloat16 or all float32, D and F
+    multiples of 128, any M >= 1; ``act`` ``"gelu"`` (erf GELU) or
+    ``"quick_gelu"``.
 
-    Returns ``y`` [M, D] bf16, like ``mlp_plain``; the hidden [M, F] goes
+    Returns ``y`` [M, D] in x's dtype, like ``mlp_plain``; the hidden [M, F] goes
     through a scratch tensor.  Raises on any input the kernel does not take,
     and on an input that needs a gradient while grad mode is on: the output
     carries none (``ops.layers.FusedMLP`` is the differentiable path).  It
@@ -87,12 +98,15 @@ def ffn_cuda(x, w1, b1, w2, b2, act: str = "gelu"):
     y = torch.empty((M, D), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 hidden.data_ptr(), y.data_ptr(), M, D, F, ACTS[act], stream)
+        err = fn(_DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                 b2.data_ptr(), hidden.data_ptr(), y.data_ptr(), M, D, F, ACTS[act], stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed with cudaError_t {err}")
     ffn_cuda.launches += 1
+    if x.dtype == torch.float32:
+        ffn_cuda.fp32_launches += 1
     return y
 
 
 ffn_cuda.launches = 0
+ffn_cuda.fp32_launches = 0  # the fp32 ones among ``launches``

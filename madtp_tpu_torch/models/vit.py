@@ -29,7 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from madtp_tpu_torch.core.config import ViTConfig
 from madtp_tpu_torch.ops.attention import AttnAux, self_attention
-from madtp_tpu_torch.ops.layers import layer_norm, mlp, patch_embed
+from madtp_tpu_torch.ops.layers import layer_norm, mlp, normalize_images, patch_embed
 from madtp_tpu_torch.prune.dtp import (DTPSignals, TokenState, dtp_prune,
                                        dtp_prune_gather, init_token_state)
 from madtp_tpu_torch.prune.query import query_model
@@ -102,8 +102,12 @@ class VisionTransformer(nn.Module):
         self.norm = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
-        """Patch tokens with CLS and position embeddings, [B, 1+P0, D]."""
+        """Patch tokens with CLS and position embeddings, [B, 1+P0, D].
+        ``images`` [B, 3, H, W] floats, or the uint8 feed [B, H, W, 3]
+        normalized here (``madtp_tpu/models/vit.py:119-124``)."""
         dtype = self.pos_embed.dtype
+        if images.dtype == torch.uint8:
+            images = normalize_images(images, dtype)
         x = patch_embed(images.to(dtype), self.patch_embed.proj.weight,
                         self.patch_embed.proj.bias)
         cls = self.cls_token.expand(x.shape[0], 1, x.shape[-1])

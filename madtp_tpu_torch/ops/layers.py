@@ -90,16 +90,15 @@ def mlp(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,
     """Transformer FFN: fc1 -> ``act`` (``"gelu"`` or ``"quick_gelu"``) ->
     fc2.
 
-    On a CUDA tensor every FFN that is not fp32 goes to K5
-    (:func:`ffn_cuda`, through :class:`FusedMLP` when grad mode is on and an
-    input requires a gradient), which takes bf16 activations, weights and
-    biases and raises on anything else.  fp32 FFNs stay on two linears (the
-    fp32 train step and the card-against-CPU parity checks): fp32 on the
-    tensor cores would be TF32, outside those checks' fp32 limits, and an
-    fp32 CUDA-core K5 is still to be written.  CPU tensors take
-    :func:`mlp_plain`."""
+    On a CUDA tensor every FFN goes to K5 (:func:`ffn_cuda`, through
+    :class:`FusedMLP` when grad mode is on and an input requires a
+    gradient), as ``fused_mlp_2d`` takes every FFN whose weights share the
+    activations' dtype on the TPU: bf16 on the tensor cores, fp32 (the
+    fp32 train step, the card-against-CPU parity checks) on the CUDA cores
+    without TF32.  K5 raises on any other dtype or a dtype mix.  CPU
+    tensors take :func:`mlp_plain`."""
     w1, b1, w2, b2 = fc1.weight, fc1.bias, fc2.weight, fc2.bias
-    if x.is_cuda and x.dtype != torch.float32:
+    if x.is_cuda:
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in (x2, w1, b1, w2, b2)):

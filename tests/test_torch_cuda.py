@@ -293,21 +293,28 @@ def _k4_compare(q, k, v, alive, bias):
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("B,Nq,S,packed_q", [
     (256, 35, 592, False), (256, 35, 320, False), (32, 32, 320, False), (4, 1, 100, False),
-    (4, 7, 130, True), (3, 65, 64, False), (2, 130, 1, True), (16, 1, 40, False)])
+    (4, 7, 130, True), (3, 65, 64, False), (2, 130, 1, True), (16, 1, 40, False),
+    (16, 40, 1616, False), (16, 22, 901, True)])
 def test_k4_matches_plain(cuda, B, Nq, S, packed_q, with_bias, dtype):
     """The ITM and twin-cross shapes; ragged Nq (1, 7, and past one 64-row
     query tile), S not a multiple of the 64-key tile, a strided q view; the
     VQA decoder's BOS step (one query over a ~40-slot question state, whose
-    padding rides as the key bias)."""
+    padding rides as the key bias); the VQA-640 mask memory (1,616 slots)
+    and the VQA dense one (901), where bf16 splits the keys into chunks."""
     _k4_compare(*k4_case(B, Nq, S, with_bias=with_bias, dtype=dtype, device=cuda,
                          packed_q=packed_q))
 
 
-def test_k4_dead_rows_determinism_and_count(cuda):
+@pytest.mark.parametrize("dtype,S", [(torch.float32, 150), (torch.bfloat16, 150),
+                                     (torch.bfloat16, 600)])
+def test_k4_dead_rows_determinism_and_count(cuda, dtype, S):
     """A batch row with no alive key gives zeros (the plain version's rule);
-    a second launch gives the same bits; each launch adds one to the count."""
-    q, k, v, alive, bias = k4_case(4, 40, 150, with_bias=True, dtype=torch.float32,
-                                   device=cuda)
+    a second launch gives the same bits, also where bf16 splits the keys and
+    merges the chunks (S = 600: 3 chunks); each launch adds one to the
+    count."""
+    if dtype == torch.bfloat16:
+        assert k4.split_chunks(4, 12, 40, S)[0] == (1 if S == 150 else 3)
+    q, k, v, alive, bias = k4_case(4, 40, S, with_bias=True, dtype=dtype, device=cuda)
     alive[1] = False
     before = cross_attention_cuda.launches
     out = _k4_compare(q, k, v, alive, bias)
@@ -377,32 +384,37 @@ def _k5_compare(x, w1, b1, w2, b2, act):
         got = k5.ffn_cuda(x, w1, b1, w2, b2, act)
     want = layers.mlp_plain(x, w1, b1, w2, b2, act)
     torch.cuda.synchronize()
-    rtol, atol = k5.TOLERANCES[torch.bfloat16]
+    rtol, atol = k5.TOLERANCES[x.dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
     return got
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
 @pytest.mark.parametrize("M,D,F", [
     (32 * 584, 1024, 4096), (32 * 96, 768, 3072), (8 * 584, 768, 3072), (1000, 768, 3072),
     (1, 128, 128), (130, 256, 384)])
-def test_k5_matches_plain(cuda, M, D, F, act):
+def test_k5_matches_plain(cuda, M, D, F, act, dtype):
     """The CLIP vision and text towers' widths, BLIP's, and ragged M (one
-    row, and past one 128-row tile)."""
-    _k5_compare(*k5_case(M, D, F, cuda), act)
+    row, and past one 128-row tile); widths that are multiples of 128 but
+    not of the bf16 kernel's 256-wide tile; fp32 and bf16."""
+    _k5_compare(*k5_case(M, D, F, cuda, dtype=dtype), act)
 
 
-def test_k5_determinism_and_count(cuda):
-    """A second launch gives the same bits; each call adds one to the count."""
-    args = k5_case(300, 256, 512, cuda)
-    before = k5.ffn_cuda.launches
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_determinism_and_count(cuda, dtype):
+    """A second launch gives the same bits; each call adds one to the count,
+    and an fp32 call to the fp32 count too."""
+    args = k5_case(300, 256, 512, cuda, dtype=dtype)
+    before, before32 = k5.ffn_cuda.launches, k5.ffn_cuda.fp32_launches
     out = _k5_compare(*args, "quick_gelu")
     assert torch.equal(out, k5.ffn_cuda(*args, "quick_gelu"))
     assert k5.ffn_cuda.launches == before + 2
+    assert k5.ffn_cuda.fp32_launches == before32 + (2 if dtype == torch.float32 else 0)
 
 
 def test_k5_refusals(cuda):
-    """K5 raises on what it does not take: CPU tensors, fp32, mismatched
+    """K5 raises on what it does not take: CPU tensors, fp16, mismatched
     dtypes, a missing bias, widths off its 128 tile, a strided input, an
     unknown activation, and inputs that need a gradient while grad mode is
     on."""
@@ -410,7 +422,7 @@ def test_k5_refusals(cuda):
     off_d = k5_case(40, 192, 512, cuda)
     off_f = k5_case(40, 256, 320, cuda)
     bad = [dict(x=x.cpu(), w1=w1.cpu(), b1=b1.cpu(), w2=w2.cpu(), b2=b2.cpu()),
-           dict(x=x.float(), w1=w1.float(), b1=b1.float(), w2=w2.float(), b2=b2.float()),
+           dict(x=x.half(), w1=w1.half(), b1=b1.half(), w2=w2.half(), b2=b2.half()),
            dict(w1=w1.float()), dict(b2=None), dict(b1=b1[:-1]),
            dict(zip(("x", "w1", "b1", "w2", "b2"), off_d)),
            dict(zip(("x", "w1", "b1", "w2", "b2"), off_f)),
@@ -431,12 +443,13 @@ def _linears(w1, b1, w2, b2):
     return fc1, fc2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
-def test_fused_mlp_gradients(cuda, act):
-    """mlp on bf16 inputs that need a gradient goes through FusedMLP (one K5
+def test_fused_mlp_gradients(cuda, act, dtype):
+    """mlp on inputs that need a gradient goes through FusedMLP (one K5
     launch); its gradients are those autograd finds through the plain
     version, whose recompute its backward is."""
-    x, w1, b1, w2, b2 = k5_case(3 * 70, 256, 512, cuda, seed=1)
+    x, w1, b1, w2, b2 = k5_case(3 * 70, 256, 512, cuda, seed=1, dtype=dtype)
     x = x.view(3, 70, 256)
     fc1, fc2 = _linears(w1, b1, w2, b2)
     xg = x.clone().requires_grad_()
@@ -451,23 +464,31 @@ def test_fused_mlp_gradients(cuda, act):
     ref = [t.detach().clone().requires_grad_() for t in params]
     want_y = layers.mlp_plain(*ref, act)
     want = torch.autograd.grad((want_y.float() * w).sum(), ref)
-    rtol, atol = k5.TOLERANCES[torch.bfloat16]
+    rtol, atol = k5.TOLERANCES[dtype]
     torch.testing.assert_close(y.float(), want_y.float(), rtol=rtol, atol=atol)
     for g, wnt in zip(got, want):  # both backward passes are the plain version's
         torch.testing.assert_close(g, wnt)
 
 
 def test_mlp_routing_rule(cuda):
-    """On the card a bf16 FFN goes to K5 (straight to the kernel under
-    inference_mode) and an fp32 one stays on two linears."""
+    """On the card every bf16 and fp32 FFN goes to K5 (straight to the
+    kernel under inference_mode), the fp32 one counted as fp32 too; an fp16
+    one is refused."""
     x, w1, b1, w2, b2 = k5_case(64, 256, 512, cuda)
     fc1, fc2 = _linears(w1, b1, w2, b2)
-    before = k5.ffn_cuda.launches
+    before, before32 = k5.ffn_cuda.launches, k5.ffn_cuda.fp32_launches
     with torch.inference_mode():
         y = layers.mlp(x.view(4, 16, 256), fc1, fc2)
     assert k5.ffn_cuda.launches == before + 1 and y.shape == (4, 16, 256)
-    assert y.grad_fn is None
+    assert y.grad_fn is None and k5.ffn_cuda.fp32_launches == before32
     fc1_32, fc2_32 = _linears(w1.float(), b1.float(), w2.float(), b2.float())
     with torch.inference_mode():
         y32 = layers.mlp(x.float(), fc1_32, fc2_32, act="quick_gelu")
-    assert k5.ffn_cuda.launches == before + 1 and y32.dtype == torch.float32
+    assert k5.ffn_cuda.launches == before + 2 and y32.dtype == torch.float32
+    assert k5.ffn_cuda.fp32_launches == before32 + 1
+    torch.testing.assert_close(y32, layers.mlp_plain(x.float(), *(t.float() for t in (
+        w1, b1, w2, b2)), "quick_gelu"), rtol=k5.TOLERANCES[torch.float32][0],
+        atol=k5.TOLERANCES[torch.float32][1])
+    fc1_16, fc2_16 = _linears(w1.half(), b1.half(), w2.half(), b2.half())
+    with torch.inference_mode(), pytest.raises(ValueError):
+        layers.mlp(x.half(), fc1_16, fc2_16)
