@@ -6,16 +6,19 @@ Phases, each fatal on failure:
 
 1. build kernels K1 (``madtp_tpu_torch/csrc/attention_scores.cu``), K2
    (``csrc/attention_scores_bwd.cu``), K4 (``csrc/cross_attention.cu``) and
-   K5 (``csrc/ffn.cu``), and the designs K4 and K5 replaced
-   (``csrc/previous/``, yardsticks timed beside them as ``previous_ms``),
-   with nvcc, one process each, together;
-2. K1 against its plain PyTorch version on the card at the NLVR shapes, fp32
-   and bf16, with times, the card's bound, and the time of
-   ``F.scaled_dot_product_attention`` for the ``out`` part alone (a yardstick
-   that computes less than K1; the port never calls it);
+   K5 (``csrc/ffn.cu``), and the designs each replaced (``csrc/previous/``,
+   yardsticks timed beside them as ``previous_ms``), with nvcc, one process
+   each, together;
+2. K1 against its plain PyTorch version on the card at the NLVR shapes and
+   the fp32 train step's, fp32 and bf16, two launches bit-identical, with
+   times, the replaced design's, the card's bound, and the time of
+   ``F.scaled_dot_product_attention`` for the ``out`` part alone (a
+   yardstick that computes less than K1; the port never calls it);
 3. K2 against its plain version (autograd through K1's) at the train step's
-   shapes, fp32 and bf16, two launches bit-identical, with times, the bound,
-   and SDPA forward + backward for the ``out`` part alone (partial again);
+   shapes, fp32 and bf16, two launches bit-identical, with times, the
+   replaced design's, the bound (fp32 also at the 3xTF32 rate its products
+   run at), and SDPA forward + backward for the ``out`` part alone
+   (partial again);
 3b. K4 against its plain version on synthetic inputs at the ITM rerank's,
    the NLVR twin cross's, the VQA-640 memory's and ragged shapes (bf16
    splitting the keys into chunks), with and without bias, fp32 and bf16,
@@ -30,8 +33,9 @@ Phases, each fatal on failure:
    replaced design's, the bound, and the library call (two ``F.linear`` and
    the activation: the same function); the host time to enqueue one FFN;
 3d. K1 in K3's range, N = 1,537 to 4,096, fp32 and bf16, with and without
-   bias, two launches bit-identical, each counted as one of K3's; time, bound
-   and SDPA (``out`` only) at the VQA-640 gather path's first layer;
+   bias, two launches bit-identical, each counted as one of K3's, each timed
+   beside the replaced design; plain, bound and SDPA (``out`` only) at the
+   VQA-640 gather path's first layer;
 4. the full-width NLVR model (ViT-B/16@384 + 12-layer twin MED, seeded random
    weights, 2 pairs, fp32) on the card against the same model on the CPU, in
    mask and gather mode: equal kept counts, logits within 1e-4, K1 launched in
@@ -102,9 +106,11 @@ and hold fp32 K5 against its plain version on their own inputs.  Each
 main path (5, 7, 9, 10, 13, 14; phases 9, 10 and 13 their dense evals too)
 also holds K4 and K5 against their plain versions on the inputs that path
 gave it, one case per distinct shape (K4 where the path has
-cross-attention), each timed beside the replaced design; phases 10 and 13
-hold K1 on their own inputs (the CLIP vision tower's at H = 16) and phase 14
-on its N > 1536 inputs; the paths of phases 5-10 time their step with the
+cross-attention), each timed beside the replaced design; phases 5, 9, 10
+and 13 hold K1 on their gather evals' own inputs (phase 10 the CLIP vision
+tower's at H = 16) and phase 14 on its N > 1536 inputs, phase 7 K2 on the
+inputs of its mask-mode fp32 epochs and of its amp epoch, each case timed
+beside the replaced design; the paths of phases 5-10 time their step with the
 FFNs on K5 and on two linears (the path before K5), in turns, phase 7 its
 mask-mode fp32 step too.  Each main
 path zeroes the launch counts just before it runs and reads them just after.
@@ -120,7 +126,9 @@ device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
+import ctypes
 import importlib
 import itertools
 import json
@@ -137,6 +145,7 @@ CLS_ID, SEP_ID, ENC_ID = 101, 102, 30523  # BERT's [CLS], [SEP]; BLIP's added [E
 DEC_ID = 30522  # BLIP's added [DEC], the answers' BOS
 MEM_RATE = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense tensor-core bf16; fp32 CUDA cores
+TF32X3 = 495e12 / 3  # fp32 as 3xTF32 on the tensor cores: three TF32 products for each
 
 
 def log(*args):
@@ -351,6 +360,18 @@ class K1Capture(_Capture):
         return (q.shape[0], q.shape[1], q.shape[2], q.dtype, key_bias is not None)
 
 
+class K2Capture(_Capture):
+    """The backward's K2 calls (from ``ScoringAttention``), by (B, N, H,
+    dtype)."""
+
+    module, attr = "madtp_tpu_torch.ops.attention", "attention_scores_bwd_cuda"
+    defaults = tuple((n, None) for n in ("q", "k", "v", "key_alive", "key_bias", "scale", "out",
+                                         "stats", "d_out", "d_cls", "d_col"))
+
+    def key(self, q, *rest):
+        return (q.shape[0], q.shape[1], q.shape[2], q.dtype)
+
+
 class PlainFFN:
     """While active, the models' FFNs run their plain version (two linears)
     on the card too: the path before K5, for an A/B inside one run."""
@@ -462,6 +483,18 @@ def bound(flops, nbytes, dtype):
     """The least time the card could take, ms, and what bounds it."""
     t_ops, t_bytes = flops / PEAK[dtype] * 1e3, nbytes / MEM_RATE * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bounds(flops, nbytes, dtype, tf32x3=False):
+    """``bound``'s least time and what bounds it; with ``tf32x3`` (a kernel
+    that multiplies fp32 as 3xTF32) also the least time at that rate
+    (``bound_3xtf32_ms``): such a kernel may beat the fp32 bound, which
+    counts the CUDA cores."""
+    bound_ms, bound_by = bound(flops, nbytes, dtype)
+    rec = dict(bound_ms=bound_ms, bound_by=bound_by)
+    if tf32x3 and dtype == torch.float32:
+        rec["bound_3xtf32_ms"] = max(flops / TF32X3, nbytes / MEM_RATE) * 1e3
+    return rec
 
 
 def time_ms(fn, iters):
@@ -578,23 +611,78 @@ def profile_backward(label, step, batch):
         + kernel_totals(kernels, busy_ms))
 
 
-PREVIOUS = {"K4": "previous/cross_attention.cu", "K5": "previous/ffn.cu"}
+PREVIOUS_NOTE = ("previous_ms is the replaced design (madtp_tpu_torch/csrc/previous/{}) on the "
+                 "same inputs and card")
+PREVIOUS = {"K1": "previous/attention_scores.cu", "K2": "previous/attention_scores_bwd.cu",
+            "K4": "previous/cross_attention.cu", "K5": "previous/ffn.cu"}
+
+
+def _previous_fn(key, symbol, argtypes):
+    from madtp_tpu_torch.kernels.build import build
+
+    fn = getattr(build(PREVIOUS[key]).lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def previous_k1(q, k, v, alive, bias, scale):
+    """The K1 design that ``csrc/attention_scores.cu`` replaced
+    (``csrc/previous/attention_scores.cu``: fp32 FFMA tiles) on the same
+    inputs: the yardstick of ``previous_ms``.  Its launches count nowhere.
+    Returns ``(out, cls_attn, col_mass, stats)`` as K1's wrapper does."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn = _previous_fn("K1", "k1_attention_scores",
+                      [i32, p, p, p, i64, i64, p, p, p, p, p, p, p, p,
+                       i32, i32, i32, i32, ctypes.c_float, p])
+    B, N, H, Dh = q.shape
+    out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=q.device)
+    col, cls = (torch.empty((B, N), device=q.device) for _ in range(2))
+    stats = torch.empty((3, B, H, N), device=q.device)
+    err = fn(0 if q.dtype == torch.float32 else 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             q.stride(0), q.stride(1), alive.data_ptr(), bias.data_ptr(), out.data_ptr(),
+             col.data_ptr(), cls.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+             stats[2].data_ptr(), B, N, H, Dh, float(scale),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"previous K1 launch failed with cudaError_t {err}")
+    return out.view(B, N, H * Dh), cls[:, 1:], col[:, 1:], stats
+
+
+def previous_k2(q, k, v, alive, bias, scale, out, stats, d_out, d_cls, d_col):
+    """The K2 design that ``csrc/attention_scores_bwd.cu`` replaced
+    (``csrc/previous/attention_scores_bwd.cu``: fp32 FFMA tiles) on the same
+    inputs, K2's argument order: the yardstick of ``previous_ms``."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn = _previous_fn("K2", "k2_attention_scores_bwd",
+                      [i32, p, p, p, i64, i64] + [p] * 19 + [i32, i32, i32, i32,
+                                                            ctypes.c_float, p])
+    B, N, H, Dh = q.shape
+    dev = q.device
+    ismax = torch.empty((B, N, N), dtype=torch.int16, device=dev)
+    clsrow, drow, dbias_h = (torch.empty((B, H, N), device=dev) for _ in range(3))
+    ssum, csum, dbias = (torch.empty((B, N), device=dev) for _ in range(3))
+    dq, dk, dv = (torch.empty((B, N, H, Dh), dtype=q.dtype, device=dev) for _ in range(3))
+    err = fn(0 if q.dtype == torch.float32 else 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             q.stride(0), q.stride(1), alive.data_ptr(), bias.data_ptr(),
+             stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(), out.data_ptr(),
+             d_out.data_ptr(), d_cls.data_ptr(), d_col.data_ptr(), ismax.data_ptr(),
+             clsrow.data_ptr(), ssum.data_ptr(), csum.data_ptr(), drow.data_ptr(),
+             dbias_h.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+             B, N, H, Dh, float(scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"previous K2 launch failed with cudaError_t {err}")
+    return dq, dk, dv, dbias
 
 
 def previous_k4(q, k, v, alive, bias, scale):
     """The K4 design that ``csrc/cross_attention.cu`` replaced
     (``csrc/previous/cross_attention.cu``), on the same inputs: the yardstick
     of ``previous_ms``.  Its launches count nowhere."""
-    from madtp_tpu_torch.kernels.build import build
-
-    fn = build(PREVIOUS["K4"]).lib.k4_cross_attention
-    if fn.argtypes is None:
-        import ctypes
-
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [i32, p, p, p, i64, i64, i64, i64, p, p, p,
-                       i32, i32, i32, i32, i32, ctypes.c_float, p]
-        fn.restype = i32
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn = _previous_fn("K4", "k4_cross_attention", [i32, p, p, p, i64, i64, i64, i64, p, p, p,
+                                                   i32, i32, i32, i32, i32, ctypes.c_float, p])
     B, Nq, H, Dh = q.shape
     out = torch.empty((B, Nq, H, Dh), dtype=q.dtype, device=q.device)
     err = fn(0 if q.dtype == torch.float32 else 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -609,16 +697,10 @@ def previous_k4(q, k, v, alive, bias, scale):
 def previous_k5(x, w1, b1, w2, b2, act):
     """The K5 design that ``csrc/ffn.cu`` replaced (``csrc/previous/ffn.cu``,
     bf16 only), on the same inputs: the yardstick of ``previous_ms``."""
-    from madtp_tpu_torch.kernels.build import build
     from madtp_tpu_torch.kernels.ffn import ACTS
 
-    fn = build(PREVIOUS["K5"]).lib.k5_ffn
-    if fn.argtypes is None:
-        import ctypes
-
-        p, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, p, i32, i32, i32, i32, p]
-        fn.restype = i32
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = _previous_fn("K5", "k5_ffn", [p, p, p, p, p, p, p, i32, i32, i32, i32, p])
     M, D = x.shape
     F = w1.shape[0]
     hidden = torch.empty((M, F), dtype=x.dtype, device=x.device)
@@ -675,101 +757,170 @@ def phase_build():
                 log(f"[build]   {line.strip()}")
 
 
-def phase_k1(device, main_n=584):
-    """K1 vs plain at the main path's shapes.  Returns the bf16 record at
-    N = ``main_n`` (the gather path's first layer) for the kernels line."""
+def hold_k1(name, q, k, v, alive, bias, scale, iters=10, full=True):
+    """K1 against its plain version on one case: ``out``, ``cls_attn`` and
+    ``col_mass`` within ``TOLERANCES`` in the case's dtype, and a second
+    launch bit-identical.  Times K1 and the design it replaced
+    (``previous_k1``) on the same inputs, and with ``full`` also the plain
+    version and SDPA (``out`` only, so computing less than K1).  Returns the
+    record for the kernels line."""
     import torch.nn.functional as F
 
     from madtp_tpu_torch.kernels.attention_scores import TOLERANCES, attention_scores_cuda
     from madtp_tpu_torch.ops.attention import attention_scores_plain
 
-    cases = [(64, 584, False), (64, 592, False), (64, 320, False), (32, 35, True)]
-    record = None
-    for dtype in (torch.float32, torch.bfloat16):
-        tol = TOLERANCES[dtype]
-        for B, N, with_bias in cases:
-            q, k, v, alive, bias = k1_case(B, N, with_bias=with_bias, dtype=dtype,
-                                           device=device)
-            bias_in = (torch.zeros(alive.shape, device=device) if bias is None else bias)
-            scale = q.shape[-1] ** -0.5
-            got = attention_scores_cuda(q, k, v, alive, bias_in, scale)
-            want = attention_scores_plain(q, k, v, alive, bias, scale)
-            torch.cuda.synchronize()
-            errs = {name: check_close(f"K1 {name} B={B} N={N} {dtype}", g, w, *tol[name])
-                    for name, g, w in zip(("out", "cls_attn", "col_mass"), got, want)}
-            ms = kernel_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), 10)
-            plain_ms = kernel_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
+    dtype = q.dtype
+    alive = alive.contiguous()
+    bias_in = torch.zeros(alive.shape, device=q.device) if bias is None \
+        else bias.float().contiguous()
+    with torch.inference_mode():
+        got = attention_scores_cuda(q, k, v, alive, bias_in, scale)
+        want = attention_scores_plain(q, k, v, alive, bias, scale)
+        errs = {n: check_close(f"K1 {n} {name}", g, w, *TOLERANCES[dtype][n])
+                for n, g, w in zip(("out", "cls_attn", "col_mass"), got, want)}
+        del want
+        again = attention_scores_cuda(q, k, v, alive, bias_in, scale)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K1 {name}: two launches on the same inputs differ")
+        del got, again
+        ms = kernel_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), iters)
+        previous_ms = kernel_ms(lambda: previous_k1(q, k, v, alive, bias_in, scale),
+                                max(2, iters // 2))
+        B, N, H, _ = q.shape
+        rec = dict(max_abs_err=max(errs.values()), ms=ms, previous_ms=previous_ms,
+                   shape=dict(B=B, N=N, H=H, dtype=str(dtype)[6:]))
+        line = (f"{name}: max|err| out {errs['out']:.2e} col {errs['col_mass']:.2e} cls "
+                f"{errs['cls_attn']:.2e}, bit-identical relaunch | K1 {ms:.4f} ms, previous "
+                f"{previous_ms:.4f} ms")
+        if full:
+            rec["plain_ms"] = kernel_ms(
+                lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
             mask = sdpa_mask(alive, bias_in, dtype)
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-            sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=mask, scale=scale), 10)
-            bound_ms, bound_by = bound(*k1_work(q, alive), dtype)
-            log(f"[k1] {str(dtype)[6:]} B={B} N={N} bias={with_bias}: "
-                f"max|err| out {errs['out']:.2e} col {errs['col_mass']:.2e} "
-                f"cls {errs['cls_attn']:.2e} | K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}), "
-                f"sdpa(out only, computes less than K1) {sdpa_ms:.4f} ms")
-            if dtype == torch.bfloat16 and N == main_n:
-                record = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms)
-            del q, k, v, got, want
-            torch.cuda.empty_cache()
-    return record
+            rec["library_ms"] = kernel_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, scale=scale), iters)
+            del mask, qh, kh, vh
+            rec.update(bounds(*k1_work(q, alive), dtype))
+            line += (f", plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                     f"({rec['bound_by']}), sdpa(out only, computes less than K1) "
+                     f"{rec['library_ms']:.4f} ms")
+    log(line)
+    return rec
 
 
-def phase_k2(device, main_n=592):
-    """K2 vs plain at the train step's shapes: the mask-mode ViT buffer
-    (N = 592), the gather path's first layer (584) and a later one (320) at
-    32 images, the text side at 16 captions with PAD_BIAS keys (40 mask, 26
-    gather).  Returns the fp32 record at N = ``main_n`` (the mask-mode fp32
-    train step, ``compress_nlvr``'s default) for the kernels line."""
+K2_ARGS = ("q", "k", "v", "alive", "bias_in", "scale", "out", "stats", "d_out", "d_cls",
+           "d_col")
+
+
+def hold_k2(name, c, iters=5, full=True):
+    """K2 against its plain version on one case (``k2_case``'s dict), by
+    ``compare_k2``'s rule, and a second launch bit-identical.  Times K2 and
+    the design it replaced (``previous_k2``), and with ``full`` also the
+    plain version and SDPA forward + backward (``out`` only).  Returns the
+    record for the kernels line."""
     import torch.nn.functional as F
 
     from madtp_tpu_torch.kernels import attention_scores_bwd as k2
     from madtp_tpu_torch.ops.attention import attention_scores_bwd_plain
 
+    dtype = c["q"].dtype
+    args = [c[n] for n in K2_ARGS]
+    plain_args = [c[n] for n in ("q", "k", "v", "alive", "bias", "scale", "d_out", "d_cls",
+                                 "d_col")]
+    got = k2.attention_scores_bwd_cuda(*args)
+    want = attention_scores_bwd_plain(*plain_args)
+    errs, near = compare_k2(c, got, want, k2.TOLERANCES[dtype], name)
+    again = k2.attention_scores_bwd_cuda(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K2 {name}: two launches on the same inputs differ")
+    del got, want, again
+    ms = kernel_ms(lambda: k2.attention_scores_bwd_cuda(*args), iters)
+    previous_ms = kernel_ms(lambda: previous_k2(*args), max(2, iters // 2))
+    B, N, H, _ = c["q"].shape
+    rec = dict(max_abs_err=max(errs.values()), ms=ms, previous_ms=previous_ms,
+               shape=dict(B=B, N=N, H=H, dtype=str(dtype)[6:]))
+    line = (f"{name}: max|err| dq {errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e} "
+            f"dbias {errs['dbias']:.2e} ({near} head-max near ties left out), bit-identical "
+            f"relaunch | K2 {ms:.4f} ms, previous {previous_ms:.4f} ms")
+    if full:
+        rec["plain_ms"] = kernel_ms(lambda: attention_scores_bwd_plain(*plain_args), 2)
+        mask = sdpa_mask(c["alive"], c["bias_in"], dtype)
+        qh, kh, vh = (c[n].transpose(1, 2).detach().requires_grad_() for n in "qkv")
+        do = c["d_out"].view(c["q"].shape).transpose(1, 2)
+
+        def sdpa():
+            o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=c["scale"])
+            torch.autograd.grad(o, (qh, kh, vh), do)
+
+        with torch.enable_grad():
+            rec["library_ms"] = kernel_ms(sdpa, iters)
+        del mask, qh, kh, vh, do
+        rec.update(bounds(*k2_work(c["q"], c["alive"]), dtype, tf32x3=True))
+        line += (f", plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                 f"({rec['bound_by']})" + (f", 3xTF32 bound {rec['bound_3xtf32_ms']:.4f} ms"
+                                          if "bound_3xtf32_ms" in rec else "")
+                 + f", sdpa fwd+bwd (out only, computes less than K2) {rec['library_ms']:.4f} ms")
+    log(line)
+    return rec
+
+
+def slower_cases(label, records):
+    """Logs the cases of a path where a kernel was not faster than the design
+    it replaced; returns their number."""
+    slow = [r for r in records if r["ms"] >= r["previous_ms"]]
+    log(f"[previous] {label}: faster than the replaced design in {len(records) - len(slow)} "
+        f"of {len(records)} cases" + "".join(f"; not at {r['shape']} ({r['ms']:.4f} against "
+                                              f"{r['previous_ms']:.4f} ms)" for r in slow))
+    return len(slow)
+
+
+def phase_k1(device):
+    """2. K1 vs plain at the main paths' shapes, fp32 and bf16 (``hold_k1``):
+    the NLVR gather path's first layer (64 images, 584 slots), the mask-mode
+    buffer (592), a later layer (320), the mask-mode train step's ViT (32
+    images, 592: the fp32 step runs K1 in fp32) and the text side (35, with
+    PAD_BIAS keys).  Returns the bf16 record at B=64, N=584 and the fp32
+    record at B=32, N=592."""
+    cases = [(64, 584, False), (64, 592, False), (64, 320, False), (32, 592, False),
+             (32, 35, True)]
+    record = record32 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, N, with_bias in cases:
+            q, k, v, alive, bias = k1_case(B, N, with_bias=with_bias, dtype=dtype,
+                                           device=device)
+            rec = hold_k1(f"[k1] {str(dtype)[6:]} B={B} N={N} bias={with_bias}", q, k, v, alive,
+                          bias, q.shape[-1] ** -0.5)
+            if (dtype, B, N) == (torch.bfloat16, 64, 584):
+                record = rec
+            if (dtype, B, N) == (torch.float32, 32, 592):
+                record32 = rec
+            del q, k, v, alive, bias
+            torch.cuda.empty_cache()
+    return record, record32
+
+
+def phase_k2(device):
+    """3. K2 vs plain at the train step's shapes (``hold_k2``): the
+    mask-mode ViT buffer (N = 592), the gather path's first layer (584) and
+    a later one (320) at 32 images, the text side at 16 captions with
+    PAD_BIAS keys (40 mask, 26 gather), fp32 and bf16.  Returns the fp32
+    record at N = 592 (the mask-mode fp32 train step, ``compress_nlvr``'s
+    default) and the bf16 record at N = 584 (the amp gather step's first
+    ViT layer)."""
     cases = [(32, 592, False), (32, 584, False), (32, 320, False), (16, 40, True),
              (16, 26, True)]
-    record = None
+    record = record16 = None
     for dtype in (torch.float32, torch.bfloat16):
         for B, N, with_bias in cases:
             c = k2_case(B, N, with_bias=with_bias, dtype=dtype, device=device)
-            args = [c[n] for n in ("q", "k", "v", "alive", "bias_in", "scale", "out", "stats",
-                                   "d_out", "d_cls", "d_col")]
-            plain_args = [c[n] for n in ("q", "k", "v", "alive", "bias", "scale", "d_out",
-                                         "d_cls", "d_col")]
-            got = k2.attention_scores_bwd_cuda(*args)
-            want = attention_scores_bwd_plain(*plain_args)
-            torch.cuda.synchronize()
-            label = f"B={B} N={N} {str(dtype)[6:]}"
-            errs, near = compare_k2(c, got, want, k2.TOLERANCES[dtype], label)
-            again = k2.attention_scores_bwd_cuda(*args)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"K2 {label}: two launches on the same inputs differ")
-            del got, want, again
-            ms = kernel_ms(lambda: k2.attention_scores_bwd_cuda(*args), 5)
-            plain_ms = kernel_ms(lambda: attention_scores_bwd_plain(*plain_args), 2)
-            mask = sdpa_mask(c["alive"], c["bias_in"], dtype)
-            qh, kh, vh = (c[n].transpose(1, 2).detach().requires_grad_() for n in "qkv")
-            do = c["d_out"].view(c["q"].shape).transpose(1, 2)
-
-            def sdpa():
-                o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=c["scale"])
-                torch.autograd.grad(o, (qh, kh, vh), do)
-
-            sdpa_ms = kernel_ms(sdpa, 5)
-            bound_ms, bound_by = bound(*k2_work(c["q"], c["alive"]), dtype)
-            log(f"[k2] {label} bias={with_bias}: max|err| dq {errs['dq']:.2e} dk {errs['dk']:.2e} "
-                f"dv {errs['dv']:.2e} dbias {errs['dbias']:.2e} ({near} head-max near ties "
-                f"left out); bit-identical relaunch | K2 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}), sdpa fwd+bwd (out only, computes "
-                f"less than K2) {sdpa_ms:.4f} ms")
-            if dtype == torch.float32 and N == main_n:
-                record = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms)
-            del c, args, plain_args, qh, kh, vh, do, mask
+            rec = hold_k2(f"[k2] B={B} N={N} {str(dtype)[6:]} bias={with_bias}", c)
+            if (dtype, N) == (torch.float32, 592):
+                record = rec
+            if (dtype, N) == (torch.bfloat16, 584):
+                record16 = rec
+            del c
             torch.cuda.empty_cache()
-    return record
+    return record, record16
 
 
 def phase_k4(device):
@@ -956,53 +1107,57 @@ def check_k5_cases(label, capture, iters=5, where=None):
 
 def check_k1_cases(label, capture, iters=10, min_n=0):
     """K1 against its plain version on the inputs a main path gave it (one
-    case per distinct (B, N, H, dtype, bias), those with N >= ``min_n``);
-    the most-called of them also timed with its plain version, SDPA (out
-    only) and the bound.  Returns that case's record."""
-    import torch.nn.functional as F
-
-    from madtp_tpu_torch.kernels.attention_scores import TOLERANCES, attention_scores_cuda
-    from madtp_tpu_torch.ops.attention import attention_scores_plain
-
+    case per distinct (B, N, H, dtype, bias), those with N >= ``min_n``),
+    each timed beside the design it replaced; the most-called case also with
+    its plain version, SDPA (out only) and the bound.  Returns that case's
+    record, with the number of cases where K1 was not faster than the
+    replaced design (``slower_than_previous``)."""
     calls = collections.Counter({key: n for key, n in capture.calls.items() if key[1] >= min_n})
-    top = calls.most_common(1)[0][0] if calls else None
-    record = None
-    with torch.inference_mode():
-        for key, (q, k, v, alive, bias, scale) in capture.cases.items():
-            if key[1] < min_n:
-                continue
-            B, N, H, dtype, _ = key
-            alive = alive.contiguous()
-            scale = q.shape[-1] ** -0.5 if scale is None else scale
-            bias_in = torch.zeros(alive.shape, device=q.device) if bias is None \
-                else bias.float().contiguous()
-            got = attention_scores_cuda(q, k, v, alive, bias_in, scale)
-            want = attention_scores_plain(q, k, v, alive, bias, scale)
-            name = f"{label} B={B} N={N} H={H} {str(dtype)[6:]} ({capture.calls[key]} calls)"
-            errs = {n: check_close(f"K1 {n} {name}", g, w, *TOLERANCES[dtype][n])
-                    for n, g, w in zip(("out", "cls_attn", "col_mass"), got, want)}
-            del got, want
-            line = (f"[k1-main] {name}: max|err| out {errs['out']:.2e} col "
-                    f"{errs['col_mass']:.2e} cls {errs['cls_attn']:.2e}")
-            if key == top:
-                ms = kernel_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), iters)
-                plain_ms = kernel_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
-                mask = sdpa_mask(alive, bias_in, dtype)
-                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-                sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask, scale=scale), iters)
-                bound_ms, bound_by = bound(*k1_work(q, alive), dtype)
-                record = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms,
-                              shape=dict(B=B, N=N, H=H, dtype=str(dtype)[6:]))
-                line += (f" | K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by}), sdpa(out only) {sdpa_ms:.4f} ms")
-                del mask, qh, kh, vh
-            log(line)
+    if not calls:
+        raise AssertionError(f"{label}: the path made no scoring-attention call")
+    top = calls.most_common(1)[0][0]
+    records = []
+    for key, (q, k, v, alive, bias, scale) in capture.cases.items():
+        if key[1] < min_n:
+            continue
+        B, N, H, dtype, _ = key
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        rec = hold_k1(f"[k1-main] {label} B={B} N={N} H={H} {str(dtype)[6:]} "
+                      f"({capture.calls[key]} calls)", q, k, v, alive, bias, scale,
+                      iters=iters, full=key == top)
+        records.append(rec)
+        if key == top:
+            record = rec
     capture.cases.clear()
     torch.cuda.empty_cache()
-    if record is None:
-        raise AssertionError(f"{label}: the path made no scoring-attention call")
+    record["slower_than_previous"] = slower_cases(f"K1 {label}", records)
+    return record
+
+
+def check_k2_cases(label, capture, iters=3):
+    """K2 against its plain version on the inputs a training path gave it
+    (one case per distinct (B, N, H, dtype), by ``compare_k2``'s rule),
+    each timed beside the design it replaced; the heaviest case (largest
+    B N H) also with the plain version, SDPA and the bound.  Returns that
+    case's record, with ``slower_than_previous`` as ``check_k1_cases``."""
+    if not capture.cases:
+        raise AssertionError(f"{label}: the path made no K2 call")
+    top = max(capture.cases, key=lambda key: key[0] * key[1] * key[2])
+    records = []
+    for key, args in capture.cases.items():
+        c = dict(zip(K2_ARGS, args))
+        c["bias"] = c["bias_in"]
+        c["alive"] = c["alive"].contiguous()
+        rec = hold_k2(f"[k2-main] {label} B={key[0]} N={key[1]} H={key[2]} "
+                      f"{str(key[3])[6:]} ({capture.calls[key]} calls)", c, iters=iters,
+                      full=key == top)
+        records.append(rec)
+        if key == top:
+            record = rec
+        del c
+    capture.cases.clear()
+    torch.cuda.empty_cache()
+    record["slower_than_previous"] = slower_cases(f"K2 {label}", records)
     return record
 
 
@@ -1014,14 +1169,12 @@ def phase_k1_large(device, main=(16, 1608)):
     past 1,536, the VQA-640 gather path's first layer (1,608) and mask-mode
     buffer (1,616), a ragged 2,305 and K3's ceiling 4,096, at 16 images where
     the plain version's [B, H, N, N] tensors allow.  Two launches
-    bit-identical, each counted in ``large_n_launches``.  Returns the bf16
-    record at ``main`` (B, N) with K1's, the plain version's and SDPA's
-    (``out`` only) times and the bound, for the K3 entry of the kernels
-    line."""
-    import torch.nn.functional as F
-
-    from madtp_tpu_torch.kernels.attention_scores import TOLERANCES, attention_scores_cuda
-    from madtp_tpu_torch.ops.attention import attention_scores_plain
+    bit-identical (``hold_k1``), every launch counted in ``large_n_launches``,
+    each case timed beside the replaced design.  Returns the bf16 record at
+    ``main`` (B, N) with K1's, the replaced design's, the plain version's
+    and SDPA's (``out`` only) times and the bound, for the K3 entry of the
+    kernels line."""
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
 
     cases = [(16, 1537, True), (16, 1608, False), (16, 1616, False), (8, 2305, True),
              (2, 4096, False)]
@@ -1029,41 +1182,20 @@ def phase_k1_large(device, main=(16, 1608)):
     for dtype in (torch.float32, torch.bfloat16):
         for B, N, with_bias in cases:
             q, k, v, alive, bias = k1_case(B, N, with_bias=with_bias, dtype=dtype, device=device)
-            bias_in = torch.zeros(alive.shape, device=device) if bias is None else bias
-            scale = q.shape[-1] ** -0.5
+            launches = attention_scores_cuda.launches
             large = attention_scores_cuda.large_n_launches
-            got = attention_scores_cuda(q, k, v, alive, bias_in, scale)
-            want = attention_scores_plain(q, k, v, alive, bias, scale)
-            torch.cuda.synchronize()
-            name = f"B={B} N={N} bias={with_bias} {str(dtype)[6:]}"
-            errs = {n: check_close(f"K1 {n} {name}", g, w, *TOLERANCES[dtype][n])
-                    for n, g, w in zip(("out", "cls_attn", "col_mass"), got, want)}
-            del want
-            again = attention_scores_cuda(q, k, v, alive, bias_in, scale)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"K1 {name}: two launches on the same inputs differ")
-            if attention_scores_cuda.large_n_launches != large + 2:
-                raise AssertionError(f"K1 {name}: {attention_scores_cuda.large_n_launches - large} "
-                                     "launches counted in K3's range, want 2")
-            del got, again
-            line = (f"[k1-large] {name}: max|err| out {errs['out']:.2e} col "
-                    f"{errs['col_mass']:.2e} cls {errs['cls_attn']:.2e}, bit-identical relaunch")
-            if dtype == torch.bfloat16 and (B, N) == main:
-                ms = kernel_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, scale), 10)
-                plain_ms = kernel_ms(lambda: attention_scores_plain(q, k, v, alive, bias, scale), 3)
-                mask = sdpa_mask(alive, bias_in, dtype)
-                qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-                sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask, scale=scale), 10)
-                bound_ms, bound_by = bound(*k1_work(q, alive), dtype)
-                record = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by, library_ms=sdpa_ms,
-                              shape=dict(B=B, N=N, H=q.shape[2], dtype=str(dtype)[6:]))
-                line += (f" | K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                         f"({bound_by}), sdpa(out only, computes less than K1) {sdpa_ms:.4f} ms")
-                del mask, qh, kh, vh
-            log(line)
-            del q, k, v, alive, bias, bias_in
+            main_case = dtype == torch.bfloat16 and (B, N) == main
+            rec = hold_k1(f"[k1-large] B={B} N={N} bias={with_bias} {str(dtype)[6:]}", q, k, v,
+                          alive, bias, q.shape[-1] ** -0.5, iters=10 if main_case else 3,
+                          full=main_case)
+            counted = attention_scores_cuda.large_n_launches - large
+            if counted < 2 or counted != attention_scores_cuda.launches - launches:
+                raise AssertionError(f"K1 B={B} N={N}: {counted} of "
+                                     f"{attention_scores_cuda.launches - launches} launches "
+                                     "counted in K3's range")
+            if main_case:
+                record = rec
+            del q, k, v, alive, bias
             torch.cuda.empty_cache()
     return record
 
@@ -1139,8 +1271,9 @@ def phase_model_parity(device, cfg, temperature=1.0):
 
 def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_steps=8,
                     eval_batches=3, iters=10):
-    """NLVR2 eval at p=0.5, bf16: bisection, capacities, gather eval.
-    Returns the K1, K4 and K5 launch counts of that run."""
+    """NLVR2 eval at p=0.5, bf16: bisection, capacities, gather eval (K1
+    held on its own inputs).  Returns the K1, K4 and K5 launch counts of
+    that run and the K1 record of the gather eval."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.kernels.ffn import ffn_cuda
@@ -1188,9 +1321,11 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
         t_star, g_star = t, g
         caps_v, caps_t = fast_capacity_schedule(vk, tk, "ceil")
 
-        stats, cur_gflops = evaluate(model, loader, tokenize, t_star, prune_active=True,
-                                     enc_token_id=2, capacities_v=caps_v, capacities_t=caps_t,
-                                     print_fn=lambda m: log(f"[main] {m}"), print_freq=1)
+        with K1Capture() as k1_capture:  # the gather eval's own scoring attentions
+            stats, cur_gflops = evaluate(model, loader, tokenize, t_star, prune_active=True,
+                                         enc_token_id=2, capacities_v=caps_v,
+                                         capacities_t=caps_t,
+                                         print_fn=lambda m: log(f"[main] {m}"), print_freq=1)
     torch.cuda.synchronize()
     launches, k4, k5 = attention_scores_cuda.launches, cross_attention_cuda.launches, \
         ffn_cuda.launches
@@ -1206,6 +1341,7 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
         raise AssertionError(f"gather eval GFLOPs {cur_gflops} not in (0, {ori})")
     check_k4_cases("nlvr eval", capture)
     check_k5_cases("nlvr eval", k5_capture)
+    record1 = check_k1_cases("nlvr gather eval", k1_capture)
 
     step_gather = make_eval_step(model, True, caps_v, caps_t)
     step_dense = make_eval_step(model, False)
@@ -1230,7 +1366,7 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
     ffn_ab("nlvr eval gather step", lambda: step_gather(images, ids, mask, t_star), iters)
     profile_step("gather step", lambda: step_gather(images, ids, mask, t_star), gather_ms)
     profile_step("dense step", lambda: step_dense(images, ids, mask, 0.0), dense_ms)
-    return launches, k4, k5
+    return launches, k4, k5, record1
 
 
 GRAD_PARAMS = ("visual_encoder.patch_embed.proj.weight", "visual_encoder.blocks.0.attn.qkv.weight",
@@ -1319,10 +1455,11 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
                      p_target=0.5, enc_token_id=2):
     """Compression training as ``madtp_tpu/cli/compress_nlvr.py:335-384``
     runs it, on synthetic data: controller epochs in mask mode fp32, then a
-    ``--fast_train`` epoch in fp32 and with ``amp``.  Returns the K1, K2, K4
-    and bf16 K5 launch counts of that run (the amp epoch's FFNs), the fp32 K5
-    launches (every other FFN of the run) and K5's fp32 record at the
-    path's most-called fp32 shape."""
+    ``--fast_train`` epoch in fp32 and with ``amp``.  K2 is held on the
+    inputs of the mask-mode fp32 epochs and of the amp epoch.  Returns the
+    K1, K2, K4 and bf16 K5 launch counts of that run (the amp epoch's FFNs),
+    the fp32 K5 launches (every other FFN of the run), K5's fp32 record at
+    the path's most-called fp32 shape and K2's records of the two captures."""
     import tempfile
 
     from madtp_tpu_torch.ckpt.convert import load_nlvr_state_dict, save_nlvr_checkpoint
@@ -1367,22 +1504,24 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     with K4Capture() as capture, K5Capture() as k5_capture:  # the path's own inputs
         step_mask = make_nlvr_train_step(model, opt)  # mask mode, fp32: compress_nlvr's default
         cur_g = ori
-        for epoch in range(epochs):
-            if epoch > 0:
-                controller.update(cur_g)
-            temperature = controller.temperature
-            lr = cosine_lr(epoch, epochs, 3e-6, 0.0)
-            set_lr(opt, lr)
-            stats = train_epoch(model, step_mask, loader_fn(batches), tokenize, enc_token_id,
-                                temperature, lr=lr, **quiet)
-            _, cur_g = evaluate(model, loader_fn(1), tokenize, temperature, prune_active=True,
-                                enc_token_id=enc_token_id, **quiet)
-            log(f"[train] epoch {epoch}: T={temperature:.2f} lr={lr:.3e} loss {stats['loss']} "
-                f"(ori {stats['loss_ori']}, fdt {stats['loss_fdt']}); eval GFLOPs {cur_g:.2f} "
-                f"(target {controller.target_gflops:.2f}, dense {ori:.2f})")
-            if not (all(math.isfinite(float(stats[k])) for k in ("loss", "loss_ori", "loss_fdt"))
-                    and stats["batches_done"] == batches and 0 < cur_g <= ori):
-                raise AssertionError(f"epoch {epoch}: stats {stats}, GFLOPs {cur_g}")
+        with K2Capture() as k2_fp32:  # the mask-mode fp32 epochs' own backward inputs
+            for epoch in range(epochs):
+                if epoch > 0:
+                    controller.update(cur_g)
+                temperature = controller.temperature
+                lr = cosine_lr(epoch, epochs, 3e-6, 0.0)
+                set_lr(opt, lr)
+                stats = train_epoch(model, step_mask, loader_fn(batches), tokenize, enc_token_id,
+                                    temperature, lr=lr, **quiet)
+                _, cur_g = evaluate(model, loader_fn(1), tokenize, temperature, prune_active=True,
+                                    enc_token_id=enc_token_id, **quiet)
+                log(f"[train] epoch {epoch}: T={temperature:.2f} lr={lr:.3e} loss {stats['loss']} "
+                    f"(ori {stats['loss_ori']}, fdt {stats['loss_fdt']}); eval GFLOPs {cur_g:.2f} "
+                    f"(target {controller.target_gflops:.2f}, dense {ori:.2f})")
+                losses = ("loss", "loss_ori", "loss_fdt")
+                if not (all(math.isfinite(float(stats[k])) for k in losses)
+                        and stats["batches_done"] == batches and 0 < cur_g <= ori):
+                    raise AssertionError(f"epoch {epoch}: stats {stats}, GFLOPs {cur_g}")
         probe = cached_probe_batches([None], loader_fn(2), n=2)
         caps_v, caps_t = probe_capacities(model, probe, tokenize, enc_token_id, temperature, "ceil")
         log(f"[train] fast_train capacities vision {list(caps_v)} text {list(caps_t)}")
@@ -1391,8 +1530,10 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
             name = "gather " + ("amp" if amp else "fp32")
             steps[name] = make_nlvr_train_step(model, opt, capacities_v=caps_v,
                                                capacities_t=caps_t, amp=amp)
-            stats = train_epoch(model, steps[name], loader_fn(batches), tokenize, enc_token_id,
-                                temperature, lr=lr, **quiet)
+            with K2Capture() if amp else contextlib.nullcontext() as k2_capture:
+                stats = train_epoch(model, steps[name], loader_fn(batches), tokenize,
+                                    enc_token_id, temperature, lr=lr, **quiet)
+            k2_amp = k2_capture if amp else None
             log(f"[train] fast_train epoch, {name}: loss {stats['loss']} (ori {stats['loss_ori']}, "
                 f"fdt {stats['loss_fdt']})")
             if not math.isfinite(float(stats["loss"])):
@@ -1416,6 +1557,8 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
                              "forwards")
     check_k4_cases("nlvr train", capture)
     record32 = check_k5_cases("nlvr train", k5_capture, where=dict(dtype="float32"))
+    record2_fp32 = check_k2_cases("nlvr train mask fp32", k2_fp32)
+    record2_amp = check_k2_cases("nlvr train gather amp", k2_amp)
 
     # one fixed batch on the card for the guard, the timings and the profile
     im0, im1, _, tg = next(iter(loader_fn(1)()))
@@ -1466,7 +1609,7 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     if not (torch.equal(a.logits, b.logits) and ck["temperature"] == temperature):
         raise AssertionError("the reloaded checkpoint gives other logits or temperature")
     log(f"[train] checkpoint round trip: identical logits, temperature {ck['temperature']:.2f}")
-    return launches, k5_fp32, record32
+    return launches, k5_fp32, record32, record2_fp32, record2_amp
 
 
 def retrieval_config():
@@ -1701,9 +1844,10 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
     inside its time limit) at ``k_test`` 256, so that every
     rerank row in both directions scores 256 candidates, and the dense eval
     (temperature 0); K4 against its plain version on the inputs each eval
-    gave it; then one ITM forward at ``k_test`` 256, timed and profiled.
-    Returns the temperature, the K1, K4 and K5 launch counts of the gather
-    eval and the K4 record of its ITM shape."""
+    gave it, K1 on the gather eval's; then one ITM forward at ``k_test``
+    256, timed and profiled.  Returns the temperature, the K1, K4 and K5
+    launch counts of the gather eval, the K4 record of its ITM shape and its
+    K1 record."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.kernels.ffn import ffn_cuda
@@ -1747,14 +1891,15 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
     def run_eval(temperature, cv, ct):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with K4Capture() as capture, K5Capture() as k5_capture:  # the eval's own inputs
+        with K4Capture() as capture, K5Capture() as k5_capture, \
+                K1Capture() as k1_capture:  # the eval's own inputs
             stats = evaluate(model, iter(batches), ids, mask, txt2img, img2txt, temperature,
                              enc_token_id=ENC_ID, k_test=k_test, capacities_v=cv,
                              capacities_t=ct)
-        return stats, time.perf_counter() - t0, capture, k5_capture
+        return stats, time.perf_counter() - t0, capture, k5_capture, k1_capture
 
     attention_scores_cuda.launches = cross_attention_cuda.launches = ffn_cuda.launches = 0
-    stats, eval_s, gather_capture, gather_k5 = run_eval(t_star, caps_v, caps_t)
+    stats, eval_s, gather_capture, gather_k5, gather_k1 = run_eval(t_star, caps_v, caps_t)
     k1, k4, k5 = attention_scores_cuda.launches, cross_attention_cuda.launches, ffn_cuda.launches
     n_texts = len(ids)
     n_itm = n_images + n_texts  # one ITM forward per rerank row, both directions
@@ -1773,12 +1918,14 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
     log(f"[retrieval] gather eval: {n_images} images, {n_texts} texts, k_test {k_test}: "
         f"{eval_s:.2f} s wall; r_mean {stats['r_mean']:.3f} (random weights); launches "
         f"K1 {k1}, K4 {k4} ({k4 // n_itm} per ITM forward), K5 {k5}")
-    dense_stats, dense_s, dense_capture, dense_k5 = run_eval(0.0, None, None)
+    dense_stats, dense_s, dense_capture, dense_k5, dense_k1 = run_eval(0.0, None, None)
+    dense_k1.cases.clear()
     log(f"[retrieval] dense eval: {dense_s:.2f} s wall; r_mean {dense_stats['r_mean']:.3f}")
     record = check_k4_cases("retrieval gather eval", gather_capture)
     check_k4_cases("retrieval dense eval", dense_capture)
     check_k5_cases("retrieval gather eval", gather_k5)
     check_k5_cases("retrieval dense eval", dense_k5)
+    record1 = check_k1_cases("retrieval gather eval", gather_k1, iters=5)
 
     def encode_rates(temperature, cv, ct):
         """images/s of the image tower over the corpus, texts/s of the text
@@ -1842,7 +1989,7 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
     g, d = rates["gather"], rates["dense"]
     log(f"[retrieval] pruned/dense: eval wall {dense_s / eval_s:.3f}x, images/s "
         f"{g[0] / d[0]:.3f}x, texts/s {g[1] / d[1]:.3f}x, ITM candidates/s {g[2] / d[2]:.3f}x")
-    return t_star, k1, k4, k5, record
+    return t_star, k1, k4, k5, record, record1
 
 
 def clip_config():
@@ -2474,8 +2621,8 @@ def main():
         return out
 
     timed(phase_build)
-    record = timed(phase_k1, device)
-    record2 = timed(phase_k2, device)
+    record, record1_32 = timed(phase_k1, device)
+    record2, record2_16 = timed(phase_k2, device)
     timed(phase_k4, device)
     record5, record5_fp32 = timed(phase_k5, device)
     record3 = timed(phase_k1_large, device)
@@ -2483,13 +2630,14 @@ def main():
     fp32_k5 = {}  # fp32 K5 launches of each fp32 path, counted apart
     _, fp32_k5["nlvr_parity"], _ = timed(fp32_k5_held, "nlvr parity", phase_model_parity,
                                          device, cfg)
-    k1_eval, k4_eval, k5_eval = timed(phase_main_path, device, cfg)
+    k1_eval, k4_eval, k5_eval, record1_eval = timed(phase_main_path, device, cfg)
     _, fp32_k5["train_parity"], _ = timed(fp32_k5_held, "nlvr train parity", phase_train_parity,
                                           device, cfg)
-    (k1_train, k2_train, k4_train, k5_train), fp32_k5["train"], record5_train = \
-        timed(phase_train_main, device, cfg)
+    (k1_train, k2_train, k4_train, k5_train), fp32_k5["train"], record5_train, record2_fp32, \
+        record2_amp = timed(phase_train_main, device, cfg)
     rcfg = retrieval_config()
-    t_ret, k1_ret, k4_ret, k5_ret, record4 = timed(phase_retrieval_main, device, rcfg)
+    t_ret, k1_ret, k4_ret, k5_ret, record4, record1_ret = timed(phase_retrieval_main, device,
+                                                                rcfg)
     _, fp32_k5["retrieval_parity"], _ = timed(fp32_k5_held, "retrieval parity",
                                               phase_retrieval_parity, device, rcfg, t_ret)
     ccfg = clip_config()
@@ -2512,22 +2660,28 @@ def main():
              launches=k1_eval + k1_train + k1_ret + k1_clip + k1_vqa + k1_640,
              launches_by_path={"eval": k1_eval, "train": k1_train, "retrieval": k1_ret,
                                "clip": k1_clip, "vqa": k1_vqa, "vqa640": k1_640},
-             **record, at_clip_vision_h16=record1_clip, at_vqa_gather_eval=record1_vqa,
+             **record, at_nlvr_gather_eval=record1_eval, at_retrieval_eval=record1_ret,
+             at_clip_vision_h16=record1_clip, at_vqa_gather_eval=record1_vqa,
+             fp32_at_train_shape=record1_32,
              library_note="library_ms is scaled_dot_product_attention, out only; vqa640 "
-                          "counts the launches in K3's range too (attention_scores_large_n)"),
+                          "counts the launches in K3's range too (attention_scores_large_n)",
+             previous_note=PREVIOUS_NOTE.format("attention_scores.cu")),
         dict(name="attention_scores_large_n", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:522",
              launches=k3_640, launches_by_path={"vqa640": k3_640}, **record3,
              at_vqa640_eval=record3_640,
              library_note="K1 launched at N > 1536, where the TPU runs its query-tiled kernel; "
-                          "library_ms is scaled_dot_product_attention, out only"),
+                          "library_ms is scaled_dot_product_attention, out only",
+             previous_note=PREVIOUS_NOTE.format("attention_scores.cu")),
         dict(name="attention_scores_bwd", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores_bwd.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:306",
              launches=k2_train, launches_by_path={"train": k2_train}, **record2,
+             bf16_at_amp_shape=record2_16, at_train_fp32=record2_fp32, at_train_amp=record2_amp,
              library_note="library_ms is scaled_dot_product_attention forward + backward, "
-                          "out only"),
+                          "out only",
+             previous_note=PREVIOUS_NOTE.format("attention_scores_bwd.cu")),
         dict(name="cross_attention", route="cuda",
              source="madtp_tpu_torch/csrc/cross_attention.cu",
              replaces="madtp_tpu/ops/pallas/cross_attention.py:56",

@@ -1,4 +1,5 @@
-// K1 on Hopper: multi-head attention with the DTP scoring side outputs.
+// K1 on Hopper: multi-head attention with the DTP scoring side outputs; bf16
+// on the tensor cores (mma.sync), fp32 on the CUDA cores.
 //
 // Replaces the TPU kernels madtp_tpu/ops/pallas/fused_attention.py
 // `fused_attention_scores` (kernel body `_kernel`, padded N <= 1536) and
@@ -15,41 +16,75 @@
 //              r_h[n] = ||out_h[n]|| taken in fp32, before the store rounds.
 //
 // Layout: q, k, v are [B, N, H, Dh] views (Dh contiguous, heads next, any
-// token and batch stride shared by the three), the layout the qkv linear
-// writes; out is [B, N, H, Dh] contiguous.  Any N >= 2; the ragged last tile
-// is masked here, so the caller pads nothing.
+// token and batch stride shared by the three, rows 16-byte aligned), the
+// layout the qkv linear writes; out is [B, N, H, Dh] contiguous.  Any N >= 2;
+// the ragged last tile is masked here, so the caller pads nothing.
 //
 // Design.  The TPU kernel keeps an [N, N] fp32 head-max plane in VMEM; at
 // N = 592 that is 1.4 MB, and a block here has 227 KB.  So two passes:
-//   pass A, one block per (query tile, head, batch): an online-softmax pass
-//     over key tiles writes out, the row max and sum-exp, and the fp32 row
-//     norms r_h;
-//   pass B, one block per (key tile, batch): over query tiles, then heads,
-//     recompute P_h from the saved statistics, keep the max over heads in
-//     registers and add the alive rows into col_mass; the query tile holding
-//     row 0 also forms cls_attn.
-// Sums run in a fixed order with no float atomics, so col_mass is the same
-// bit for bit from run to run and the DTP decisions fed by it cannot flip.
+//   pass A (`k1_fwd`), a FlashAttention-2 forward: one block per (image,
+//     head, 64 query rows), one warp per 16 query rows (a short text buffer
+//     of 26-40 rows runs 2-3 warps, so at most 15 rows are wasted).  Each
+//     warp keeps its Q fragments in registers (bf16; fp32 rereads them from
+//     L1 each tile, 64 registers saved); K and V stream in their input
+//     dtype through a 2-stage cp.async ring of XOR-swizzled 64-key tiles,
+//     read with ldmatrix, and the key bias of all N keys sits in shared
+//     memory; S = q k^T sits in the mma accumulators, the online
+//     softmax runs on them, and P is the A operand of P v straight from the
+//     registers (in bf16 rounded to bf16, as the TPU kernel's
+//     `p.astype(v.dtype)` and the plain version round it).  The epilogue
+//     writes out, the row max m and sum-exp l, and the fp32 row norm r_h.
+//   pass B (`k1_scores`), one block per (key tile, image), 8 warps: the K
+//     tiles of all H heads stay in shared memory; the Q tiles of every
+//     (128-row query tile, head) stream through a cp.async ring (4 stages in
+//     bf16, 2 in fp32) with their rows' m and l (4-byte cp.async: a stage
+//     waits on no load of its own).  Each warp takes 16 query rows against
+//     all the block's keys.  S comes from the same mma sequence in the same
+//     k-order as in pass A, so P recomputed from m and l is the P they
+//     describe; the head max stays in the accumulator registers, and each
+//     query tile's alive rows are added into per-lane column sums.  Column
+//     sums close in a fixed order: shuffles across the 8 row lanes, then the
+//     8 warps through shared memory.  The query tile holding row 0 forms
+//     cls_attn.  Where ceil(N / key tile) B gives fewer than 528 blocks (four
+//     waves of 132 SMs at one block an SM; CLIP's B = 32, N = 320: 160), the
+//     query tiles are split into `chunks` ranges, one block each
+//     (madtp_tpu_torch/kernels/attention_scores.py `pass_b_chunks`); each
+//     writes fp32 column partials and `k1_colsum` adds them in chunk order.
+// Sums run in a fixed order with no float atomics, so every output is the
+// same bit for bit from run to run and the DTP decisions fed by col_mass
+// cannot flip.  Exponentials run on the SFU (`ex2.approx`) as
+// P = 2^((x - m) log2(e) - log2(l)) with x = scale q.k + bias: the max is
+// subtracted in natural units, so pass B and K2 use pass A's m exactly.
+// (Folding log2(e) into the scale would make the stored natural-unit m a
+// rounded copy of the max, and with a PAD_BIAS key as a row's max, ulp(1e4)
+// = 1e-3 of error in the exponent: P off by 0.07%.)
 //
-// Bound on the card: the work sits at the H100's ridge.  At the NLVR gather
-// path's first layer (B = 64 images, H = 12, N = 584, Dh = 64, bf16) it needs
-// 4 N^2 Dh flops per (image, head), about 66 GFLOP or 0.067 ms of bf16 tensor
-// cores at 989 TFLOP/s, and moves about 230 MB (q, k, v in, out back), 0.069
-// ms at 3.35 TB/s.  This first version multiplies in fp32 on the CUDA cores
-// (67 TFLOP/s peak) and recomputes q k^T in pass B, so it is bound by its own
-// fp32 arithmetic, far above both; tensor cores (mma / wgmma), TMA and
-// pipelining are left to later work.  In K3's range, at the VQA-640 gather
-// path's first layer (ViT-B/16 at 640 px: B = 16 images, H = 12, N = 1608,
-// bf16), the work is about 127 GFLOP, 0.128 ms of bf16 tensor cores, against
-// about 158 MB moved, 0.047 ms: bound by operations.  Both passes grow as N^2
-// (pass B walks every query tile and head for each key tile), so the fp32
-// arithmetic binds there too.
+// The design above is bf16's.  fp32 (the fp32 train step and the
+// card-against-CPU checks) runs two passes of the same split on the CUDA
+// cores (`simt::`, below), K1's first design: 3xTF32 on the tensor cores kept
+// K1 within its fp32 tolerance but not the checks' limits.
+//
+// Bound on the card.  At the NLVR gather path's first layer (B = 64 images,
+// H = 12, N = 584, Dh = 64, bf16) the function needs 4 N^2 Dh flops per
+// (image, head), about 67 GFLOP or 0.068 ms of bf16 tensor cores at 989
+// TFLOP/s, and moves about 230 MB (q, k, v in, out back), 0.069 ms at 3.35
+// TB/s: it sits at the ridge.  This design does 6 N^2 Dh flops (pass B
+// recomputes q k^T for every head) on mma.sync, below the wgmma rate, and
+// 2 B H N^2 exponentials (0.5 G, about 0.12 ms of the SFUs at this shape),
+// which bind beside the products once these run on tensor cores.  Measured
+// on the H100 (PERF.md): 0.94 ms here, 14x the bound: neither bytes nor
+// products bind, but latency with few warps an SM (4 blocks of 4 warps in
+// pass A, 1 block of 8 in pass B).  In K3's
+// range, at the VQA-640 gather path's first layer (B = 16, H = 12, N =
+// 1608), about 127 GFLOP (0.128 ms) against 158 MB (0.047 ms): bound by
+// operations.
 //
 // Launch count: the Python wrapper
 // madtp_tpu_torch/kernels/attention_scores.py (`attention_scores_cuda`) adds
 // one to `attention_scores_cuda.launches` per successful call of
-// `k1_attention_scores` below, which launches both passes, and, when
-// N > 1536, one to `attention_scores_cuda.large_n_launches` (K3's count).
+// `k1_attention_scores` below, which launches both passes (and `k1_colsum`
+// when pass B is split), and, when N > 1536, one to
+// `attention_scores_cuda.large_n_launches` (K3's count).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +93,522 @@
 
 namespace {
 
-constexpr int DH = 64;      // head dim (ViT-B and BERT-base)
+constexpr int DH = 64;          // head dim (ViT-B/L and BERT-base)
+constexpr int ROWS = 16;        // query rows per warp (the mma's M)
+constexpr int QT = 64;          // query rows per tile: 4 warps
+constexpr int KT = 64;          // keys per pass-A tile
+constexpr int A_STAGES = 2;     // pass A's cp.async ring
+constexpr int B_THREADS = 256;  // pass B: 8 warps of 16 query rows
+constexpr int MAX_HEADS = 16;
+constexpr int MAX_N = 16384;    // pass A keeps every key's bias in shared memory
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---------------------------------------------------------------- PTX helpers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+// 4 bytes global -> shared (.ca: the 16-byte form needs 16-byte aligned rows).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// d += a b, a: m16 x k16 (row), b: k16 x n8 (col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 2^x on the SFU (relative error below 2^-22; 0 at -inf).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// ---------------------------------------------------------------- operand policy
+//
+// Tiles of 64-wide rows sit in shared memory XOR-swizzled by 16-byte chunk
+// (chunk c of row r at c ^ (r & 7)), so that ldmatrix reads are free of
+// bank conflicts.  A k-step covers 16 head dims in chunks 2s and 2s+1 of a
+// row, so one ldmatrix.x4 of 8 rows and chunks 4p..4p+3 gives the B
+// fragments of k-steps 2p and 2p+1, and one of 16 rows and chunks 2s, 2s+1
+// gives the A fragment of k-step s.  (csrc/attention_scores_bwd.cu keeps a
+// copy of these helpers with an fp32 policy, 3xTF32, beside it.)
+
+template <typename T> struct Op;
+
+template <> struct Op<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int NK = DH / 16;       // k-steps over the head dim
+  static constexpr int ROWB = DH * 2;      // bytes of a tile row
+  struct A { uint32_t r[4]; };
+  __device__ __forceinline__ static void mma(float (&d)[4], const A& a, uint32_t b0,
+                                             uint32_t b1) {
+    mma_bf16(d, a.r, b0, b1);
+  }
+  __device__ __forceinline__ static A make_a(const uint32_t (&r)[4]) {
+    A a;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a.r[e] = r[e];
+    return a;
+  }
+  // A fragment of k-step s for rows r0 + g, r0 + g + 8 of a row-major
+  // [row][DH] array in global memory; rows >= n are zero.
+  __device__ __forceinline__ static A load_a(const T* base, int64_t stride, int r0, int n,
+                                             int s, int g, int t) {
+    A a;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + (e & 1) * 8, col = 16 * s + (e >> 1) * 8 + 2 * t;
+      a.r[e] = row < n ? *reinterpret_cast<const uint32_t*>(base + (int64_t)row * stride + col)
+                       : 0u;
+    }
+    return a;
+  }
+  // A fragment of k-step ks (16 keys) of a P-shaped product from the
+  // accumulators sc[key blocks of 8][4], rounded to bf16.
+  template <int NKB>
+  __device__ __forceinline__ static A acc_a(const float (&sc)[NKB][4], int ks) {
+    A a;
+    a.r[0] = pack_bf16(sc[2 * ks][0], sc[2 * ks][1]);
+    a.r[1] = pack_bf16(sc[2 * ks][2], sc[2 * ks][3]);
+    a.r[2] = pack_bf16(sc[2 * ks + 1][0], sc[2 * ks + 1][1]);
+    a.r[3] = pack_bf16(sc[2 * ks + 1][2], sc[2 * ks + 1][3]);
+    return a;
+  }
+  // o[8 dim blocks][4] += P (16 x 8 NKB keys, sc) times rows row0 ..
+  // row0 + 8 NKB - 1 of a swizzled [key][DH] tile: V by ldmatrix.trans.
+  template <int NKB>
+  __device__ __forceinline__ static void pv(float (&o)[8][4], const float (&sc)[NKB][4],
+                                            const unsigned char* tile, int row0, int lane) {
+    static_assert(NKB % 2 == 0, "a bf16 k-step covers 16 keys");
+    const uint32_t base = smem_addr(tile);
+    const int mat = lane / 8, mrow = lane % 8;
+#pragma unroll
+    for (int ks = 0; ks < NKB / 2; ++ks) {
+      const A pa = acc_a(sc, ks);
+#pragma unroll
+      for (int dp = 0; dp < 4; ++dp) {
+        uint32_t r[4];
+        const int row = row0 + 16 * ks + (mat & 1) * 8 + mrow, ch = 2 * dp + (mat >> 1);
+        ldmatrix_x4_trans(r, base + row * ROWB + ((ch ^ (row & 7)) << 4));
+        mma(o[2 * dp], pa, r[0], r[1]);
+        mma(o[2 * dp + 1], pa, r[2], r[3]);
+      }
+    }
+  }
+  __device__ __forceinline__ static void store2(T* dst, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+  }
+};
+
+// Shared-memory address of chunk ch of row r of a swizzled tile.
+template <int ROWB>
+__device__ __forceinline__ int swz(int r, int ch) {
+  return r * ROWB + ((ch ^ (r & 7)) << 4);
+}
+
+// Issues the cp.async copies of rows [r0, r0 + rows) of a [row][DH] array
+// (row stride `stride` elements) into a swizzled tile; rows >= n are zero.
+// r0 < n, so the dummy source of a zero row is a valid address.
+template <typename T>
+__device__ __forceinline__ void load_tile(uint32_t dst, const T* base, int64_t stride, int r0,
+                                          int rows, int n, int tid, int nthreads) {
+  constexpr int ROWB = Op<T>::ROWB, CH = ROWB / 16, EL = 16 / (int)sizeof(T);
+  for (int c = tid; c < rows * CH; c += nthreads) {
+    const int r = c / CH, ch = c % CH, row = r0 + r;
+    const bool in = row < n;
+    cp_async16(dst + swz<ROWB>(r, ch), base + (int64_t)(in ? row : r0) * stride + ch * EL,
+               in ? 16 : 0);
+  }
+}
+
+// S (16 rows x 8 NBLK keys) = A (the warp's rows, NK k-steps, A fragment s
+// from get_a(s)) times the key rows [key0, key0 + 8 NBLK) of a swizzled tile
+// at `base`, k-steps in order: the one sequence every pass runs.
+template <typename T, int NBLK, class GetA>
+__device__ __forceinline__ void qk(float (&s)[NBLK][4], GetA get_a, uint32_t base, int key0,
+                                   int lane) {
+  using O = Op<T>;
+#pragma unroll
+  for (int j = 0; j < NBLK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int sp = 0; sp < O::NK / 2; ++sp) {
+    const typename O::A a0 = get_a(2 * sp), a1 = get_a(2 * sp + 1);
+#pragma unroll
+    for (int j = 0; j < NBLK; ++j) {
+      uint32_t r[4];
+      const int row = key0 + 8 * j + lane % 8;
+      ldmatrix_x4(r, base + swz<O::ROWB>(row, 4 * sp + lane / 8));
+      O::mma(s[j], a0, r[0], r[1]);
+      O::mma(s[j], a1, r[2], r[3]);
+    }
+  }
+}
+
+// The A fragment of k-step s of rows row0 .. row0 + 15 of a swizzled tile.
+template <typename T>
+__device__ __forceinline__ typename Op<T>::A tile_a(uint32_t base, int row0, int s, int lane) {
+  uint32_t r[4];
+  ldmatrix_x4(r, base + swz<Op<T>::ROWB>(row0 + (lane / 8 & 1) * 8 + lane % 8, 2 * s + lane / 16));
+  return Op<T>::make_a(r);
+}
+
+// ---------------------------------------------------------------- pass A
+
+// Grid (ceil(N / QT), B H): the query tiles of one (image, head) run side by
+// side and share its K and V in L2.  blockDim 32 x min(4, ceil(N / 16)); at
+// registers capped so that four blocks share an SM.
+template <typename T>
+__global__ void __launch_bounds__(128, 4) k1_fwd(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, int64_t sb,
+    int64_t sn, const uint8_t* __restrict__ alive, const float* __restrict__ bias,
+    T* __restrict__ out, float* __restrict__ stat_m, float* __restrict__ stat_l,
+    float* __restrict__ rnorm, int N, int H, float scale) {
+  using O = Op<T>;
+  constexpr int TILE = KT * O::ROWB;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* Ks = smem;                               // [A_STAGES][KT rows]
+  unsigned char* Vs = smem + A_STAGES * TILE;             // [A_STAGES][KT rows]
+  float* kb = reinterpret_cast<float*>(Vs + A_STAGES * TILE);  // [ceil(N / KT) KT]
+
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, nthreads = blockDim.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = blockIdx.x * QT + warp * ROWS;
+  const bool active = r0 < N;  // warp-uniform
+  const int ntiles = (N + KT - 1) / KT;
+  const int64_t head = (int64_t)b * sb + (int64_t)h * DH;
+
+  auto load = [&](int stage, int tile) {
+    load_tile<T>(smem_addr(Ks + stage * TILE), k + head, sn, tile * KT, KT, N, tid, nthreads);
+    load_tile<T>(smem_addr(Vs + stage * TILE), v + head, sn, tile * KT, KT, N, tid, nthreads);
+  };
+  // the key bias of every key, -inf where dead or past N
+  for (int key = tid; key < ntiles * KT; key += nthreads)
+    kb[key] = (key < N && alive[(int64_t)b * N + key]) ? bias[(int64_t)b * N + key] : -INFINITY;
+
+  typename O::A qa[O::NK];
+#pragma unroll
+  for (int s = 0; s < O::NK; ++s) qa[s] = O::load_a(q + head, sn, r0, N, s, g, t);
+
+  float o[8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < A_STAGES - 1; ++s) {
+    if (s < ntiles) load(s, s);
+    cp_async_commit();
+  }
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<A_STAGES - 2>();
+    __syncthreads();  // this tile landed for every thread; the previous one is consumed
+    const int pf = tile + A_STAGES - 1;
+    if (pf < ntiles) load(pf % A_STAGES, pf);
+    cp_async_commit();
+    if (active) {
+      const int stage = tile % A_STAGES;
+      const float* kbs = kb + tile * KT;
+      float sc[8][4];
+      qk<T, 8>(sc, [&](int s) { return qa[s]; }, smem_addr(Ks + stage * TILE), 0, lane);
+
+      // online softmax on the fragments: element e of block j is (row g + 8 (e >> 1),
+      // key 8 j + 2 t + (e & 1))
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float kbv = kbs[8 * j + 2 * t + (e & 1)];
+          sc[j][e] = kbv == -INFINITY ? -INFINITY : fmaf(sc[j][e], scale, kbv);
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float mn = fmaxf(m[i], mx[i]);
+        alpha[i] = mn == -INFINITY ? 1.f : ex2((m[i] - mn) * LOG2E);
+        m[i] = mn;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          sc[j][e] = sc[j][e] == -INFINITY ? 0.f : ex2((sc[j][e] - m[i]) * LOG2E);
+          l[i] += sc[j][e];
+          o[j][e] *= alpha[i];
+        }
+      O::pv(o, sc, Vs + stage * TILE, 0, lane);
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;  // no barrier follows
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);  // no alive key: o is 0
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      o[j][2 * i] *= inv;
+      o[j][2 * i + 1] *= inv;
+      sq = fmaf(o[j][2 * i], o[j][2 * i], sq);
+      sq = fmaf(o[j][2 * i + 1], o[j][2 * i + 1], sq);
+    }
+    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+    if (row >= N) continue;
+    T* dst = out + (((int64_t)b * N + row) * H + h) * DH + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) O::store2(dst + 8 * j, o[j][2 * i], o[j][2 * i + 1]);
+    if (t == 0) {
+      const int64_t s_idx = ((int64_t)b * H + h) * N + row;
+      stat_m[s_idx] = m[i] == -INFINITY ? 0.f : m[i];
+      stat_l[s_idx] = l[i];
+      rnorm[s_idx] = sqrtf(sq);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- pass B
+
+// Pass B's shape: keys per block (the K tiles of all heads stay in shared
+// memory: 128 KB at H = 16), query rows per stage (8 warps x 16) and the
+// ring's depth.
+template <typename T> struct PassB {
+  static constexpr int TK = 64;
+  static constexpr int STAGES = 4;
+};
+constexpr int BQ = 128;  // query rows per pass-B stage
+
+template <typename T>
+constexpr int pass_b_smem(int H) {
+  return H * PassB<T>::TK * Op<T>::ROWB                        // K tiles of all heads
+         + PassB<T>::STAGES * (BQ * Op<T>::ROWB + BQ * 8)       // Q ring, rows' m and l
+         + PassB<T>::TK * 4 * (H + 8);                          // r_h of each head, column sums
+}
+
+// Grid (ceil(N / TK), chunks, B); 256 threads.  Warp w takes query rows
+// 16 w .. 16 w + 15 of each 128-row query tile against all TK keys of the
+// block.  Chunk c walks query tiles [c per, min((c + 1) per, ceil(N / BQ))).
+// With chunks == 1 it writes col; else fp32 partials part[c][b][n].
+template <typename T>
+__global__ void __launch_bounds__(B_THREADS) k1_scores(
+    const T* __restrict__ q, const T* __restrict__ k, int64_t sb, int64_t sn,
+    const uint8_t* __restrict__ alive, const float* __restrict__ bias,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    const float* __restrict__ rnorm, float* __restrict__ col, float* __restrict__ part,
+    float* __restrict__ cls, int N, int H, float scale) {
+  using O = Op<T>;
+  constexpr int TK = PassB<T>::TK, NB = TK / 8, S = PassB<T>::STAGES;
+  constexpr int KTILE = TK * O::ROWB, QTILE = BQ * O::ROWB;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* Kr = smem;                                    // [H][TK rows]
+  unsigned char* Qr = Kr + H * KTILE;                          // [S][BQ rows]
+  float* ml = reinterpret_cast<float*>(Qr + S * QTILE);        // [S][2][BQ]
+  float* rnk = ml + S * 2 * BQ;                                // [H][TK]
+  float* red = rnk + H * TK;                                   // [8][TK]
+
+  const int k0 = blockIdx.x * TK, chunk = blockIdx.y, chunks = gridDim.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int nqt = (N + BQ - 1) / BQ, per = (nqt + chunks - 1) / chunks;
+  const int qt0 = chunk * per, qt1 = min(nqt, qt0 + per);
+  const int nst = (qt1 - qt0) * H;  // stages: (query tile, head), heads inner
+  const int64_t bN = (int64_t)b * N;
+
+  for (int hh = 0; hh < H; ++hh)
+    load_tile<T>(smem_addr(Kr + hh * KTILE), k + (int64_t)b * sb + hh * DH, sn, k0, TK, N, tid,
+                 B_THREADS);
+  for (int i = tid; i < TK * H; i += B_THREADS) {
+    const int j = k0 + i % TK;
+    rnk[i] = j < N ? rnorm[((int64_t)b * H + i / TK) * N + j] : 0.f;
+  }
+  // a stage: the Q tile of one (query tile, head) and its rows' m and l (a
+  // row past N gets l = 0)
+  auto load_q = [&](int stage, int it) {
+    const int qt = qt0 + it / H, hh = it % H;
+    load_tile<T>(smem_addr(Qr + stage * QTILE), q + (int64_t)b * sb + hh * DH, sn, qt * BQ, BQ,
+                 N, tid, B_THREADS);
+    if (tid < BQ) {
+      const int i = qt * BQ + tid;
+      const int64_t s = ((int64_t)b * H + hh) * N + min(i, N - 1);
+      const int bytes = i < N ? 4 : 0;
+      cp_async4(smem_addr(ml + (stage * 2) * BQ + tid), stat_m + s, bytes);
+      cp_async4(smem_addr(ml + (stage * 2 + 1) * BQ + tid), stat_l + s, bytes);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nst) load_q(s, s);
+    cp_async_commit();  // the K tiles ride in the first group
+  }
+
+  // this lane's keys 8 j + 2 t + c: natural-unit bias, -inf where dead or past N
+  float mx[NB][4], colacc[NB][2], num[NB][2], den[NB][2], kbr[NB][2];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int key = k0 + 8 * j + 2 * t + c;
+      kbr[j][c] = (key < N && alive[bN + key]) ? bias[bN + key] : -INFINITY;
+      colacc[j][c] = num[j][c] = den[j][c] = 0.f;
+    }
+
+  for (int it = 0; it < nst; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    const int pf = it + S - 1;
+    if (pf < nst) load_q(pf % S, pf);
+    cp_async_commit();
+
+    const int stage = it % S, qt = qt0 + it / H, hh = it % H;
+    if (hh == 0) {
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[j][e] = 0.f;
+    }
+    if (qt * BQ + warp * ROWS < N) {  // warp-uniform: this warp has rows in the tile
+      const uint32_t qbase = smem_addr(Qr + stage * QTILE);
+      float sc[NB][4];
+      qk<T, NB>(sc, [&](int s) { return tile_a<T>(qbase, warp * ROWS, s, lane); },
+                smem_addr(Kr + hh * KTILE), 0, lane);
+      // P = exp(x - m) / l = 2^((x - m) log2(e) - log2(l)); the max is
+      // subtracted in natural units, so m from pass A is used exactly
+      float rm[2], rl[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = warp * ROWS + g + 8 * i;
+        const float lv = ml[(stage * 2 + 1) * BQ + r];
+        rm[i] = ml[stage * 2 * BQ + r];
+        rl[i] = lv > 0.f ? log2f(lv) : 0.f;  // no alive key: every x is -inf
+      }
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const float x = fmaf(sc[j][e], scale, kbr[j][e & 1]);
+          const float p = ex2(fmaf(x - rm[i], LOG2E, -rl[i]));
+          mx[j][e] = fmaxf(mx[j][e], p);
+          if (qt == 0 && warp == 0 && g == 0 && e < 2) {  // query row 0
+            const float r = rnk[hh * TK + 8 * j + 2 * t + e];
+            num[j][e] = fmaf(p, r, num[j][e]);
+            den[j][e] += r;
+          }
+        }
+      if (hh == H - 1) {  // the tile's head max is complete: add its alive rows
+        const int i_lo = qt * BQ + warp * ROWS + g, i_hi = i_lo + 8;
+        const bool a_lo = i_lo >= 1 && i_lo < N && alive[bN + i_lo];
+        const bool a_hi = i_hi < N && alive[bN + i_hi];
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            colacc[j][c] += (a_lo ? mx[j][c] : 0.f) + (a_hi ? mx[j][2 + c] : 0.f);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // column sums: over the 8 row lanes (g), then the 8 warps in order
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float x = colacc[j][c];
+      x += __shfl_xor_sync(0xffffffffu, x, 4);
+      x += __shfl_xor_sync(0xffffffffu, x, 8);
+      x += __shfl_xor_sync(0xffffffffu, x, 16);
+      if (g == 0) red[warp * TK + 8 * j + 2 * t + c] = x;
+    }
+  __syncthreads();
+  if (tid < TK && k0 + tid < N) {
+    const int j = k0 + tid;
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) acc += red[w * TK + tid];
+    if (chunks == 1)
+      col[bN + j] = alive[bN + j] ? acc : 0.f;
+    else
+      part[((int64_t)chunk * gridDim.z + b) * N + j] = acc;
+  }
+  if (qt0 == 0 && warp == 0 && g == 0) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + 8 * j + 2 * t + c;
+        if (key < N) cls[bN + key] = num[j][c] / (den[j][c] + 1e-8f);
+      }
+  }
+}
+
+// col[b, n] = the chunks' partials added in chunk order, 0 at dead n.
+__global__ void __launch_bounds__(256) k1_colsum(const float* __restrict__ part,
+                                                 const uint8_t* __restrict__ alive,
+                                                 float* __restrict__ col, int B, int N,
+                                                 int chunks) {
+  const int64_t idx = (int64_t)blockIdx.x * 256 + threadIdx.x, total = (int64_t)B * N;
+  if (idx >= total) return;
+  float acc = 0.f;
+  for (int c = 0; c < chunks; ++c) acc += part[c * total + idx];
+  col[idx] = alive[idx] ? acc : 0.f;
+}
+
+// ---------------------------------------------------------------- fp32, CUDA cores
+
+// fp32 multiplies on the CUDA cores (FFMA): K1's first design, kept.  Tensor
+// cores would mean 3xTF32, and the card's fp32 results then drift from the
+// CPU's (the fp32 plain version) twice as far as with FFMA: the VQA
+// card-against-CPU check's question states by 1.1e-5 against its 1e-5
+// limit, even with a fourth (lo lo) product (PERF.md).
+namespace simt {
+
 constexpr int TQ = 64;      // query rows per tile
 constexpr int TK = 64;      // key columns per tile
 constexpr int NT = 256;     // threads: 16 row groups x 16 column groups
@@ -66,21 +616,12 @@ constexpr int LD = 68;      // padded leading dim of the transposed tiles
 static_assert(TK == DH, "pass A reuses the K tile buffer for P^T");
 static_assert(LD % 4 == 0, "float4 reads need 16-byte aligned rows");
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// dst[d * LD + r] = src[(r0 + r) * row_stride + d] in fp32; rows >= n are 0.
-template <typename T>
-__device__ void load_transposed(float* dst, const T* __restrict__ src,
+// dst[d * LD + r] = src[(r0 + r) * row_stride + d]; rows >= n are 0.
+__device__ void load_transposed(float* dst, const float* __restrict__ src,
                                 int64_t row_stride, int r0, int n) {
   for (int e = threadIdx.x; e < TQ * DH; e += NT) {
     const int r = e / DH, d = e % DH;
-    dst[d * LD + r] = (r0 + r < n) ? to_f(src[(int64_t)(r0 + r) * row_stride + d]) : 0.f;
+    dst[d * LD + r] = (r0 + r < n) ? (src[(int64_t)(r0 + r) * row_stride + d]) : 0.f;
   }
 }
 
@@ -117,11 +658,10 @@ __device__ __forceinline__ float group_sum(float x) {
 }
 
 // Pass A: grid (ceil(N/TQ), H, B).
-template <typename T>
-__global__ void __launch_bounds__(NT) k1_forward(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+__global__ void __launch_bounds__(NT) k1_fwd_simt(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     int64_t sb, int64_t sn, const uint8_t* __restrict__ alive,
-    const float* __restrict__ bias, T* __restrict__ out, float* __restrict__ stat_m,
+    const float* __restrict__ bias, float* __restrict__ out, float* __restrict__ stat_m,
     float* __restrict__ stat_l, float* __restrict__ rnorm, int N, int H, float scale) {
   extern __shared__ float smem[];
   float* Qt = smem;             // [DH][LD]
@@ -149,7 +689,7 @@ __global__ void __launch_bounds__(NT) k1_forward(
     load_transposed(Kt, k + head, sn, k0, N);
     for (int e = tid; e < TK * DH; e += NT) {
       const int r = e / DH, d = e % DH;
-      Vs[e] = (k0 + r < N) ? to_f(v[head + (int64_t)(k0 + r) * sn + d]) : 0.f;
+      Vs[e] = (k0 + r < N) ? (v[head + (int64_t)(k0 + r) * sn + d]) : 0.f;
     }
     if (tid < TK) {
       const int j = k0 + tid;
@@ -213,9 +753,9 @@ __global__ void __launch_bounds__(NT) k1_forward(
     }
     const float rn = sqrtf(group_sum(sq));
     if (row < N) {
-      T* dst = out + (((int64_t)b * N + row) * H + h) * DH + cg * 4;
+      float* dst = out + (((int64_t)b * N + row) * H + h) * DH + cg * 4;
 #pragma unroll
-      for (int d = 0; d < 4; ++d) dst[d] = from_f<T>(o[i][d]);
+      for (int d = 0; d < 4; ++d) dst[d] = (o[i][d]);
       if (cg == 0) {
         const int64_t s_idx = ((int64_t)b * H + h) * N + row;
         stat_m[s_idx] = (m[i] == -INFINITY) ? 0.f : m[i];
@@ -227,9 +767,8 @@ __global__ void __launch_bounds__(NT) k1_forward(
 }
 
 // Pass B: grid (ceil(N/TK), B).
-template <typename T>
-__global__ void __launch_bounds__(NT) k1_scores(
-    const T* __restrict__ q, const T* __restrict__ k, int64_t sb, int64_t sn,
+__global__ void __launch_bounds__(NT) k1_scores_simt(
+    const float* __restrict__ q, const float* __restrict__ k, int64_t sb, int64_t sn,
     const uint8_t* __restrict__ alive, const float* __restrict__ bias,
     const float* __restrict__ stat_m, const float* __restrict__ stat_l,
     const float* __restrict__ rnorm, float* __restrict__ col, float* __restrict__ cls,
@@ -326,52 +865,101 @@ __global__ void __launch_bounds__(NT) k1_scores(
   }
 }
 
+cudaError_t launch(const float* q, const float* k, const float* v, int64_t sb, int64_t sn,
+                   const uint8_t* alive, const float* bias, float* out, float* col, float* cls,
+                   float* stat_m, float* stat_l, float* rnorm, int B, int N, int H, float scale,
+                   cudaStream_t stream) {
+  constexpr size_t smem = (2 * DH * LD + TK * DH + TK) * sizeof(float);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(k1_fwd_simt, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  k1_fwd_simt<<<dim3((N + TQ - 1) / TQ, H, B), NT, smem, stream>>>(
+      q, k, v, sb, sn, alive, bias, out, stat_m, stat_l, rnorm, N, H, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  k1_scores_simt<<<dim3((N + TK - 1) / TK, B), NT, 0, stream>>>(
+      q, k, sb, sn, alive, bias, stat_m, stat_l, rnorm, col, cls, N, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace simt
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, int64_t sb, int64_t sn,
                    const void* alive, const void* bias, void* out, void* col, void* cls,
-                   void* stat_m, void* stat_l, void* rnorm, int B, int N, int H,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = (2 * DH * LD + TK * DH + TK) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      k1_forward<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_a((N + TQ - 1) / TQ, H, B), grid_b((N + TK - 1) / TK, B);
-  k1_forward<T><<<grid_a, NT, smem, stream>>>(
+                   void* stat_m, void* stat_l, void* rnorm, void* part, int B, int N, int H,
+                   int chunks, float scale, cudaStream_t stream) {
+  constexpr int ring_a = A_STAGES * 2 * KT * Op<T>::ROWB;
+  const int smem_a = ring_a + (N + KT - 1) / KT * KT * 4;
+  const int smem_b = pass_b_smem<T>(H);
+  static bool configured = false;  // both attributes at their largest, once
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        k1_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, ring_a + MAX_N * 4);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(k1_scores<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               pass_b_smem<T>(MAX_HEADS));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int warps = N >= QT ? 4 : (N + ROWS - 1) / ROWS;
+  const dim3 grid_a((N + QT - 1) / QT, B * H);
+  k1_fwd<T><<<grid_a, 32 * warps, smem_a, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), sb, sn,
       static_cast<const uint8_t*>(alive), static_cast<const float*>(bias),
       static_cast<T*>(out), static_cast<float*>(stat_m), static_cast<float*>(stat_l),
       static_cast<float*>(rnorm), N, H, scale);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  k1_scores<T><<<grid_b, NT, 0, stream>>>(
+  const dim3 grid_b((N + PassB<T>::TK - 1) / PassB<T>::TK, chunks, B);
+  k1_scores<T><<<grid_b, B_THREADS, smem_b, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), sb, sn,
       static_cast<const uint8_t*>(alive), static_cast<const float*>(bias),
       static_cast<const float*>(stat_m), static_cast<const float*>(stat_l),
-      static_cast<const float*>(rnorm), static_cast<float*>(col), static_cast<float*>(cls),
-      N, H, scale);
+      static_cast<const float*>(rnorm), static_cast<float*>(col), static_cast<float*>(part),
+      static_cast<float*>(cls), N, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return err;
+  const int64_t total = (int64_t)B * N;
+  k1_colsum<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const uint8_t*>(alive),
+      static_cast<float*>(col), B, N, chunks);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements and shared by
-// q, k and v.  Scratch stat_m, stat_l, rnorm: [B, H, N] fp32.  Returns the
-// cudaError_t of the launches (0 on success).
+// q, k and v.  Scratch stat_m, stat_l, rnorm: [B, H, N] fp32.  chunks: pass
+// B's query split (madtp_tpu_torch/kernels/attention_scores.py
+// `pass_b_chunks`); with chunks > 1, part is an fp32 scratch of chunks B N
+// values.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int k1_attention_scores(int dtype, const void* q, const void* k, const void* v,
                                    long long sb, long long sn, const void* alive,
                                    const void* bias, void* out, void* col, void* cls,
-                                   void* stat_m, void* stat_l, void* rnorm, int B, int N,
-                                   int H, int Dh, float scale, void* stream) {
-  if (Dh != DH || N < 2 || B < 1 || H < 1) return (int)cudaErrorInvalidValue;
+                                   void* stat_m, void* stat_l, void* rnorm, void* part, int B,
+                                   int N, int H, int Dh, int chunks, float scale, void* stream) {
+  if (Dh != DH || N < 2 || N > MAX_N || B < 1 || H < 1 || H > MAX_HEADS || chunks < 1 ||
+      chunks > (N + BQ - 1) / BQ || (chunks > 1 && part == nullptr) || B > 65535 ||
+      (int64_t)B * H > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
   if (dtype == 0)
-    err = launch<float>(q, k, v, sb, sn, alive, bias, out, col, cls, stat_m, stat_l, rnorm,
-                        B, N, H, scale, st);
-  else if (dtype == 1)
-    err = launch<__nv_bfloat16>(q, k, v, sb, sn, alive, bias, out, col, cls, stat_m, stat_l,
-                                rnorm, B, N, H, scale, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+    return chunks != 1 ? (int)cudaErrorInvalidValue
+                       : (int)simt::launch(
+                             static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), sb, sn,
+                             static_cast<const uint8_t*>(alive), static_cast<const float*>(bias),
+                             static_cast<float*>(out), static_cast<float*>(col),
+                             static_cast<float*>(cls), static_cast<float*>(stat_m),
+                             static_cast<float*>(stat_l), static_cast<float*>(rnorm), B, N, H,
+                             scale, st);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(q, k, v, sb, sn, alive, bias, out, col, cls, stat_m,
+                                      stat_l, rnorm, part, B, N, H, chunks, scale, st);
+  return (int)cudaErrorInvalidValue;
 }

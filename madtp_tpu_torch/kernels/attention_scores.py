@@ -25,15 +25,43 @@ HEAD_DIM = 64  # the one head width the kernel is built for
 # (madtp_tpu/ops/attention.py:56-76: N rounded up to 128 > 1536, i.e. N > 1536)
 LARGE_N = 1536
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KEY_TILE = 64  # keys per block of bf16 pass B: K of all heads, 128 KB at H = 16
+QUERY_TILE = 128  # query rows of one pass-B stage: 8 warps of 16
+SMS = 132  # the H100 SXM's streaming multiprocessors
+WAVES = 4  # pass B's blocks: enough that the last wave's tail stays short
+MAX_N = 16384  # pass A keeps every key's bias in shared memory
+MAX_HEADS = 16  # pass B keeps the K tiles of all heads in shared memory
+
+
+def query_split(blocks: int, N: int) -> int:
+    """The number of ranges a pass over key tiles (one block an SM, for its
+    shared memory) splits its 128-row query tiles into: 1 where its
+    ``blocks`` make four waves of the card, else as many as make four
+    waves, at most one per query tile.  The ranges' column partials are then
+    added in order."""
+    if blocks >= WAVES * SMS:
+        return 1
+    return min(-(-N // QUERY_TILE), -(-WAVES * SMS // blocks))
+
+
+def pass_b_chunks(B: int, N: int, dtype) -> int:
+    """K1's pass-B split (``query_split`` of its ceil(N / 64) B blocks; CLIP's
+    B = 32, N = 320: 160 blocks, 3 chunks, added by ``k1_colsum``).  The
+    fp32 kernels split nothing."""
+    if dtype != torch.bfloat16:
+        return 1
+    return query_split(-(-N // KEY_TILE) * B, N)
+
 
 # (rtol, atol) of K1 against the plain version on the same inputs.
-# float32: both compute logits, probabilities and sums in fp32 and differ only
-# in summation order.  bfloat16: the logits are still fp32 sums of exact
-# products of the same bf16 values, so col_mass stays close; out differs by
-# rounding (the plain version rounds P to bf16 before P.v, K1 keeps P in fp32,
-# both round out to bf16: up to ~2^-8 of |v| per row); cls_attn differs
-# because K1 takes r_h = ||out_h|| in fp32, as the TPU kernel does, while the
-# plain version takes it from out rounded to bf16 (2^-9 relative per value).
+# float32: both compute logits, probabilities and sums in fp32 (K1 on the
+# CUDA cores) and differ only in summation order.  bfloat16: the logits are
+# fp32 sums of exact products of the same bf16 values, so col_mass stays
+# close; out differs by rounding (both round P to bf16 for P.v, K1 before
+# dividing by the row sum and the plain version after; both round out to
+# bf16: up to ~2^-8 of |v| per row); cls_attn differs because K1 takes
+# r_h = ||out_h|| in fp32, as the TPU kernel does, while the plain version
+# takes it from out rounded to bf16 (2^-9 relative per value).
 TOLERANCES = {
     torch.float32: {"out": (1e-5, 1e-5), "col_mass": (1e-5, 1e-5),
                     "cls_attn": (1e-5, 1e-5)},
@@ -49,13 +77,13 @@ def _load():
     fn = lib.k1_attention_scores
     if fn.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [i32, p, p, p, i64, i64, p, p, p, p, p, p, p, p,
-                       i32, i32, i32, i32, ctypes.c_float, p]
+        fn.argtypes = [i32, p, p, p, i64, i64, p, p, p, p, p, p, p, p, p,
+                       i32, i32, i32, i32, i32, ctypes.c_float, p]
         fn.restype = i32
     return fn
 
 
-def _check(q, k, v, key_alive, key_bias, who="attention_scores_cuda"):
+def _check(q, k, v, key_alive, key_bias, who="attention_scores_cuda", max_n=MAX_N):
     if not q.is_cuda:
         raise ValueError(f"{who} needs CUDA tensors, got {q.device}")
     if q.dtype not in _DTYPES:
@@ -63,9 +91,11 @@ def _check(q, k, v, key_alive, key_bias, who="attention_scores_cuda"):
     if q.dim() != 4:
         raise ValueError(f"q must be [B, N, H, Dh], got shape {tuple(q.shape)}")
     B, N, H, Dh = q.shape
-    if Dh != HEAD_DIM or N < 2:
-        raise ValueError(f"{who} needs Dh == {HEAD_DIM} and N >= 2, "
+    if Dh != HEAD_DIM or not 2 <= N <= max_n:
+        raise ValueError(f"{who} needs Dh == {HEAD_DIM} and 2 <= N <= {max_n}, "
                          f"got shape {tuple(q.shape)}")
+    if H > MAX_HEADS:
+        raise ValueError(f"{who} takes at most {MAX_HEADS} heads, got {H}")
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q in shape, dtype and device")
@@ -74,6 +104,9 @@ def _check(q, k, v, key_alive, key_bias, who="attention_scores_cuda"):
     if q.stride(3) != 1 or q.stride(2) != Dh:
         raise ValueError("q, k, v need contiguous [H, Dh] rows (a view of a "
                          "[B, N, H*Dh] or packed qkv tensor)")
+    el = 16 // q.element_size()  # 16-byte copies of the rows
+    if any(t.data_ptr() % 16 for t in (q, k, v)) or q.stride(0) % el or q.stride(1) % el:
+        raise ValueError("q, k, v need 16-byte aligned rows (base and strides)")
     if key_alive.dtype != torch.bool or key_alive.shape != (B, N) \
             or not key_alive.is_contiguous() or key_alive.device != q.device:
         raise ValueError("key_alive must be a contiguous bool [B, N] tensor on q's device")
@@ -108,13 +141,16 @@ def attention_scores_cuda(q, k, v, key_alive, key_bias, scale: float, *,
     col = torch.empty((B, N), dtype=torch.float32, device=dev)
     cls = torch.empty((B, N), dtype=torch.float32, device=dev)
     stats = torch.empty((3, B, H, N), dtype=torch.float32, device=dev)
+    chunks = pass_b_chunks(B, N, q.dtype)
+    part = torch.empty((chunks, B, N), dtype=torch.float32, device=dev) if chunks > 1 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  q.stride(0), q.stride(1), key_alive.data_ptr(),
                  key_bias.data_ptr(), out.data_ptr(), col.data_ptr(),
                  cls.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-                 stats[2].data_ptr(), B, N, H, Dh, float(scale), stream)
+                 stats[2].data_ptr(), None if part is None else part.data_ptr(),
+                 B, N, H, Dh, chunks, float(scale), stream)
     if err != 0:
         raise RuntimeError(f"K1 launch failed with cudaError_t {err}")
     attention_scores_cuda.launches += 1

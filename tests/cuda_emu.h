@@ -1,0 +1,313 @@
+// A CPU emulator of the CUDA features that the port's kernels use, for the
+// CPU tests (tests/cuda_emu.py turns a kernel source into host C++ against
+// this header).  Blocks run one after another; each thread of a block is a
+// ucontext fiber.  __syncthreads and the warp collectives (shuffles,
+// ldmatrix, mma.sync) are barriers with data exchange, following the PTX
+// fragment layouts; mma accumulates in double.  cp.async copies land at the
+// wait that covers them, and dynamic shared memory starts filled with NaN
+// bytes, so that a read before a landing or of memory never written shows.
+// Global memory is the host's.
+#pragma once
+#include <ucontext.h>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <functional>
+#include <vector>
+#include <algorithm>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
+#define __shared__ static
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint3v { unsigned x, y, z; };
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F> inline cudaError_t cudaFuncSetAttribute(F, int, int) { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// ---------------------------------------------------------------- bf16
+struct __nv_bfloat16 { uint16_t x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline float __bfloat162float(__nv_bfloat16 h) {
+  uint32_t u = (uint32_t)h.x << 16; float f; memcpy(&f, &u, 4); return f;
+}
+inline __nv_bfloat16 __float2bfloat16(float f) {
+  uint32_t u; memcpy(&u, &f, 4);
+  if (std::isnan(f)) return __nv_bfloat16{0x7fc0};
+  u += 0x7fff + ((u >> 16) & 1);
+  return __nv_bfloat16{(uint16_t)(u >> 16)};
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return __nv_bfloat162{__float2bfloat16(a), __float2bfloat16(b)};
+}
+struct float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
+inline float2 make_float2(float a, float b) { return float2{a, b}; }
+inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
+inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+inline float __frcp_rn(float x) { return 1.0f / x; }
+inline float ex2(float x) { return exp2f(x); }
+inline float __fdividef(float a, float b) { return a / b; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+
+// ---------------------------------------------------------------- fibers
+struct EmuThread {
+  ucontext_t ctx;
+  uint3v tid;
+  int lin;
+  bool done;
+  std::vector<char> stack;
+  // pending cp.async groups: (dst offset, src, bytes)
+  struct Copy { uint32_t dst; const void* src; int bytes; int size; };
+  std::vector<Copy> open;
+  std::vector<std::vector<Copy>> groups;
+};
+
+struct EmuState {
+  ucontext_t sched;
+  std::vector<EmuThread> th;
+  EmuThread* cur = nullptr;
+  uint3v bid, bdim, gdim;
+  std::vector<unsigned char> smem;
+  int nthreads = 0, alive = 0;
+  // block barrier
+  unsigned long gen = 0; int arrived = 0;
+  // warp barriers
+  unsigned long wgen[32] = {0}; int warrived[32] = {0};
+  uint64_t wslot[32][32][16];
+};
+inline EmuState& emu() { static EmuState s; return s; }
+
+#define threadIdx (emu().cur->tid)
+#define blockIdx (emu().bid)
+#define blockDim (emu().bdim)
+#define gridDim (emu().gdim)
+
+inline void emu_yield() { swapcontext(&emu().cur->ctx, &emu().sched); }
+
+inline void __syncthreads() {
+  EmuState& s = emu();
+  unsigned long g0 = s.gen;
+  if (++s.arrived == s.alive) { s.arrived = 0; s.gen++; return; }
+  while (s.gen == g0) emu_yield();
+}
+
+// warp exchange: each lane deposits n words, then reads any lane's.
+inline void emu_warp_sync() {
+  EmuState& s = emu();
+  int w = s.cur->lin / 32;
+  unsigned long g0 = s.wgen[w];
+  if (++s.warrived[w] == 32) { s.warrived[w] = 0; s.wgen[w]++; return; }
+  while (s.wgen[w] == g0) emu_yield();
+}
+inline int emu_lane() { return emu().cur->lin % 32; }
+inline uint64_t* emu_slot(int lane) { return emu().wslot[emu().cur->lin / 32][lane]; }
+
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int off) {
+  static_assert(sizeof(T) <= 8, "");
+  int lane = emu_lane();
+  uint64_t u = 0; memcpy(&u, &v, sizeof(T));
+  emu_slot(lane)[0] = u;
+  emu_warp_sync();
+  uint64_t r = emu_slot(lane ^ off)[0];
+  emu_warp_sync();
+  T out; memcpy(&out, &r, sizeof(T)); return out;
+}
+
+// ---------------------------------------------------------------- shared memory, PTX helpers
+inline void* emu_dyn_smem() { return emu().smem.data(); }
+inline uint32_t smem_addr(const void* p) {
+  const unsigned char* b = emu().smem.data();
+  long off = (const unsigned char*)p - b;
+  if (off < 0 || off >= (long)emu().smem.size()) { fprintf(stderr, "smem_addr outside dynamic smem\n"); abort(); }
+  return (uint32_t)off;
+}
+inline unsigned char* emu_sp(uint32_t a, int bytes) {
+  if ((size_t)a + bytes > emu().smem.size()) { fprintf(stderr, "smem access out of range %u\n", a); abort(); }
+  return emu().smem.data() + a;
+}
+inline void emu_do_copy(const EmuThread::Copy& c) {
+  if (c.bytes) memcpy(emu_sp(c.dst, c.size), c.src, c.size); else memset(emu_sp(c.dst, c.size), 0, c.size);
+}
+inline void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  if (dst % 16) { fprintf(stderr, "cp.async dst misaligned\n"); abort(); }
+  if ((uintptr_t)src % 16) { fprintf(stderr, "cp.async src misaligned\n"); abort(); }
+  if (src_bytes != 0 && src_bytes != 16) { fprintf(stderr, "cp.async bytes\n"); abort(); }
+  emu().cur->open.push_back(EmuThread::Copy{dst, src, src_bytes, 16});
+}
+inline void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  if (dst % 4 || (uintptr_t)src % 4 || (src_bytes != 0 && src_bytes != 4)) { fprintf(stderr, "cp.async4\n"); abort(); }
+  emu().cur->open.push_back(EmuThread::Copy{dst, src, src_bytes, 4});
+}
+inline void cp_async_commit() {
+  EmuThread* t = emu().cur;
+  t->groups.push_back(t->open);
+  t->open.clear();
+}
+template <int N> inline void cp_async_wait() {
+  EmuThread* t = emu().cur;
+  while ((int)t->groups.size() > N) {
+    for (auto& c : t->groups.front()) emu_do_copy(c);
+    t->groups.erase(t->groups.begin());
+  }
+}
+inline void emu_ldm(uint32_t (&r)[4], uint32_t addr, int nmat, bool trans) {
+  int lane = emu_lane();
+  emu_slot(lane)[0] = addr;
+  emu_warp_sync();
+  for (int i = 0; i < nmat; ++i) {
+    if (!trans) {
+      uint32_t a = (uint32_t)emu_slot(8 * i + lane / 4)[0] + 4 * (lane % 4);
+      memcpy(&r[i], emu_sp(a, 4), 4);
+    } else {
+      uint32_t a0 = (uint32_t)emu_slot(8 * i + 2 * (lane % 4))[0] + 2 * (lane / 4);
+      uint32_t a1 = (uint32_t)emu_slot(8 * i + 2 * (lane % 4) + 1)[0] + 2 * (lane / 4);
+      uint16_t lo, hi;
+      memcpy(&lo, emu_sp(a0, 2), 2);
+      memcpy(&hi, emu_sp(a1, 2), 2);
+      r[i] = lo | ((uint32_t)hi << 16);
+    }
+  }
+  emu_warp_sync();
+}
+inline void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) { emu_ldm(r, addr, 4, false); }
+inline void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) { emu_ldm(r, addr, 4, true); }
+inline float emu_bf(uint32_t w, int hi) {
+  uint16_t h = hi ? (w >> 16) : (w & 0xffff);
+  return __bfloat162float(__nv_bfloat16{h});
+}
+inline float emu_tf(uint32_t w) { w &= 0xffffe000u; float f; memcpy(&f, &w, 4); return f; }
+// d += a b, m16n8k16 bf16
+inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  int lane = emu_lane();
+  uint64_t* sl = emu_slot(lane);
+  for (int i = 0; i < 4; ++i) sl[i] = a[i];
+  sl[4] = b0; sl[5] = b1;
+  emu_warp_sync();
+  float A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    int g = l / 4, t = l % 4;
+    uint64_t* s = emu_slot(l);
+    A[g][2 * t] = emu_bf(s[0], 0); A[g][2 * t + 1] = emu_bf(s[0], 1);
+    A[g + 8][2 * t] = emu_bf(s[1], 0); A[g + 8][2 * t + 1] = emu_bf(s[1], 1);
+    A[g][2 * t + 8] = emu_bf(s[2], 0); A[g][2 * t + 9] = emu_bf(s[2], 1);
+    A[g + 8][2 * t + 8] = emu_bf(s[3], 0); A[g + 8][2 * t + 9] = emu_bf(s[3], 1);
+    B[2 * t][g] = emu_bf(s[4], 0); B[2 * t + 1][g] = emu_bf(s[4], 1);
+    B[2 * t + 8][g] = emu_bf(s[5], 0); B[2 * t + 9][g] = emu_bf(s[5], 1);
+  }
+  emu_warp_sync();
+  int g = lane / 4, t = lane % 4;
+  int rows[4] = {g, g, g + 8, g + 8}, cols[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
+  for (int e = 0; e < 4; ++e) {
+    double acc = d[e];
+    for (int k = 0; k < 16; ++k) acc += (double)A[rows[e]][k] * B[k][cols[e]];
+    d[e] = (float)acc;
+  }
+}
+// d += a b, m16n8k8 tf32
+inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  int lane = emu_lane();
+  uint64_t* sl = emu_slot(lane);
+  for (int i = 0; i < 4; ++i) sl[i] = a[i];
+  sl[4] = b0; sl[5] = b1;
+  emu_warp_sync();
+  float A[16][8], B[8][8];
+  for (int l = 0; l < 32; ++l) {
+    int g = l / 4, t = l % 4;
+    uint64_t* s = emu_slot(l);
+    A[g][t] = emu_tf(s[0]); A[g + 8][t] = emu_tf(s[1]);
+    A[g][t + 4] = emu_tf(s[2]); A[g + 8][t + 4] = emu_tf(s[3]);
+    B[t][g] = emu_tf(s[4]); B[t + 4][g] = emu_tf(s[5]);
+  }
+  emu_warp_sync();
+  int g = lane / 4, t = lane % 4;
+  int rows[4] = {g, g, g + 8, g + 8}, cols[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
+  for (int e = 0; e < 4; ++e) {
+    double acc = d[e];
+    for (int k = 0; k < 8; ++k) acc += (double)A[rows[e]][k] * B[k][cols[e]];
+    d[e] = (float)acc;
+  }
+}
+inline uint32_t to_tf32(float x) {
+  uint32_t u; memcpy(&u, &x, 4);
+  if (std::isfinite(x)) u = (u + 0x1000u) & 0xffffe000u;  // round to nearest, ties away
+  return u;
+}
+
+// ---------------------------------------------------------------- launch
+struct EmuCfg { dim3 grid, block; size_t smem; };
+inline EmuCfg EMU_CFG(dim3 g, dim3 b, size_t smem = 0, cudaStream_t = nullptr) {
+  return EmuCfg{g, b, smem};
+}
+inline void emu_trampoline(unsigned lo, unsigned hi) {
+  auto* fn = reinterpret_cast<std::function<void()>*>((uintptr_t)lo | ((uintptr_t)hi << 32));
+  (*fn)();
+  emu().cur->done = true;
+  swapcontext(&emu().cur->ctx, &emu().sched);
+}
+template <class K, class... A>
+void emu_launch(EmuCfg cfg, K kernel, A... args) {
+  EmuState& s = emu();
+  int nt = cfg.block.x * cfg.block.y * cfg.block.z;
+  s.gdim = {cfg.grid.x, cfg.grid.y, cfg.grid.z};
+  s.bdim = {cfg.block.x, cfg.block.y, cfg.block.z};
+  std::function<void()> body = [&]() { kernel(args...); };
+  s.th.resize(nt);
+  for (auto& t : s.th) if (t.stack.size() == 0) t.stack.resize(1 << 18);
+  for (unsigned bz = 0; bz < cfg.grid.z; ++bz)
+    for (unsigned by = 0; by < cfg.grid.y; ++by)
+      for (unsigned bx = 0; bx < cfg.grid.x; ++bx) {
+        s.bid = {bx, by, bz};
+        s.smem.assign(cfg.smem, 0xFF);  // NaN bytes: unwritten memory shows
+        s.nthreads = s.alive = nt;
+        s.arrived = 0;
+        for (int w = 0; w < 32; ++w) s.warrived[w] = 0;
+        for (int i = 0; i < nt; ++i) {
+          EmuThread& t = s.th[i];
+          t.lin = i;
+          t.tid = {(unsigned)(i % cfg.block.x), (unsigned)((i / cfg.block.x) % cfg.block.y),
+                   (unsigned)(i / (cfg.block.x * cfg.block.y))};
+          t.done = false;
+          t.open.clear(); t.groups.clear();
+          getcontext(&t.ctx);
+          t.ctx.uc_stack.ss_sp = t.stack.data();
+          t.ctx.uc_stack.ss_size = t.stack.size();
+          t.ctx.uc_link = nullptr;
+          uintptr_t p = (uintptr_t)&body;
+          makecontext(&t.ctx, (void (*)())emu_trampoline, 2, (unsigned)(p & 0xffffffffu),
+                      (unsigned)(p >> 32));
+        }
+        long rounds = 0;
+        while (true) {
+          bool any = false;
+          for (int i = 0; i < nt; ++i) {
+            EmuThread& t = s.th[i];
+            if (t.done) continue;
+            any = true;
+            s.cur = &t;
+            swapcontext(&s.sched, &t.ctx);
+            if (t.done) {
+              s.alive--;
+              if (s.arrived > 0 && s.arrived == s.alive) { s.arrived = 0; s.gen++; }
+            }
+          }
+          if (!any) break;
+          if (++rounds > 50000000) { fprintf(stderr, "emu: deadlock?\n"); abort(); }
+        }
+      }
+}

@@ -1,8 +1,10 @@
 """Kernels K1, K2, K4 and K5 against their plain PyTorch versions on the card
 (the checks of ``chip_smoke.py``), K1 also in K3's range (N > 1536, where
-the TPU runs its query-tiled kernel), the autograd pairings (K1 with K2, K4
-and K5 with the plain version's backward), the FFN routing rule, and the
-refusals.  Needs an NVIDIA GPU with nvcc; skipped elsewhere.
+the TPU runs its query-tiled kernel), K1 and K2 on both sides of every tile
+edge of their tensor-core designs, at H = 16 and where pass B / pass M split
+the query tiles (each relaunch bit-identical), the autograd pairings (K1
+with K2, K4 and K5 with the plain version's backward), the FFN routing
+rule, and the refusals.  Needs an NVIDIA GPU with nvcc; skipped elsewhere.
 
 Run on the card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
@@ -16,7 +18,7 @@ from madtp_tpu_torch.kernels import cross_attention as k4
 from madtp_tpu_torch.kernels import ffn as k5
 from madtp_tpu_torch.ops import layers
 from madtp_tpu_torch.kernels.attention_scores import (LARGE_N, TOLERANCES,
-                                                      attention_scores_cuda)
+                                                      attention_scores_cuda, pass_b_chunks)
 from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
 from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
 from madtp_tpu_torch.ops.attention import (attention_scores, attention_scores_bwd_plain,
@@ -81,6 +83,39 @@ def test_k1_in_k3_range(cuda, B, N, with_bias, dtype):
     assert attention_scores_cuda.large_n_launches == before + 2
 
 
+# N on both sides of every tile edge: 16-row warps, 32-key (fp32) and
+# 64-key (bf16) pass-B blocks, 64-key pass-A and pass-Q/K tiles, 128-row
+# pass-B stages
+EDGE_NS = [15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129]
+
+
+def _relaunch_k1(q, k, v, alive, bias, got):
+    bias_in = torch.zeros(alive.shape, device=q.device) if bias is None else bias
+    with torch.no_grad():
+        again = attention_scores_cuda(q, k, v, alive, bias_in, q.shape[-1] ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", EDGE_NS)
+def test_k1_tile_edges(cuda, N, dtype):
+    """K1 at N on both sides of each tile edge of its tensor-core design,
+    with PAD_BIAS keys, and a second launch bit-identical."""
+    case = k1_case(3, N, with_bias=True, dtype=dtype, device=cuda)
+    _relaunch_k1(*case, _compare(*case))
+
+
+@pytest.mark.parametrize("B,N,H", [(2, 300, 12), (1, 700, 16)])
+def test_k1_query_split(cuda, B, N, H):
+    """Shapes short of blocks, where bf16 pass B splits the query tiles
+    across blocks and ``k1_colsum`` adds their column partials: within
+    tolerance and bit-identical on a second launch."""
+    dtype = torch.bfloat16
+    assert pass_b_chunks(B, N, dtype) > 1
+    case = k1_case(B, N, with_bias=False, dtype=dtype, device=cuda, H=H)
+    _relaunch_k1(*case, _compare(*case))
+
+
 def test_k1_large_n_count(cuda):
     """The count of K3's range follows the TPU's rule: N = 1536 is the full
     kernel's, N = 1537 the tiled one's."""
@@ -119,6 +154,10 @@ def test_k1_dispatch_and_refusals(cuda):
     with pytest.raises(ValueError):
         q32, k32, v32 = (t[..., :32] for t in (q, k, v))
         attention_scores(q32, k32, v32, alive)
+    q17, k17, v17, alive17, _ = k1_case(1, 8, with_bias=False, dtype=torch.float32,
+                                        device=cuda, H=17)
+    with pytest.raises(ValueError, match="heads"):
+        attention_scores(q17, k17, v17, alive17)
 
 
 def test_k1_refuses_inputs_that_need_a_gradient(cuda):
@@ -150,6 +189,33 @@ def _k2_compare(c):
     (3, 2, True), (3, 65, False)])
 def test_k2_matches_plain(cuda, B, N, with_bias, dtype):
     _k2_compare(k2_case(B, N, with_bias=with_bias, dtype=dtype, device=cuda))
+
+
+def _relaunch_k2(c, got):
+    again = attention_scores_bwd_cuda(*(c[n] for n in ("q", "k", "v", "alive", "bias_in",
+                                                       "scale", "out", "stats", "d_out",
+                                                       "d_cls", "d_col")))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", EDGE_NS)
+def test_k2_tile_edges(cuda, N, dtype):
+    """K2 at the same N as ``test_k1_tile_edges``, with PAD_BIAS keys, and a
+    second launch bit-identical."""
+    c = k2_case(3, N, with_bias=True, dtype=dtype, device=cuda)
+    _relaunch_k2(c, _k2_compare(c))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H", [(4, 130, 16), (2, 300, 16)])
+def test_k2_at_sixteen_heads(cuda, B, N, H, dtype):
+    """K2 at H = 16, the head-max mask's full width (16 bits), also where
+    pass M splits the query tiles across blocks; a second launch
+    bit-identical."""
+    assert B == 4 or k2.pass_m_chunks(B, N, dtype) > 1
+    c = k2_case(B, N, with_bias=True, dtype=dtype, device=cuda, H=H)
+    _relaunch_k2(c, _k2_compare(c))
 
 
 def test_k2_dead_rows_and_determinism(cuda):
@@ -271,11 +337,17 @@ def test_k2_refusals(cuda):
         call(d_out=c["d_out"].double())
     with pytest.raises(ValueError):
         call(d_col=c["d_col"][:, :-1])
-    wide = k2_case(1, 8, with_bias=False, dtype=torch.float32, device=cuda, H=17)
+    # K1 takes at most 16 heads too, so the 17-head case's out and stats are
+    # stand-ins of the right shapes: K2 refuses before it reads them
+    q17, k17, v17, alive17, _ = k1_case(1, 8, with_bias=False, dtype=torch.float32,
+                                        device=cuda, H=17)
+    zeros = torch.zeros(1, 8, device=cuda)
     with pytest.raises(ValueError, match="heads"):
-        attention_scores_bwd_cuda(*(wide[n] for n in ("q", "k", "v", "alive", "bias_in",
-                                                      "scale", "out", "stats", "d_out",
-                                                      "d_cls", "d_col")))
+        attention_scores_bwd_cuda(q17, k17, v17, alive17, zeros, 0.125,
+                                  torch.zeros(1, 8, 17 * 64, device=cuda),
+                                  torch.zeros(3, 1, 17, 8, device=cuda),
+                                  torch.zeros(1, 8, 17 * 64, device=cuda),
+                                  torch.zeros(1, 7, device=cuda), torch.zeros(1, 7, device=cuda))
 
 
 def _k4_compare(q, k, v, alive, bias):

@@ -1,0 +1,132 @@
+"""K1 and K2, the CUDA sources themselves, run on the CPU through the emulator
+of ``tests/cuda_emu.h`` (g++; skipped without it) against their plain
+versions and the JAX package's ``attention_core``, fp32 (K1 on the CUDA
+cores, K2 as 3xTF32 on the emulated tensor cores) and bf16, at small shapes
+that cross the tiles' edges and take pass B's and pass M's query splits, a
+row with no alive key and PAD_BIAS keys among them.  The emulator follows the PTX fragment layouts and lands
+``cp.async`` copies only at their waits, with shared memory starting as NaN
+bytes, so a layout, masking or ordering slip shows here before the card."""
+
+import ctypes
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cuda_emu
+from chip_smoke import compare_k2
+from madtp_tpu.ops import attention as JA
+from madtp_tpu_torch.kernels.attention_scores import _DTYPES, TOLERANCES, pass_b_chunks
+from madtp_tpu_torch.kernels.attention_scores_bwd import TOLERANCES as K2_TOL, pass_m_chunks
+from madtp_tpu_torch.ops.attention import attention_scores_bwd_plain, attention_scores_plain
+
+CSRC = Path(__file__).resolve().parent.parent / "madtp_tpu_torch" / "csrc"
+P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+@pytest.fixture(scope="module")
+def kernels():
+    if not cuda_emu.available():
+        pytest.skip("needs g++ for the CPU emulator")
+    k1 = cuda_emu.build(CSRC / "attention_scores.cu").k1_attention_scores
+    k1.argtypes = [I32, P, P, P, I64, I64] + [P] * 9 + [I32] * 5 + [ctypes.c_float, P]
+    k1.restype = I32
+    k2 = cuda_emu.build(CSRC / "attention_scores_bwd.cu").k2_attention_scores_bwd
+    k2.argtypes = [I32, P, P, P, I64, I64] + [P] * 21 + [I32] * 5 + [ctypes.c_float, P]
+    k2.restype = I32
+    return k1, k2
+
+
+def _case(B, N, H, dtype, with_bias, dead_row, seed=0):
+    rng = np.random.RandomState(seed)
+    packed = torch.from_numpy(rng.randn(B, N, 3 * H * 64).astype(np.float32)).to(dtype)
+    q, k, v = (packed[..., i * H * 64:(i + 1) * H * 64].unflatten(-1, (H, 64))
+               for i in range(3))
+    alive = rng.rand(B, N) > 0.25
+    alive[:, 0] = True
+    alive[:, N - max(1, N // 50):] = False
+    if dead_row:
+        alive[B - 1] = False
+    bias = (rng.rand(B, N) < 0.2).astype(np.float32) * -10000.0 if with_bias else None
+    return (q, k, v, torch.from_numpy(alive),
+            None if bias is None else torch.from_numpy(bias), 64 ** -0.5)
+
+
+def _k1(fn, q, k, v, alive, bias, scale):
+    B, N, H, _ = q.shape
+    bias_in = torch.zeros(B, N) if bias is None else bias
+    out = torch.empty(B, N, H, 64, dtype=q.dtype)
+    col, cls = torch.empty(B, N), torch.empty(B, N)
+    stats = torch.empty(3, B, H, N)
+    chunks = pass_b_chunks(B, N, q.dtype)
+    part = torch.empty(chunks, B, N)
+    err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0),
+             q.stride(1), alive.data_ptr(), bias_in.data_ptr(), out.data_ptr(), col.data_ptr(),
+             cls.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
+             part.data_ptr(), B, N, H, 64, chunks, scale, None)
+    assert err == 0
+    return (out.view(B, N, H * 64), cls[:, 1:], col[:, 1:]), stats
+
+
+# (B, N, H, bias, a row with no alive key): a ragged 70, a single warp's 17,
+# 130 past the 128-row stage (pass B splits its two query tiles at B = 2),
+# the text side's 40
+SHAPES = [(2, 70, 2, True, False), (1, 17, 3, False, False), (2, 130, 2, False, False),
+          (2, 40, 2, True, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,with_bias,dead_row", SHAPES)
+def test_k1_source_matches_plain_and_jax(kernels, B, N, H, with_bias, dead_row, dtype):
+    q, k, v, alive, bias, scale = _case(B, N, H, dtype, with_bias, dead_row)
+    got, _ = _k1(kernels[0], q, k, v, alive, bias, scale)
+    want = attention_scores_plain(q, k, v, alive, bias, scale)
+    j_out, j_aux = JA.attention_core(
+        *(jnp.asarray(t.float().transpose(1, 2).numpy()) for t in (q, k, v)), scale=scale,
+        key_bias=None if bias is None else jnp.asarray(bias.numpy()),
+        key_alive=jnp.asarray(alive.numpy()), query_alive=jnp.asarray(alive.numpy()),
+        need_scores=True)
+    jax_res = (np.asarray(j_out), np.asarray(j_aux.cls_attn), np.asarray(j_aux.col_mass))
+    for name, g, w, j in zip(("out", "cls_attn", "col_mass"), got, want, jax_res):
+        rtol, atol = TOLERANCES[dtype][name]
+        assert torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol)
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g.numpy(), j, rtol=rtol, atol=atol)
+    if dead_row:
+        assert not got[0][-1].float().any() and not got[2][-1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,with_bias,dead_row", SHAPES)
+def test_k2_source_matches_plain(kernels, B, N, H, with_bias, dead_row, dtype):
+    q, k, v, alive, bias, scale = _case(B, N, H, dtype, with_bias, dead_row, seed=1)
+    (out, _, _), stats = _k1(kernels[0], q, k, v, alive, bias, scale)
+    rng = np.random.RandomState(2)
+    d_out = torch.from_numpy(rng.randn(B, N, H * 64).astype(np.float32)).to(dtype)
+    d_cls, d_col = (torch.from_numpy(rng.randn(B, N - 1).astype(np.float32)) for _ in range(2))
+    bias_in = torch.zeros(B, N) if bias is None else bias
+    f32 = dict(dtype=torch.float32)
+    ismax = torch.empty((B, -(-N // 64), N, 64), dtype=torch.int16)
+    clsrow, drow, dbias_h, rowlg = (torch.empty((B, H, N), **f32) for _ in range(4))
+    ssum, csum, dbias = (torch.empty((B, N), **f32) for _ in range(3))
+    deff, dq, dk, dv = (torch.empty((B, N, H, 64), dtype=dtype) for _ in range(4))
+    err = kernels[1](
+        _DTYPES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
+        alive.data_ptr(), bias_in.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        stats[2].data_ptr(), out.data_ptr(), d_out.data_ptr(), d_cls.data_ptr(),
+        d_col.data_ptr(), ismax.data_ptr(), clsrow.data_ptr(), ssum.data_ptr(), csum.data_ptr(),
+        drow.data_ptr(), dbias_h.data_ptr(), deff.data_ptr(), rowlg.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), B, N, H, 64,
+        pass_m_chunks(B, N, dtype), scale, None)
+    assert err == 0
+    got = (dq.view(B, N, H, 64), dk.view(B, N, H, 64), dv.view(B, N, H, 64), dbias)
+    want = attention_scores_bwd_plain(q, k, v, alive, bias, scale, d_out, d_cls, d_col)
+    for g in got:
+        assert torch.isfinite(g.float()).all()
+    compare_k2(dict(q=q, k=k, alive=alive, bias_in=bias_in, scale=scale), got, want,
+               K2_TOL[dtype], "emulated")
+    if dead_row:
+        assert all(not g[-1].float().any() for g in got)
