@@ -96,14 +96,39 @@ Phases, each fatal on failure:
 14. the VQA-640 path (1,601 tokens, the 480-px weights through
    ``load_vqa_state_dict``), bf16: ``evaluate`` on 64 questions in mask and
    gather mode at phase 13's temperature; every K1 launch at N > 1536 is one
-   of K3's (the TPU's query-tiled kernel), and K1 is held on those inputs.
+   of K3's (the TPU's query-tiled kernel), and K1 is held on those inputs;
+15. VQA ``inference: 'generate'`` on phase 13's model, bf16:
+   ``tasks.vqa.generate_answers`` (mask-mode towers, then the 3-beam decode
+   from [DEC] over the question state) on 2 batches of 16 questions;
+   answers/s, exact launch counts, K4 (one query per row) and K5 held on
+   its own inputs;
+16. the BLIP COCO caption eval main path (``configs/caption_coco.yaml``:
+   ViT-B/16@384, batch 32, 3 beams, ``max_length`` 20, ``min_length`` 5,
+   prompt ``"a picture of "``) in bf16 at p=0.5 on the uint8 feed: the
+   temperature bisected toward half of ``ORI_GFLOPS_CAPTION`` in mask mode,
+   ``probe_capacities``, ``tasks.caption.evaluate`` in gather mode on 256
+   synthetic images (8 batches of 32) and the dense eval; captions/s, exact
+   launches per batch (12 K1, 228 K4, 240 K5: 19 decoder steps of 12
+   layers), CIDEr-D of the pruned captions against the dense ones
+   (agreement, not accuracy), the decoder step's device and host dispatch
+   times, one batch under the sync guard, timed and profiled; K1, K4 (one
+   query per row, 96 rows) and K5 (96 decoder rows) held on its own inputs.
+   The decode's vocabulary is a synthetic 30,522-entry BERT-layout
+   ``vocab.txt`` written into ``build/``;
+17. the full-width caption model on the card against the CPU, fp32, 2
+   images, gather mode, at the first temperature near phase 16's whose DTP
+   decisions stand clear of fp32 rounding (as phase 8): equal kept counts,
+   memory states within 1e-5, the decoder's logits along the CPU's
+   sequences within 1e-4, and equal sequences wherever every beam decision
+   stands >= 64 fp32 steps and >= 4x the card's logit drift from its edge
+   (the steps where one does not are named).
 
 The NLVR phases (4-7) also hold K4 to 24 launches per forward: the twin
 cross-attention's two streams in each of the 12 MED layers.  Every fp32
-FFN on the card runs K5 too: the parity phases (4, 6, 8, 11, 12) and the
+FFN on the card runs K5 too: the parity phases (4, 6, 8, 11, 12, 17) and the
 training path's fp32 steps count those launches apart (``fp32_launches``)
 and hold fp32 K5 against its plain version on their own inputs.  Each
-main path (5, 7, 9, 10, 13, 14; phases 9, 10 and 13 their dense evals too)
+main path (5, 7, 9, 10, 13, 14, 15, 16; phases 9, 10, 13 and 16 their dense evals too)
 also holds K4 and K5 against their plain versions on the inputs that path
 gave it, one case per distinct shape (K4 where the path has
 cross-attention), each timed beside the replaced design; phases 5, 9, 10
@@ -564,7 +589,8 @@ def host_ms(fn, iters):
 def profile_step(label, fn, step_ms, top=10):
     """Device time by kernel for one call of ``fn`` under torch.profiler, and
     the device's busy share of ``step_ms``, the call's time without the
-    profiler (whose own cost would lengthen a wall time taken under it)."""
+    profiler (whose own cost would lengthen a wall time taken under it).
+    Returns the device's busy time, ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -582,6 +608,7 @@ def profile_step(label, fn, step_ms, top=10):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
         log(f"[profile]   {ms:8.3f} ms {ms / max(busy_ms, 1e-9):6.1%} x{e.count:<5d} {e.key[:90]}")
+    return busy_ms
 
 
 def kernel_totals(kernels, busy_ms):
@@ -2591,6 +2618,421 @@ def phase_vqa_640(device, model480, temperature, n_batches=4, batch=16, n_answer
     return totals, (record, record4, record5)
 
 
+CAPTION_WORDS = {1037: "a", 3861: "picture", 1997: "of"}  # their bert-base-uncased ids
+
+
+def caption_tokenizer():
+    """The decode's vocabulary: a synthetic 30,522-entry vocab.txt in the
+    bert-base-uncased layout ([PAD] 0, [unused0-98], [UNK] 100, [CLS] 101,
+    [SEP] 102, [MASK] 103, the prompt's words at their ids, ``w<id>``
+    elsewhere), written into the git-ignored ``build/``; the tokenizer adds
+    [DEC] 30522 and [ENC] 30523, the MED's 30,524 tokens."""
+    from madtp_tpu_torch.data.tokenizer_bert import BertWordPieceTokenizer
+    from madtp_tpu_torch.kernels.build import BUILD_DIR
+
+    tokens = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+              + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+              + [CAPTION_WORDS.get(i, f"w{i}") for i in range(104, 30522)])
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = BUILD_DIR / "caption_vocab.txt"
+    path.write_text("\n".join(tokens) + "\n")
+    tok = BertWordPieceTokenizer(str(path))
+    if (len(tok.vocab), tok.bos_token_id, tok.enc_token_id, tok.sep_token_id) != \
+            (30524, DEC_ID, ENC_ID, SEP_ID):
+        raise AssertionError("the synthetic vocabulary is not in the BERT layout")
+    return tok
+
+
+class BeamRecorder:
+    """While active, records the margins of every beam-search decision
+    (``tasks.caption._top``'s calls) as CPU floats: at each beam step the
+    gap between the 2 nb-th and the (2 nb + 1)-th candidate score (which
+    candidates are drawn), the gap between the nb-th and the (nb + 1)-th
+    candidate that is not EOS among those (the EOS / live split: which beams
+    live on), and the gap at the nb-th place of the finished hypotheses'
+    pool; and the final pick's gap between the best and the second sequence.
+    Each gap is the smallest over the rows, absolute and relative to the
+    larger score; gaps between two ``NEG`` entries (empty hypothesis slots)
+    are left out."""
+
+    def __init__(self, nb, vocab_size, eos):
+        self.nb, self.V, self.eos = nb, vocab_size, eos
+
+    def _gap(self, a, b):
+        real = b > self.neg / 2
+        if not real.any():
+            return math.inf, math.inf
+        d = (a - b)[real]
+        rel = d / torch.maximum(a.abs(), b.abs())[real]
+        return float(d.min()), float(rel.min())
+
+    def __enter__(self):
+        from madtp_tpu_torch.tasks import caption
+
+        self.steps, self.final, self.neg = [], None, caption.NEG
+        self._mod, self._orig = caption, caption._top
+        nb = self.nb
+
+        def record(x, k):
+            vals, idx = self._orig(x, k)
+            s = torch.sort(x.float(), dim=1, descending=True).values.cpu()
+            if k == 2 * nb:
+                live = [r[t != self.eos] for r, t in zip(vals.float().cpu(),
+                                                         (idx % self.V).cpu())]
+                split = [(r[nb - 1], r[nb]) for r in live if len(r) > nb]
+                self.steps.append(dict(
+                    candidates=self._gap(s[:, k - 1], s[:, k]),
+                    live=(self._gap(torch.stack([a for a, _ in split]),
+                                    torch.stack([b for _, b in split]))
+                          if split else (math.inf, math.inf))))
+            elif k == nb:
+                self.steps[-1]["finished"] = self._gap(s[:, k - 1], s[:, k])
+            else:
+                self.final = self._gap(s[:, 0], s[:, 1])
+            return vals, idx
+
+        caption._top = record
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._top = self._orig
+
+
+def sharpen_decoder(decoder, seed, emb_std=0.1):
+    """Redraws the decoder's linear weights N(0, 1/fan_in) and its
+    embeddings N(0, ``emb_std``^2) from a CPU generator seeded with ``seed``
+    (biases and LayerNorms kept).  With the init's N(0, 0.02) the logits
+    (the tied embeddings times a normalized state) spread over about half a
+    unit and the memory enters through products of N(0, 0.02) weights, so
+    the captions barely depend on the image and the beam decisions sit near
+    their edges.  Here the logits spread over about ``emb_std`` sqrt(768),
+    2.8."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in decoder.modules():
+            if isinstance(m, torch.nn.Linear):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g) * m.weight.shape[1] ** -0.5)
+            elif isinstance(m, torch.nn.Embedding):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=g) * emb_std)
+
+
+def caption_batches(rng, image_size, n_batches, batch):
+    """``n_batches`` synthetic caption eval batches ``(uint8 images [batch,
+    H, W, 3], image_ids)``, the uint8 feed."""
+    return [(rng.integers(0, 256, size=(batch, image_size, image_size, 3), dtype=np.uint8),
+             np.arange(i * batch, (i + 1) * batch)) for i in range(n_batches)]
+
+
+def phase_caption_main(device, cfg, tokenizer, p_target=0.5, bisect_steps=8, n_batches=8,
+                       batch=32, iters=3):
+    """16. BLIP COCO caption eval (``configs/caption_coco.yaml``: ViT-B/16@384,
+    the BERT-base MED decoder, batch 32, 3 beams, ``max_length`` 20,
+    ``min_length`` 5, prompt ``"a picture of "``) in bf16 at p=0.5, seeded
+    random weights (the decoder's through ``sharpen_decoder``), the uint8
+    feed: the temperature bisected in mask mode
+    toward half of ``ORI_GFLOPS_CAPTION`` by ``caption_gflops``,
+    ``probe_capacities``, ``tasks.caption.evaluate`` in gather mode on 256
+    synthetic images (8 batches of 32), then the dense eval; captions/s and
+    wall times, exact launch counts per batch, CIDEr-D of the pruned captions
+    against the dense ones as references (agreement, not accuracy), the
+    decoder step's device and host dispatch times, one batch under the sync
+    guard, timed, with its host dispatch and a profile; K1, K4 and K5 held on
+    the pruned eval's own inputs, K4 and K5 on the dense eval's.  Returns
+    the temperature, the launch counts (K1, K4, K5) and the K1, K4 and K5
+    records of the pruned eval."""
+    from madtp_tpu_torch.eval.caption_metrics import coco_caption_scores
+    from madtp_tpu_torch.models.blip import init_caption_model
+    from madtp_tpu_torch.models.med import init_decode_cache
+    from madtp_tpu_torch.prune.flops import ORI_GFLOPS_CAPTION, caption_gflops
+    from madtp_tpu_torch.tasks import caption as TC
+
+    log(f"[caption] {card_line()}")
+    model = init_caption_model(cfg, seed=0, device=device, dtype=torch.bfloat16)
+    sharpen_decoder(model.text_decoder, seed=1)
+    rng = np.random.default_rng(15)
+    batches = caption_batches(rng, cfg.vit.image_size, n_batches, batch)
+    Lv, L = cfg.vit.depth, cfg.med.num_hidden_layers
+    nb, T = 3, 20
+    im0 = torch.from_numpy(batches[0][0]).to(device)
+    prompt = torch.from_numpy(TC.prompt_ids(tokenizer, batch)).to(device)
+    Lp = prompt.shape[1]
+
+    def gflops(vk):
+        return caption_gflops(cfg.vit, cfg.med, vk, TC.N_TEXT0)
+
+    target = ORI_GFLOPS_CAPTION * (1.0 - p_target)
+    dense_g = gflops([cfg.vit.num_patches] * Lv)
+    lo, hi = 0.05, 60.0
+    with torch.inference_mode():
+        for _ in range(bisect_steps):
+            t = math.sqrt(lo * hi)
+            vk = model.encode_image(im0, temperature=t, prune_active=True)[2].cpu().numpy()
+            g = gflops(vk)
+            log(f"[caption] bisect T={t:.4f}: {g:.2f} GFLOPs (target {target:.2f})")
+            if g > target:
+                lo = t
+            else:
+                hi = t
+    t_star = t
+    caps = TC.probe_capacities(model, iter(batches), t_star, "ceil")
+    log(f"[caption] T*={t_star:.4f}: {g:.2f} GFLOPs on batch 0, {dense_g:.2f} dense "
+        f"(ORI_GFLOPS_CAPTION {ORI_GFLOPS_CAPTION}); kept {vk.tolist()}; capacities "
+        f"{list(caps)}")
+
+    def run_eval(temperature, capacities):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = TC.evaluate(model, tokenizer, iter(batches), temperature=temperature,
+                          capacities=capacities, num_beams=nb, max_length=T, min_length=5)
+        return (*out, time.perf_counter() - t0)
+
+    n_img = n_batches * batch
+    steps = Lp + (T - Lp - 1)  # decoder steps per batch: the prompt, then all but the last
+    want = (n_batches * Lv, n_batches * L * steps, n_batches * (Lv + L * steps))
+    zero_launch_counts()
+    with K1Capture() as k1_capture, K4Capture() as k4_capture, K5Capture() as k5_capture:
+        results, cur_g, eval_s = run_eval(t_star, caps)
+    k1, large, k4, k5 = launch_counts()
+    if (k1, k4, k5) != want or large:
+        raise AssertionError(f"caption eval launched K1 {k1}, K4 {k4}, K5 {k5} times, want "
+                             f"{want}")
+    zero_launch_counts()
+    with K4Capture() as dense_k4, K5Capture() as dense_k5:
+        dense, dense_gf, dense_s = run_eval(0.0, None)
+    d_launches = launch_counts()
+    for name, res in (("pruned", results), ("dense", dense)):
+        if [r["image_id"] for r in res] != list(range(n_img)) or not all(
+                r["caption"] for r in res):
+            raise AssertionError(f"caption {name} eval: {len(res)} results, want {n_img} "
+                                 "non-empty captions in order")
+    if not (math.isfinite(cur_g) and 0 < cur_g < dense_gf):
+        raise AssertionError(f"caption eval GFLOPs {cur_g} against {dense_gf} dense")
+    cider = coco_caption_scores(results, {str(r["image_id"]): [r["caption"]] for r in dense})
+    same = sum(a["caption"] == b["caption"] for a, b in zip(results, dense))
+    log(f"[caption] gather eval: {n_img} images: {eval_s:.2f} s wall = {n_img / eval_s:.2f} "
+        f"captions/s; Cur_Gflops {cur_g:.2f}; launches K1 {k1}, K4 {k4}, K5 {k5} (per batch "
+        f"{k1 // n_batches}, {k4 // n_batches}, {k5 // n_batches}: {steps} decoder steps)")
+    log(f"[caption] dense eval: {dense_s:.2f} s wall = {n_img / dense_s:.2f} captions/s; "
+        f"Cur_Gflops {dense_gf:.2f}; launches K1 {d_launches[0]}, K4 {d_launches[2]}, K5 "
+        f"{d_launches[3]}; pruned/dense wall {dense_s / eval_s:.3f}x")
+    log(f"[caption] agreement of the pruned captions with the dense ones (references): "
+        f"CIDEr-D {cider['CIDEr']:.4f}, Bleu_4 {cider['Bleu_4']:.4f}; {same} of {n_img} equal; "
+        f"e.g. {results[0]['caption']!r} / {dense[0]['caption']!r}")
+
+    record1 = check_k1_cases("caption gather eval", k1_capture, iters=5)
+    record4 = check_k4_cases("caption gather eval", k4_capture, where=dict(Nq=1))
+    record5 = check_k5_cases("caption gather eval", k5_capture, where=dict(M=batch * nb))
+    check_k4_cases("caption dense eval", dense_k4)
+    check_k5_cases("caption dense eval", dense_k5, where=dict(M=batch * nb))
+
+    decoder = model.text_decoder
+    with torch.inference_mode():
+        state, _, _ = model.encode_image(im0, temperature=t_star, prune_active=True,
+                                         capacities=caps)
+        enc = decoder._memory(TC._expand_state(state, nb), decoder.dtype)
+        memory = decoder.memory_kv(enc)
+        cache = init_decode_cache(cfg.med, batch * nb, T, decoder.dtype, device)
+        tok = prompt[:, -1:].repeat_interleave(nb, dim=0)
+        pos = torch.arange(T, device=device)[10]
+
+        def one_step():
+            return decoder.step(tok, pos, cache, enc, memory)
+
+        # its ~600 launches overrun the card's launch queue, so kernel_ms's
+        # spin cannot hide their enqueue: the device time is the profiler's
+        step_ms = time_ms(one_step, 20)
+        step_host = host_ms(one_step, 20)
+        step_dev = profile_step(f"caption decoder step ({batch * nb} rows)", one_step, step_ms,
+                                top=6)
+        h = one_step()[0]
+        lm_ms = kernel_ms(lambda: decoder.lm_head(h), 20)
+    log(f"[caption] decoder step ({batch * nb} rows, {L} layers, memory of {state.x.shape[1]} "
+        f"slots): {step_ms:.3f} ms wall, device busy {step_dev:.3f} ms, host dispatch "
+        f"{step_host:.3f} ms; LM head (fp32 logits over {cfg.med.vocab_size}) device "
+        f"{lm_ms:.3f} ms")
+
+    @torch.inference_mode()
+    def one_batch():
+        st, _, _ = model.encode_image(im0, temperature=t_star, prune_active=True,
+                                      capacities=caps)
+        return TC.beam_generate(decoder, st, prompt, num_beams=nb, max_length=T, min_length=5,
+                                eos_token_id=tokenizer.sep_token_id,
+                                pad_token_id=tokenizer.pad_token_id)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the batch must not wait on the card
+    try:
+        out = one_batch()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if out.shape != (batch, T) or not torch.equal(out[:, :Lp].cpu(), prompt.cpu()):
+        raise AssertionError(f"caption batch: sequences {tuple(out.shape)} without the prompt")
+    batch_ms = time_ms(one_batch, iters)
+    log(f"[caption] gather: one batch of {batch} (encode and decode) {batch_ms:.2f} ms = "
+        f"{batch / batch_ms * 1e3:.2f} captions/s, host dispatch {host_ms(one_batch, iters):.2f} "
+        f"ms, under the sync guard without a wait")
+    profile_step(f"caption gather batch of {batch}", one_batch, batch_ms, top=12)
+    return t_star, (k1, k4, k5), (record1, record4, record5)
+
+
+def phase_caption_parity(device, tokenizer, t_main, n_images=2):
+    """17. The full-width caption model (``caption_config``, phase 16's
+    seeded random weights, fp32, the uint8 feed) on the card (K1, K4, K5)
+    against the CPU (plain): 2 images, the eval's decode (3 beams,
+    ``max_length`` 20, ``min_length`` 5, the prompt), in gather mode (the
+    capacities from the CPU's mask-mode run), at the first temperature near
+    phase 16's T* whose DTP decisions stand clear of fp32 rounding (as phase
+    12).  Equal kept counts and alive masks, memory states within 1e-5; the
+    decoder's logits along the CPU's sequences (``MedDecoder.forward``)
+    within 1e-4 on both sides, their log-prob drift the card's logit drift;
+    equal sequences where every beam decision (the CPU's ``BeamRecorder``
+    gaps) stands >= 64 fp32 steps and >= 4x the drift (times the steps
+    summed into a score) from its edge, else the steps that do not are
+    named."""
+    from madtp_tpu_torch.core.config import caption_config
+    from madtp_tpu_torch.models.blip import init_caption_model
+    from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
+    from madtp_tpu_torch.tasks import caption as TC
+
+    cfg = caption_config()
+    cpu = init_caption_model(cfg, seed=0, device="cpu")
+    sharpen_decoder(cpu.text_decoder, seed=1)
+    card = copy.deepcopy(cpu).to(device)
+    nb, T, V = 3, 20, cfg.med.vocab_size
+    images = np.random.default_rng(16).integers(0, 256, size=(n_images, 384, 384, 3),
+                                                dtype=np.uint8)
+    prompt = torch.from_numpy(TC.prompt_ids(tokenizer, n_images))
+    Lp = prompt.shape[1]
+
+    def run(model, temperature, caps):
+        dev = model.space_dict.device
+        t0 = time.perf_counter()
+        with DTPRecorder() as rec, BeamRecorder(nb, V, SEP_ID) as beams, \
+                torch.inference_mode():
+            state, _, vk = model.encode_image(torch.from_numpy(images).to(dev),
+                                              temperature=temperature, prune_active=True,
+                                              capacities=caps)
+            seqs = TC.beam_generate(model.text_decoder, state, prompt.to(dev), num_beams=nb,
+                                    max_length=T, min_length=5, eos_token_id=SEP_ID,
+                                    pad_token_id=0)
+        return dict(kept=vk.cpu(), x=state.x.cpu(), alive=state.alive.cpu(), state=state,
+                    seqs=seqs.cpu(), dtp=rec.records, beams=beams, model=model,
+                    seconds=time.perf_counter() - t0)
+
+    def along(run_, seqs):
+        """log-probs of the decoder over ``seqs`` (the CPU's), fp32 [n, T, V]."""
+        model = run_["model"]
+        dev = model.space_dict.device
+        with torch.inference_mode():
+            h = model.text_decoder(seqs.to(dev), torch.ones_like(seqs).to(dev), run_["state"])
+            return model.text_decoder.lm_head(h).cpu()
+
+    def search():
+        """The CPU's and the card's gather runs at the first clear
+        temperature, and the card's DTP drift."""
+        n = cfg.vit.num_patches
+        for temperature in (t_main * f for f in PARITY_FACTORS):
+            mask = run(cpu, temperature, None)
+            caps = fast_capacity_schedule(mask["kept"].numpy(), None, "ceil")[0]
+            want = run(cpu, temperature, caps)
+            thr_gap, rank_gap = dtp_margins(want["dtp"])
+            margin = min(thr_gap, rank_gap)
+            kept = int(want["kept"][-1])
+            log(f"[caption-parity] T={temperature:.4f}: smallest DTP margins on the CPU: "
+                f"threshold {thr_gap:.3e}, rank {rank_gap:.3e} ({margin / FP32_ULP:.0f} fp32 "
+                f"steps, want >= {GAP_MIN / FP32_ULP:.0f}); the ViT keeps {kept} of {n}; "
+                f"capacities {list(caps)}; cpu {mask['seconds'] + want['seconds']:.1f} s")
+            if margin < GAP_MIN or kept >= n:
+                continue
+            got = run(card, temperature, caps)
+            if not torch.equal(want["kept"], got["kept"]):
+                raise AssertionError(f"caption parity: kept counts differ: card {got['kept']} "
+                                     f"cpu {want['kept']}")
+            drift, clear = card_drift(f"[caption-parity] T={temperature:.4f}", margin,
+                                      [(want, got)])
+            if clear:
+                return temperature, want, got, drift
+        raise AssertionError("caption parity: no temperature near the main path's prunes with "
+                             f"every DTP decision {GAP_MIN / FP32_ULP:.0f} fp32 steps and "
+                             f"{DRIFT_FACTOR}x the card's drift from its edge")
+
+    temperature, want, got, drift = search()
+    label = "caption gather"
+    if not torch.equal(want["alive"], got["alive"]):
+        raise AssertionError(f"{label}: the memory states' alive slots differ")
+    state_err = float((got["x"] - want["x"])[want["alive"]].abs().max())
+    if not state_err <= 1e-5:
+        raise AssertionError(f"{label}: memory states differ by {state_err:.3e}")
+    lw, lg = along(want, want["seqs"]), along(got, want["seqs"])
+    logit_err = float((lg - lw).abs().max())
+    if not logit_err <= 1e-4:
+        raise AssertionError(f"{label}: decoder logits along the CPU's sequences differ by "
+                             f"{logit_err:.3e}")
+    lp_drift = float((torch.log_softmax(lg, -1) - torch.log_softmax(lw, -1)).abs().max())
+    unclear = []
+    beams = want["beams"]
+    for j, step in enumerate(beams.steps + [dict(final=beams.final)]):
+        score_drift = lp_drift * min(j + 1, T - Lp)  # log-probs summed into a score
+        for what, (gap, rel) in step.items():
+            if rel < GAP_MIN or gap < DRIFT_FACTOR * score_drift:
+                unclear.append(f"{'final pick' if what == 'final' else f't={Lp + j}'} "
+                               f"{what} gap {gap:.3e} ({rel / FP32_ULP:.0f} fp32 steps)")
+    equal = torch.equal(want["seqs"], got["seqs"])
+    if not unclear and not equal:
+        raise AssertionError(f"{label}: sequences differ with every beam decision clear: "
+                             f"card {got['seqs'].tolist()} cpu {want['seqs'].tolist()}")
+    smallest = min(min(g for g, _ in s.values()) for s in beams.steps)
+    log(f"[caption-parity] {label} T={temperature:.4f} ({temperature / t_main:.2f} T*): kept "
+        f"{got['kept'].tolist()} equal on card and cpu; max|diff| memory states "
+        f"{state_err:.2e}, logits along the cpu's sequences {logit_err:.2e} (log-prob drift "
+        f"{lp_drift:.2e}); DTP drift {drift:.2e}; smallest beam gap on the cpu "
+        f"{smallest:.3e}; sequences {'equal' if equal else 'differ'}"
+        + (f"; beam decisions within rounding of their edge, so sequences are not demanded "
+           f"equal: {'; '.join(unclear[:6])}" + (f" (+{len(unclear) - 6} more)"
+                                                 if len(unclear) > 6 else "")
+           if unclear else "; every beam decision clear: sequences demanded equal")
+        + f"; cpu {want['seconds']:.1f} s")
+
+
+def phase_vqa_generate(device, model, temperature, tokenizer, n_batches=2, batch=16):
+    """15. VQA ``inference: 'generate'`` on phase 13's VQA-480 model (bf16):
+    ``tasks.vqa.generate_answers`` (the mask-mode towers at phase 13's
+    temperature, then the 3-beam decode from [DEC], ``max_length`` 10,
+    ``min_length`` 1, over the question state) on 2 batches of 16 synthetic
+    questions; answers/s, exact launch counts, K4 (one query per row over
+    the question state) and K5 held on the path's own inputs.  Returns
+    the launch counts (K1, K4, K5) and the K4 and K5 records."""
+    from madtp_tpu_torch.tasks.vqa import generate_answers
+
+    log(f"[vqa-gen] {card_line()}")
+    rng = np.random.default_rng(17)
+    batches = [tuple(torch.from_numpy(a).to(device) for a in b[:3])
+               for b in vqa_batches(rng, model.cfg.vit.image_size, n_batches, batch)]
+    Lv, L = model.cfg.vit.depth, model.cfg.med.num_hidden_layers
+    steps = 1 + (10 - 1 - 1)
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with K4Capture() as k4_capture, K5Capture() as k5_capture:
+        outs = [generate_answers(model, *b, temperature=temperature, bos_token_id=DEC_ID,
+                                 eos_token_id=SEP_ID) for b in batches]
+        answers = [tokenizer.decode(r) for seqs, _, _ in outs for r in seqs.cpu().numpy()]
+    wall = time.perf_counter() - t0
+    k1, large, k4, k5 = launch_counts()
+    want = (n_batches * (Lv + L), n_batches * L * (1 + steps), n_batches * (Lv + L + L * steps))
+    if (k1, k4, k5) != want or large:
+        raise AssertionError(f"vqa generate launched K1 {k1}, K4 {k4}, K5 {k5} times, want {want}")
+    if len(answers) != n_batches * batch or not all(
+            (s[:, 0] == DEC_ID).all() and s.shape[1] == 10 for s, _, _ in outs):
+        raise AssertionError("vqa generate: sequences without [DEC] first or of another length")
+    log(f"[vqa-gen] T={temperature:.4f}: {len(answers)} questions in {wall:.2f} s = "
+        f"{len(answers) / wall:.2f} answers/s (the first batch included); launches K1 {k1}, K4 "
+        f"{k4}, K5 {k5}; {len(set(answers))} distinct answers, e.g. {answers[0]!r}")
+    record4 = check_k4_cases("vqa generate", k4_capture, where=dict(Nq=1))
+    record5 = check_k5_cases("vqa generate", k5_capture, where=dict(M=batch * 3))
+    return (k1, k4, k5), (record4, record5)
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2652,16 +3094,29 @@ def main():
                                         t_vqa)
     (k1_640, k3_640, k4_640, k5_640), (record3_640, record4_640, record5_640) = \
         timed(phase_vqa_640, device, vqa_model, t_vqa)
+    tokenizer = caption_tokenizer()
+    (k1_gen, k4_gen, k5_gen), (record4_gen, record5_gen) = timed(
+        phase_vqa_generate, device, vqa_model, t_vqa, tokenizer)
+    del vqa_model
+    torch.cuda.empty_cache()
+    from madtp_tpu_torch.core.config import caption_config
+
+    t_cap, (k1_cap, k4_cap, k5_cap), (record1_cap, record4_cap, record5_cap) = timed(
+        phase_caption_main, device, caption_config(), tokenizer)
+    _, fp32_k5["caption_parity"], _ = timed(fp32_k5_held, "caption parity",
+                                            phase_caption_parity, device, tokenizer, t_cap)
 
     kernels = [
         dict(name="attention_scores", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:595",
-             launches=k1_eval + k1_train + k1_ret + k1_clip + k1_vqa + k1_640,
+             launches=k1_eval + k1_train + k1_ret + k1_clip + k1_vqa + k1_640 + k1_gen + k1_cap,
              launches_by_path={"eval": k1_eval, "train": k1_train, "retrieval": k1_ret,
-                               "clip": k1_clip, "vqa": k1_vqa, "vqa640": k1_640},
+                               "clip": k1_clip, "vqa": k1_vqa, "vqa640": k1_640,
+                               "vqa_generate": k1_gen, "caption": k1_cap},
              **record, at_nlvr_gather_eval=record1_eval, at_retrieval_eval=record1_ret,
              at_clip_vision_h16=record1_clip, at_vqa_gather_eval=record1_vqa,
+             at_caption_eval=record1_cap,
              fp32_at_train_shape=record1_32,
              library_note="library_ms is scaled_dot_product_attention, out only; vqa640 "
                           "counts the launches in K3's range too (attention_scores_large_n)",
@@ -2685,11 +3140,13 @@ def main():
         dict(name="cross_attention", route="cuda",
              source="madtp_tpu_torch/csrc/cross_attention.cu",
              replaces="madtp_tpu/ops/pallas/cross_attention.py:56",
-             launches=k4_eval + k4_train + k4_ret + k4_vqa + k4_640,
+             launches=k4_eval + k4_train + k4_ret + k4_vqa + k4_640 + k4_gen + k4_cap,
              launches_by_path={"eval": k4_eval, "train": k4_train, "retrieval": k4_ret,
-                               "vqa": k4_vqa, "vqa640": k4_640},
+                               "vqa": k4_vqa, "vqa640": k4_640, "vqa_generate": k4_gen,
+                               "caption": k4_cap},
              **record4, at_vqa_gather_eval=record4_vqa, at_vqa_dense_eval=dense4_vqa,
-             at_vqa640_eval=record4_640,
+             at_vqa640_eval=record4_640, at_vqa_generate=record4_gen,
+             at_caption_eval=record4_cap,
              library_note="library_ms is scaled_dot_product_attention with the "
                           "same additive mask: the same function",
              previous_note="previous_ms is the replaced design "
@@ -2697,11 +3154,13 @@ def main():
                            "inputs and card"),
         dict(name="ffn", route="cuda", source="madtp_tpu_torch/csrc/ffn.cu",
              replaces="madtp_tpu/ops/pallas/fused_ffn.py:79",
-             launches=k5_eval + k5_train + k5_ret + k5_clip + k5_vqa + k5_640,
+             launches=k5_eval + k5_train + k5_ret + k5_clip + k5_vqa + k5_640 + k5_gen + k5_cap,
              launches_by_path={"eval": k5_eval, "train": k5_train, "retrieval": k5_ret,
-                               "clip": k5_clip, "vqa": k5_vqa, "vqa640": k5_640},
+                               "clip": k5_clip, "vqa": k5_vqa, "vqa640": k5_640,
+                               "vqa_generate": k5_gen, "caption": k5_cap},
              **record5, at_clip_gather_eval=record5_clip, at_vqa_gather_eval=record5_vqa,
              at_vqa_dense_eval=dense5_vqa, at_vqa640_eval=record5_640,
+             at_vqa_generate=record5_gen, at_caption_eval=record5_cap,
              fp32=record5_fp32, fp32_at_train_main=record5_train,
              fp32_launches=sum(fp32_k5.values()), fp32_launches_by_path=fp32_k5,
              library_note="library_ms is two F.linear and the activation: the same function",

@@ -1,16 +1,16 @@
-"""Weights into and out of the port's NLVR, retrieval, VQA and CLIP models.
-In, from two sources that must give the same tensors:
+"""Weights into and out of the port's NLVR, retrieval, VQA, caption and CLIP
+models.  In, from two sources that must give the same tensors:
 
 * :func:`nlvr_from_jax_params`, :func:`retrieval_from_jax_params`,
-  :func:`vqa_from_jax_params`, :func:`clip_from_jax_params` — the JAX
-  package's param tree as numpy arrays (layers stacked ``[L, ...]``, linear
-  kernels ``[in, out]``);
+  :func:`vqa_from_jax_params`, :func:`caption_from_jax_params`,
+  :func:`clip_from_jax_params` — the JAX package's param tree as numpy
+  arrays (layers stacked ``[L, ...]``, linear kernels ``[in, out]``);
 * :func:`load_nlvr_state_dict`, :func:`load_retrieval_state_dict`,
-  :func:`load_vqa_state_dict`, :func:`load_clip_state_dict` — a state dict in
-  the reference ``.pth`` key layout (``madtp_tpu/ckpt/remap.py``
-  ``remap_vit``, ``remap_med``, ``remap_clip``, and the head and codebook
-  handling of ``load_blip_nlvr``, ``load_blip_retrieval`` and
-  ``load_blip_vqa``).
+  :func:`load_vqa_state_dict`, :func:`load_caption_state_dict`,
+  :func:`load_clip_state_dict` — a state dict in the reference ``.pth`` key
+  layout (``madtp_tpu/ckpt/remap.py`` ``remap_vit``, ``remap_med``,
+  ``remap_clip``, and the head and codebook handling of ``load_blip_nlvr``,
+  ``load_blip_retrieval``, ``load_blip_vqa`` and ``load_blip_caption``).
 
 The reference NLVR layout carries ``crossattention.output.merge_layer`` only
 at layers >= ``merge_start_layer``, like the port's modules; a base checkpoint
@@ -32,7 +32,7 @@ import torch
 
 from madtp_tpu_torch.core.config import BlipConfig, CLIPConfig
 from madtp_tpu_torch.core.device import resolve_device
-from madtp_tpu_torch.models.blip import NLVRModel, RetrievalModel, VQAModel
+from madtp_tpu_torch.models.blip import CaptionModel, NLVRModel, RetrievalModel, VQAModel
 from madtp_tpu_torch.models.clip import CLIPModel
 
 
@@ -176,6 +176,18 @@ def load_vqa_state_dict(sd: Mapping[str, object], cfg: BlipConfig,
     ignored; position embeddings are resized to ``cfg.vit``'s grid (a
     480-px checkpoint loads at 640 px: 30 x 30 -> 40 x 40)."""
     return _load_every_key(sd, lambda: VQAModel(cfg), cfg, resolve_device(device))
+
+
+def load_caption_state_dict(sd: Mapping[str, object], cfg: BlipConfig,
+                            device="cuda") -> CaptionModel:
+    """A caption model from a reference-layout state dict (numpy arrays or
+    tensors), as ``load_blip_caption`` reads it (``madtp_tpu/models/blip.py:
+    329-339``): every key of the model must be there, the codebook included;
+    the decoder comes from ``text_decoder.bert.*`` and
+    ``text_decoder.cls.predictions.{transform.*, bias}``; the tied exports
+    ``cls.predictions.decoder.*``, ``position_ids`` and a pooler are
+    ignored; position embeddings are resized to ``cfg.vit``'s grid."""
+    return _load_every_key(sd, lambda: CaptionModel(cfg), cfg, resolve_device(device))
 
 
 def load_clip_state_dict(sd: Mapping[str, object], cfg: CLIPConfig,
@@ -336,6 +348,19 @@ def vqa_from_jax_params(tree: Mapping, cfg: BlipConfig, device="cuda") -> VQAMod
     j.lm_head(tree["text_decoder"])
     j.sd["space_dict"] = _tensor(tree["space_dict"])
     return _make(lambda: VQAModel(cfg), dev, j.sd)
+
+
+def caption_from_jax_params(tree: Mapping, cfg: BlipConfig, device="cuda") -> CaptionModel:
+    """A caption model from the JAX package's param tree (numpy leaves;
+    ``load_blip_caption``'s layout: ``visual_encoder``, ``text_decoder`` with
+    its ``cls`` head, ``space_dict``)."""
+    dev = resolve_device(device)
+    j = _JaxTree()
+    j.vit(tree["visual_encoder"], cfg)
+    j.med(tree["text_decoder"], cfg, prefix="text_decoder.bert.")
+    j.lm_head(tree["text_decoder"])
+    j.sd["space_dict"] = _tensor(tree["space_dict"])
+    return _make(lambda: CaptionModel(cfg), dev, j.sd)
 
 
 def clip_from_jax_params(tree: Mapping, cfg: CLIPConfig, space_dict=None,

@@ -3,9 +3,10 @@
 Copies of the JAX package's dataclasses (``madtp_tpu/core/config.py:16-163``)
 with the same fields and defaults, plus ``BlipConfig``
 (``madtp_tpu/models/blip.py:32-36``), so one set of keyword arguments builds
-either package's model; :func:`vqa_config`, BLIP VQA's model at an image
-size; and :func:`infer_clip_config`, a CLIP checkpoint's architecture from
-its weight shapes.
+either package's model; :func:`vqa_config` and :func:`caption_config`, BLIP
+VQA's and BLIP captioning's models at an image size; and
+:func:`infer_clip_config`, a CLIP checkpoint's architecture from its weight
+shapes.
 """
 
 from __future__ import annotations
@@ -149,11 +150,24 @@ class BlipConfig(NamedTuple):
     sd_dim: int = 768
 
 
-def vqa_config(image_size: int = 480) -> BlipConfig:
-    """BLIP VQA's model, as ``build_blip_cfg({"vit": "base"}, image_size)``
-    builds it (``madtp_tpu/cli/common.py:396-480``, ``configs/vqa.yaml``):
-    ViT-B/16 at ``image_size`` (480: 901 tokens) and the BERT-base MED with
-    single-stream cross-attention, which serves as the question encoder and,
-    with its LM head, as the answer decoder; codebook 100 x 768."""
+def _blip_base(image_size: int) -> BlipConfig:
+    """``build_blip_cfg({"vit": "base"}, image_size)``
+    (``madtp_tpu/cli/common.py:396-480``): ViT-B/16 at ``image_size`` and the
+    BERT-base MED with single-stream cross-attention over it; codebook
+    100 x 768."""
     vit = ViTConfig(image_size=image_size)
     return BlipConfig(vit=vit, med=MedConfig(encoder_width=vit.embed_dim))
+
+
+def vqa_config(image_size: int = 480) -> BlipConfig:
+    """BLIP VQA's model (``configs/vqa.yaml``; 480 px: 901 tokens): the MED
+    serves as the question encoder and, with its LM head, as the answer
+    decoder."""
+    return _blip_base(image_size)
+
+
+def caption_config(image_size: int = 384) -> BlipConfig:
+    """BLIP captioning's model, as ``build_blip_cfg`` builds it for the
+    caption driver (``configs/caption_coco.yaml``; 384 px: 577 tokens): the
+    MED with its LM head is the caption decoder over the image tokens."""
+    return _blip_base(image_size)

@@ -7,7 +7,9 @@
 * :class:`RetrievalModel` — image and text features for the ITC shortlist
   and the ITM score of the rerank (``:216-262``), eval only;
 * :class:`VQAModel` — the image tower, the question encoder over the image
-  (``blip_vqa_encode``, ``:180-208``) and the answer decoder, eval only.
+  (``blip_vqa_encode``, ``:180-208``) and the answer decoder, eval only;
+* :class:`CaptionModel` — the image tower and the caption decoder over its
+  tokens (``blip_caption_encode_image``, ``:132-149``), eval only.
 """
 
 from __future__ import annotations
@@ -248,5 +250,43 @@ def init_vqa_model(cfg: BlipConfig, seed: int = 0, device="cuda",
     counterpart of ``init_blip_params(heads=(), with_decoder=True)``)."""
     dev = resolve_device(device)
     model = VQAModel(cfg)
+    _init_weights(model, seed)
+    return model.to(device=dev, dtype=dtype).eval()
+
+
+class CaptionModel(nn.Module):
+    """BLIP captioning (``BLIP_Decoder``), eval side.  Parameter names follow
+    the reference BLIP caption state dict (``visual_encoder.``,
+    ``text_decoder.bert.*``, ``text_decoder.cls.predictions.*``,
+    ``space_dict``).  The model computes in the dtype of its weights."""
+
+    def __init__(self, cfg: BlipConfig):
+        super().__init__()
+        if cfg.med.twin_cross:
+            raise ValueError("captioning uses single-stream cross-attention (twin_cross=False)")
+        self.cfg = cfg
+        self.visual_encoder = VisionTransformer(cfg.vit)
+        self.text_decoder = MedDecoder(cfg.med)
+        self.space_dict = nn.Parameter(torch.zeros(cfg.sd_num, cfg.sd_dim))
+
+    def encode_image(self, images: torch.Tensor, *, temperature=0.0, prune_active: bool = False,
+                     capacities: Optional[Sequence[int]] = None
+                     ) -> Tuple[TokenState, Optional[torch.Tensor], torch.Tensor]:
+        """The image tower with DTP, run once per image
+        (``blip_caption_encode_image``): dense, mask mode, or gather mode with
+        ``capacities``.  Returns ``(state, sd_img_ft, kept)``: ``state`` is
+        the decoder's memory, ``kept`` [L] the GFLOPs input."""
+        out = self.visual_encoder(images, space_dict=self.space_dict, temperature=temperature,
+                                  prune_active=prune_active, capacities=capacities)
+        return out.state, out.sd_ft, out.kept_counts
+
+
+def init_caption_model(cfg: BlipConfig, seed: int = 0, device="cuda",
+                       dtype=torch.float32) -> CaptionModel:
+    """A caption model with seeded random weights (:func:`_init_weights`;
+    the counterpart of ``init_blip_params(heads=(), with_encoder=False,
+    with_decoder=True)``)."""
+    dev = resolve_device(device)
+    model = CaptionModel(cfg)
     _init_weights(model, seed)
     return model.to(device=dev, dtype=dtype).eval()

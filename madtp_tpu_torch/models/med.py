@@ -9,17 +9,19 @@ cross-attention (NLVR) the two image streams are averaged below
 ``merge_start_layer`` and concatenated through ``merge_layer`` from it on; as
 in the reference, ``merge_layer`` exists only at those layers.
 
-:class:`MedDecoder` is the answer decoder of VQA (the reference's
-``BertLMHeadModel`` layout, ``madtp_tpu/models/med.py:328-593``): causal
-self-attention on the plain attention core (K1 has no causal mask),
-cross-attention over the question state through :func:`cross_attention` with
-the state's key bias, the FFN through :func:`mlp`, and the LM head on the
-tied word embeddings.
+:class:`MedDecoder` is the answer decoder of VQA and the caption decoder
+(the reference's ``BertLMHeadModel`` layout,
+``madtp_tpu/models/med.py:328-593``): causal self-attention on the plain
+attention core (K1 has no causal mask), cross-attention over the memory
+through :func:`cross_attention` with the memory's key bias, the FFN through
+:func:`mlp`, and the LM head on the tied word embeddings.  Its
+:meth:`MedDecoder.step` decodes one token against a fixed-capacity
+:class:`DecodeCache` (``med_decoder_step``, ``:526-580``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -68,12 +70,12 @@ class BertEmbeddings(nn.Module):
                                                 cfg.hidden_size)
         self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor, position_offset: int = 0) -> torch.Tensor:
-        """Word + absolute position embeddings from ``position_offset`` on,
-        then LayerNorm."""
-        N = input_ids.shape[1]
-        x = (self.word_embeddings.weight[input_ids]
-             + self.position_embeddings.weight[position_offset:position_offset + N][None])
+    def forward(self, input_ids: torch.Tensor, position_offset=0) -> torch.Tensor:
+        """Word + absolute position embeddings from ``position_offset`` on
+        (an int, or a 0-d device tensor that is never read back), then
+        LayerNorm."""
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device) + position_offset
+        x = self.word_embeddings.weight[input_ids] + self.position_embeddings.weight[pos][None]
         return _ln(x, self.LayerNorm)
 
 
@@ -266,6 +268,23 @@ def causal_bias(attention_mask: torch.Tensor) -> torch.Tensor:
     return ((1.0 - m) * PAD_BIAS)[:, None]
 
 
+class DecodeCache(NamedTuple):
+    """The decoder's self-attention keys and values of every position so
+    far, [L, B, H, max_len, Dh] each (``DecodeCache``,
+    ``madtp_tpu/models/med.py:526-528``)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_decode_cache(cfg: MedConfig, batch: int, max_len: int, dtype=torch.float32,
+                      device=None) -> DecodeCache:
+    """A zero cache of ``max_len`` slots (``init_decode_cache``)."""
+    H = cfg.num_attention_heads
+    shape = (cfg.num_hidden_layers, batch, H, max_len, cfg.hidden_size // H)
+    return DecodeCache(*(torch.zeros(shape, dtype=dtype, device=device) for _ in range(2)))
+
+
 class LMPredictionHead(nn.Module):
     """``cls.predictions``: transform (dense, GELU, LayerNorm) and the
     output bias; the decoder weight is tied to the word embeddings."""
@@ -295,9 +314,60 @@ class MedDecoder(nn.Module):
         self.cls = nn.Module()
         self.cls.predictions = LMPredictionHead(cfg)
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype, that of the weights."""
+        return self.bert.embeddings.word_embeddings.weight.dtype
+
     def _memory(self, encoder_state: TokenState, dtype) -> TokenState:
         # the memory computes in the decoder's dtype (``_align``)
         return TokenState(encoder_state.x.to(dtype), encoder_state.alive, encoder_state.bias)
+
+    def memory_kv(self, encoder_state: TokenState) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """Each layer's cross-attention key and value over the memory,
+        [B, S, H, Dh] views of the two linears' outputs: what every
+        :meth:`step` over this memory projects again, computed once."""
+        x = encoder_state.x.to(self.dtype)
+        out = []
+        for layer in self.bert.encoder.layer:
+            ca = layer.crossattention
+            out.append(tuple(_lin(x, m).unflatten(-1, (ca.num_heads, -1))
+                             for m in (ca.self.key, ca.self.value)))
+        return out
+
+    def step(self, input_ids: torch.Tensor, position: torch.Tensor, cache: DecodeCache,
+             encoder_state: TokenState, memory_kv=None) -> Tuple[torch.Tensor, DecodeCache]:
+        """One incremental decode step (``med_decoder_step``,
+        ``madtp_tpu/models/med.py:538-580``): ``input_ids`` [B, 1], the token
+        at ``position``, a 0-d long tensor on the model's device.  Each layer
+        writes its key and value at ``position`` into ``cache`` (in place),
+        attends over all ``max_len`` slots with ``PAD_BIAS`` above
+        ``position``, then over the memory with its key bias and alive mask
+        (:func:`cross_attention`: K4 on the card), then runs the FFN.
+        ``memory_kv``: :meth:`memory_kv` of ``encoder_state``, projected here
+        when None.  Nothing is read back to the host, so one step can be
+        captured in a CUDA graph.  Returns ``(hidden [B, 1, D], cache)``."""
+        x = self.bert.embeddings(input_ids, position_offset=position)
+        enc = self._memory(encoder_state, x.dtype)
+        if memory_kv is None:
+            memory_kv = self.memory_kv(enc)
+        slots = torch.arange(cache.k.shape[3], device=x.device)
+        bias = torch.where(slots <= position, 0.0, PAD_BIAS)  # [max_len] fp32
+        index = position.view(1)
+        for i, layer in enumerate(self.bert.encoder.layer):
+            blk = layer.attention
+            p, H = blk.self, blk.num_heads
+            q, k, v = (_heads(_lin(x, m), H) for m in (p.query, p.key, p.value))
+            ck, cv = cache.k[i], cache.v[i]
+            ck.index_copy_(2, index, k)
+            cv.index_copy_(2, index, v)
+            out, _ = attention_core(q, ck, cv, attn_bias=bias)
+            h = blk.close(out, x)
+            ca = layer.crossattention
+            qc = _lin(h, ca.self.query).unflatten(-1, (H, -1))
+            h = ca.close(cross_attention(qc, *memory_kv[i], enc.alive, enc.bias), h)
+            x = layer.ffn(h)
+        return x, cache
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 encoder_state: TokenState) -> torch.Tensor:

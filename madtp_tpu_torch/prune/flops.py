@@ -14,6 +14,8 @@ from madtp_tpu_torch.core.config import CLIPConfig, MedConfig, ViTConfig
 ORI_GFLOPS = 395.7
 # the reference's dense BLIP VQA GFLOPs (madtp_tpu/cli/compress_vqa.py:30)
 ORI_GFLOPS_VQA = 186.1
+# the reference's dense BLIP captioning GFLOPs (madtp_tpu/cli/compress_caption.py:43)
+ORI_GFLOPS_CAPTION = 65.7
 
 
 def _layer_macs(n_in: float, n_out: float, D: int, I: int, n_kv: float = None):
@@ -70,6 +72,19 @@ def nlvr_gflops(vit_cfg: ViTConfig, med_cfg: MedConfig, v_kept: Sequence[int],
     v = 2 * vit_flops(vit_cfg, v_kept)
     cross_kv = float(v_kept[-1]) + 1
     t = med_flops(med_cfg, t_kept, n_text0, cross_kv=cross_kv, twin=True)
+    return (v + t) / 1e9
+
+
+def caption_gflops(vit_cfg: ViTConfig, med_cfg: MedConfig, v_kept: Sequence[int],
+                   n_text0: int) -> float:
+    """BLIP captioning per image: the image tower and the unpruned decoder
+    over ``n_text0`` tokens attending to the last layer's image tokens
+    (``madtp_tpu/prune/flops.py:97-105``; the caption driver passes
+    ``n_text0 = 14``; the reference's baseline is 65.7)."""
+    v = vit_flops(vit_cfg, v_kept)
+    cross_kv = float(v_kept[-1]) + 1
+    t = med_flops(med_cfg, [n_text0 - 1] * med_cfg.num_hidden_layers, n_text0,
+                  cross_kv=cross_kv)
     return (v + t) / 1e9
 
 

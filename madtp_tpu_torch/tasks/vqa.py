@@ -1,6 +1,7 @@
 """BLIP VQAv2 evaluation by answer ranking, ``inference: 'rank'``
 (counterpart of ``madtp_tpu/tasks/vqa.py:25-93`` and of the eval half of
-``madtp_tpu/cli/compress_vqa.py:114-215``), single process.
+``madtp_tpu/cli/compress_vqa.py:114-215``), single process; and
+``inference: 'generate'``, :func:`generate_answers`.
 
 * :func:`candidate_losses` and :func:`rank_answers`: one BOS decoder step
   gives the first-token distribution, restricted to the answer list's first
@@ -31,6 +32,7 @@ from madtp_tpu_torch.models.med import MedDecoder
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.prune.flops import vqa_gflops
+from madtp_tpu_torch.tasks.caption import beam_generate
 
 LABEL_SMOOTHING = 0.1  # reference models/med.py:1045
 
@@ -90,6 +92,27 @@ def rank_answers(decoder: MedDecoder, q_state: TokenState, answer_ids: torch.Ten
                                       pad_token_id=pad_token_id)
     best = torch.argmax(-loss, dim=1)
     return topk_ids.gather(1, best[:, None])[:, 0], topk_ids
+
+
+@torch.inference_mode()
+def generate_answers(model: VQAModel, images: torch.Tensor, q_ids: torch.Tensor,
+                     q_mask: torch.Tensor, *, temperature: float, bos_token_id: int,
+                     eos_token_id: int, pad_token_id: int = 0, num_beams: int = 3,
+                     max_length: int = 10, min_length: int = 1
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``inference: 'generate'`` (``gen_step``, ``madtp_tpu/cli/
+    compress_vqa.py:128-146``): :meth:`VQAModel.encode` in mask mode, pruned
+    when ``temperature > 0``, then :func:`~madtp_tpu_torch.tasks.caption.
+    beam_generate` over the question state from a BOS prompt.  Inputs are
+    tensors on the model's device.  Returns ``(sequences [B, max_length],
+    v_kept, q_kept)`` without waiting for them."""
+    out, _, v_kept = model.encode(images, q_ids, q_mask, temperature=temperature,
+                                  prune_active=temperature > 0)
+    bos = torch.full((q_ids.shape[0], 1), bos_token_id, dtype=torch.long, device=q_ids.device)
+    seqs = beam_generate(model.text_decoder, out.state, bos, num_beams=num_beams,
+                         max_length=max_length, min_length=min_length,
+                         eos_token_id=eos_token_id, pad_token_id=pad_token_id)
+    return seqs, v_kept, out.kept_counts
 
 
 def _pad_to(a: np.ndarray, n: int) -> np.ndarray:

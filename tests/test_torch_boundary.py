@@ -21,7 +21,8 @@ def _port_modules():
 
 
 def test_port_imports_without_jax():
-    assert {"madtp_tpu_torch.tasks.vqa", "madtp_tpu_torch.models.med"} <= set(_port_modules())
+    assert {"madtp_tpu_torch.tasks.vqa", "madtp_tpu_torch.models.med",
+            "madtp_tpu_torch.tasks.caption"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError

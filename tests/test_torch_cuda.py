@@ -4,10 +4,14 @@ the TPU runs its query-tiled kernel), K1 and K2 on both sides of every tile
 edge of their tensor-core designs, at H = 16 and where pass B / pass M split
 the query tiles (each relaunch bit-identical), the autograd pairings (K1
 with K2, K4 and K5 with the plain version's backward), the FFN routing
-rule, and the refusals.  Needs an NVIDIA GPU with nvcc; skipped elsewhere.
+rule, and the refusals; K4 at the decode's one query per row, an fp32 decode
+step on the card against the CPU, and beam search with no hidden wait on the
+card.  Needs an NVIDIA GPU with nvcc; skipped elsewhere.
 
 Run on the card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
+
+import copy
 
 import pytest
 import torch
@@ -21,6 +25,10 @@ from madtp_tpu_torch.kernels.attention_scores import (LARGE_N, TOLERANCES,
                                                       attention_scores_cuda, pass_b_chunks)
 from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
 from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+from madtp_tpu_torch.core.config import MedConfig
+from madtp_tpu_torch.models.med import MedDecoder, init_decode_cache
+from madtp_tpu_torch.prune.dtp import TokenState
+from madtp_tpu_torch.tasks.caption import beam_generate
 from madtp_tpu_torch.ops.attention import (attention_scores, attention_scores_bwd_plain,
                                            attention_scores_plain, cross_attention,
                                            cross_attention_plain)
@@ -377,6 +385,16 @@ def test_k4_matches_plain(cuda, B, Nq, S, packed_q, with_bias, dtype):
                          packed_q=packed_q))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,with_bias", [(96, 192, False), (96, 577, False), (48, 40, True)])
+def test_k4_at_one_query(cuda, B, S, with_bias, dtype):
+    """K4 at the beam decode's shape, one query per row: 32 images x 3 beams
+    over a pruned and a dense caption memory (192 and 577 image slots), and
+    VQA generate's 16 questions x 3 beams over a question state whose
+    padding rides as the key bias."""
+    _k4_compare(*k4_case(B, 1, S, with_bias=with_bias, dtype=dtype, device=cuda))
+
+
 @pytest.mark.parametrize("dtype,S", [(torch.float32, 150), (torch.bfloat16, 150),
                                      (torch.bfloat16, 600)])
 def test_k4_dead_rows_determinism_and_count(cuda, dtype, S):
@@ -564,3 +582,64 @@ def test_mlp_routing_rule(cuda):
     fc1_16, fc2_16 = _linears(w1.half(), b1.half(), w2.half(), b2.half())
     with torch.inference_mode(), pytest.raises(ValueError):
         layers.mlp(x.half(), fc1_16, fc2_16)
+
+
+def _decoder_and_memory():
+    """A 2-layer decoder (width 128, 2 heads of 64, torch's default init)
+    and a memory of 2 rows x 50 slots with dead slots and a padding bias,
+    on the CPU in fp32."""
+    torch.manual_seed(0)
+    cfg = MedConfig(vocab_size=64, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                    intermediate_size=256, max_position_embeddings=16, encoder_width=128)
+    decoder = MedDecoder(cfg).eval()
+    g = torch.Generator().manual_seed(1)
+    alive = torch.ones(2, 50, dtype=torch.bool)
+    alive[0, 40:] = False
+    bias = torch.zeros(2, 50)
+    bias[1, 45:] = -10000.0
+    return decoder, TokenState(torch.randn(2, 50, 128, generator=g), alive, bias)
+
+
+def _to(state, device):
+    return TokenState(*(t.to(device) for t in state))
+
+
+def test_decode_step_on_the_card_matches_the_cpu(cuda):
+    """``MedDecoder.step`` in fp32 over 6 positions on the card (K4 and K5
+    in each layer) against the CPU run: hidden states and caches within
+    1e-5; each step launches K4 and K5 once a layer."""
+    cpu, mem = _decoder_and_memory()
+    card = copy.deepcopy(cpu).to(cuda)
+    ids = torch.randint(0, 64, (2, 6), generator=torch.Generator().manual_seed(2))
+    caches = {d: init_decode_cache(cpu.cfg, 2, 8, device=d) for d in ("cpu", cuda)}
+    positions = torch.arange(8, device=cuda)
+    before = cross_attention_cuda.launches, k5.ffn_cuda.launches
+    with torch.inference_mode():
+        for t in range(6):
+            want, caches["cpu"] = cpu.step(ids[:, t:t + 1], torch.tensor(t), caches["cpu"], mem)
+            got, caches[cuda] = card.step(ids[:, t:t + 1].to(cuda), positions[t], caches[cuda],
+                                          _to(mem, cuda))
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    for a, b in zip(caches[cuda], caches["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    assert (cross_attention_cuda.launches - before[0], k5.ffn_cuda.launches - before[1]) == (12, 12)
+
+
+@pytest.mark.parametrize("repetition_penalty", [1.0, 1.2])
+def test_beam_generate_on_the_card_waits_for_nothing(cuda, repetition_penalty):
+    """The whole beam search on the card under ``set_sync_debug_mode("error")``
+    (any read-back to the host raises) gives the CPU's sequences, fp32."""
+    cpu, mem = _decoder_and_memory()
+    card = copy.deepcopy(cpu).to(cuda)
+    prompt = torch.tensor([[60, 5, 6, 7], [60, 5, 6, 7]])
+    kw = dict(num_beams=3, max_length=12, min_length=3, eos_token_id=3,
+              repetition_penalty=repetition_penalty)
+    want = beam_generate(cpu, mem, prompt, **kw)
+    prompt_d, mem_d = prompt.to(cuda), _to(mem, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = beam_generate(card, mem_d, prompt_d, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got.cpu(), want)
