@@ -41,9 +41,12 @@ Phases, each fatal on failure:
    mask and gather mode: equal kept counts, logits within 1e-4, K1 launched in
    every layer;
 5. the eval main path in bf16 at 32 pairs: temperature bisection toward half
-   the dense GFLOPs in mask mode, the capacity schedule, and the gather-mode
-   eval through ``tasks.nlvr.evaluate``; samples/s of the gather step and of
-   the dense forward;
+   the dense GFLOPs in mask mode (K4 and K5 held on the mask-mode step's
+   inputs at its end), ``probe_capacities`` on the eval's first 2 batches,
+   and the gather-mode eval through ``tasks.nlvr.evaluate`` on 64 batches
+   whose sentences are padded to each batch's longest (synthetic NLVR2
+   lengths, ``nlvr_text_lengths``); samples/s of the gather step and of the
+   dense forward;
 6. one fp32 train step of the full-width model, 1 pair, on the card against
    the CPU, mask and gather mode: equal kept counts, losses within 1e-4,
    named gradients within 1e-3 of their largest value, K2 launched once per
@@ -91,8 +94,9 @@ Phases, each fatal on failure:
    ``k_test`` 128) in bf16 at p=0.5: the temperature bisected toward half
    the two pruned towers' dense GFLOPs in mask mode, ``probe_capacities``,
    ``tasks.vqa.evaluate`` in gather mode on 256 synthetic questions (16
-   batches of 16) and the dense eval; questions/s, wall times, exact launch
-   counts, a profile of one batch, the LM head's time;
+   batches of 16, padded to each batch's longest as ``vqa_question_words``
+   draws VQAv2's lengths) and the dense eval; questions/s, wall times, exact
+   launch counts, a profile of one batch, the LM head's time;
 14. the VQA-640 path (1,601 tokens, the 480-px weights through
    ``load_vqa_state_dict``), bf16: ``evaluate`` on 64 questions in mask and
    gather mode at phase 13's temperature; every K1 launch at N > 1536 is one
@@ -137,8 +141,29 @@ tower's at H = 16) and phase 14 on its N > 1536 inputs, phase 7 K2 on the
 inputs of its mask-mode fp32 epochs and of its amp epoch, each case timed
 beside the replaced design; the paths of phases 5-10 time their step with the
 FFNs on K5 and on two linears (the path before K5), in turns, phase 7 its
-mask-mode fp32 step too.  Each main
-path zeroes the launch counts just before it runs and reads them just after.
+mask-mode fp32 step too.
+
+The eval main paths (5, 9, 10, 13-16) run their steps as CUDA graphs, the
+tasks' default (``madtp_tpu_torch/utils/graph.py``): each eval runs first
+eagerly (``graph=False``), where the recorders above take the kernels'
+inputs (a recorder counts Python calls, which under a graph are only the
+warm-up and the capture, and the tensors a capture sees live in the graph's
+memory pool) and the launch counts are checked exactly; then as graphs, the
+main path, whose results must equal the eager run's and whose launch counts
+(each replay adds the launches its capture recorded; a new signature's
+first call is its warm-up, whose outputs it returns) must be the eager
+run's, with one capture per step and input signature (counted by
+``CapturedStep.captures``).  The retrieval and CLIP main paths call
+``evaluate`` and record the score matrices and features it computes
+(``Returns``).  ``graph_check`` then holds each path's step as a graph
+against the eager step, bit for bit at the main path's temperature and at
+1.25 times it with no new capture, and logs one ``[graph]`` line: eager
+and graph wall, the host's enqueue per replay, the device's busy time and
+activities per replay, the K1, K4 and K5 kernels the profiled replay ran
+(which must equal the launches its graph recorded; the kernels line's
+``launches_in_profiled_replays``), pruned/dense under graphs.
+Each main path zeroes the launch counts just before it runs and reads them
+just after.
 Kernel times are device times (``kernel_ms``: the launches queue behind a
 spin kernel, so the host's enqueue time is not counted); step times are
 wall times.  Every phase logs its wall time (``[time]``).
@@ -420,6 +445,30 @@ class PlainFFN:
             m.mlp = f
 
 
+class Returns:
+    """While active, records what ``module.attr`` returns to its callers (an
+    entry point's inner call, such as ``evaluate``'s ``rerank_scores``),
+    passing every call through unchanged."""
+
+    def __init__(self, module, attr):
+        self.module, self.attr, self.values = module, attr, []
+
+    def __enter__(self):
+        self._mod = importlib.import_module(self.module)
+        self._orig = getattr(self._mod, self.attr)
+
+        def record(*args, **kw):
+            out = self._orig(*args, **kw)
+            self.values.append(out)
+            return out
+
+        setattr(self._mod, self.attr, record)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self._mod, self.attr, self._orig)
+
+
 def ffn_ab(label, fn, iters):
     """``fn``'s CUDA-event time with the FFNs on K5 and on two linears (the
     path before K5), in turns plain, K5, K5, plain.  Returns the two means."""
@@ -590,7 +639,8 @@ def profile_step(label, fn, step_ms, top=10):
     """Device time by kernel for one call of ``fn`` under torch.profiler, and
     the device's busy share of ``step_ms``, the call's time without the
     profiler (whose own cost would lengthen a wall time taken under it).
-    Returns the device's busy time, ms."""
+    Returns the device's busy time, ms, and the number of device
+    activities (kernels and copies; in a CUDA graph's replay, its nodes)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -608,7 +658,27 @@ def profile_step(label, fn, step_ms, top=10):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
         log(f"[profile]   {ms:8.3f} ms {ms / max(busy_ms, 1e-9):6.1%} x{e.count:<5d} {e.key[:90]}")
-    return busy_ms
+    return busy_ms, sum(e.count for e in kernels), wrapper_launches(kernels)
+
+
+# The kernel each wrapper launch runs once, by its name in a profile: K1's pass
+# A (``k1_fwd``, ``k1_fwd_simt``), K4's main kernel (``k4_mma``, ``k4_simt``;
+# ``k4_combine`` only when the keys split), and K5's two GEMMs (``k5_wgmma``
+# or ``k5_sgemm``, twice a launch).
+WRAPPER_KERNELS = {"K1": (("::k1_fwd",), 1), "K4": (("::k4_mma", "::k4_simt"), 1),
+                   "K5": (("::k5_wgmma", "::k5_sgemm"), 2)}
+
+
+def wrapper_launches(kernels):
+    """K1's, K4's and K5's wrapper launches among profiler averages, counted
+    from the kernels the card ran."""
+    out = {}
+    for name, (tags, per_launch) in WRAPPER_KERNELS.items():
+        n = sum(e.count for e in kernels if any(tag in e.key for tag in tags))
+        if n % per_launch:
+            raise AssertionError(f"{name}: {n} kernels is not {per_launch} a launch")
+        out[name] = n // per_launch
+    return out
 
 
 def kernel_totals(kernels, busy_ms):
@@ -618,6 +688,92 @@ def kernel_totals(kernels, busy_ms):
         ms = sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
         out.append(f"{name} {ms:.2f} ms ({ms / max(busy_ms, 1e-9):.1%})")
     return ", ".join(out)
+
+
+def outputs_equal(a, b):
+    """Bit-equality of two runs' outputs: tensors, numpy arrays, numbers,
+    strings and None, nested in tuples, lists and dicts."""
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.shape == b.shape and a.dtype == b.dtype and \
+            torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and a.shape == b.shape and a.dtype == b.dtype and \
+            np.array_equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) and \
+            all(outputs_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and \
+            all(outputs_equal(a[k], b[k]) for k in a)
+    return a == b
+
+
+REPLAYS = {"K1": {}, "K4": {}, "K5": {}}  # wrapper launches in one profiled replay, by path
+
+
+def graph_check(label, graph_fn, eager_fn, temps, owner, iters=5, dense_fn=None):
+    """One step or batch of a path as a CUDA graph (``graph_fn(t)``, the
+    task's captured step) against the same run eagerly (``eager_fn(t)``,
+    ``graph=False``): bit-equal outputs (kept counts and overflow among
+    them) at every temperature of ``temps``, the first the captured one,
+    with no capture after the first call (the owner's cache keeps its
+    graphs); the eager and graph wall times (CUDA events), the host's time
+    to return from one replay with the card drained first (its enqueue:
+    the input copies, the replay, the output clones) and within it the
+    graph's launch alone (``CUDAGraph.replay``) and the check of the
+    weights' addresses, the device's busy time and the device activities
+    of one replay (the profiler), and with ``dense_fn`` (the dense run's
+    graph) pruned/dense under graphs.  The K1, K4 and K5 kernels the
+    profiled replay ran must be the launches its graph recorded at capture,
+    which every replay adds to the wrappers' counts (``REPLAYS`` keeps
+    them for the kernels line).  Logs one ``[graph]`` line and returns the
+    numbers."""
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+    from madtp_tpu_torch.utils.graph import graph_count, model_cache
+
+    graph_fn(temps[0])
+    torch.cuda.synchronize()
+    size = graph_count(model_cache(owner))
+    for t in temps:
+        if not outputs_equal(graph_fn(t), eager_fn(t)):
+            raise AssertionError(f"{label}: the graph's outputs differ from the eager run's "
+                                 f"at T={t}")
+    if graph_count(model_cache(owner)) != size:
+        raise AssertionError(f"{label}: a temperature was captured anew ({size} -> "
+                             f"{graph_count(model_cache(owner))} graphs)")
+    t0 = temps[0]
+    eager_ms = time_ms(lambda: eager_fn(t0), iters)
+    graph_ms = time_ms(lambda: graph_fn(t0), iters)
+    enqueue = host_ms(lambda: graph_fn(t0), iters)
+    entry = list(model_cache(owner).values())[-1].last  # the last one replayed: graph_fn's
+    launch = host_ms(entry.graph.replay, iters)
+    check = host_ms(lambda: model_cache(owner), iters)
+    busy, nodes, ran = profile_step(f"{label} graph", lambda: graph_fn(t0), graph_ms, top=4)
+    recorded = dict(entry.launches)
+    for name, (wrapper, attr) in (("K1", (attention_scores_cuda, "launches")),
+                                  ("K4", (cross_attention_cuda, "launches")),
+                                  ("K5", (ffn_cuda, "launches"))):
+        if ran[name] != recorded.get((wrapper, attr), 0):
+            raise AssertionError(f"{label}: the replay ran {ran[name]} {name} launches, its "
+                                 f"graph recorded {recorded.get((wrapper, attr), 0)}")
+        REPLAYS[name][label] = ran[name]
+    rec = dict(eager_ms=eager_ms, graph_ms=graph_ms, enqueue_ms=enqueue, launch_ms=launch,
+               check_ms=check, busy_ms=busy, nodes=nodes, graphs=size)
+    dense = ""
+    if dense_fn is not None:
+        rec["dense_graph_ms"] = time_ms(lambda: dense_fn(0.0), iters)
+        rec["pruned_over_dense"] = rec["dense_graph_ms"] / graph_ms
+        dense = (f"; dense graph {rec['dense_graph_ms']:.3f} ms, pruned/dense under graphs "
+                 f"{rec['pruned_over_dense']:.3f}x")
+    log(f"[graph] {label}: eager {eager_ms:.3f} ms, graph {graph_ms:.3f} ms "
+        f"({eager_ms / graph_ms:.2f}x); host enqueue per replay {enqueue:.3f} ms (the graph's "
+        f"launch {launch:.3f} ms, the weights' address check {check:.3f} ms); device busy "
+        f"{busy:.3f} ms, {nodes} device activities per replay, K1 {ran['K1']}, K4 {ran['K4']}, "
+        f"K5 {ran['K5']} launches as recorded{dense}; bit-equal to eager at "
+        f"T={', '.join(f'{t:.4f}' for t in temps)} with {size} graphs before and after")
+    return rec
 
 
 def profile_backward(label, step, batch):
@@ -1296,17 +1452,51 @@ def phase_model_parity(device, cfg, temperature=1.0):
             log(f"[parity] gather capacities vision {list(caps[0])} text {list(caps[1])}")
 
 
+NLVR2_DEV_PAIRS, VQAV2_TEST_DEV = 6982, 107394  # the eval splits' sizes
+
+
+def nlvr_text_lengths(rng, n):
+    """Synthetic NLVR2 sentence lengths in wordpieces with [CLS] and [SEP]:
+    about 19 (NLVR2's sentences average 14.8 words, Suhr et al. 2019, at
+    about 1.15 wordpieces a word), spread 6.5, in [6, 64]."""
+    return np.clip(np.rint(rng.normal(19.0, 6.5, size=n)), 6, 64).astype(np.int64)
+
+
+def vqa_question_words(rng, n):
+    """Synthetic VQAv2 question lengths in wordpieces without [ENC] and
+    [SEP]: 3 + Poisson(4), mean 7 (VQAv2's questions average 6.2 words,
+    Antol et al. 2015), at most 30."""
+    return np.minimum(3 + rng.poisson(4.0, size=n), 30)
+
+
+def shapes_in_eval(rng, draw, n_items, batch):
+    """The distinct padded lengths (``padding="longest"``, one graph each)
+    of an eval of ``n_items`` in batches of ``batch`` under ``draw``."""
+    return len({int(draw(rng, min(batch, n_items - i)).max())
+                for i in range(0, n_items, batch)})
+
+
 def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_steps=8,
-                    eval_batches=3, iters=10):
-    """NLVR2 eval at p=0.5, bf16: bisection, capacities, gather eval (K1
-    held on its own inputs).  Returns the K1, K4 and K5 launch counts of
-    that run and the K1 record of the gather eval."""
+                    eval_batches=64, iters=10):
+    """NLVR2 eval at p=0.5, bf16: bisection (the captured mask-mode step,
+    one graph replayed at every temperature; K4 and K5 held on the eager
+    mask-mode step's inputs at T*), ``probe_capacities`` on the eval's
+    first two batches, then the gather eval of 64 batches of 32 pairs whose
+    sentences are padded to each batch's longest (``nlvr_text_lengths``; a
+    graph per length, as JAX compiles one): eagerly (``graph=False``; K1,
+    K4 and K5 held on its own inputs, exact launch counts) and as CUDA
+    graphs (the main path: equal results and launch counts, a capture per
+    length); the step as a graph against the eager step.  Returns the graph
+    eval's K1, K4 and K5 launch counts and the K1 record of the gather
+    eval."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.kernels.ffn import ffn_cuda
     from madtp_tpu_torch.models.blip import init_nlvr_model
     from madtp_tpu_torch.prune.flops import nlvr_gflops
-    from madtp_tpu_torch.tasks.nlvr import evaluate, fast_capacity_schedule, make_eval_step
+    from madtp_tpu_torch.tasks.nlvr import (_device_batch, evaluate, make_eval_step,
+                                            probe_capacities)
+    from madtp_tpu_torch.utils.graph import CapturedStep
 
     log(f"[main] {card_line()}")
     model = init_nlvr_model(cfg, seed=0, device=device, dtype=torch.bfloat16)
@@ -1321,49 +1511,87 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
 
     rng = np.random.default_rng(3)
     s = cfg.vit.image_size
+    pixels = [rng.standard_normal((2 * pairs, 3, s, s), dtype=np.float32) for _ in range(3)]
+    texts = []
+    for _ in range(eval_batches):  # padded to each batch's longest sentence
+        lengths = nlvr_text_lengths(rng, pairs)
+        live = np.arange(lengths.max())[None, :] < lengths[:, None]
+        texts.append((np.where(live, rng.integers(1, cfg.med.vocab_size, size=live.shape), 0),
+                      live.astype(np.int64), rng.integers(0, 2, size=pairs)))
+    widths = [t[0].shape[1] for t in texts]
 
-    def loader():
-        for _ in range(eval_batches):
-            im = rng.standard_normal((2 * pairs, 3, s, s), dtype=np.float32)
-            yield im[:pairs], im[pairs:], [f"sentence {i}" for i in range(pairs)], \
-                rng.integers(0, 2, size=pairs)
+    def loader():  # the same batches on every call
+        for j, (_, _, targets) in enumerate(texts):
+            im = pixels[j % len(pixels)]
+            yield im[:pairs], im[pairs:], [f"{j} sentence {i}" for i in range(pairs)], targets
 
     def tokenize(sentences):
-        return (rng.integers(1, cfg.med.vocab_size, size=(len(sentences), text_len)),
-                np.ones((len(sentences), text_len), np.int64))
+        return texts[int(sentences[0].split()[0])][:2]
+
+    lo, hi = 0.05, 60.0
+    for _ in range(bisect_steps):  # one graph, replayed at each temperature
+        t = math.sqrt(lo * hi)
+        out = step_mask(images, ids, mask, t)
+        vk, tk = out.v_kept.cpu().numpy(), out.t_kept.cpu().numpy()
+        g = nlvr_gflops(cfg.vit, cfg.med, vk, tk, text_len)
+        log(f"[main] bisect T={t:.4f}: {g:.2f} GFLOPs (target {target:.2f})")
+        if g > target:
+            lo = t
+        else:
+            hi = t
+    t_star, g_star = t, g
+    with K4Capture() as mask_k4, K5Capture() as mask_k5:  # the mask-mode step's own inputs
+        make_eval_step(model, True, graph=False)(images, ids, mask, t_star)
+    check_k4_cases("nlvr mask-mode step at T*", mask_k4)
+    check_k5_cases("nlvr mask-mode step at T*", mask_k5)
+    caps_v, caps_t = probe_capacities(model, list(itertools.islice(loader(), 2)), tokenize,
+                                      ENC_ID, t_star)
+    kw = dict(prune_active=True, enc_token_id=ENC_ID, capacities_v=caps_v, capacities_t=caps_t,
+              print_fn=lambda m: log(f"[main] {m}"), print_freq=8)
+
+    def counts():
+        torch.cuda.synchronize()
+        return (attention_scores_cuda.launches, cross_attention_cuda.launches,
+                ffn_cuda.launches)
 
     attention_scores_cuda.launches = cross_attention_cuda.launches = ffn_cuda.launches = 0
-    with K4Capture() as capture, K5Capture() as k5_capture:  # the path's own inputs
-        lo, hi = 0.05, 60.0
-        for _ in range(bisect_steps):
-            t = math.sqrt(lo * hi)
-            out = step_mask(images, ids, mask, t)
-            vk, tk = out.v_kept.cpu().numpy(), out.t_kept.cpu().numpy()
-            g = nlvr_gflops(cfg.vit, cfg.med, vk, tk, text_len)
-            log(f"[main] bisect T={t:.4f}: {g:.2f} GFLOPs (target {target:.2f})")
-            if g > target:
-                lo = t
-            else:
-                hi = t
-        t_star, g_star = t, g
-        caps_v, caps_t = fast_capacity_schedule(vk, tk, "ceil")
-
-        with K1Capture() as k1_capture:  # the gather eval's own scoring attentions
-            stats, cur_gflops = evaluate(model, loader, tokenize, t_star, prune_active=True,
-                                         enc_token_id=2, capacities_v=caps_v,
-                                         capacities_t=caps_t,
-                                         print_fn=lambda m: log(f"[main] {m}"), print_freq=1)
-    torch.cuda.synchronize()
-    launches, k4, k5 = attention_scores_cuda.launches, cross_attention_cuda.launches, \
-        ffn_cuda.launches
+    with K4Capture() as capture, K5Capture() as k5_capture, \
+            K1Capture() as k1_capture:  # the eager eval's own inputs
+        t0 = time.perf_counter()
+        eager_stats = evaluate(model, loader, tokenize, t_star, graph=False, **kw)
+        eager_s = time.perf_counter() - t0
+    eager = counts()
     per_forward = cfg.vit.depth + cfg.med.num_hidden_layers
-    want = per_forward * (bisect_steps + eval_batches)
-    if launches < want:
-        raise AssertionError(f"main path launched K1 {launches} times, want >= {want}")
-    if k4 != 2 * cfg.med.num_hidden_layers * (bisect_steps + eval_batches):
-        raise AssertionError(f"main path launched K4 {k4} times, want 24 per forward")
-    if k5 != want:
-        raise AssertionError(f"main path launched K5 {k5} times, want {want} (every FFN)")
+    if eager[0] < per_forward * eval_batches:
+        raise AssertionError(f"eager eval launched K1 {eager[0]} times, want >= "
+                             f"{per_forward * eval_batches}")
+    if eager[1:] != (2 * cfg.med.num_hidden_layers * eval_batches, per_forward * eval_batches):
+        raise AssertionError(f"eager eval launched K4, K5 {eager[1:]} times, want 24 and "
+                             f"{per_forward} per forward")
+
+    attention_scores_cuda.launches = cross_attention_cuda.launches = ffn_cuda.launches = 0
+    captures, capture_s = CapturedStep.captures, CapturedStep.capture_seconds
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats, cur_gflops = evaluate(model, loader, tokenize, t_star, **kw)  # the main path
+    graph_s = time.perf_counter() - t0
+    launches, k4, k5 = counts()
+    captures = CapturedStep.captures - captures
+    capture_s = CapturedStep.capture_seconds - capture_s
+    t0 = time.perf_counter()
+    for image0, image1, sentences, _ in loader():  # the eval's feed alone
+        _device_batch(image0, image1, sentences, tokenize, ENC_ID, device)
+    torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    # a new length's first batch is its capture's warm-up; the others replay
+    if (launches, k4, k5) != eager:
+        raise AssertionError(f"graph eval launched K1, K4, K5 {(launches, k4, k5)} times, want "
+                             f"the eager eval's {eager}")
+    if captures != len(set(widths)):
+        raise AssertionError(f"graph eval captured {captures} graphs for {len(set(widths))} "
+                             "text lengths")
+    if (stats, cur_gflops) != eager_stats:
+        raise AssertionError(f"graph eval {stats, cur_gflops} differs from eager {eager_stats}")
     if not (math.isfinite(cur_gflops) and 0 < cur_gflops < ori):
         raise AssertionError(f"gather eval GFLOPs {cur_gflops} not in (0, {ori})")
     check_k4_cases("nlvr eval", capture)
@@ -1371,28 +1599,48 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
     record1 = check_k1_cases("nlvr gather eval", k1_capture)
 
     step_gather = make_eval_step(model, True, caps_v, caps_t)
+    eager_gather = make_eval_step(model, True, caps_v, caps_t, graph=False)
     step_dense = make_eval_step(model, False)
-    torch.cuda.set_sync_debug_mode("error")  # the forward must not wait on the card
+    eager_dense = make_eval_step(model, False, graph=False)
+    torch.cuda.set_sync_debug_mode("error")  # the eager forward must not wait on the card
     try:
-        out = step_gather(images, ids, mask, t_star)
+        out = eager_gather(images, ids, mask, t_star)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     if out.logits.shape != (pairs, 2) or not torch.isfinite(out.logits.float()).all():
         raise AssertionError("gather logits are not finite [pairs, 2]")
-    gather_ms = time_ms(lambda: step_gather(images, ids, mask, t_star), iters)
-    dense_ms = time_ms(lambda: step_dense(images, ids, mask, 0.0), iters)
-    gather_host_ms = host_ms(lambda: step_gather(images, ids, mask, t_star), iters)
-    log(f"[main] T*={t_star:.4f} GFLOPs {g_star:.2f} pruned / {ori:.2f} dense; eval "
-        f"GFLOPs {cur_gflops:.2f}; acc {stats['acc']}; overflow {stats['overflow']}")
-    log(f"[main] capacities vision {list(caps_v)} text {list(caps_t)}")
-    log(f"[main] gather step {gather_ms:.2f} ms = {pairs / gather_ms * 1e3:.1f} samples/s; "
-        f"dense bf16 {dense_ms:.2f} ms = {pairs / dense_ms * 1e3:.1f} samples/s; "
-        f"ratio {dense_ms / gather_ms:.3f}")
-    log(f"[main] gather step host dispatch time {gather_host_ms:.2f} ms")
-    log(f"[main] launches on the main path: K1 {launches}, K4 {k4}, K5 {k5}")
-    ffn_ab("nlvr eval gather step", lambda: step_gather(images, ids, mask, t_star), iters)
-    profile_step("gather step", lambda: step_gather(images, ids, mask, t_star), gather_ms)
-    profile_step("dense step", lambda: step_dense(images, ids, mask, 0.0), dense_ms)
+    rec = graph_check("nlvr gather step", lambda t: step_gather(images, ids, mask, t),
+                      lambda t: eager_gather(images, ids, mask, t), (t_star, 1.25 * t_star),
+                      model, iters, dense_fn=lambda t: step_dense(images, ids, mask, t))
+    dense_ms = time_ms(lambda: eager_dense(images, ids, mask, 0.0), iters)
+    full = shapes_in_eval(np.random.default_rng(4), nlvr_text_lengths, NLVR2_DEV_PAIRS, pairs)
+    log(f"[main] T*={t_star:.4f} GFLOPs {g_star:.2f} pruned / {ori:.2f} dense at "
+        f"{text_len} tokens; eval GFLOPs {cur_gflops:.2f}; acc {stats['acc']}; overflow "
+        f"{stats['overflow']}")
+    log(f"[main] capacities (probe of the eval's first 2 batches) vision {list(caps_v)} text "
+        f"{list(caps_t)}")
+    log(f"[main] gather eval of {eval_batches} batches of {pairs} pairs, text padded to "
+        f"{min(widths)}-{max(widths)} tokens: eager {eager_s:.3f} s, graphs {graph_s:.3f} s "
+        f"({eager_s / graph_s:.3f}x) with {captures} captures ({len(set(widths))} lengths, "
+        f"{capture_s:.3f} s of host time in their warm-ups and captures); the feed alone "
+        f"(concatenating and uploading the fp32 images, the ids) {feed_s:.3f} s; "
+        f"equal accuracy, overflow and GFLOPs; a whole NLVR2 dev eval ({NLVR2_DEV_PAIRS} "
+        f"pairs, {-(-NLVR2_DEV_PAIRS // pairs)} batches) would capture {full} graphs")
+    log(f"[main] gather step: graph {rec['graph_ms']:.2f} ms = "
+        f"{pairs / rec['graph_ms'] * 1e3:.1f} samples/s, eager {rec['eager_ms']:.2f} ms = "
+        f"{pairs / rec['eager_ms'] * 1e3:.1f} samples/s; dense bf16 graph "
+        f"{rec['dense_graph_ms']:.2f} ms, eager {dense_ms:.2f} ms; pruned/dense under graphs "
+        f"{rec['pruned_over_dense']:.3f}x, eager {dense_ms / rec['eager_ms']:.3f}x")
+    log(f"[main] gather step host dispatch time: eager "
+        f"{host_ms(lambda: eager_gather(images, ids, mask, t_star), iters):.2f} ms, graph "
+        f"replay {rec['enqueue_ms']:.3f} ms")
+    log(f"[main] launches on the main path (graphs): K1 {launches}, K4 {k4}, K5 {k5}; "
+        f"eager eval K1 {eager[0]}, K4 {eager[1]}, K5 {eager[2]}")
+    ffn_ab("nlvr eval gather step (eager)", lambda: eager_gather(images, ids, mask, t_star),
+           iters)
+    profile_step("gather step (eager)", lambda: eager_gather(images, ids, mask, t_star),
+                 rec["eager_ms"])
+    profile_step("dense step (eager)", lambda: eager_dense(images, ids, mask, 0.0), dense_ms)
     return launches, k4, k5, record1
 
 
@@ -1540,8 +1788,9 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
                 set_lr(opt, lr)
                 stats = train_epoch(model, step_mask, loader_fn(batches), tokenize, enc_token_id,
                                     temperature, lr=lr, **quiet)
+                # the training path stays eager: its recorders take every call's inputs
                 _, cur_g = evaluate(model, loader_fn(1), tokenize, temperature, prune_active=True,
-                                    enc_token_id=enc_token_id, **quiet)
+                                    enc_token_id=enc_token_id, graph=False, **quiet)
                 log(f"[train] epoch {epoch}: T={temperature:.2f} lr={lr:.3e} loss {stats['loss']} "
                     f"(ori {stats['loss_ori']}, fdt {stats['loss_fdt']}); eval GFLOPs {cur_g:.2f} "
                     f"(target {controller.target_gflops:.2f}, dense {ori:.2f})")
@@ -1677,7 +1926,7 @@ GAP_MIN = 64 * FP32_ULP  # least relative DTP margin the parity phase runs at
 DRIFT_FACTOR = 4  # the margin must also hold this many times the card's drift
 # the card-against-CPU phases run near their main path's temperature T*: at
 # the first of these multiples of it whose DTP decisions clear the margin
-PARITY_FACTORS = (1.0, 1.25, 0.8, 1.6, 0.6, 2.0, 2.5, 3.2)
+PARITY_FACTORS = (1.0, 1.25, 0.8, 1.6, 0.6, 2.0, 2.5, 3.2, 4.0, 5.0, 6.4)
 
 
 class DTPRecorder:
@@ -1800,11 +2049,12 @@ def phase_retrieval_parity(device, cfg, t_main, k_test=4):
                                                capacities=cv, **kw)
                 _, tout = model.text_features(torch.from_numpy(ids).to(dev),
                                               torch.from_numpy(mask).to(dev), capacities=ct, **kw)
+            # eagerly: the recorder reads every decision back, which no graph may do
             feats = encode_corpus(model, [images], ids, mask, capacities_v=cv, capacities_t=ct,
-                                  **kw)
+                                  graph=False, **kw)
             before = cross_attention_cuda.launches
             scores = rerank_scores(model, *feats, enc_ids, mask, k_test=k_test,
-                                   capacities_t=ct, **kw)
+                                   capacities_t=ct, graph=False, **kw)
             k4 = cross_attention_cuda.launches - before
         return dict(kept=(iout.kept_counts.cpu(), tout.kept_counts.cpu()),
                     feats=(feats[0], feats[2]), scores=scores, k4=k4, dtp=rec.records,
@@ -1871,9 +2121,15 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
     inside its time limit) at ``k_test`` 256, so that every
     rerank row in both directions scores 256 candidates, and the dense eval
     (temperature 0); K4 against its plain version on the inputs each eval
-    gave it, K1 on the gather eval's; then one ITM forward at ``k_test``
-    256, timed and profiled.  Returns the temperature, the K1, K4 and K5
-    launch counts of the gather eval, the K4 record of its ITM shape and its
+    gave it, K1 on the gather eval's.  Each eval runs through ``evaluate``
+    (its score matrices recorded as ``rerank_scores`` returns them): eagerly
+    (``graph=False``: the recorders take the kernels' inputs there, its
+    launch counts exact) and then as CUDA graphs, the main path (equal
+    recalls, score matrices and launch counts, 4 captures); ``graph_check``
+    holds the image, text
+    and ITM steps' graphs (one ITM forward at ``k_test`` 256) against their
+    eager runs.  Returns the temperature, the K1, K4 and K5 launch
+    counts of the graph gather eval, the K4 record of its ITM shape and its
     K1 record."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
@@ -1881,7 +2137,8 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
     from madtp_tpu_torch.models.blip import init_retrieval_model
     from madtp_tpu_torch.prune.dtp import TokenState
     from madtp_tpu_torch.prune.flops import retrieval_gflops
-    from madtp_tpu_torch.tasks.retrieval import evaluate, probe_capacities
+    from madtp_tpu_torch.tasks.retrieval import corpus_steps, evaluate, probe_capacities
+    from madtp_tpu_torch.utils.graph import CapturedStep
 
     log(f"[retrieval] {card_line()}")
     model = init_retrieval_model(cfg, seed=0, device=device, dtype=torch.bfloat16)
@@ -1915,63 +2172,85 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
     log(f"[retrieval] T*={t_star:.4f}: {g_star:.2f} GFLOPs pruned / {ori:.2f} dense; "
         f"capacities vision {list(caps_v)} text {list(caps_t)}")
 
-    def run_eval(temperature, cv, ct):
+    def run_eval(temperature, cv, ct, graph):
+        """``evaluate`` (the entry point), its score matrices recorded for the
+        comparison of the graph run with the eager one."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with K4Capture() as capture, K5Capture() as k5_capture, \
-                K1Capture() as k1_capture:  # the eval's own inputs
+        with Returns("madtp_tpu_torch.tasks.retrieval", "rerank_scores") as scores:
             stats = evaluate(model, iter(batches), ids, mask, txt2img, img2txt, temperature,
                              enc_token_id=ENC_ID, k_test=k_test, capacities_v=cv,
-                             capacities_t=ct)
-        return stats, time.perf_counter() - t0, capture, k5_capture, k1_capture
+                             capacities_t=ct, graph=graph)
+        return stats, scores.values, time.perf_counter() - t0
 
-    attention_scores_cuda.launches = cross_attention_cuda.launches = ffn_cuda.launches = 0
-    stats, eval_s, gather_capture, gather_k5, gather_k1 = run_eval(t_star, caps_v, caps_t)
-    k1, k4, k5 = attention_scores_cuda.launches, cross_attention_cuda.launches, ffn_cuda.launches
+    def counts():
+        torch.cuda.synchronize()
+        return attention_scores_cuda.launches, cross_attention_cuda.launches, ffn_cuda.launches
+
     n_texts = len(ids)
+    n_tb = -(-n_texts // 256)
     n_itm = n_images + n_texts  # one ITM forward per rerank row, both directions
-    if k4 != L * n_itm:
-        raise AssertionError(f"retrieval eval launched K4 {k4} times in {n_itm} ITM forwards, "
-                             f"want {L} per forward")
-    want_k1 = cfg.vit.depth * len(batches) + L * (-(-n_texts // 256) + n_itm)
-    if k1 != want_k1:
-        raise AssertionError(f"retrieval eval launched K1 {k1} times, want {want_k1} (every "
-                             "self-attention of the towers and the ITM forwards)")
-    if k5 != k1:
-        raise AssertionError(f"retrieval eval launched K5 {k5} times, want {k1}: one FFN "
-                             "beside every scoring attention")
+    attention_scores_cuda.launches = cross_attention_cuda.launches = ffn_cuda.launches = 0
+    with K4Capture() as gather_capture, K5Capture() as gather_k5, \
+            K1Capture() as gather_k1:  # the eager eval's own inputs
+        eager_stats, eager_scores, eager_s = run_eval(t_star, caps_v, caps_t, False)
+    eager = counts()
+    want_k1 = cfg.vit.depth * len(batches) + L * (n_tb + n_itm)
+    if eager != (want_k1, L * n_itm, want_k1):
+        raise AssertionError(f"eager retrieval eval launched K1, K4, K5 {eager} times, want "
+                             f"{(want_k1, L * n_itm, want_k1)}: every self-attention and FFN of "
+                             f"the towers and the ITM forwards, {L} cross-attentions a forward")
+    attention_scores_cuda.launches = cross_attention_cuda.launches = ffn_cuda.launches = 0
+    captures = CapturedStep.captures
+    stats, scores, eval_s = run_eval(t_star, caps_v, caps_t, True)  # the main path
+    k1, k4, k5 = counts()
+    captures = CapturedStep.captures - captures
+    # one capture each of the image step, the text step and each direction's
+    # row step, whose first calls are their warm-ups
+    if (k1, k4, k5) != eager or captures != 4:
+        raise AssertionError(f"graph retrieval eval launched K1, K4, K5 {(k1, k4, k5)} times "
+                             f"with {captures} captures, want the eager eval's {eager} with 4")
+    if len(scores) != 1 or not outputs_equal(scores, eager_scores) or stats != eager_stats:
+        raise AssertionError("the graph retrieval eval's score matrices or recalls differ from "
+                             "the eager eval's")
     if not all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in stats.values()):
         raise AssertionError(f"retrieval stats out of range: {stats}")
     log(f"[retrieval] gather eval: {n_images} images, {n_texts} texts, k_test {k_test}: "
-        f"{eval_s:.2f} s wall; r_mean {stats['r_mean']:.3f} (random weights); launches "
-        f"K1 {k1}, K4 {k4} ({k4 // n_itm} per ITM forward), K5 {k5}")
-    dense_stats, dense_s, dense_capture, dense_k5, dense_k1 = run_eval(0.0, None, None)
+        f"graphs {eval_s:.2f} s wall ({captures} captures), eager {eager_s:.2f} s; r_mean "
+        f"{stats['r_mean']:.3f} (random weights), recalls equal, score matrices bit-equal; "
+        f"launches (graphs) K1 {k1}, K4 {k4} ({k4 // n_itm} per ITM forward), K5 {k5}")
+    with K4Capture() as dense_capture, K5Capture() as dense_k5, K1Capture() as dense_k1:
+        dense_eager = run_eval(0.0, None, None, False)
     dense_k1.cases.clear()
-    log(f"[retrieval] dense eval: {dense_s:.2f} s wall; r_mean {dense_stats['r_mean']:.3f}")
+    dense_stats, dense_scores, dense_s = run_eval(0.0, None, None, True)
+    dense_eager_s = dense_eager[2]
+    if not outputs_equal(dense_scores, dense_eager[1]) or dense_stats != dense_eager[0]:
+        raise AssertionError("graph dense retrieval eval differs from the eager one")
+    log(f"[retrieval] dense eval: graphs {dense_s:.2f} s wall, eager {dense_eager_s:.2f} s; "
+        f"r_mean {dense_stats['r_mean']:.3f}; pruned/dense eval wall under graphs "
+        f"{dense_s / eval_s:.3f}x, eager {dense_eager_s / eager_s:.3f}x")
     record = check_k4_cases("retrieval gather eval", gather_capture)
     check_k4_cases("retrieval dense eval", dense_capture)
     check_k5_cases("retrieval gather eval", gather_k5)
     check_k5_cases("retrieval dense eval", dense_k5)
     record1 = check_k1_cases("retrieval gather eval", gather_k1, iters=5)
 
-    def encode_rates(temperature, cv, ct):
-        """images/s of the image tower over the corpus, texts/s of the text
-        tower in batches of 256 (the rates of encode_corpus's two loops)."""
-        prune = temperature > 0
-        with torch.inference_mode():
-            def img():
-                for b in batches:
-                    model.image_features(torch.from_numpy(b).to(device), temperature=temperature,
-                                         prune_active=prune, capacities=cv)
+    temps = (t_star, 1.25 * t_star)
+    steps = {graph: corpus_steps(model, True, caps_v, caps_t, graph=graph)
+             for graph in (True, False)}
+    dense_steps = corpus_steps(model, False)
+    rec_img = graph_check(f"retrieval image batch of {batch}",
+                          lambda t: steps[True][0](im0, t), lambda t: steps[False][0](im0, t),
+                          temps, model, iters, dense_fn=lambda t: dense_steps[0](im0, t))
+    txt_args = (ids_d[:256], mask_d[:256])
+    rec_txt = graph_check("retrieval text batch of 256",
+                          lambda t: steps[True][1](*txt_args, t),
+                          lambda t: steps[False][1](*txt_args, t), temps, model, iters,
+                          dense_fn=lambda t: dense_steps[1](*txt_args, t))
 
-            def txt():
-                for i in range(0, n_texts, 256):
-                    model.text_features(ids_d[i:i + 256], mask_d[i:i + 256],
-                                        temperature=temperature, prune_active=prune,
-                                        capacities=ct)
-            return (n_images / time_ms(img, 3) * 1e3, n_texts / time_ms(txt, 3) * 1e3)
 
-    # one ITM forward at k_test 256: text 0 against 256 image states (t2i's shape)
+    # one ITM forward at k_test 256, the work of one rerank row: text 0 against
+    # 256 image states (t2i's shape)
     k = k_test
 
     def itm_inputs(temperature, cv):
@@ -1979,43 +2258,41 @@ def phase_retrieval_main(device, cfg, p_target=0.5, bisect_steps=8, n_images=256
             _, out = model.image_features(im0, temperature=temperature,
                                           prune_active=temperature > 0, capacities=cv)
         idx = torch.arange(k, device=device) % out.state.x.shape[0]
-        sx, sa = out.state.x[idx], out.state.alive[idx]
         eids = ids_d[:1].clone()
         eids[:, 0] = ENC_ID
-        return eids.expand(k, -1), mask_d[:1].expand(k, -1), TokenState(sx, sa, None)
+        return eids.expand(k, -1), mask_d[:1].expand(k, -1), out.state.x[idx], \
+            out.state.alive[idx]
 
-    rates = {}
-    for name, temperature, cv, ct in (("gather", t_star, caps_v, caps_t),
-                                      ("dense", 0.0, None, None)):
-        e_ids, e_mask, st = itm_inputs(temperature, cv)
-        kw = dict(temperature=temperature, prune_active=temperature > 0, capacities=ct)
-
+    def itm_step(prune, ct, graph):
         @torch.inference_mode()
-        def itm(e_ids=e_ids, e_mask=e_mask, st=st, kw=kw):
-            return model.itm_score(e_ids, e_mask, st, **kw)
+        def fn(e_ids, e_mask, x, alive, t):
+            return model.itm_score(e_ids, e_mask, TokenState(x, alive, None), temperature=t,
+                                   prune_active=prune, capacities=ct)
+        return CapturedStep(fn, "itm_forward", model, static=(prune, ct)) if graph else fn
 
-        if name == "gather":
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")  # the ITM forward must not wait on the card
-            try:
-                score = itm()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            if score.shape != (k,) or not torch.isfinite(score.float()).all():
-                raise AssertionError("ITM scores at k_test 256 are not finite [256]")
-        itm_ms = time_ms(itm, iters)
-        img_rate, txt_rate = encode_rates(temperature, cv, ct)
-        rates[name] = (img_rate, txt_rate, k / itm_ms * 1e3, itm_ms)
-        log(f"[retrieval] {name}: image encode {img_rate:.1f} images/s, text encode "
-            f"{txt_rate:.1f} texts/s, ITM forward at k={k} over {st.x.shape[1]} image slots "
-            f"{itm_ms:.2f} ms = {k / itm_ms * 1e3:.1f} candidates/s, host dispatch "
-            f"{host_ms(itm, iters):.2f} ms")
-        if name == "gather":
-            ffn_ab(f"retrieval gather ITM forward, k={k}", itm, iters)
-        profile_step(f"{name} ITM forward, k={k}", itm, itm_ms)
-    g, d = rates["gather"], rates["dense"]
-    log(f"[retrieval] pruned/dense: eval wall {dense_s / eval_s:.3f}x, images/s "
-        f"{g[0] / d[0]:.3f}x, texts/s {g[1] / d[1]:.3f}x, ITM candidates/s {g[2] / d[2]:.3f}x")
+    args = itm_inputs(t_star, caps_v)
+    dense_args = itm_inputs(0.0, None)
+    itm_g, itm_e = itm_step(True, caps_t, True), itm_step(True, caps_t, False)
+    dense_itm = itm_step(False, None, True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the eager ITM forward must not wait on the card
+    try:
+        score = itm_e(*args, t_star)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if score.shape != (k,) or not torch.isfinite(score.float()).all():
+        raise AssertionError("ITM scores at k_test 256 are not finite [256]")
+    rec_itm = graph_check(f"retrieval ITM forward, k={k}", lambda t: itm_g(*args, t),
+                          lambda t: itm_e(*args, t), temps, model, iters,
+                          dense_fn=lambda t: dense_itm(*dense_args, t))
+    ffn_ab(f"retrieval gather ITM forward, k={k} (eager)", lambda: itm_e(*args, t_star), iters)
+    profile_step(f"gather ITM forward, k={k} (eager)", lambda: itm_e(*args, t_star),
+                 rec_itm["eager_ms"])
+    for name, rec, n in (("image encode", rec_img, batch), ("text encode", rec_txt, 256),
+                         ("ITM candidates", rec_itm, k)):
+        log(f"[retrieval] {name}: graphs {n / rec['graph_ms'] * 1e3:.1f}/s pruned, "
+            f"{n / rec['dense_graph_ms'] * 1e3:.1f}/s dense ({rec['pruned_over_dense']:.3f}x); "
+            f"eager pruned {n / rec['eager_ms'] * 1e3:.1f}/s")
     return t_star, k1, k4, k5, record, record1
 
 
@@ -2054,20 +2331,27 @@ def clip_corpus(cfg, n_images, texts_per_image, seed):
 
 
 def phase_clip_main(device, cfg, p_target=0.5, bisect_steps=10, n_images=1024,
-                    texts_per_image=5, batch=32, rate_batches=8, iters=5):
+                    texts_per_image=5, batch=32, iters=5):
     """CLIP retrieval eval at p=0.5, bf16: the temperature bisected toward
     half the dense ``clip_gflops`` in mask mode (``tools/bench_clip.py:
     80-91``; first image batch and first 32 texts), the ``--fast_eval``
     capacities, ``evaluate`` in gather mode on a synthetic corpus cut from
     COCO's 5,000 images and 25,000 texts to 1,024 and 5,120 (1:5), and the
     dense eval.  K5 and K1 (at H=16) held against their plain versions on
-    the inputs the evals gave them.  Returns the temperature, the K1 and K5
-    launch counts of the gather eval and the K5 and K1 records."""
+    the inputs the evals gave them.  Each eval runs through ``evaluate``
+    (the towers' features recorded as ``encode_towers`` returns them):
+    eagerly (``graph=False``: the recorders take the kernels' inputs there,
+    its launch counts exact) and then as CUDA graphs, the main path (equal
+    recalls, GFLOPs, features and launch counts, 2 captures); ``graph_check``
+    holds both towers'
+    steps against their eager runs.  Returns the temperature, the K1 and K5
+    launch counts of the graph gather eval and the K5 and K1 records."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.ffn import ffn_cuda
     from madtp_tpu_torch.models.clip import init_clip_model
     from madtp_tpu_torch.prune.flops import clip_gflops
-    from madtp_tpu_torch.tasks.clip_retrieval import evaluate, probe_capacities
+    from madtp_tpu_torch.tasks.clip_retrieval import evaluate, probe_capacities, tower_steps
+    from madtp_tpu_torch.utils.graph import CapturedStep
 
     log(f"[clip] {card_line()}")
     model = init_clip_model(cfg, seed=0, device=device, dtype=torch.bfloat16)
@@ -2097,79 +2381,83 @@ def phase_clip_main(device, cfg, p_target=0.5, bisect_steps=10, n_images=1024,
     log(f"[clip] T*={t_star:.4f}: {g_star:.2f} GFLOPs pruned / {ori:.2f} dense; "
         f"capacities vision {list(caps_v)}")
 
-    def run_eval(temperature, cv):
+    def run_eval(temperature, cv, graph):
+        """``evaluate`` (the entry point), the towers' features recorded for
+        the comparison of the graph run with the eager one."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with K5Capture() as k5_capture, K1Capture() as k1_capture:  # the eval's own inputs
-            stats, gflops = evaluate(model, iter(batches), text, txt2img, img2txt, temperature,
-                                     capacities_v=cv, batch_size=batch)
-        return stats, gflops, time.perf_counter() - t0, k5_capture, k1_capture
+        with Returns("madtp_tpu_torch.tasks.clip_retrieval", "encode_towers") as towers:
+            stats, cur_g = evaluate(model, iter(batches), text, txt2img, img2txt, temperature,
+                                    capacities_v=cv, batch_size=batch, graph=graph)
+        return stats, cur_g, time.perf_counter() - t0, towers.values
 
-    attention_scores_cuda.launches = ffn_cuda.launches = 0
-    stats, cur_g, eval_s, k5_capture, k1_capture = run_eval(t_star, caps_v)
-    k1, k5 = attention_scores_cuda.launches, ffn_cuda.launches
+    def counts():
+        torch.cuda.synchronize()
+        return attention_scores_cuda.launches, ffn_cuda.launches
+
     n_texts = len(text)
     n_tb = -(-n_texts // batch)
-    if k1 != Lv * len(batches):
-        raise AssertionError(f"clip eval launched K1 {k1} times, want {Lv * len(batches)}: "
-                             "every vision layer (the causal text attention stays plain)")
-    if k5 != Lv * len(batches) + Lt * n_tb:
-        raise AssertionError(f"clip eval launched K5 {k5} times, want every FFN of both towers "
-                             f"({Lv * len(batches) + Lt * n_tb})")
+    attention_scores_cuda.launches = ffn_cuda.launches = 0
+    with K5Capture() as k5_capture, K1Capture() as k1_capture:  # the eager eval's own inputs
+        eager_stats, eager_g, eager_s, eager_out = run_eval(t_star, caps_v, False)
+    eager = counts()
+    if eager != (Lv * len(batches), Lv * len(batches) + Lt * n_tb):
+        raise AssertionError(f"eager clip eval launched K1, K5 {eager} times, want "
+                             f"{(Lv * len(batches), Lv * len(batches) + Lt * n_tb)}: every "
+                             "vision layer (the causal text attention stays plain), every FFN")
+    attention_scores_cuda.launches = ffn_cuda.launches = 0
+    captures = CapturedStep.captures
+    stats, cur_g, eval_s, out = run_eval(t_star, caps_v, True)  # the main path
+    k1, k5 = counts()
+    captures = CapturedStep.captures - captures
+    # one capture of each tower's step (the text batches share a shape), whose
+    # first calls are their warm-ups
+    if (k1, k5) != eager or captures != 2:
+        raise AssertionError(f"graph clip eval launched K1, K5 {(k1, k5)} times with "
+                             f"{captures} captures, want the eager eval's {eager} with 2")
+    if len(out) != 1 or not outputs_equal(out, eager_out) or \
+            (stats, cur_g) != (eager_stats, eager_g):
+        raise AssertionError("the graph clip eval's features or recalls differ from the eager "
+                             "eval's")
     if not all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in stats.values()):
         raise AssertionError(f"clip stats out of range: {stats}")
     if not (math.isfinite(cur_g) and 0 < cur_g < ori):
         raise AssertionError(f"clip eval GFLOPs {cur_g} not in (0, {ori})")
-    log(f"[clip] gather eval: {n_images} images, {n_texts} texts: {eval_s:.2f} s wall = "
-        f"{n_images / eval_s:.1f} images/s with their texts; r_mean {stats['r_mean']:.3f} "
-        f"(random weights); Cur_Gflops {cur_g:.2f}; launches K1 {k1}, K5 {k5}")
-    dense_stats, dense_g, dense_s, dense_k5, dense_k1 = run_eval(0.0, None)
-    if dense_k1.calls or abs(dense_g - ori) > 1e-6 * ori:
+    log(f"[clip] gather eval: {n_images} images, {n_texts} texts: graphs {eval_s:.2f} s wall = "
+        f"{n_images / eval_s:.1f} images/s with their texts ({captures} captures), eager "
+        f"{eager_s:.2f} s; r_mean {stats['r_mean']:.3f} (random weights), recalls equal, "
+        f"features bit-equal; Cur_Gflops {cur_g:.2f}; launches (graphs) K1 {k1}, K5 {k5}")
+    with K5Capture() as dense_k5, K1Capture() as dense_k1:
+        dense_eager = run_eval(0.0, None, False)
+    dense_stats, dense_g, dense_s, dense_out = run_eval(0.0, None, True)
+    if dense_k1.calls or abs(dense_g - ori) > 1e-6 * ori or \
+            not outputs_equal(dense_out, dense_eager[3]) or dense_stats != dense_eager[0]:
         raise AssertionError(f"dense eval: {sum(dense_k1.calls.values())} scoring attentions, "
-                             f"GFLOPs {dense_g} (want none, {ori})")
-    log(f"[clip] dense eval: {dense_s:.2f} s wall; r_mean {dense_stats['r_mean']:.3f}; "
-        f"pruned/dense eval wall {dense_s / eval_s:.3f}x")
+                             f"GFLOPs {dense_g} (want none, {ori}), equal to eager: "
+                             f"{outputs_equal(dense_out, dense_eager[3])}")
+    log(f"[clip] dense eval: graphs {dense_s:.2f} s wall, eager {dense_eager[2]:.2f} s; r_mean "
+        f"{dense_stats['r_mean']:.3f}; pruned/dense eval wall under graphs "
+        f"{dense_s / eval_s:.3f}x, eager {dense_eager[2] / eager_s:.3f}x")
     record5 = check_k5_cases("clip gather eval", k5_capture)
     check_k5_cases("clip dense eval", dense_k5)
     record1 = check_k1_cases("clip vision gather eval", k1_capture)
 
-    def tower_rates(temperature, cv):
-        """images/s of the vision tower over ``rate_batches`` batches and
-        texts/s of the text tower over 4x as many, batches of ``batch``."""
-        kw = dict(temperature=temperature, prune_active=temperature > 0)
-        ims = [torch.from_numpy(b).to(device) for b in batches[:rate_batches]]
-
-        @torch.inference_mode()
-        def img():
-            for im in ims:
-                model.encode_image(im, capacities=cv, **kw)
-
-        @torch.inference_mode()
-        def txt():
-            for i in range(0, 4 * rate_batches * batch, batch):
-                model.encode_text(tx[i:i + batch], **kw)
-
-        return (rate_batches * batch / time_ms(img, 2) * 1e3,
-                4 * rate_batches * batch / time_ms(txt, 2) * 1e3)
-
-    rates = {}
-    for name, temperature, cv in (("gather", t_star, caps_v), ("dense", 0.0, None)):
-        kw = dict(temperature=temperature, prune_active=temperature > 0, capacities=cv)
-
-        @torch.inference_mode()
-        def one_batch(kw=kw):
-            return model.encode_image(im0, **kw)
-
-        rates[name] = tower_rates(temperature, cv)
-        batch_ms = time_ms(one_batch, iters)
-        log(f"[clip] {name}: vision {rates[name][0]:.1f} images/s, text {rates[name][1]:.1f} "
-            f"texts/s; one image batch of {batch} {batch_ms:.2f} ms, host dispatch "
-            f"{host_ms(one_batch, iters):.2f} ms")
-        if name == "gather":
-            ffn_ab(f"clip gather image batch of {batch}", one_batch, iters)
-        profile_step(f"clip {name} image batch of {batch}", one_batch, batch_ms, top=8)
-    g, d = rates["gather"], rates["dense"]
-    log(f"[clip] pruned/dense: images/s {g[0] / d[0]:.3f}x, texts/s {g[1] / d[1]:.3f}x")
+    temps = (t_star, 1.25 * t_star)
+    steps = {graph: tower_steps(model, True, caps_v, graph=graph) for graph in (True, False)}
+    dense_steps = tower_steps(model, False)
+    rec_img = graph_check(f"clip image batch of {batch}", lambda t: steps[True][0](im0, t),
+                          lambda t: steps[False][0](im0, t), temps, model, iters,
+                          dense_fn=lambda t: dense_steps[0](im0, t))
+    tx0 = tx[:batch]
+    rec_txt = graph_check(f"clip text batch of {batch}", lambda t: steps[True][1](tx0, t),
+                          lambda t: steps[False][1](tx0, t), temps, model, iters,
+                          dense_fn=lambda t: dense_steps[1](tx0, t))
+    ffn_ab(f"clip gather image batch of {batch} (eager)", lambda: steps[False][0](im0, t_star),
+           iters)
+    for name, rec in (("vision", rec_img), ("text", rec_txt)):
+        log(f"[clip] {name}: graphs {batch / rec['graph_ms'] * 1e3:.1f}/s pruned, "
+            f"{batch / rec['dense_graph_ms'] * 1e3:.1f}/s dense ({rec['pruned_over_dense']:.3f}x);"
+            f" eager pruned {batch / rec['eager_ms'] * 1e3:.1f}/s")
     return t_star, k1, k5, record5, record1
 
 
@@ -2193,10 +2481,10 @@ def phase_clip_parity(device, cfg, t_main, n_images=2, texts_per_image=2):
     def run(model, temperature, cv):
         t0 = time.perf_counter()
         before = attention_scores_cuda.launches
-        with DTPRecorder() as rec:
+        with DTPRecorder() as rec:  # eagerly: the recorder reads every decision back
             img, txt, vk, tk = encode_towers(model, [images], text, temperature=temperature,
                                              prune_active=True, capacities_v=cv,
-                                             batch_size=len(text))
+                                             batch_size=len(text), graph=False)
         return dict(kept=(vk, tk), feats=(img, txt), sims=img @ txt.T, dtp=rec.records,
                     k1=attention_scores_cuda.launches - before,
                     seconds=time.perf_counter() - t0)
@@ -2248,11 +2536,12 @@ def phase_clip_parity(device, cfg, t_main, n_images=2, texts_per_image=2):
             f"cpu {cpu['seconds']:.1f} s")
 
 
-def vqa_questions(rng, n, lo=8, hi=20):
-    """Synthetic question ids: [ENC], ``lo``-``hi`` random wordpieces and
-    [SEP], padded to the longest (the tokenizer's ``padding="longest"``, [ENC]
-    in slot 0 as ``compress_vqa`` sets it).  Returns ``(ids, mask)``."""
-    lengths = rng.integers(lo, hi + 1, size=n) + 2
+def vqa_questions(rng, n, lo=8, hi=20, words=None):
+    """Synthetic question ids: [ENC], ``words`` (default ``lo``-``hi``)
+    random wordpieces and [SEP], padded to the longest (the tokenizer's
+    ``padding="longest"``, [ENC] in slot 0 as ``compress_vqa`` sets it).
+    Returns ``(ids, mask)``."""
+    lengths = (rng.integers(lo, hi + 1, size=n) if words is None else words) + 2
     ids = np.where(np.arange(lengths.max())[None, :] < lengths[:, None],
                    rng.integers(1000, 30000, size=(n, lengths.max())), 0)
     ids[:, 0] = ENC_ID
@@ -2276,10 +2565,11 @@ def vqa_answers(rng, n, pool, la=8):
 
 def vqa_batches(rng, image_size, n_batches, batch):
     """``n_batches`` synthetic eval batches ``(images, q_ids, q_mask,
-    question_ids)`` in ``tasks.vqa``'s layout."""
+    question_ids)`` in ``tasks.vqa``'s layout, the questions as long as
+    ``vqa_question_words`` draws them."""
     out = []
     for i in range(n_batches):
-        ids, mask = vqa_questions(rng, batch)
+        ids, mask = vqa_questions(rng, batch, words=vqa_question_words(rng, batch))
         images = rng.standard_normal((batch, 3, image_size, image_size), dtype=np.float32)
         out.append((images, ids, mask, np.arange(i * batch, (i + 1) * batch)))
     return out
@@ -2448,12 +2738,18 @@ def phase_vqa_main(device, cfg, p_target=0.5, bisect_steps=8, n_batches=16, batc
     K5 held against their plain versions on the gather eval's own inputs,
     K4 and K5 on the dense eval's (which runs no scoring attention), a
     profile of one gather batch, its host dispatch time, and the LM head's
-    time at the candidate pass's shape.  Returns the temperature, the model,
-    the launch counts (K1, K4, K5), the gather eval's K1, K4 and K5 records
-    and the dense eval's K4 and K5 records."""
+    time at the candidate pass's shape.  Each eval runs eagerly
+    (``graph=False``: the recorders take the kernels' inputs there, its
+    launch counts exact) and then as CUDA graphs, the main path (a graph per
+    question length, the questions drawn as ``vqa_question_words`` does;
+    equal answers and launch counts); ``graph_check`` holds the rank step's graph
+    against its eager run.  Returns the temperature, the model, the launch
+    counts (K1, K4, K5) of the graph gather eval, the gather eval's K1, K4
+    and K5 records and the dense eval's K4 and K5 records."""
     from madtp_tpu_torch.models.blip import init_vqa_model
     from madtp_tpu_torch.prune.flops import vqa_gflops
-    from madtp_tpu_torch.tasks.vqa import evaluate, probe_capacities, rank_answers
+    from madtp_tpu_torch.tasks.vqa import evaluate, make_rank_step, probe_capacities
+    from madtp_tpu_torch.utils.graph import CapturedStep
 
     log(f"[vqa] {card_line()}")
     model = init_vqa_model(cfg, seed=0, device=device, dtype=torch.bfloat16)
@@ -2488,37 +2784,64 @@ def phase_vqa_main(device, cfg, p_target=0.5, bisect_steps=8, n_batches=16, batc
         f"with {k_test} decoder passes {gflops(vk, tk, k_test):.2f} / "
         f"{gflops(*dense_kept, k_test):.2f}; capacities vision {list(caps_v)} text {list(caps_t)}")
 
-    def run_eval(temperature, cv, ct):
+    def run_eval(temperature, cv, ct, graph):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         results, cur_g = evaluate(model, iter(batches), a_ids, a_mask, temperature=temperature,
-                                  k_test=k_test, capacities_v=cv, capacities_t=ct)
+                                  k_test=k_test, capacities_v=cv, capacities_t=ct, graph=graph)
         return results, cur_g, time.perf_counter() - t0
 
     n_q = n_batches * batch
+    per_batch = (Lv + L, 0, 2 * L, Lv + 3 * L)
+    # a graph per question length (batches are padded to their longest)
+    n_shapes = len({b[1].shape for b in batches})
+    widths = sorted({b[1].shape[1] for b in batches})
     zero_launch_counts()
     with K1Capture() as k1_capture, K4Capture() as k4_capture, K5Capture() as k5_capture:
-        results, cur_g, eval_s = run_eval(t_star, caps_v, caps_t)
+        eager_results, eager_g, eager_s = run_eval(t_star, caps_v, caps_t, False)
+    eager = launch_counts()
+    if eager != tuple(n_batches * n for n in per_batch):
+        raise AssertionError(f"eager vqa eval launched K1, K1 at N > 1536, K4, K5 {eager} "
+                             f"times, want {n_batches} x {per_batch}")
+    zero_launch_counts()
+    captures, capture_s = CapturedStep.captures, CapturedStep.capture_seconds
+    results, cur_g, eval_s = run_eval(t_star, caps_v, caps_t, True)  # the main path
     k1, large, k4, k5 = launch_counts()
-    if (k1, large, k4, k5) != (n_batches * (Lv + L), 0, n_batches * 2 * L,
-                               n_batches * (Lv + 3 * L)):
-        raise AssertionError(f"vqa eval launched K1 {k1} ({large} at N > 1536), K4 {k4}, K5 {k5} "
-                             f"times, want {n_batches} x ({Lv + L}, 0, {2 * L}, {Lv + 3 * L})")
+    captures = CapturedStep.captures - captures
+    capture_s = CapturedStep.capture_seconds - capture_s
+    # a new length's first batch is its capture's warm-up; the others replay
+    if (k1, large, k4, k5) != eager or captures != n_shapes:
+        raise AssertionError(f"graph vqa eval launched K1 ({large} at N > 1536), K4, K5 "
+                             f"{(k1, k4, k5)} times with {captures} captures, want the eager "
+                             f"eval's {eager} with {n_shapes}")
+    if (results, cur_g) != (eager_results, eager_g):
+        raise AssertionError("graph vqa eval differs from the eager one")
     if len(results) != n_q or not all(0 <= a < n_answers for _, a in results):
         raise AssertionError(f"vqa eval: {len(results)} results, want {n_q} in range")
     if not (math.isfinite(cur_g) and 0 < cur_g < gflops(*dense_kept, k_test)):
         raise AssertionError(f"vqa eval GFLOPs {cur_g}")
-    log(f"[vqa] gather eval: {n_q} questions, {n_answers} answers, k_test {k_test}: "
-        f"{eval_s:.2f} s wall = {n_q / eval_s:.2f} questions/s; Cur_Gflops {cur_g:.2f}; "
-        f"{len(set(a for _, a in results))} distinct answers; launches K1 {k1}, K4 {k4}, K5 {k5}")
+    full = shapes_in_eval(np.random.default_rng(15), vqa_question_words, VQAV2_TEST_DEV, batch)
+    log(f"[vqa] gather eval: {n_q} questions, {n_answers} answers, k_test {k_test}: graphs "
+        f"{eval_s:.2f} s wall = {n_q / eval_s:.2f} questions/s ({captures} captures for "
+        f"{n_shapes} question lengths, {widths[0]}-{widths[-1]} tokens, {capture_s:.3f} s of "
+        f"host time in their warm-ups and captures), eager {eager_s:.2f} "
+        f"s = {n_q / eager_s:.2f} questions/s ({eager_s / eval_s:.3f}x); a whole VQAv2 "
+        f"test-dev eval ({VQAV2_TEST_DEV} questions, {-(-VQAV2_TEST_DEV // batch)} batches) "
+        f"would capture {full} graphs; equal answers; Cur_Gflops "
+        f"{cur_g:.2f}; {len(set(a for _, a in results))} distinct answers; launches (graphs) "
+        f"K1 {k1}, K4 {k4}, K5 {k5}")
     zero_launch_counts()
     with K4Capture() as dense_k4, K5Capture() as dense_k5:
-        dense_results, dense_g, dense_s = run_eval(0.0, None, None)
+        dense_eager = run_eval(0.0, None, None, False)
     d_launches = launch_counts()
-    log(f"[vqa] dense eval: {dense_s:.2f} s wall = {n_q / dense_s:.2f} questions/s; Cur_Gflops "
-        f"{dense_g:.2f}; launches K1 {d_launches[0]}, K4 {d_launches[2]}, K5 {d_launches[3]}; "
-        f"pruned/dense wall {dense_s / eval_s:.3f}x; answers equal to the pruned eval's: "
-        f"{sum(a == b for a, b in zip(results, dense_results))} of {n_q}")
+    dense_results, dense_g, dense_s = run_eval(0.0, None, None, True)
+    if (dense_results, dense_g) != dense_eager[:2]:
+        raise AssertionError("graph dense vqa eval differs from the eager one")
+    log(f"[vqa] dense eval: graphs {dense_s:.2f} s wall = {n_q / dense_s:.2f} questions/s, "
+        f"eager {dense_eager[2]:.2f} s; Cur_Gflops {dense_g:.2f}; eager launches K1 "
+        f"{d_launches[0]}, K4 {d_launches[2]}, K5 {d_launches[3]}; pruned/dense wall under "
+        f"graphs {dense_s / eval_s:.3f}x, eager {dense_eager[2] / eager_s:.3f}x; answers equal "
+        f"to the pruned eval's: {sum(a == b for a, b in zip(results, dense_results))} of {n_q}")
     record1 = check_k1_cases("vqa gather eval", k1_capture, iters=5)
     record4 = check_k4_cases("vqa gather eval", k4_capture)
     # the records of the candidate pass's FFNs, which carry most of the path's FFN work
@@ -2530,27 +2853,25 @@ def phase_vqa_main(device, cfg, p_target=0.5, bisect_steps=8, n_batches=16, batc
     dense5 = check_k5_cases("vqa dense eval", dense_k5, where=cand)
 
     a_dev = [torch.from_numpy(a).to(device) for a in (a_ids, a_mask)]
-    for name, temperature, cv, ct in (("gather", t_star, caps_v, caps_t),
-                                      ("dense", 0.0, None, None)):
-        @torch.inference_mode()
-        def one_batch(temperature=temperature, cv=cv, ct=ct):
-            out, _, _ = model.encode(im0, q0, m0, temperature=temperature,
-                                     prune_active=temperature > 0, capacities_v=cv,
-                                     capacities_t=ct)
-            return rank_answers(model.text_decoder, out.state, *a_dev, k=k_test)
-
-        if name == "gather":
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")  # the batch must not wait on the card
-            try:
-                one_batch()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        batch_ms = time_ms(one_batch, iters)
-        log(f"[vqa] {name}: one batch of {batch} {batch_ms:.2f} ms = "
-            f"{batch / batch_ms * 1e3:.2f} questions/s, host dispatch "
-            f"{host_ms(one_batch, iters):.2f} ms")
-        profile_step(f"vqa {name} batch of {batch}", one_batch, batch_ms, top=12)
+    kw = dict(k=k_test)
+    step = make_rank_step(model, True, caps_v, caps_t, **kw)
+    eager_step = make_rank_step(model, True, caps_v, caps_t, graph=False, **kw)
+    dense_step = make_rank_step(model, False, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the eager batch must not wait on the card
+    try:
+        eager_step(im0, q0, m0, *a_dev, t_star)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rec = graph_check(f"vqa batch of {batch}", lambda t: step(im0, q0, m0, *a_dev, t),
+                      lambda t: eager_step(im0, q0, m0, *a_dev, t), (t_star, 1.25 * t_star),
+                      model, iters, dense_fn=lambda t: dense_step(im0, q0, m0, *a_dev, t))
+    log(f"[vqa] one batch of {batch}: graph {rec['graph_ms']:.2f} ms = "
+        f"{batch / rec['graph_ms'] * 1e3:.2f} questions/s, eager {rec['eager_ms']:.2f} ms, "
+        f"host dispatch eager {host_ms(lambda: eager_step(im0, q0, m0, *a_dev, t_star), iters):.2f}"
+        f" ms, graph replay {rec['enqueue_ms']:.3f} ms")
+    profile_step(f"vqa gather batch of {batch} (eager)",
+                 lambda: eager_step(im0, q0, m0, *a_dev, t_star), rec["eager_ms"], top=12)
     hidden = torch.randn(batch * k_test, 6, cfg.med.hidden_size, device=device,
                          dtype=torch.bfloat16)
     with torch.inference_mode():
@@ -2572,11 +2893,15 @@ def phase_vqa_640(device, model480, temperature, n_batches=4, batch=16, n_answer
     the mask-mode image memory of 1,616 slots, K5 over its 16 x 1,616
     rows).  Returns the K1 launches, K3's (N > 1536), the K4 and K5
     launches, and the records of K1 at N > 1536, of K4 at the widest image
-    memory and of K5 at the widest ViT rows."""
+    memory and of K5 at the widest ViT rows.  Each eval runs eagerly (``graph=False``: the recorders
+    take the kernels' inputs there, its launch counts exact) and then as
+    CUDA graphs, the main path (equal results and launch counts: a new
+    length's first batch is its capture's warm-up); ``graph_check`` holds
+    the gather step and a dense eval as graphs gives pruned/dense."""
     from madtp_tpu_torch.ckpt.convert import load_vqa_state_dict
     from madtp_tpu_torch.core.config import vqa_config
     from madtp_tpu_torch.kernels.attention_scores import LARGE_N
-    from madtp_tpu_torch.tasks.vqa import evaluate, probe_capacities
+    from madtp_tpu_torch.tasks.vqa import evaluate, make_rank_step, probe_capacities
 
     log(f"[vqa640] {card_line()}")
     cfg = vqa_config(640)
@@ -2588,33 +2913,61 @@ def phase_vqa_640(device, model480, temperature, n_batches=4, batch=16, n_answer
     n_q = n_batches * batch
     caps_v, caps_t = probe_capacities(model, iter(batches), temperature, "ceil")
     log(f"[vqa640] T={temperature:.4f}: capacities vision {list(caps_v)} text {list(caps_t)}")
-    zero_launch_counts()
-    runs = {}
+    def run_eval(cv, ct, graph, temperature=temperature):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results, cur_g = evaluate(model, iter(batches), a_ids, a_mask, temperature=temperature,
+                                  k_test=k_test, capacities_v=cv, capacities_t=ct, graph=graph)
+        return results, cur_g, time.perf_counter() - t0
+
+    modes = (("mask", None, None), ("gather", caps_v, caps_t))
+    n_shapes = len({b[1].shape for b in batches})
+    eager, eager_counts = {}, {}
     with K1Capture() as capture, K4Capture() as k4_capture, K5Capture() as k5_capture:
-        for mode, cv, ct in (("mask", None, None), ("gather", caps_v, caps_t)):
-            before = launch_counts()
-            t0 = time.perf_counter()
-            results, cur_g = evaluate(model, iter(batches), a_ids, a_mask,
-                                      temperature=temperature, k_test=k_test,
-                                      capacities_v=cv, capacities_t=ct)
-            torch.cuda.synchronize()
-            runs[mode] = time.perf_counter() - t0
-            k1, large, k4, k5 = (a - b for a, b in zip(launch_counts(), before))
-            if len(results) != n_q:
-                raise AssertionError(f"vqa640 {mode}: {len(results)} results, want {n_q}")
+        for mode, cv, ct in modes:  # eagerly, for the kernels' own inputs
+            zero_launch_counts()
+            eager[mode] = run_eval(cv, ct, False)
+            eager_counts[mode] = launch_counts()
+            large = eager_counts[mode][1]
             want_large = cfg.vit.depth * n_batches if mode == "mask" else n_batches
             if large < want_large or (mode == "mask" and large != want_large):
                 raise AssertionError(f"vqa640 {mode}: K1 launched {large} times at N > 1536, "
                                      f"want {want_large}")
-            log(f"[vqa640] {mode} eval: {n_q} questions: {runs[mode]:.2f} s wall = "
-                f"{n_q / runs[mode]:.2f} questions/s; Cur_Gflops {cur_g:.2f}; launches K1 "
-                f"{k1} ({large} at N > 1536: K3's), K4 {k4}, K5 {k5}")
+    zero_launch_counts()
+    runs = {}
+    for mode, cv, ct in modes:  # the main path: as graphs
+        before = launch_counts()
+        results, cur_g, runs[mode] = run_eval(cv, ct, True)
+        k1, large, k4, k5 = (a - b for a, b in zip(launch_counts(), before))
+        if len(results) != n_q or (results, cur_g) != eager[mode][:2]:
+            raise AssertionError(f"vqa640 {mode}: {len(results)} results, want {n_q}, equal to "
+                                 "the eager eval's")
+        if (k1, large, k4, k5) != eager_counts[mode]:
+            raise AssertionError(f"vqa640 {mode}: graphs launched {(k1, large, k4, k5)}, want "
+                                 f"the eager eval's {eager_counts[mode]}")
+        log(f"[vqa640] {mode} eval: {n_q} questions: graphs {runs[mode]:.2f} s wall = "
+            f"{n_q / runs[mode]:.2f} questions/s, eager {eager[mode][2]:.2f} s = "
+            f"{n_q / eager[mode][2]:.2f}; equal answers; Cur_Gflops {cur_g:.2f}; launches "
+            f"(graphs) K1 {k1} ({large} at N > 1536: K3's), K4 {k4}, K5 {k5}")
     totals = launch_counts()
+    dense = run_eval(None, None, True, temperature=0.0)
+    log(f"[vqa640] dense eval (graphs): {dense[2]:.2f} s wall = {n_q / dense[2]:.2f} "
+        f"questions/s; pruned/dense wall under graphs: mask {dense[2] / runs['mask']:.3f}x, "
+        f"gather {dense[2] / runs['gather']:.3f}x")
     record = check_k1_cases("vqa640 eval, N > 1536", capture, iters=5, min_n=LARGE_N + 1)
     widest = dict(S=max(key[2] for key in k4_capture.cases))
     record4 = check_k4_cases("vqa640 eval", k4_capture, where=widest)
     rows = dict(M=max(key[0] for key in k5_capture.cases))
     record5 = check_k5_cases("vqa640 eval", k5_capture, where=rows)
+
+    im0, q0, m0 = (torch.from_numpy(a).to(device) for a in batches[0][:3])
+    a_dev = [torch.from_numpy(a).to(device) for a in (a_ids, a_mask)]
+    step = make_rank_step(model, True, caps_v, caps_t, k=k_test)
+    eager_step = make_rank_step(model, True, caps_v, caps_t, k=k_test, graph=False)
+    dense_step = make_rank_step(model, False, k=k_test)
+    graph_check(f"vqa640 gather batch of {batch}", lambda t: step(im0, q0, m0, *a_dev, t),
+                lambda t: eager_step(im0, q0, m0, *a_dev, t), (temperature, 1.25 * temperature),
+                model, 3, dense_fn=lambda t: dense_step(im0, q0, m0, *a_dev, t))
     return totals, (record, record4, record5)
 
 
@@ -2735,11 +3088,15 @@ def phase_caption_main(device, cfg, tokenizer, p_target=0.5, bisect_steps=8, n_b
     synthetic images (8 batches of 32), then the dense eval; captions/s and
     wall times, exact launch counts per batch, CIDEr-D of the pruned captions
     against the dense ones as references (agreement, not accuracy), the
-    decoder step's device and host dispatch times, one batch under the sync
-    guard, timed, with its host dispatch and a profile; K1, K4 and K5 held on
-    the pruned eval's own inputs, K4 and K5 on the dense eval's.  Returns
-    the temperature, the launch counts (K1, K4, K5) and the K1, K4 and K5
-    records of the pruned eval."""
+    decoder step's device and host dispatch times; K1, K4 and K5 held on the
+    pruned eval's own inputs, K4 and K5 on the dense eval's.  Each eval runs
+    eagerly (``graph=False``: the recorders take the kernels' inputs there,
+    its launch counts exact) and then as CUDA graphs, the main path (equal
+    results and launch counts: the first batch is the capture's warm-up);
+    ``graph_check`` holds one
+    batch (encode and the whole decode, one graph) against its eager run.
+    Returns the temperature, the launch counts (K1, K4, K5) of the graph
+    eval and the K1, K4 and K5 records of the pruned eval."""
     from madtp_tpu_torch.eval.caption_metrics import coco_caption_scores
     from madtp_tpu_torch.models.blip import init_caption_model
     from madtp_tpu_torch.models.med import init_decode_cache
@@ -2779,27 +3136,40 @@ def phase_caption_main(device, cfg, tokenizer, p_target=0.5, bisect_steps=8, n_b
         f"(ORI_GFLOPS_CAPTION {ORI_GFLOPS_CAPTION}); kept {vk.tolist()}; capacities "
         f"{list(caps)}")
 
-    def run_eval(temperature, capacities):
+    def run_eval(temperature, capacities, graph):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = TC.evaluate(model, tokenizer, iter(batches), temperature=temperature,
-                          capacities=capacities, num_beams=nb, max_length=T, min_length=5)
+                          capacities=capacities, num_beams=nb, max_length=T, min_length=5,
+                          graph=graph)
         return (*out, time.perf_counter() - t0)
 
     n_img = n_batches * batch
     steps = Lp + (T - Lp - 1)  # decoder steps per batch: the prompt, then all but the last
-    want = (n_batches * Lv, n_batches * L * steps, n_batches * (Lv + L * steps))
+    per_batch = (Lv, 0, L * steps, Lv + L * steps)
     zero_launch_counts()
     with K1Capture() as k1_capture, K4Capture() as k4_capture, K5Capture() as k5_capture:
-        results, cur_g, eval_s = run_eval(t_star, caps)
+        eager = run_eval(t_star, caps, False)
+    if launch_counts() != tuple(n_batches * n for n in per_batch):
+        raise AssertionError(f"eager caption eval launched K1, K1 at N > 1536, K4, K5 "
+                             f"{launch_counts()} times, want {n_batches} x {per_batch}")
+    zero_launch_counts()
+    results, cur_g, eval_s = run_eval(t_star, caps, True)  # the main path
     k1, large, k4, k5 = launch_counts()
-    if (k1, k4, k5) != want or large:
-        raise AssertionError(f"caption eval launched K1 {k1}, K4 {k4}, K5 {k5} times, want "
-                             f"{want}")
+    # one capture (every batch of the same shape), whose first batch is its
+    # warm-up, then a replay a batch
+    if (k1, large, k4, k5) != tuple(n_batches * n for n in per_batch):
+        raise AssertionError(f"caption eval launched K1, K1 at N > 1536, K4, K5 "
+                             f"{(k1, large, k4, k5)} times, want {n_batches} x {per_batch}")
+    if (results, cur_g) != eager[:2]:
+        raise AssertionError("graph caption eval differs from the eager one")
     zero_launch_counts()
     with K4Capture() as dense_k4, K5Capture() as dense_k5:
-        dense, dense_gf, dense_s = run_eval(0.0, None)
+        dense_eager = run_eval(0.0, None, False)
     d_launches = launch_counts()
+    dense, dense_gf, dense_s = run_eval(0.0, None, True)
+    if (dense, dense_gf) != dense_eager[:2]:
+        raise AssertionError("graph dense caption eval differs from the eager one")
     for name, res in (("pruned", results), ("dense", dense)):
         if [r["image_id"] for r in res] != list(range(n_img)) or not all(
                 r["caption"] for r in res):
@@ -2809,12 +3179,16 @@ def phase_caption_main(device, cfg, tokenizer, p_target=0.5, bisect_steps=8, n_b
         raise AssertionError(f"caption eval GFLOPs {cur_g} against {dense_gf} dense")
     cider = coco_caption_scores(results, {str(r["image_id"]): [r["caption"]] for r in dense})
     same = sum(a["caption"] == b["caption"] for a, b in zip(results, dense))
-    log(f"[caption] gather eval: {n_img} images: {eval_s:.2f} s wall = {n_img / eval_s:.2f} "
-        f"captions/s; Cur_Gflops {cur_g:.2f}; launches K1 {k1}, K4 {k4}, K5 {k5} (per batch "
-        f"{k1 // n_batches}, {k4 // n_batches}, {k5 // n_batches}: {steps} decoder steps)")
-    log(f"[caption] dense eval: {dense_s:.2f} s wall = {n_img / dense_s:.2f} captions/s; "
-        f"Cur_Gflops {dense_gf:.2f}; launches K1 {d_launches[0]}, K4 {d_launches[2]}, K5 "
-        f"{d_launches[3]}; pruned/dense wall {dense_s / eval_s:.3f}x")
+    log(f"[caption] gather eval: {n_img} images: graphs {eval_s:.2f} s wall = "
+        f"{n_img / eval_s:.2f} captions/s (one capture included), eager {eager[2]:.2f} s = "
+        f"{n_img / eager[2]:.2f} captions/s; equal captions; Cur_Gflops {cur_g:.2f}; launches "
+        f"(graphs) K1 {k1}, K4 {k4}, K5 {k5} (per batch {per_batch[0]}, {per_batch[2]}, "
+        f"{per_batch[3]}: {steps} decoder steps)")
+    log(f"[caption] dense eval: graphs {dense_s:.2f} s wall = {n_img / dense_s:.2f} captions/s, "
+        f"eager {dense_eager[2]:.2f} s = {n_img / dense_eager[2]:.2f}; Cur_Gflops "
+        f"{dense_gf:.2f}; eager launches K1 {d_launches[0]}, K4 {d_launches[2]}, K5 "
+        f"{d_launches[3]}; pruned/dense wall under graphs {dense_s / eval_s:.3f}x, eager "
+        f"{dense_eager[2] / eager[2]:.3f}x")
     log(f"[caption] agreement of the pruned captions with the dense ones (references): "
         f"CIDEr-D {cider['CIDEr']:.4f}, Bleu_4 {cider['Bleu_4']:.4f}; {same} of {n_img} equal; "
         f"e.g. {results[0]['caption']!r} / {dense[0]['caption']!r}")
@@ -2843,7 +3217,7 @@ def phase_caption_main(device, cfg, tokenizer, p_target=0.5, bisect_steps=8, n_b
         step_ms = time_ms(one_step, 20)
         step_host = host_ms(one_step, 20)
         step_dev = profile_step(f"caption decoder step ({batch * nb} rows)", one_step, step_ms,
-                                top=6)
+                                top=6)[0]
         h = one_step()[0]
         lm_ms = kernel_ms(lambda: decoder.lm_head(h), 20)
     log(f"[caption] decoder step ({batch * nb} rows, {L} layers, memory of {state.x.shape[1]} "
@@ -2851,27 +3225,22 @@ def phase_caption_main(device, cfg, tokenizer, p_target=0.5, bisect_steps=8, n_b
         f"{step_host:.3f} ms; LM head (fp32 logits over {cfg.med.vocab_size}) device "
         f"{lm_ms:.3f} ms")
 
-    @torch.inference_mode()
-    def one_batch():
-        st, _, _ = model.encode_image(im0, temperature=t_star, prune_active=True,
-                                      capacities=caps)
-        return TC.beam_generate(decoder, st, prompt, num_beams=nb, max_length=T, min_length=5,
-                                eos_token_id=tokenizer.sep_token_id,
-                                pad_token_id=tokenizer.pad_token_id)
-
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")  # the batch must not wait on the card
-    try:
-        out = one_batch()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    images0 = batches[0][0]
+    kw = dict(num_beams=nb, max_length=T, min_length=5)
+    rec = graph_check(f"caption batch of {batch} (encode and decode)",
+                      lambda t: TC.generate_captions(model, tokenizer, images0, t,
+                                                     capacities=caps, **kw),
+                      lambda t: TC.generate_captions(model, tokenizer, images0, t,
+                                                     capacities=caps, graph=False, **kw),
+                      (t_star, 1.25 * t_star), model, iters,
+                      dense_fn=lambda t: TC.generate_captions(model, tokenizer, images0, t,
+                                                              **kw))
+    out = TC.generate_captions(model, tokenizer, images0, t_star, capacities=caps, **kw)[0]
     if out.shape != (batch, T) or not torch.equal(out[:, :Lp].cpu(), prompt.cpu()):
         raise AssertionError(f"caption batch: sequences {tuple(out.shape)} without the prompt")
-    batch_ms = time_ms(one_batch, iters)
-    log(f"[caption] gather: one batch of {batch} (encode and decode) {batch_ms:.2f} ms = "
-        f"{batch / batch_ms * 1e3:.2f} captions/s, host dispatch {host_ms(one_batch, iters):.2f} "
-        f"ms, under the sync guard without a wait")
-    profile_step(f"caption gather batch of {batch}", one_batch, batch_ms, top=12)
+    log(f"[caption] gather: one batch of {batch} (encode and decode): graph "
+        f"{rec['graph_ms']:.2f} ms = {batch / rec['graph_ms'] * 1e3:.2f} captions/s, eager "
+        f"{rec['eager_ms']:.2f} ms = {batch / rec['eager_ms'] * 1e3:.2f} captions/s")
     return t_star, (k1, k4, k5), (record1, record4, record5)
 
 
@@ -3001,7 +3370,12 @@ def phase_vqa_generate(device, model, temperature, tokenizer, n_batches=2, batch
     ``min_length`` 1, over the question state) on 2 batches of 16 synthetic
     questions; answers/s, exact launch counts, K4 (one query per row over
     the question state) and K5 held on the path's own inputs.  Returns
-    the launch counts (K1, K4, K5) and the K4 and K5 records."""
+    the launch counts (K1, K4, K5) of the graph run and the K4 and K5
+    records.  Each eval runs eagerly (``graph=False``: the recorders
+    take the kernels' inputs there, its launch counts exact) and then as
+    CUDA graphs, the main path (equal results and launch counts: a new
+    length's first batch is its capture's warm-up); ``graph_check`` holds one batch
+    against its eager run."""
     from madtp_tpu_torch.tasks.vqa import generate_answers
 
     log(f"[vqa-gen] {card_line()}")
@@ -3010,26 +3384,49 @@ def phase_vqa_generate(device, model, temperature, tokenizer, n_batches=2, batch
                for b in vqa_batches(rng, model.cfg.vit.image_size, n_batches, batch)]
     Lv, L = model.cfg.vit.depth, model.cfg.med.num_hidden_layers
     steps = 1 + (10 - 1 - 1)
-    zero_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with K4Capture() as k4_capture, K5Capture() as k5_capture:
-        outs = [generate_answers(model, *b, temperature=temperature, bos_token_id=DEC_ID,
-                                 eos_token_id=SEP_ID) for b in batches]
+    kw = dict(bos_token_id=DEC_ID, eos_token_id=SEP_ID)
+
+    def run(graph):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [generate_answers(model, *b, temperature=temperature, graph=graph, **kw)
+                for b in batches]
         answers = [tokenizer.decode(r) for seqs, _, _ in outs for r in seqs.cpu().numpy()]
-    wall = time.perf_counter() - t0
+        return outs, answers, time.perf_counter() - t0
+
+    zero_launch_counts()
+    with K4Capture() as k4_capture, K5Capture() as k5_capture:
+        eager_outs, _, eager_wall = run(False)
+    eager = launch_counts()
+    per_batch = (Lv + L, 0, L * (1 + steps), Lv + L + L * steps)
+    if eager != tuple(n_batches * n for n in per_batch):
+        raise AssertionError(f"eager vqa generate launched K1, K1 at N > 1536, K4, K5 {eager} "
+                             f"times, want {n_batches} x {per_batch}")
+    zero_launch_counts()
+    outs, answers, wall = run(True)  # the main path
     k1, large, k4, k5 = launch_counts()
-    want = (n_batches * (Lv + L), n_batches * L * (1 + steps), n_batches * (Lv + L + L * steps))
-    if (k1, k4, k5) != want or large:
-        raise AssertionError(f"vqa generate launched K1 {k1}, K4 {k4}, K5 {k5} times, want {want}")
+    n_shapes = len({b[1].shape for b in batches})
+    if (k1, large, k4, k5) != eager:
+        raise AssertionError(f"vqa generate launched K1, K1 at N > 1536, K4, K5 "
+                             f"{(k1, large, k4, k5)} times, want the eager run's {eager}")
+    if not outputs_equal(outs, eager_outs):
+        raise AssertionError("vqa generate: the graphs' sequences differ from the eager run's")
     if len(answers) != n_batches * batch or not all(
             (s[:, 0] == DEC_ID).all() and s.shape[1] == 10 for s, _, _ in outs):
         raise AssertionError("vqa generate: sequences without [DEC] first or of another length")
-    log(f"[vqa-gen] T={temperature:.4f}: {len(answers)} questions in {wall:.2f} s = "
-        f"{len(answers) / wall:.2f} answers/s (the first batch included); launches K1 {k1}, K4 "
-        f"{k4}, K5 {k5}; {len(set(answers))} distinct answers, e.g. {answers[0]!r}")
+    log(f"[vqa-gen] T={temperature:.4f}: {len(answers)} questions: graphs {wall:.2f} s = "
+        f"{len(answers) / wall:.2f} answers/s ({n_shapes} captures included), eager "
+        f"{eager_wall:.2f} s = {len(answers) / eager_wall:.2f} answers/s; equal sequences; "
+        f"launches (graphs) K1 {k1}, K4 {k4}, K5 {k5}; {len(set(answers))} distinct answers, "
+        f"e.g. {answers[0]!r}")
     record4 = check_k4_cases("vqa generate", k4_capture, where=dict(Nq=1))
     record5 = check_k5_cases("vqa generate", k5_capture, where=dict(M=batch * 3))
+    b0 = batches[0]
+    graph_check(f"vqa generate batch of {batch}",
+                lambda t: generate_answers(model, *b0, temperature=t, **kw),
+                lambda t: generate_answers(model, *b0, temperature=t, graph=False, **kw),
+                (temperature, 1.25 * temperature), model, 3,
+                dense_fn=lambda t: generate_answers(model, *b0, temperature=t, **kw))
     return (k1, k4, k5), (record4, record5)
 
 
@@ -3114,6 +3511,7 @@ def main():
              launches_by_path={"eval": k1_eval, "train": k1_train, "retrieval": k1_ret,
                                "clip": k1_clip, "vqa": k1_vqa, "vqa640": k1_640,
                                "vqa_generate": k1_gen, "caption": k1_cap},
+             launches_in_profiled_replays=REPLAYS["K1"],
              **record, at_nlvr_gather_eval=record1_eval, at_retrieval_eval=record1_ret,
              at_clip_vision_h16=record1_clip, at_vqa_gather_eval=record1_vqa,
              at_caption_eval=record1_cap,
@@ -3124,7 +3522,10 @@ def main():
         dict(name="attention_scores_large_n", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:522",
-             launches=k3_640, launches_by_path={"vqa640": k3_640}, **record3,
+             launches=k3_640, launches_by_path={"vqa640": k3_640},
+             launches_in_profiled_replays_note="within attention_scores' count: one kernel "
+                                               "serves both ranges",
+             **record3,
              at_vqa640_eval=record3_640,
              library_note="K1 launched at N > 1536, where the TPU runs its query-tiled kernel; "
                           "library_ms is scaled_dot_product_attention, out only",
@@ -3144,6 +3545,7 @@ def main():
              launches_by_path={"eval": k4_eval, "train": k4_train, "retrieval": k4_ret,
                                "vqa": k4_vqa, "vqa640": k4_640, "vqa_generate": k4_gen,
                                "caption": k4_cap},
+             launches_in_profiled_replays=REPLAYS["K4"],
              **record4, at_vqa_gather_eval=record4_vqa, at_vqa_dense_eval=dense4_vqa,
              at_vqa640_eval=record4_640, at_vqa_generate=record4_gen,
              at_caption_eval=record4_cap,
@@ -3158,6 +3560,7 @@ def main():
              launches_by_path={"eval": k5_eval, "train": k5_train, "retrieval": k5_ret,
                                "clip": k5_clip, "vqa": k5_vqa, "vqa640": k5_640,
                                "vqa_generate": k5_gen, "caption": k5_cap},
+             launches_in_profiled_replays=REPLAYS["K5"],
              **record5, at_clip_gather_eval=record5_clip, at_vqa_gather_eval=record5_vqa,
              at_vqa_dense_eval=dense5_vqa, at_vqa640_eval=record5_640,
              at_vqa_generate=record5_gen, at_caption_eval=record5_cap,

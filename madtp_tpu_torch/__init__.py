@@ -19,7 +19,10 @@ function's counterpart is found at the same path:
 * :mod:`.tasks` — the NLVR2 eval step and loop, the train epoch and the
   ``--fast_train`` capacity probe; BLIP retrieval eval (corpus encode, ITM
   rerank, the ``--fast_eval`` probe); CLIP retrieval eval (both towers,
-  ``itm_eval`` of the similarities, the ``--fast_eval`` probe).
+  ``itm_eval`` of the similarities, the ``--fast_eval`` probe); VQA and
+  caption eval;
+* :mod:`.utils` — the step cache and the captured steps: every eval step
+  runs on the card as one CUDA graph (``graph=False`` runs it eagerly).
 
 The package imports neither ``jax`` nor anything of :mod:`madtp_tpu`.
 Entry points run on ``device="cuda"`` unless the caller passes

@@ -5,11 +5,10 @@ single process.
 * :func:`beam_generate`: HF-style beam search with the beams folded into the
   batch and a fixed-capacity KV cache (:class:`~madtp_tpu_torch.models.med.
   DecodeCache`).  Every step runs on the device with no read-back to the
-  host, its position a 0-d device tensor, as a CUDA-graph capture of a
-  step would need.
+  host, its position a 0-d device tensor, so the whole search is captured.
 * :func:`generate_captions` and :func:`finish_captions`: the pruned image
-  encode and the decode from the prompt ``"a picture of "``, then the
-  captions as text.
+  encode and the decode from the prompt ``"a picture of "`` as one captured
+  step, then the captions as text.
 * :func:`probe_capacities` is ``--fast_eval``'s calibration, and
   :func:`evaluate` the whole eval with the analytic GFLOPs.
 
@@ -30,6 +29,7 @@ from madtp_tpu_torch.models.med import DecodeCache, MedDecoder, init_decode_cach
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.prune.flops import caption_gflops
+from madtp_tpu_torch.utils.graph import CapturedStep
 
 NEG = -1e9
 PROMPT = "a picture of "
@@ -174,24 +174,36 @@ def _to_device(a, device: torch.device) -> torch.Tensor:
 
 def generate_captions(model: CaptionModel, tokenizer, images, temperature: float, *,
                       num_beams: int = 3, max_length: int = 20, min_length: int = 5,
-                      capacities: Optional[Sequence[int]] = None
+                      capacities: Optional[Sequence[int]] = None, graph: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The image encode, pruned when ``temperature > 0`` (gather mode with
     ``capacities``), and the beam decode from the prompt
     (``generate_captions(defer=True)``).  Returns the device tensors
     ``(sequences [b, max_length], v_kept [L])`` without waiting for them;
-    :func:`finish_captions` makes the text."""
+    :func:`finish_captions` makes the text.
+
+    The encode and the whole decode are one captured step, the counterpart
+    of the JAX package's single ``fori_loop``: one CUDA graph per batch
+    shape, prune mode, capacities and beam settings, the temperature an
+    input of it.  ``graph=False`` runs them eagerly."""
     dev = model.space_dict.device
-    with torch.inference_mode():
-        state, _, v_kept = model.encode_image(_to_device(images, dev), temperature=temperature,
-                                              prune_active=temperature > 0,
+    prune = temperature > 0
+    eos, pad = tokenizer.sep_token_id, tokenizer.pad_token_id
+
+    @torch.inference_mode()
+    def step(images, prompt, t):
+        state, _, v_kept = model.encode_image(images, temperature=t, prune_active=prune,
                                               capacities=capacities)
+        out = beam_generate(model.text_decoder, state, prompt, num_beams=num_beams,
+                            max_length=max_length, min_length=min_length,
+                            eos_token_id=eos, pad_token_id=pad)
+        return out, v_kept
+
+    if graph:
+        step = CapturedStep(step, "caption", model, static=(
+            prune, capacities, num_beams, max_length, min_length, eos, pad))
     prompt = _to_device(prompt_ids(tokenizer, np.shape(images)[0]), dev)
-    out = beam_generate(model.text_decoder, state, prompt, num_beams=num_beams,
-                        max_length=max_length, min_length=min_length,
-                        eos_token_id=tokenizer.sep_token_id,
-                        pad_token_id=tokenizer.pad_token_id)
-    return out, v_kept
+    return step(_to_device(images, dev), prompt, temperature)
 
 
 def finish_captions(tokenizer, out: torch.Tensor) -> List[str]:
@@ -220,13 +232,15 @@ def probe_capacities(model: CaptionModel, batches: Iterable, temperature: float,
 
 def evaluate(model: CaptionModel, tokenizer, batches: Iterable, *, temperature: float,
              capacities: Optional[Sequence[int]] = None, num_beams: int = 3,
-             max_length: int = 20, min_length: int = 5) -> Tuple[List[dict], float]:
+             max_length: int = 20, min_length: int = 5, graph: bool = True
+             ) -> Tuple[List[dict], float]:
     """The caption eval of ``compress_caption`` (``eval_epoch``, single
     process): each batch's captions from :func:`generate_captions` and the
     mean ``caption_gflops`` over the batches (the decoder at 14 tokens).
     Batch ``i+1`` is dispatched before batch ``i`` is read back.  Returns
     ``(results, Cur_Gflops)``, ``results`` ``[{"image_id", "caption"}]`` in
-    order.  It runs where the model lives."""
+    order.  It runs where the model lives; ``graph=False`` runs the batches
+    eagerly."""
     cfg = model.cfg
     results: List[dict] = []
     g_sum, n = 0.0, 0
@@ -243,7 +257,8 @@ def evaluate(model: CaptionModel, tokenizer, batches: Iterable, *, temperature: 
     for images, img_ids in batches:
         out, v_kept = generate_captions(model, tokenizer, images, temperature,
                                         num_beams=num_beams, max_length=max_length,
-                                        min_length=min_length, capacities=capacities)
+                                        min_length=min_length, capacities=capacities,
+                                        graph=graph)
         if pending is not None:
             consume(pending)
         pending = (out, v_kept, img_ids)

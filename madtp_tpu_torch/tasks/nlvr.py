@@ -17,19 +17,26 @@ import torch
 from madtp_tpu_torch.models.blip import NLVRModel, NLVROut
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.flops import nlvr_gflops
+from madtp_tpu_torch.utils.graph import CapturedStep
 
 
 def make_eval_step(model: NLVRModel, prune_active: bool,
                    capacities_v: Optional[Sequence[int]] = None,
-                   capacities_t: Optional[Sequence[int]] = None):
+                   capacities_t: Optional[Sequence[int]] = None, *, graph: bool = True):
     """``step(images, ids, mask, temperature) -> NLVROut`` without autograd;
-    capacities select gather mode."""
+    capacities select gather mode.  The step is captured
+    (:class:`~madtp_tpu_torch.utils.graph.CapturedStep`: one CUDA graph per
+    mode, capacities and input shape, the temperature an input of it);
+    ``graph=False`` runs it eagerly."""
     @torch.inference_mode()
     def step(images, ids, mask, temperature) -> NLVROut:
         return model(images, ids, mask, temperature=temperature,
                      prune_active=prune_active, capacities_v=capacities_v,
                      capacities_t=capacities_t)
-    return step
+    if not graph:
+        return step
+    return CapturedStep(step, "nlvr_eval", model,
+                        static=(prune_active, capacities_v, capacities_t))
 
 
 def _device_batch(image0, image1, sentences, tokenize, enc_token_id, device):
@@ -47,16 +54,17 @@ def _device_batch(image0, image1, sentences, tokenize, enc_token_id, device):
 def evaluate(model: NLVRModel, loader_fn: Callable[[], Iterable], tokenize,
              temperature: float, *, prune_active: bool, enc_token_id: int,
              capacities_v=None, capacities_t=None, print_fn=print,
-             print_freq: int = 50) -> Tuple[dict, float]:
+             print_freq: int = 50, graph: bool = True) -> Tuple[dict, float]:
     """Returns ``(stats, Cur_Gflops)``.  ``loader_fn()`` yields
     ``(image0, image1, sentences, targets)`` numpy batches; ``tokenize`` maps
     the sentences to numpy ``(ids, mask)``.  Batch ``i+1`` is dispatched
     before batch ``i`` is read back, so the card does not wait on the host
     loop.  ``stats`` holds the accuracy and, in gather mode, the overflow
-    count summed over batches."""
+    count summed over batches.  Each batch runs as a captured step
+    (``graph=False``: eagerly)."""
     cfg = model.cfg
     device = model.space_dict.device
-    step = make_eval_step(model, prune_active, capacities_v, capacities_t)
+    step = make_eval_step(model, prune_active, capacities_v, capacities_t, graph=graph)
     correct, seen, gflops_sum, n_batches, overflow = 0, 0, 0.0, 0, 0
 
     def consume(pend):
@@ -165,7 +173,7 @@ def probe_capacities(model: NLVRModel, batches, tokenize, enc_token_id: int,
     then :func:`fast_capacity_schedule` over their kept counts.  Returns
     ``(capacities_v, capacities_t)``."""
     device = model.space_dict.device
-    probe = make_eval_step(model, prune_active=True)
+    probe = make_eval_step(model, prune_active=True, graph=False)
     vks, tks = [], []
     for image0, image1, sentences, _ in batches:
         batch, _ = _device_batch(image0, image1, sentences, tokenize, enc_token_id, device)

@@ -33,6 +33,7 @@ from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.prune.flops import vqa_gflops
 from madtp_tpu_torch.tasks.caption import beam_generate
+from madtp_tpu_torch.utils.graph import CapturedStep
 
 LABEL_SMOOTHING = 0.1  # reference models/med.py:1045
 
@@ -94,25 +95,57 @@ def rank_answers(decoder: MedDecoder, q_state: TokenState, answer_ids: torch.Ten
     return topk_ids.gather(1, best[:, None])[:, 0], topk_ids
 
 
-@torch.inference_mode()
 def generate_answers(model: VQAModel, images: torch.Tensor, q_ids: torch.Tensor,
                      q_mask: torch.Tensor, *, temperature: float, bos_token_id: int,
                      eos_token_id: int, pad_token_id: int = 0, num_beams: int = 3,
-                     max_length: int = 10, min_length: int = 1
+                     max_length: int = 10, min_length: int = 1, graph: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``inference: 'generate'`` (``gen_step``, ``madtp_tpu/cli/
     compress_vqa.py:128-146``): :meth:`VQAModel.encode` in mask mode, pruned
     when ``temperature > 0``, then :func:`~madtp_tpu_torch.tasks.caption.
-    beam_generate` over the question state from a BOS prompt.  Inputs are
-    tensors on the model's device.  Returns ``(sequences [B, max_length],
-    v_kept, q_kept)`` without waiting for them."""
-    out, _, v_kept = model.encode(images, q_ids, q_mask, temperature=temperature,
-                                  prune_active=temperature > 0)
-    bos = torch.full((q_ids.shape[0], 1), bos_token_id, dtype=torch.long, device=q_ids.device)
-    seqs = beam_generate(model.text_decoder, out.state, bos, num_beams=num_beams,
-                         max_length=max_length, min_length=min_length,
-                         eos_token_id=eos_token_id, pad_token_id=pad_token_id)
-    return seqs, v_kept, out.kept_counts
+    beam_generate` over the question state from a BOS prompt, as one captured
+    step (``graph=False``: eagerly).  Inputs are tensors on the model's
+    device.  Returns ``(sequences [B, max_length], v_kept, q_kept)`` without
+    waiting for them."""
+    prune = temperature > 0
+
+    @torch.inference_mode()
+    def step(images, q_ids, q_mask, t):
+        out, _, v_kept = model.encode(images, q_ids, q_mask, temperature=t, prune_active=prune)
+        bos = torch.full((q_ids.shape[0], 1), bos_token_id, dtype=torch.long,
+                         device=q_ids.device)
+        seqs = beam_generate(model.text_decoder, out.state, bos, num_beams=num_beams,
+                             max_length=max_length, min_length=min_length,
+                             eos_token_id=eos_token_id, pad_token_id=pad_token_id)
+        return seqs, v_kept, out.kept_counts
+
+    if graph:
+        step = CapturedStep(step, "vqa_generate", model, static=(
+            prune, bos_token_id, eos_token_id, pad_token_id, num_beams, max_length, min_length))
+    return step(images, q_ids, q_mask, temperature)
+
+
+def make_rank_step(model: VQAModel, prune_active: bool,
+                   capacities_v: Optional[Sequence[int]] = None,
+                   capacities_t: Optional[Sequence[int]] = None, *, k: int,
+                   pad_token_id: int = 0, graph: bool = True):
+    """``eval_step`` of ``compress_vqa``: ``step(images, q_ids, q_mask,
+    answer_ids, answer_mask, temperature) -> (best, v_kept, q_kept)``, the
+    towers (gather mode with capacities) and :func:`rank_answers` at ``k``,
+    captured with the answer list as an input (``graph=False``: eager)."""
+    @torch.inference_mode()
+    def step(images, q_ids, q_mask, a_ids, a_mask, t):
+        out, _, v_kept = model.encode(images, q_ids, q_mask, temperature=t,
+                                      prune_active=prune_active, capacities_v=capacities_v,
+                                      capacities_t=capacities_t)
+        best, _ = rank_answers(model.text_decoder, out.state, a_ids, a_mask, k=k,
+                               pad_token_id=pad_token_id)
+        return best, v_kept, out.kept_counts
+
+    if not graph:
+        return step
+    return CapturedStep(step, "vqa_rank", model, static=(
+        prune_active, capacities_v, capacities_t, k, pad_token_id))
 
 
 def _pad_to(a: np.ndarray, n: int) -> np.ndarray:
@@ -143,8 +176,8 @@ def probe_capacities(model: VQAModel, batches: Iterable, temperature: float,
 def evaluate(model: VQAModel, batches: Iterable, answer_ids, answer_mask, *,
              temperature: float, k_test: int = 128,
              capacities_v: Optional[Sequence[int]] = None,
-             capacities_t: Optional[Sequence[int]] = None, pad_token_id: int = 0
-             ) -> Tuple[List[Tuple[int, int]], float]:
+             capacities_t: Optional[Sequence[int]] = None, pad_token_id: int = 0,
+             graph: bool = True) -> Tuple[List[Tuple[int, int]], float]:
     """The VQA eval of ``compress_vqa`` (single process): prune when
     ``temperature > 0`` (gather mode with capacities), rank each batch's
     questions against the answer list at ``k_test`` (capped at the list's
@@ -152,7 +185,8 @@ def evaluate(model: VQAModel, batches: Iterable, answer_ids, answer_mask, *,
     ``n_answers=k_test``.  Batch ``i+1`` is dispatched before batch ``i`` is
     read back.  Returns ``(results, Cur_Gflops)``, ``results`` the
     ``(question_id, answer index)`` pairs in order.  It runs where the model
-    lives."""
+    lives.  Each batch (encode and ranking) runs as a captured step, the
+    answer list one of its inputs (``graph=False``: eagerly)."""
     cfg = model.cfg
     dev = model.space_dict.device
     a_ids, a_mask = _ids(answer_ids, dev), _ids(answer_mask, dev)
@@ -161,15 +195,8 @@ def evaluate(model: VQAModel, batches: Iterable, answer_ids, answer_mask, *,
     results: List[Tuple[int, int]] = []
     g_sum, n = 0.0, 0
 
-    @torch.inference_mode()
-    def step(images, q_ids, q_mask):
-        out, _, v_kept = model.encode(
-            torch.from_numpy(np.asarray(images)).to(dev), _ids(q_ids, dev), _ids(q_mask, dev),
-            temperature=temperature, prune_active=prune, capacities_v=capacities_v,
-            capacities_t=capacities_t)
-        best, _ = rank_answers(model.text_decoder, out.state, a_ids, a_mask, k=k,
-                               pad_token_id=pad_token_id)
-        return best, v_kept, out.kept_counts
+    step = make_rank_step(model, prune, capacities_v, capacities_t, k=k,
+                          pad_token_id=pad_token_id, graph=graph)
 
     def consume(pend):
         nonlocal g_sum, n
@@ -181,7 +208,8 @@ def evaluate(model: VQAModel, batches: Iterable, answer_ids, answer_mask, *,
 
     pending = None
     for images, q_ids, q_mask, qids in batches:
-        out = step(images, q_ids, q_mask)
+        out = step(torch.from_numpy(np.asarray(images)).to(dev), _ids(q_ids, dev),
+                   _ids(q_mask, dev), a_ids, a_mask, temperature)
         if pending is not None:
             consume(pending)
         pending = (out, qids, np.shape(q_ids)[1])

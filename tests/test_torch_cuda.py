@@ -643,3 +643,142 @@ def test_beam_generate_on_the_card_waits_for_nothing(cuda, repetition_penalty):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------- captured steps
+
+
+def _tiny_nlvr(cuda, dtype):
+    """A two-layer NLVR model the kernels take (heads of 64, widths of 128)
+    and one batch of 2 pairs."""
+    from madtp_tpu_torch.core.config import BlipConfig, ViTConfig
+    from madtp_tpu_torch.models.blip import init_nlvr_model
+
+    vit = ViTConfig(image_size=64, patch_size=16, embed_dim=128, depth=2, num_heads=2,
+                    sd_dim=128)
+    med = MedConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                    intermediate_size=256, twin_cross=True, encoder_width=128, vocab_size=64,
+                    max_position_embeddings=16, merge_start_layer=1, sd_dim=128)
+    model = init_nlvr_model(BlipConfig(vit, med, sd_num=16, sd_dim=128), seed=0, device=cuda,
+                            dtype=dtype)
+    g = torch.Generator().manual_seed(1)
+    images = torch.randn(4, 3, 64, 64, generator=g).to(cuda, dtype)
+    ids = torch.randint(1, 64, (2, 10), generator=g).to(cuda)
+    mask = torch.ones(2, 10, dtype=torch.long, device=cuda)
+    mask[1, 7:] = 0
+    return model, (images, ids, mask)
+
+
+def _equal(a, b):
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["dense", "mask", "gather"])
+def test_captured_step_replays_bit_equal_to_eager(cuda, mode, dtype):
+    """The NLVR step as a CUDA graph against the same step run eagerly
+    (``graph=False``): bit-equal at the captured temperature and, replayed
+    with no new capture, at a second one; each replay launches the kernels
+    its capture recorded and counts them."""
+    from madtp_tpu_torch.tasks.nlvr import make_eval_step
+    from madtp_tpu_torch.utils.graph import model_cache
+
+    model, batch = _tiny_nlvr(cuda, dtype)
+    caps = {"dense": (False, None, None), "mask": (True, None, None),
+            "gather": (True, (12, 8), (6, 6))}[mode]
+    step, eager = make_eval_step(model, *caps), make_eval_step(model, *caps, graph=False)
+    temps = (0.0,) if mode == "dense" else (4.0, 0.5)
+    step(*batch, temps[0])
+    per_replay = (attention_scores_cuda.launches, k5.ffn_cuda.launches)
+    step(*batch, temps[0])
+    per_replay = tuple(b - a for a, b in zip(per_replay, (attention_scores_cuda.launches,
+                                                          k5.ffn_cuda.launches)))
+    assert per_replay == ((0 if mode == "dense" else 4), 4)
+    for t in temps:
+        got, want = step(*batch, t), eager(*batch, t)
+        torch.cuda.synchronize()
+        assert _equal(got, want), t
+    assert len(model_cache(model)) == 1
+
+
+def test_text_lengths_share_one_entry_and_its_pool(cuda):
+    """Batches padded to other lengths get a graph each inside one entry,
+    whose graphs share a memory pool: the first call of a length (its
+    warm-up's outputs) and later replays in any order, two before either is
+    read, are bit-equal to the eager step."""
+    from madtp_tpu_torch.tasks.nlvr import make_eval_step
+    from madtp_tpu_torch.utils.graph import CapturedStep, graph_count, model_cache
+
+    model, (images, ids, mask) = _tiny_nlvr(cuda, torch.bfloat16)
+    caps = (True, (12, 8), (6, 6))
+    step, eager = make_eval_step(model, *caps), make_eval_step(model, *caps, graph=False)
+    g = torch.Generator().manual_seed(5)
+    batches = []
+    for width in (10, 7, 13):
+        b_ids = torch.randint(1, 64, (2, width), generator=g).to(cuda)
+        b_mask = torch.ones(2, width, dtype=torch.long, device=cuda)
+        b_mask[0, width - 2:] = 0
+        batches.append((images, b_ids, b_mask))
+    captures = CapturedStep.captures
+    for b in batches:
+        got, want = step(*b, 2.0), eager(*b, 2.0)
+        torch.cuda.synchronize()
+        assert _equal(got, want)
+    assert CapturedStep.captures - captures == 3
+    for order in ((2, 0, 1), (1, 2, 0)):
+        got = [step(*batches[i], 2.0) for i in order]
+        for i, out in zip(order, got):
+            assert _equal(out, eager(*batches[i], 2.0)), i
+    cache = model_cache(model)
+    assert len(cache) == 1 and graph_count(cache) == 3
+    assert CapturedStep.captures - captures == 3
+
+
+def test_captured_caption_decode_is_bit_equal_to_eager(cuda):
+    """The encode and the whole beam search as one graph give the eager
+    run's sequences and kept counts, at two temperatures through one
+    capture (bf16, gather mode)."""
+    from madtp_tpu_torch.core.config import BlipConfig, ViTConfig
+    from madtp_tpu_torch.data.tokenizer_bert import BertWordPieceTokenizer
+    from madtp_tpu_torch.models.blip import init_caption_model
+    from madtp_tpu_torch.tasks.caption import generate_captions
+    from madtp_tpu_torch.utils.graph import model_cache
+
+    tok = BertWordPieceTokenizer.toy("a picture of dog cat man on the table".split())
+    vit = ViTConfig(image_size=64, patch_size=16, embed_dim=128, depth=2, num_heads=2,
+                    sd_dim=128)
+    med = MedConfig(vocab_size=len(tok.vocab), hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, intermediate_size=256, encoder_width=128,
+                    max_position_embeddings=32, sd_dim=128)
+    model = init_caption_model(BlipConfig(vit, med, sd_num=16, sd_dim=128), seed=0,
+                               device=cuda, dtype=torch.bfloat16)
+    images = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(3)).numpy()
+    kw = dict(max_length=12, min_length=3, capacities=(12, 8))
+    for t in (4.0, 0.5):
+        got = generate_captions(model, tok, images, t, **kw)
+        want = generate_captions(model, tok, images, t, graph=False, **kw)
+        torch.cuda.synchronize()
+        assert _equal(got, want), t
+    assert len(model_cache(model)) == 1
+
+
+def test_capture_refuses_a_read_back(cuda):
+    """A step that reads a value back to the host (``.item()``) raises at
+    capture with its name, is not cached and does not run eagerly instead:
+    the next call raises again."""
+    from madtp_tpu_torch.utils.graph import CapturedStep, model_cache
+
+    owner = torch.nn.Linear(4, 4).to(cuda)
+    calls = []
+
+    def step(x, t):
+        calls.append(1)
+        return owner(x) * t * owner(x).sum().item()
+
+    captured = CapturedStep(step, "reads_back", owner)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="reads_back"):
+            captured(torch.ones(2, 4, device=cuda), 1.0)
+    assert len(model_cache(owner)) == 0
+    assert len(calls) == 4  # per call: the warm-up and the capture, nothing eager after
