@@ -125,7 +125,32 @@ Phases, each fatal on failure:
    memory states within 1e-5, the decoder's logits along the CPU's
    sequences within 1e-4, and equal sequences wherever every beam decision
    stands >= 64 fp32 steps and >= 4x the card's logit drift from its edge
-   (the steps where one does not are named).
+   (the steps where one does not are named);
+18-20. compression training (PR 10) of the caption (``configs/caption_coco.yaml``:
+   batch 32, 384 px, the pre-search first), VQA (``configs/vqa.yaml``: batch
+   16, 480 px, 10 answers a question with soft weights) and retrieval
+   (``configs/retrieval_coco.yaml``: batch 32, queue 57,600, alpha 0.4
+   ramped over epoch 0, momentum 0.995) models at full width, fp32 masters,
+   synthetic data, as the JAX drivers run it (``train_main``): two
+   controller epochs of two batches in mask mode fp32, then a
+   ``--fast_train`` epoch in fp32 and one with ``amp``; then a gather step
+   under the sync guard, step times and samples/s of mask fp32, gather fp32
+   and amp, dense fp32 and amp, peak memory, the gather amp step's host
+   dispatch, the ``.pth`` written and read back by ``load_*_state_dict``,
+   and K1, K2 (the VQA ViT's N = 920 slots in fp32, and the amp epoch's),
+   K4 (the retrieval ITM's 96 rows with gradients) and fp32 K5 held on the
+   path's own inputs;
+21-23. each of those models card against CPU, one fp32 train forward and
+   backward from the same weights (caption 2 images, VQA 1 question with 10
+   answers, retrieval 3 pairs from the same state with one Gumbel draw made
+   on the CPU), mask and gather mode at lossless capacities, at the first
+   temperature from the main path's whose DTP decisions stand clear of
+   fp32 rounding (as phase 8): equal keep counts in every DTP decision,
+   losses within 1e-4, named gradients within 1e-3 of their largest value,
+   exact K1, K2, K4 and fp32 K5 launches a step; for retrieval after the
+   step, the momentum weights and the queue within 1e-5, equal ids,
+   pointer and ``temp``.  Each runs right after its main path (18, 21, 19,
+   22, 20, 23).
 
 The NLVR phases (4-7) also hold K4 to 24 launches per forward: the twin
 cross-attention's two streams in each of the 12 MED layers.  Every fp32
@@ -183,6 +208,7 @@ import importlib
 import itertools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -349,7 +375,7 @@ class _Capture:
     inputs of the first call of each distinct ``key`` (detached, completed
     to ``len(defaults)`` arguments) and counts the calls of each; every call
     goes on to the original unchanged, so the launch counts are those of the
-    path itself."""
+    path itself.  ``paused()`` puts the original back for a while."""
 
     module = attr = None
     defaults = ()  # (name, default) of each argument, in order
@@ -370,11 +396,20 @@ class _Capture:
                 self.cases[key] = tuple(t.detach() if torch.is_tensor(t) else t for t in full)
             return self._orig(*args, **kw)
 
+        self._record = record
         setattr(self._mod, self.attr, record)
         return self
 
     def __exit__(self, *exc):
         setattr(self._mod, self.attr, self._orig)
+
+    @contextlib.contextmanager
+    def paused(self):
+        setattr(self._mod, self.attr, self._orig)
+        try:
+            yield
+        finally:
+            setattr(self._mod, self.attr, self._record)
 
 
 class K4Capture(_Capture):
@@ -583,6 +618,21 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def median_step_ms(fn, iters):
+    """Median CUDA-event time of ``iters`` back-to-back calls of ``fn`` after
+    one warm-up, ms: each call's time from the event recorded before it to
+    the one after."""
+    fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    events[0].record()
+    for e in events[1:]:
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+
+
 SPIN_HZ = 2.0e9  # cycles a second of torch.cuda._sleep's spin: the H100's top SM clock
 
 
@@ -620,19 +670,20 @@ def enqueue_ms(fn, iters):
     return ms
 
 
-def host_ms(fn, iters):
+def host_ms(fn, iters, stat=None):
     """Host time for ``fn`` to return (to dispatch its kernels), with the card
     drained before each call: near the step's CUDA-event time when the step
-    is bound by the host."""
+    is bound by the host.  The mean of ``iters`` calls, or ``stat`` of
+    them (``statistics.median``)."""
     fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
-        total += time.perf_counter() - t0
+        times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return total / iters * 1e3
+    return (stat or statistics.fmean)(times) * 1e3
 
 
 def profile_step(label, fn, step_ms, top=10):
@@ -1945,7 +1996,8 @@ class DTPRecorder:
                                                            *rest)
             t = torch.as_tensor(temperature, dtype=torch.float32, device=score.device)
             thr = dtp.dtp_threshold(signals.token_attn, score, palive, t)
-            self.records.append((score.float().cpu(), thr.float().cpu(), palive.cpu(),
+            self.records.append((score.detach().float().cpu(), thr.detach().float().cpu(),
+                                 palive.cpu(),
                                  order.cpu(), int(topk_num), bool(apply)))
             return order, topk_num, alive_cnt, apply
 
@@ -3430,6 +3482,674 @@ def phase_vqa_generate(device, model, temperature, tokenizer, n_batches=2, batch
     return (k1, k4, k5), (record4, record5)
 
 
+# ------------------------------------------------------------- compression training
+
+
+TRAIN_EPOCHS, TRAIN_BATCHES = 2, 2  # controller epochs in mask mode fp32, batches per epoch
+
+
+def train_words(rng, lo, hi):
+    """One synthetic text of ``lo``-``hi`` words of the synthetic vocabulary
+    (``caption_tokenizer``'s ``w<id>``, one wordpiece each)."""
+    return " ".join(f"w{i}" for i in rng.integers(1000, 30000, size=rng.integers(lo, hi + 1)))
+
+
+def train_main(label, *, opt, make_step, run_epoch, eval_gflops, probe, target, t0, init_lr,
+               timing_batch, n_samples, unit, ffn_per_forward, save_and_load,
+               epochs=TRAIN_EPOCHS, batches=TRAIN_BATCHES, iters=5):
+    """A compression-training main path as the JAX drivers run it, on
+    synthetic data: ``epochs`` controller epochs (the temperature updated
+    from the last epoch's GFLOPs, cosine LR) in mask mode fp32
+    (``make_step()``), then a ``--fast_train`` epoch at ``probe(T)``'s
+    capacities in fp32 and one with ``amp``; K1, K2, K4 and K5 captured on
+    the train steps' own inputs (K2 apart in the fp32 epochs and in the amp
+    epoch).  The controller's evals and the capacity probe are counted
+    apart and not captured.  Then, outside the path: the gather fp32 step
+    under the sync guard, step times (mask fp32, gather fp32 and amp, dense
+    fp32 and amp; the median of ``iters``) with peak memory, the gather amp
+    step's host dispatch time (median), the checkpoint round trip, each
+    kernel held against its plain version on the captured inputs.  Returns
+    the train steps' launch counts (K1, K2, K4, bf16 K5), their fp32 K5
+    launches, the evals' and probe's counts (K1, K2, K4, bf16 K5, fp32 K5),
+    the final temperature and the records (K1, K2 fp32, K2 amp, K4, K5
+    fp32)."""
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+    from madtp_tpu_torch.train.controller import TemperatureController
+    from madtp_tpu_torch.train.optim import cosine_lr, set_lr
+
+    log(f"[{label}] {card_line()}")
+    controller = TemperatureController(target_gflops=target, temperature=t0)
+    quiet = dict(print_fn=lambda m: log(f"[{label}]   {m}"), print_freq=0)
+
+    def losses_of(stats):
+        return {k: v for k, v in stats.items() if k.startswith("loss")}
+
+    def counts():
+        fp32 = ffn_cuda.fp32_launches
+        return (attention_scores_cuda.launches, attention_scores_bwd_cuda.launches,
+                cross_attention_cuda.launches, ffn_cuda.launches - fp32, fp32)
+
+    apart_counts = [0] * 5
+
+    def apart(fn, *args):
+        """``fn`` (the controller's eval, the capacity probe) with its launches
+        counted apart from the train steps' and its kernels' inputs not
+        captured."""
+        before = counts()
+        with k1c.paused(), k4c.paused(), k5c.paused():
+            out = fn(*args)
+        for i, (a, b) in enumerate(zip(counts(), before)):
+            apart_counts[i] += a - b
+        return out
+
+    zero_launch_counts()
+    with K1Capture() as k1c, K4Capture() as k4c, K5Capture() as k5c:
+        steps = {"mask fp32": make_step()}
+        cur_g = None
+        with K2Capture() as k2_fp32:
+            for epoch in range(epochs):
+                if epoch > 0:
+                    controller.update(cur_g)
+                temperature = controller.temperature
+                lr = cosine_lr(epoch, epochs, init_lr, 0.0)
+                set_lr(opt, lr)
+                t_ep = time.perf_counter()
+                stats = run_epoch(steps["mask fp32"], temperature, epoch, lr, batches, quiet)
+                cur_g = apart(eval_gflops, temperature)
+                log(f"[{label}] epoch {epoch}: T={temperature:.4f} lr={lr:.3e} "
+                    f"{losses_of(stats)}; GFLOPs {cur_g:.2f} (target {target:.2f}); "
+                    f"{time.perf_counter() - t_ep:.1f} s")
+                if not (all(math.isfinite(float(v)) for v in losses_of(stats).values())
+                        and stats["batches_done"] == batches and 0 < cur_g):
+                    raise AssertionError(f"{label} epoch {epoch}: stats {stats}, GFLOPs {cur_g}")
+        caps = apart(probe, temperature)
+        log(f"[{label}] fast_train capacities {[list(c) for c in caps]}")
+        for amp in (False, True):
+            name = "gather " + ("amp" if amp else "fp32")
+            steps[name] = make_step(caps, amp=amp)
+            with K2Capture() if amp else contextlib.nullcontext() as k2c:
+                stats = run_epoch(steps[name], temperature, epochs, lr, batches, quiet)
+            if amp:
+                k2_amp = k2c
+            log(f"[{label}] fast_train epoch, {name}: {losses_of(stats)}")
+            if not all(math.isfinite(float(v)) for v in losses_of(stats).values()):
+                raise AssertionError(f"{label} {name}: {losses_of(stats)}")
+    torch.cuda.synchronize()
+    *launches, k5_fp32 = (a - b for a, b in zip(counts(), apart_counts))
+    log(f"[{label}] launches of the train steps: K1 {launches[0]}, K2 {launches[1]}, "
+        f"K4 {launches[2]}, K5 {launches[3]} in bf16 and {k5_fp32} in fp32; of the "
+        f"controller's evals and the capacity probe: K1, K2, K4, K5 bf16, K5 fp32 "
+        f"{apart_counts}")
+    if min(launches) == 0 or k5_fp32 == 0 or launches[1] > launches[0]:
+        raise AssertionError(f"{label}: K1/K2/K4/K5 launched {launches} times, fp32 K5 {k5_fp32}")
+    if launches[3] != ffn_per_forward * batches:
+        raise AssertionError(f"{label}: bf16 K5 launched {launches[3]} times, want "
+                             f"{ffn_per_forward * batches}: every FFN of the amp epoch")
+
+    args = timing_batch(temperature)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a train step must not wait on the card
+    try:
+        m = steps["gather fp32"](*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not torch.isfinite(m["loss"]):
+        raise AssertionError(f"{label}: gather train step under the sync guard: loss not finite")
+    log(f"[{label}] gather fp32 train step ran under set_sync_debug_mode('error')")
+    steps["dense fp32"] = make_step(prune=False)
+    steps["dense amp"] = make_step(prune=False, amp=True)
+    times = {}
+    for name in ("mask fp32", "gather fp32", "gather amp", "dense fp32", "dense amp"):
+        step, args = steps[name], timing_batch(0.0 if name.startswith("dense") else temperature)
+        step(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times[name] = median_step_ms(lambda: step(*args), iters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[{label}] {name} step {times[name]:.2f} ms (median of {iters}) = "
+            f"{n_samples / times[name] * 1e3:.2f} {unit}/s; peak memory {peak:.2f} GiB")
+    args = timing_batch(temperature)
+    host = host_ms(lambda: steps["gather amp"](*args), iters, statistics.median)
+    log(f"[{label}] gather amp step host dispatch time {host:.2f} ms (median of {iters}); "
+        f"dense/pruned: mask fp32 "
+        f"{times['dense fp32'] / times['mask fp32']:.3f}x, gather fp32 "
+        f"{times['dense fp32'] / times['gather fp32']:.3f}x, gather amp "
+        f"{times['dense amp'] / times['gather amp']:.3f}x")
+    del steps, args
+    save_and_load(temperature, epochs - 1)
+    records = (check_k1_cases(label, k1c, iters=3),
+               check_k2_cases(f"{label} mask fp32", k2_fp32),
+               check_k2_cases(f"{label} gather amp", k2_amp),
+               check_k4_cases(label, k4c, iters=5),
+               check_k5_cases(label, k5c, iters=3, where=dict(dtype="float32")))
+    return launches, k5_fp32, apart_counts, temperature, records
+
+
+def round_trip(label, save, load, path_name, temperature, epoch, outputs):
+    """``save`` a checkpoint, read it back with ``torch.load`` and ``load``
+    (the port's ``load_*_state_dict``), and demand equal ``outputs(model)``
+    and temperature."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = save(f"{tmp}/{path_name}", epoch=epoch, temperature=temperature)
+        ck = torch.load(f"{tmp}/{path_name}")
+    again = load(ck["model"])
+    with torch.inference_mode():
+        same = torch.equal(outputs(model), outputs(again))
+    if not (same and ck["temperature"] == temperature and ck["epoch"] == epoch):
+        raise AssertionError(f"{label}: the reloaded checkpoint gives other outputs")
+    log(f"[{label}] checkpoint round trip: identical outputs, T {ck['temperature']:.4f}")
+
+
+def phase_train_caption_main(device, cfg, tokenizer, batch=32, n_eval=8):
+    """18. Caption compression training as ``madtp_tpu/cli/compress_caption.py:
+    280-440`` runs it (``configs/caption_coco.yaml``: batch 32, 384 px, prompt
+    ``"a picture of "``, captions to the batch's longest, at most 40 tokens,
+    lr 1e-5 cosine, weight decay 0.05), on synthetic float images and
+    captions of 7-14 words after the prompt (COCO's average 10.5): the
+    pre-search toward half of ``ORI_GFLOPS_CAPTION`` (``tasks.caption.
+    presearch``, tol 1.0), then ``train_main``; each epoch's GFLOPs from
+    ``tasks.caption.evaluate`` on one batch of ``n_eval`` uint8 images."""
+    from madtp_tpu_torch.ckpt.convert import load_caption_state_dict, save_caption_checkpoint
+    from madtp_tpu_torch.models.blip import init_caption_model
+    from madtp_tpu_torch.prune.flops import ORI_GFLOPS_CAPTION
+    from madtp_tpu_torch.tasks import caption as TC
+    from madtp_tpu_torch.train.loops import make_caption_train_step
+    from madtp_tpu_torch.train.optim import make_adamw
+
+    model = init_caption_model(cfg, seed=0, device=device)
+    opt = make_adamw(model.parameters(), lr=1e-5, weight_decay=0.05)
+    rng = np.random.default_rng(18)
+    s = cfg.vit.image_size
+
+    def draw():
+        return (rng.standard_normal((batch, 3, s, s), dtype=np.float32),
+                [TC.PROMPT + train_words(rng, 7, 14) for _ in range(batch)], np.arange(batch))
+
+    def run_epoch(step, temperature, epoch, lr, n, quiet):
+        return TC.train_epoch(model, step, lambda: (draw() for _ in range(n)), tokenizer,
+                              temperature, lr=lr, **quiet)
+
+    eval_batch = caption_batches(rng, s, 1, n_eval)
+
+    def eval_gflops(temperature):
+        return TC.evaluate(model, tokenizer, eval_batch, temperature=temperature,
+                           graph=False)[1]
+
+    probe_images = draw()[0][:8]
+
+    def probe(temperature):
+        return (TC.probe_capacities(model, [(probe_images, None)], temperature, "ceil"),)
+
+    def make_step(caps=(None,), amp=False, prune=True):
+        return make_caption_train_step(model, opt, prune_active=prune, capacities_v=caps[0],
+                                       amp=amp, device=device.type)
+
+    target = ORI_GFLOPS_CAPTION * 0.5
+    t0 = TC.presearch(model, probe_images, target, tol=1.0)
+    log(f"[train-caption] pre-searched temperature {t0:.4f} (target {target:.2f} GFLOPs)")
+    images, texts, _ = draw()
+    fixed = [torch.from_numpy(a).to(device) for a in
+             (images, *TC.train_batch(tokenizer, texts, len(tokenizer.encode(TC.PROMPT)) - 1))]
+
+    def save_and_load(temperature, epoch):
+        round_trip("train-caption",
+                   lambda path, **kw: save_caption_checkpoint(model, path, **kw) or model,
+                   lambda sd: load_caption_state_dict(sd, cfg, device=device),
+                   "checkpoint_best.pth", temperature, epoch,
+                   lambda m: m(*fixed[:3], temperature=temperature, prune_active=True))
+
+    return train_main("train-caption", opt=opt, make_step=make_step, run_epoch=run_epoch,
+                      eval_gflops=eval_gflops, probe=probe, target=target, t0=t0,
+                      init_lr=1e-5, timing_batch=lambda t: (*fixed, t), n_samples=batch,
+                      unit="captions", ffn_per_forward=cfg.vit.depth + cfg.med.num_hidden_layers,
+                      save_and_load=save_and_load)
+
+
+def vqa_train_text(rng, batch, n_answers=10):
+    """One VQAv2-like training batch's text as ``vqa_collate`` gives it:
+    questions as long as ``vqa_question_words`` draws them, ``n_answers``
+    answers of 1-3 words each with soft weights summing to 1 (flat), and the
+    counts."""
+    questions = [" ".join(f"w{i}" for i in rng.integers(1000, 30000, size=n))
+                 for n in vqa_question_words(rng, batch)]
+    answers = [train_words(rng, 1, 3) for _ in range(batch * n_answers)]
+    weights = rng.dirichlet(np.ones(n_answers), size=batch).astype(np.float32).reshape(-1)
+    return questions, answers, weights, [n_answers] * batch
+
+
+def phase_train_vqa_main(device, cfg, tokenizer, batch=16, n_answers_eval=128):
+    """19. VQA compression training as ``madtp_tpu/cli/compress_vqa.py:296-460``
+    runs it (``configs/vqa.yaml``: batch 16, 480 px, lr 2e-5 cosine, weight
+    decay 0.05, the controller from T=1 toward half of ``ORI_GFLOPS_VQA``), on
+    synthetic float images, questions of VQAv2's lengths and 10 answers per
+    question with soft weights (``tasks.vqa.train_batch``: [16, 10, La], 160
+    decoder rows): ``train_main``; each epoch's GFLOPs from
+    ``tasks.vqa.evaluate`` on one batch against ``n_answers_eval`` answers,
+    the ``--fast_train`` capacities from ``tasks.vqa.probe_capacities`` on
+    it."""
+    from madtp_tpu_torch.ckpt.convert import load_vqa_state_dict, save_vqa_checkpoint
+    from madtp_tpu_torch.models.blip import init_vqa_model
+    from madtp_tpu_torch.prune.flops import ORI_GFLOPS_VQA
+    from madtp_tpu_torch.tasks import vqa as TV
+    from madtp_tpu_torch.train.loops import make_vqa_train_step
+    from madtp_tpu_torch.train.optim import make_adamw
+
+    model = init_vqa_model(cfg, seed=0, device=device)
+    opt = make_adamw(model.parameters(), lr=2e-5, weight_decay=0.05)
+    rng = np.random.default_rng(19)
+    s = cfg.vit.image_size
+
+    def draw():
+        return (rng.standard_normal((batch, 3, s, s), dtype=np.float32),
+                *vqa_train_text(rng, batch))
+
+    def run_epoch(step, temperature, epoch, lr, n, quiet):
+        return TV.train_epoch(model, step, lambda: (draw() for _ in range(n)), tokenizer,
+                              temperature, lr=lr, **quiet)
+
+    a_ids, a_mask = vqa_answers(rng, n_answers_eval, pool=32)
+    eval_batches = vqa_batches(rng, s, 1, batch)
+
+    def eval_gflops(temperature):
+        return TV.evaluate(model, eval_batches, a_ids, a_mask, temperature=temperature,
+                           k_test=n_answers_eval, graph=False)[1]
+
+    def probe(temperature):
+        return TV.probe_capacities(model, eval_batches, temperature, "ceil")
+
+    def make_step(caps=(None, None), amp=False, prune=True):
+        return make_vqa_train_step(model, opt, prune_active=prune, capacities_v=caps[0],
+                                   capacities_t=caps[1], amp=amp, device=device.type)
+
+    images, *text = draw()
+    fixed = [torch.from_numpy(np.asarray(a)).to(device)
+             for a in (images, *TV.train_batch(tokenizer, *text))]
+
+    def save_and_load(temperature, epoch):
+        round_trip("train-vqa",
+                   lambda path, **kw: save_vqa_checkpoint(model, path, **kw) or model,
+                   lambda sd: load_vqa_state_dict(sd, cfg, device=device),
+                   f"checkpoint_{epoch:02d}.pth", temperature, epoch,
+                   lambda m: m.encode(*fixed[:3], temperature=temperature,
+                                      prune_active=True)[0].state.x)
+
+    return train_main("train-vqa", opt=opt, make_step=make_step, run_epoch=run_epoch,
+                      eval_gflops=eval_gflops, probe=probe, target=ORI_GFLOPS_VQA * 0.5, t0=1.0,
+                      init_lr=2e-5, timing_batch=lambda t: (*fixed, t), n_samples=batch,
+                      unit="questions",
+                      ffn_per_forward=cfg.vit.depth + 2 * cfg.med.num_hidden_layers,
+                      save_and_load=save_and_load)
+
+
+def phase_train_retrieval_main(device, cfg, tokenizer, batch=32, text_len=35):
+    """20. BLIP retrieval compression training as ``madtp_tpu/cli/
+    compress_retrieval.py:240-450`` runs it (``configs/retrieval_coco.yaml``:
+    batch 32, 384 px, queue 57,600, alpha 0.4 ramped over epoch 0, momentum
+    0.995, captions padded to 35, weight decay 0.05; the controller from T=1
+    toward half of ``ORI_GFLOPS_RETRIEVAL``; lr 1e-5 cosine, where the
+    config's 1e-7 would hardly move the weights), on synthetic float images
+    and captions of 7-14 words, two captions an image, one Gumbel generator
+    on the card for the run: ``train_main``; each epoch's GFLOPs as the
+    driver computes them, from a mask-mode image-tower probe.  The ITM runs
+    96 rows (3B) with gradients through K4."""
+    from madtp_tpu_torch.ckpt.convert import load_retrieval_state_dict, save_retrieval_checkpoint
+    from madtp_tpu_torch.models.blip import init_retrieval_model
+    from madtp_tpu_torch.prune.flops import ORI_GFLOPS_RETRIEVAL, retrieval_gflops
+    from madtp_tpu_torch.tasks import retrieval as TR
+    from madtp_tpu_torch.train.loops import init_retrieval_train_state, make_retrieval_train_step
+    from madtp_tpu_torch.train.optim import make_adamw
+
+    model = init_retrieval_model(cfg, seed=0, device=device)
+    state = init_retrieval_train_state(model, queue_size=57600)
+    opt = make_adamw(model.parameters(), lr=1e-5, weight_decay=0.05)
+    rng = np.random.default_rng(20)
+    gen = torch.Generator(device=device).manual_seed(20)
+    s = cfg.vit.image_size
+    pairs = itertools.count()
+
+    def draw():
+        idx = np.array([next(pairs) for _ in range(batch)]) // 2  # two captions an image
+        return (rng.standard_normal((batch, 3, s, s), dtype=np.float32),
+                [train_words(rng, 7, 14) for _ in range(batch)], idx)
+
+    def run_epoch(step, temperature, epoch, lr, n, quiet):
+        return TR.train_epoch(model, step, lambda: (draw() for _ in range(n)), tokenizer,
+                              temperature, epoch=epoch, epoch_len=n, alpha=0.4, generator=gen,
+                              lr=lr, **quiet)
+
+    probe_images, probe_text, _ = draw()
+    tok = tokenizer(probe_text, padding="max_length", max_length=text_len)
+    probe_ids, probe_mask = tok["input_ids"], tok["attention_mask"]
+
+    @torch.inference_mode()
+    def eval_gflops(temperature):
+        _, out = model.image_features(torch.from_numpy(probe_images).to(device),
+                                      temperature=temperature, prune_active=True)
+        v_alive = int(out.state.alive[0].sum()) - 1
+        return retrieval_gflops(cfg.vit, cfg.med, [v_alive] * cfg.vit.depth,
+                                [text_len - 1] * cfg.med.num_hidden_layers, text_len)
+
+    def probe(temperature):
+        return TR.probe_capacities(model, [probe_images], probe_ids, probe_mask, temperature,
+                                   "ceil")
+
+    def make_step(caps=(None, None), amp=False, prune=True):
+        return make_retrieval_train_step(state, opt, enc_token_id=ENC_ID, prune_active=prune,
+                                         capacities_v=caps[0], capacities_t=caps[1], amp=amp,
+                                         device=device.type)
+
+    fixed = (torch.from_numpy(probe_images).to(device), torch.from_numpy(probe_ids).to(device),
+             torch.from_numpy(probe_mask).to(device), torch.arange(batch, device=device) // 2)
+
+    def save_and_load(temperature, epoch):
+        round_trip("train-retrieval",
+                   lambda path, **kw: save_retrieval_checkpoint(model, path, **kw) or model,
+                   lambda sd: load_retrieval_state_dict(sd, cfg, device=device),
+                   "checkpoint_best.pth", temperature, epoch,
+                   lambda m: m.image_features(fixed[0], temperature=temperature,
+                                              prune_active=True)[0])
+        q = state.queue
+        log(f"[train-retrieval] queue pointer {int(q.ptr)} on {q.ptr.device}, ids "
+            f"{int((q.idx >= 0).sum())} of {q.idx.shape[0]} written, temp {float(state.temp):.4f}")
+
+    return train_main("train-retrieval", opt=opt, make_step=make_step, run_epoch=run_epoch,
+                      eval_gflops=eval_gflops, probe=probe, target=ORI_GFLOPS_RETRIEVAL * 0.5,
+                      t0=1.0, init_lr=1e-5, timing_batch=lambda t: (*fixed, t, 0.4),
+                      n_samples=batch, unit="pairs", ffn_per_forward=5 * cfg.vit.depth,
+                      save_and_load=save_and_load)
+
+
+CAPTION_GRADS = ("visual_encoder.patch_embed.proj.weight",
+                 "visual_encoder.blocks.0.attn.qkv.weight",
+                 "visual_encoder.blocks.11.attn.qkv.weight", "space_dict",
+                 "text_decoder.bert.encoder.layer.0.crossattention.self.key.weight",
+                 "text_decoder.cls.predictions.transform.dense.weight",
+                 "text_decoder.bert.embeddings.word_embeddings.weight")
+VQA_GRADS = CAPTION_GRADS[:4] + (
+    "text_encoder.encoder.layer.0.attention.self.query.weight",
+    "text_encoder.encoder.layer.11.crossattention.self.value.weight",
+    "text_decoder.bert.encoder.layer.0.crossattention.self.key.weight",
+    "text_decoder.cls.predictions.transform.dense.weight")
+RETRIEVAL_GRADS = CAPTION_GRADS[:4] + (
+    "text_encoder.encoder.layer.0.attention.self.query.weight",
+    "text_encoder.encoder.layer.11.crossattention.self.key.weight",
+    "vision_proj.weight", "text_proj.weight", "itm_head.weight")
+
+
+def train_launches():
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+
+    return dict(K1=attention_scores_cuda.launches, K2=attention_scores_bwd_cuda.launches,
+                K4=cross_attention_cuda.launches, K5=ffn_cuda.fp32_launches)
+
+
+def loss_and_backward(loss_fn, backward=True):
+    """A step's ``loss_fn`` run forward and backward, without the update;
+    returns the losses as floats.  ``backward=False``: the forward alone,
+    without autograd, for its DTP decisions (returns no losses)."""
+    def run(*args, **kw):
+        if not backward:
+            with torch.no_grad():
+                loss_fn(*args, **kw)
+            return []
+        out = loss_fn(*args, **kw)
+        out[0].backward()
+        return [float(v.detach()) for v in out]
+    return run
+
+
+def train_run(model, fn, grad_params, *inputs, **kw):
+    """One fp32 train forward and backward, ``fn(*inputs, **kw)`` (which
+    returns the losses as floats), with every DTP decision recorded.
+    Returns the losses, the named gradients on the CPU, the decisions' keep
+    counts and records, the card's launches of K1, K2, K4 and fp32 K5, and
+    the seconds."""
+    t0 = time.perf_counter()
+    before = train_launches()
+    model.zero_grad(set_to_none=True)
+    with DTPRecorder() as rec:
+        losses = fn(*inputs, **kw)
+    named = dict(model.named_parameters())
+    after = train_launches()
+    return dict(losses=losses, grads={n: named[n].grad.cpu() for n in grad_params},
+                kept=[r[4] for r in rec.records], dtp=rec.records,
+                launches={k: after[k] - before[k] for k in after},
+                seconds=time.perf_counter() - t0)
+
+
+def train_parity(label, t_main, modes_at, run, grad_params, want_launches):
+    """The search and checks of the training card-against-CPU phases: at the
+    first of ``t_main`` times ``PARITY_FACTORS`` where every DTP decision of
+    the CPU's runs (``run(where, temperature, caps)`` in each mode of
+    ``modes_at(temperature)``) stands ``GAP_MIN`` from its edge and the
+    card's drift ``DRIFT_FACTOR`` times below that (``card_drift``), equal
+    keep counts in every decision, losses within 1e-4, the gradients of
+    ``grad_params`` within ``GRAD_TOL`` of their largest value, and the
+    card's launches per step exactly ``want_launches``.  A temperature is
+    first screened by a forward alone on the CPU in mask mode
+    (``run(..., backward=False)``): one whose margin already misses
+    ``GAP_MIN`` costs no backward pass.  Returns the temperature and both
+    sides' runs by mode."""
+    for temperature in (t_main * f for f in PARITY_FACTORS):
+        modes = modes_at(temperature)
+        screen = run("cpu", temperature, modes["mask"], backward=False)
+        if min(dtp_margins(screen["dtp"])) < GAP_MIN:
+            log(f"[{label}] T={temperature:.4f}: a CPU forward's smallest DTP margin "
+                f"{min(dtp_margins(screen['dtp'])) / FP32_ULP:.0f} fp32 steps (want >= "
+                f"{GAP_MIN / FP32_ULP:.0f}); {screen['seconds']:.1f} s")
+            continue
+        cpu_runs = {mode: run("cpu", temperature, caps) for mode, caps in modes.items()}
+        thr_gap, rank_gap = (min(g) for g in zip(*(dtp_margins(r["dtp"])
+                                                   for r in cpu_runs.values())))
+        margin = min(thr_gap, rank_gap)
+        log(f"[{label}] T={temperature:.4f}: smallest DTP margins on the CPU: threshold "
+            f"{thr_gap:.3e}, rank {rank_gap:.3e} ({margin / FP32_ULP:.0f} fp32 steps, want "
+            f">= {GAP_MIN / FP32_ULP:.0f}); "
+            f"cpu {sum(r['seconds'] for r in cpu_runs.values()):.1f} s")
+        if margin < GAP_MIN:
+            continue
+        card_runs = {mode: run("card", temperature, caps) for mode, caps in modes.items()}
+        for mode, card in card_runs.items():
+            if card["kept"] != cpu_runs[mode]["kept"]:
+                raise AssertionError(f"{label} {mode}: keep counts differ: card {card['kept']} "
+                                     f"cpu {cpu_runs[mode]['kept']}")
+        drift, clear = card_drift(f"[{label}] T={temperature:.4f}", margin,
+                                  [(cpu_runs[m], card_runs[m]) for m in modes])
+        if clear:
+            break
+    else:
+        raise AssertionError(f"{label}: no temperature near the main path's keeps every DTP "
+                             f"decision {GAP_MIN / FP32_ULP:.0f} fp32 steps and {DRIFT_FACTOR}x "
+                             "the card's drift from its edge")
+    for mode, card in card_runs.items():
+        cpu = cpu_runs[mode]
+        loss_err = max(abs(a - b) for a, b in zip(cpu["losses"], card["losses"]))
+        if not loss_err <= 1e-4:
+            raise AssertionError(f"{label} {mode}: losses differ by {loss_err:.3e} (limit 1e-4)")
+        rel = {}
+        for n in grad_params:
+            g, want = card["grads"][n], cpu["grads"][n]
+            scale = float(want.abs().max())
+            rel[n] = float((g - want).abs().max()) / scale if scale > 0 else math.inf
+            if not (torch.isfinite(g).all() and rel[n] <= GRAD_TOL):
+                raise AssertionError(f"{label} {mode}: grad of {n} differs by {rel[n]:.3e} of "
+                                     f"its max {scale:.3e} (limit {GRAD_TOL})")
+        if card["launches"] != want_launches:
+            raise AssertionError(f"{label} {mode}: launches {card['launches']} per step, want "
+                                 f"{want_launches}")
+        log(f"[{label}] {mode}: {len(card['kept'])} DTP decisions' keep counts equal; losses "
+            f"card {card['losses']} cpu {cpu['losses']} (max diff {loss_err:.2e}); launches "
+            f"per step {card['launches']}; DTP drift {drift:.2e}; cpu {cpu['seconds']:.1f} s, "
+            f"card {card['seconds']:.1f} s")
+        log(f"[{label}]   grad max|diff| / max|grad|: " + ", ".join(
+            f"{n.replace('visual_encoder.', 'v.').replace('text_', 't_')} {r:.2e}"
+            for n, r in rel.items()))
+    return temperature, cpu_runs, card_runs
+
+
+def phase_train_caption_parity(device, cfg, tokenizer, t_main, n=2):
+    """21. One fp32 caption train forward and backward of the full-width model
+    on the card (K1, K2, K4, fp32 K5) and on the CPU (plain), ``n`` images
+    and captions, in mask mode and in gather mode at lossless capacities:
+    ``train_parity``'s checks, 12 K1, 12 K2, 12 K4 and 24 fp32 K5 a step."""
+    from madtp_tpu_torch.models.blip import init_caption_model
+    from madtp_tpu_torch.tasks import caption as TC
+    from madtp_tpu_torch.train.loops import make_caption_train_step
+
+    models = {"cpu": init_caption_model(cfg, seed=0, device="cpu")}
+    models["card"] = copy.deepcopy(models["cpu"]).to(device)
+    rng = np.random.default_rng(21)
+    s = cfg.vit.image_size
+    images = rng.standard_normal((n, 3, s, s), dtype=np.float32)
+    batch = [torch.from_numpy(images)] + [torch.from_numpy(a) for a in TC.train_batch(
+        tokenizer, [TC.PROMPT + train_words(rng, 7, 14) for _ in range(n)],
+        len(tokenizer.encode(TC.PROMPT)) - 1)]
+
+    def modes_at(temperature):
+        return {"mask": None, "gather": TC.probe_capacities(models["cpu"], [(images, None)],
+                                                            temperature, "ceil")}
+
+    def run(where, temperature, caps, backward=True):
+        model, dev = models[where], (device if where == "card" else torch.device("cpu"))
+        step = make_caption_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                                       capacities_v=caps, device=dev.type)
+        return train_run(model, loss_and_backward(step.loss_fn, backward),
+                         CAPTION_GRADS if backward else (), *(t.to(dev) for t in batch),
+                         temperature)
+
+    L = cfg.vit.depth
+    train_parity("caption-train-parity", t_main, modes_at, run, CAPTION_GRADS,
+                 dict(K1=L, K2=L, K4=L, K5=2 * L))
+
+
+def phase_train_vqa_parity(device, cfg, tokenizer, t_main, n=1):
+    """22. One fp32 VQA train forward and backward of the full-width model at
+    480 px on the card and on the CPU, ``n`` question with 10 answers and
+    soft weights, mask and gather mode at lossless capacities:
+    ``train_parity``'s checks, 24 K1, 24 K2 (the ViT's at 901 tokens, 920
+    slots in mask mode), 24 K4 and 36 fp32 K5 a step."""
+    from madtp_tpu_torch.models.blip import init_vqa_model
+    from madtp_tpu_torch.tasks import vqa as TV
+    from madtp_tpu_torch.train.loops import make_vqa_train_step
+
+    models = {"cpu": init_vqa_model(cfg, seed=0, device="cpu")}
+    models["card"] = copy.deepcopy(models["cpu"]).to(device)
+    rng = np.random.default_rng(22)
+    s = cfg.vit.image_size
+    images = rng.standard_normal((n, 3, s, s), dtype=np.float32)
+    arrays = TV.train_batch(tokenizer, *vqa_train_text(rng, n))
+    batch = [torch.from_numpy(images)] + [torch.from_numpy(np.asarray(a)) for a in arrays]
+
+    def modes_at(temperature):
+        return {"mask": (None, None), "gather": TV.probe_capacities(
+            models["cpu"], [(images, arrays[0], arrays[1], None)], temperature, "ceil")}
+
+    def run(where, temperature, caps, backward=True):
+        model, dev = models[where], (device if where == "card" else torch.device("cpu"))
+        step = make_vqa_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                                   capacities_v=caps[0], capacities_t=caps[1], device=dev.type)
+        return train_run(model, loss_and_backward(step.loss_fn, backward),
+                         VQA_GRADS if backward else (), *(t.to(dev) for t in batch), temperature)
+
+    L = cfg.vit.depth
+    train_parity("vqa-train-parity", t_main, modes_at, run, VQA_GRADS,
+                 dict(K1=2 * L, K2=2 * L, K4=2 * L, K5=3 * L))
+
+
+def state_to(state, device):
+    """A copy of a retrieval train state on ``device``."""
+    from madtp_tpu_torch.train.loops import RetrievalTrainState
+    from madtp_tpu_torch.train.momentum import FeatureQueue
+
+    return RetrievalTrainState(copy.deepcopy(state.model).to(device),
+                               {n: t.to(device, copy=True) for n, t in state.params_m.items()},
+                               FeatureQueue(*(t.to(device, copy=True) for t in state.queue)),
+                               state.temp.to(device, copy=True))
+
+
+def phase_train_retrieval_parity(device, cfg, tokenizer, t_main, n=3, text_len=35):
+    """23. One fp32 retrieval train step of the full-width model on the card
+    and on the CPU from the same state (online and momentum towers, the
+    57,600-slot queue, ``temp``), ``n`` pairs, one Gumbel draw made on the
+    CPU and passed to both, mask and gather mode at lossless capacities:
+    ``train_parity``'s checks (60 K1: the online, momentum and ITM passes;
+    36 K2; 12 K4; 60 fp32 K5 a step); then the momentum weights and the
+    queue within 1e-5 of their largest value, equal ids and pointer.  The
+    momentum towers start 1e-3 (one normal draw a weight) from the online
+    ones, so the EMA, the momentum forward and the queue's features run on
+    weights of their own."""
+    from madtp_tpu_torch.models.blip import init_retrieval_model
+    from madtp_tpu_torch.tasks import retrieval as TR
+    from madtp_tpu_torch.train.losses import gumbel
+    from madtp_tpu_torch.train.loops import init_retrieval_train_state, make_retrieval_train_step
+
+    state0 = init_retrieval_train_state(init_retrieval_model(cfg, seed=0, device="cpu"),
+                                        queue_size=57600)
+    g = torch.Generator().manual_seed(24)
+    for t in state0.params_m.values():  # momentum towers of their own, so the EMA shows
+        t.add_(torch.randn(t.shape, generator=g), alpha=1e-3)
+    rng = np.random.default_rng(23)
+    s = cfg.vit.image_size
+    images = rng.standard_normal((n, 3, s, s), dtype=np.float32)
+    tok = tokenizer([train_words(rng, 7, 14) for _ in range(n)], padding="max_length",
+                    max_length=text_len)
+    batch = [torch.from_numpy(a) for a in (images, tok["input_ids"], tok["attention_mask"])]
+    batch.append(torch.arange(n))
+    g = torch.Generator().manual_seed(23)
+    noise = tuple(gumbel((n, n), generator=g) for _ in range(2))
+    states = {}
+
+    def modes_at(temperature):
+        cv, _ = TR.probe_capacities(state0.model, [images], tok["input_ids"],
+                                    tok["attention_mask"], temperature, "ceil")
+        return {"mask": (None, None), "gather": (cv, (text_len,) * cfg.med.num_hidden_layers)}
+
+    def run(where, temperature, caps, backward=True):
+        dev = device if where == "card" else torch.device("cpu")
+        state = state_to(state0, dev)
+        step = make_retrieval_train_step(
+            state, torch.optim.SGD(state.model.parameters(), lr=0.0), enc_token_id=ENC_ID,
+            capacities_v=caps[0], capacities_t=caps[1], device=dev.type)
+        fn = (loss_and_backward(step.loss_fn, False) if not backward else
+              lambda *a, **k: [float(v) for v in step(*a, **k).values()])
+        out = train_run(state.model, fn, RETRIEVAL_GRADS if backward else (),
+                        *(t.to(dev) for t in batch), temperature, 0.4,
+                        noise=tuple(t.to(dev) for t in noise))
+        states[where, caps[0] is None] = state
+        return out
+
+    L = cfg.vit.depth
+    train_parity("retrieval-train-parity", t_main, modes_at, run, RETRIEVAL_GRADS,
+                 dict(K1=5 * L, K2=3 * L, K4=L, K5=5 * L))
+    for mask_mode in (True, False):
+        cpu, card = states["cpu", mask_mode], states["card", mask_mode]
+        worst = 0.0
+        for name, want in [*cpu.params_m.items(), ("queue.image", cpu.queue.image),
+                           ("queue.text", cpu.queue.text)]:
+            got = card.params_m[name] if name in card.params_m else \
+                getattr(card.queue, name.split(".")[1])
+            err, scale = float((got.cpu() - want).abs().max()), float(want.abs().max())
+            rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+            worst = max(worst, rel)
+            if not rel <= 1e-5:
+                raise AssertionError(f"retrieval parity: {name} differs by {rel:.3e} of its max")
+        if not (torch.equal(card.queue.idx.cpu(), cpu.queue.idx) and
+                int(card.queue.ptr) == int(cpu.queue.ptr) == n and
+                float(card.temp) == float(cpu.temp)):
+            raise AssertionError("retrieval parity: queue ids, pointer or temp differ")
+        log(f"[retrieval-train-parity] {'mask' if mask_mode else 'gather'}: after the step "
+            f"momentum weights and queue within {worst:.2e} of their largest value; ids, "
+            f"pointer ({int(card.queue.ptr)}) and temp equal")
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3502,22 +4222,55 @@ def main():
         phase_caption_main, device, caption_config(), tokenizer)
     _, fp32_k5["caption_parity"], _ = timed(fp32_k5_held, "caption parity",
                                             phase_caption_parity, device, tokenizer, t_cap)
+    torch.cuda.empty_cache()
+    train = {}  # compression training of caption, VQA and retrieval: main path, then parity
+    for family, cfg_f, main_phase, parity_phase in (
+            ("caption", caption_config(), phase_train_caption_main, phase_train_caption_parity),
+            ("vqa", vqa_config(480), phase_train_vqa_main, phase_train_vqa_parity),
+            ("retrieval", rcfg, phase_train_retrieval_main, phase_train_retrieval_parity)):
+        launches_f, fp32_k5[f"train_{family}"], apart_f, t_f, records_f = timed(
+            main_phase, device, cfg_f, tokenizer)
+        fp32_k5[f"train_{family}_eval"] = apart_f[4]
+        torch.cuda.empty_cache()
+        # the parity search starts at the main path's last temperature (T = 1 had it
+        # left pruning)
+        _, fp32_k5[f"{family}_train_parity"], _ = timed(
+            fp32_k5_held, f"{family} train parity", parity_phase, device, cfg_f, tokenizer,
+            t_f if t_f > 0 else 1.0)
+        torch.cuda.empty_cache()
+        train[family] = (launches_f, records_f, apart_f[:4])
+    tk = {f"train_{f}": dict(zip(("K1", "K2", "K4", "K5"), train[f][0])) for f in train}
+    # the controller's evals and capacity probes of the training paths (no K2, fp32 K5)
+    te = {f"train_{f}_eval": dict(zip(("K1", "K2", "K4", "K5"), train[f][2])) for f in train}
+    trec = {f: dict(zip(("K1", "K2_fp32", "K2_amp", "K4", "K5_fp32"), train[f][1]))
+            for f in train}
+
+    def train_total(k):
+        return sum(c[k] for c in (*tk.values(), *te.values()))
+
+    def train_paths(k):
+        return {**{p: c[k] for p, c in tk.items()}, **{p: c[k] for p, c in te.items() if c[k]}}
 
     kernels = [
         dict(name="attention_scores", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:595",
-             launches=k1_eval + k1_train + k1_ret + k1_clip + k1_vqa + k1_640 + k1_gen + k1_cap,
+             launches=k1_eval + k1_train + k1_ret + k1_clip + k1_vqa + k1_640 + k1_gen + k1_cap
+             + train_total("K1"),
              launches_by_path={"eval": k1_eval, "train": k1_train, "retrieval": k1_ret,
                                "clip": k1_clip, "vqa": k1_vqa, "vqa640": k1_640,
-                               "vqa_generate": k1_gen, "caption": k1_cap},
+                               "vqa_generate": k1_gen, "caption": k1_cap,
+                               **train_paths("K1")},
              launches_in_profiled_replays=REPLAYS["K1"],
              **record, at_nlvr_gather_eval=record1_eval, at_retrieval_eval=record1_ret,
              at_clip_vision_h16=record1_clip, at_vqa_gather_eval=record1_vqa,
              at_caption_eval=record1_cap,
+             **{f"at_train_{f}": r["K1"] for f, r in trec.items()},
              fp32_at_train_shape=record1_32,
              library_note="library_ms is scaled_dot_product_attention, out only; vqa640 "
-                          "counts the launches in K3's range too (attention_scores_large_n)",
+                          "counts the launches in K3's range too (attention_scores_large_n); "
+                          "train_<family>_eval counts the training path's controller evals "
+                          "and capacity probe, train_<family> its train steps",
              previous_note=PREVIOUS_NOTE.format("attention_scores.cu")),
         dict(name="attention_scores_large_n", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores.cu",
@@ -3533,22 +4286,28 @@ def main():
         dict(name="attention_scores_bwd", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores_bwd.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:306",
-             launches=k2_train, launches_by_path={"train": k2_train}, **record2,
+             launches=k2_train + train_total("K2"),
+             launches_by_path={"train": k2_train, **train_paths("K2")},
+             **record2,
              bf16_at_amp_shape=record2_16, at_train_fp32=record2_fp32, at_train_amp=record2_amp,
+             **{f"at_train_{f}_{k[3:]}": r[k] for f, r in trec.items()
+                for k in ("K2_fp32", "K2_amp")},
              library_note="library_ms is scaled_dot_product_attention forward + backward, "
                           "out only",
              previous_note=PREVIOUS_NOTE.format("attention_scores_bwd.cu")),
         dict(name="cross_attention", route="cuda",
              source="madtp_tpu_torch/csrc/cross_attention.cu",
              replaces="madtp_tpu/ops/pallas/cross_attention.py:56",
-             launches=k4_eval + k4_train + k4_ret + k4_vqa + k4_640 + k4_gen + k4_cap,
+             launches=k4_eval + k4_train + k4_ret + k4_vqa + k4_640 + k4_gen + k4_cap
+             + train_total("K4"),
              launches_by_path={"eval": k4_eval, "train": k4_train, "retrieval": k4_ret,
                                "vqa": k4_vqa, "vqa640": k4_640, "vqa_generate": k4_gen,
-                               "caption": k4_cap},
+                               "caption": k4_cap, **train_paths("K4")},
              launches_in_profiled_replays=REPLAYS["K4"],
              **record4, at_vqa_gather_eval=record4_vqa, at_vqa_dense_eval=dense4_vqa,
              at_vqa640_eval=record4_640, at_vqa_generate=record4_gen,
              at_caption_eval=record4_cap,
+             **{f"at_train_{f}": r["K4"] for f, r in trec.items()},
              library_note="library_ms is scaled_dot_product_attention with the "
                           "same additive mask: the same function",
              previous_note="previous_ms is the replaced design "
@@ -3556,15 +4315,18 @@ def main():
                            "inputs and card"),
         dict(name="ffn", route="cuda", source="madtp_tpu_torch/csrc/ffn.cu",
              replaces="madtp_tpu/ops/pallas/fused_ffn.py:79",
-             launches=k5_eval + k5_train + k5_ret + k5_clip + k5_vqa + k5_640 + k5_gen + k5_cap,
+             launches=k5_eval + k5_train + k5_ret + k5_clip + k5_vqa + k5_640 + k5_gen + k5_cap
+             + train_total("K5"),
              launches_by_path={"eval": k5_eval, "train": k5_train, "retrieval": k5_ret,
                                "clip": k5_clip, "vqa": k5_vqa, "vqa640": k5_640,
-                               "vqa_generate": k5_gen, "caption": k5_cap},
+                               "vqa_generate": k5_gen, "caption": k5_cap,
+                               **train_paths("K5")},
              launches_in_profiled_replays=REPLAYS["K5"],
              **record5, at_clip_gather_eval=record5_clip, at_vqa_gather_eval=record5_vqa,
              at_vqa_dense_eval=dense5_vqa, at_vqa640_eval=record5_640,
              at_vqa_generate=record5_gen, at_caption_eval=record5_cap,
              fp32=record5_fp32, fp32_at_train_main=record5_train,
+             **{f"fp32_at_train_{f}": r["K5_fp32"] for f, r in trec.items()},
              fp32_launches=sum(fp32_k5.values()), fp32_launches_by_path=fp32_k5,
              library_note="library_ms is two F.linear and the activation: the same function",
              previous_note="previous_ms is the replaced design (madtp_tpu_torch/csrc/previous/"

@@ -19,8 +19,13 @@ may carry ``self``/``dense`` where the twin layers need ``self0``/``self1`` and
 retrieval checkpoint's momentum towers (``*_m.``) and queues are read only by
 training and are ignored here.
 
-Out: :func:`save_nlvr_checkpoint` writes what a compression run leaves
-behind, the weights and the temperature, in the reference ``.pth`` layout.
+Out: :func:`save_nlvr_checkpoint`, :func:`save_caption_checkpoint`,
+:func:`save_vqa_checkpoint` and :func:`save_retrieval_checkpoint` write what a
+compression run leaves behind, the weights and the temperature, in the
+reference ``.pth`` layout, with the keys the JAX drivers write.
+
+:func:`retrieval_train_state_from_jax` carries the JAX package's retrieval
+train state (momentum towers, queue, ``temp``) across, for training.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from madtp_tpu_torch.core.config import BlipConfig, CLIPConfig
 from madtp_tpu_torch.core.device import resolve_device
 from madtp_tpu_torch.models.blip import CaptionModel, NLVRModel, RetrievalModel, VQAModel
 from madtp_tpu_torch.models.clip import CLIPModel
+from madtp_tpu_torch.train.loops import MOMENTUM_KEYS, RetrievalTrainState
+from madtp_tpu_torch.train.momentum import FeatureQueue
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -390,11 +397,76 @@ def clip_from_jax_params(tree: Mapping, cfg: CLIPConfig, space_dict=None,
     return _make(lambda: CLIPModel(cfg, sd_num), dev, j.sd)
 
 
-def save_nlvr_checkpoint(model: NLVRModel, path: str, *, epoch: int,
-                         temperature: float) -> None:
+def _save(model: torch.nn.Module, path: str, epoch: int, temperature: float,
+          lm_head: bool = False) -> None:
     """Write ``{"model": state_dict, "epoch", "temperature"}`` with fp32 CPU
     tensors in the reference key layout (``madtp_tpu/ckpt/export.py:121-128``);
-    :func:`load_nlvr_state_dict` and the JAX package's ``load_blip_nlvr`` read
-    it back."""
+    ``lm_head`` adds the decoder's tied exports ``cls.predictions.decoder.*``,
+    as ``export_med(has_lm_head=True)`` writes them."""
     sd = {k: v.detach().float().cpu().contiguous() for k, v in model.state_dict().items()}
+    if lm_head:
+        sd["text_decoder.cls.predictions.decoder.weight"] = \
+            sd["text_decoder.bert.embeddings.word_embeddings.weight"].clone()
+        sd["text_decoder.cls.predictions.decoder.bias"] = \
+            sd["text_decoder.cls.predictions.bias"].clone()
     torch.save({"model": sd, "epoch": int(epoch), "temperature": float(temperature)}, path)
+
+
+def save_nlvr_checkpoint(model: NLVRModel, path: str, *, epoch: int,
+                         temperature: float) -> None:
+    """The NLVR checkpoint (:func:`_save`); :func:`load_nlvr_state_dict` and
+    the JAX package's ``load_blip_nlvr`` read it back."""
+    _save(model, path, epoch, temperature)
+
+
+def save_caption_checkpoint(model: CaptionModel, path: str, *, epoch: int,
+                            temperature: float) -> None:
+    """The caption checkpoint (``compress_caption.py:497-507``): the ViT, the
+    decoder with its LM head and tied exports, the codebook;
+    :func:`load_caption_state_dict` and ``load_blip_caption`` read it back."""
+    _save(model, path, epoch, temperature, lm_head=True)
+
+
+def save_vqa_checkpoint(model: VQAModel, path: str, *, epoch: int,
+                        temperature: float) -> None:
+    """The VQA checkpoint (``compress_vqa.py:484-497``): the ViT, the
+    question encoder, the answer decoder with its LM head and tied exports,
+    the codebook; :func:`load_vqa_state_dict` and ``load_blip_vqa`` read it
+    back."""
+    _save(model, path, epoch, temperature, lm_head=True)
+
+
+def save_retrieval_checkpoint(model: RetrievalModel, path: str, *, epoch: int,
+                              temperature: float) -> None:
+    """The retrieval checkpoint (``compress_retrieval.py:492-505``): the
+    online towers, the projections, ``itm_head`` and the codebook, and no
+    momentum tower, queue or ``temp``, as the JAX driver writes it;
+    :func:`load_retrieval_state_dict` and ``load_blip_retrieval`` read it
+    back."""
+    _save(model, path, epoch, temperature)
+
+
+def retrieval_train_state_from_jax(params: Mapping, params_m: Mapping, queue, temp,
+                                   cfg: BlipConfig, device="cuda"):
+    """A :class:`~madtp_tpu_torch.train.loops.RetrievalTrainState` from the
+    JAX package's ``RetrievalTrainState`` parts (numpy leaves): ``params``
+    through :func:`retrieval_from_jax_params`, the momentum towers
+    ``params_m`` (``visual_encoder``, ``text_encoder``, ``vision_proj``,
+    ``text_proj``) by the model's parameter names, the ``FeatureQueue``
+    (``image``, ``text``, ``idx``, ``ptr``) and ``temp``."""
+    dev = resolve_device(device)
+    model = retrieval_from_jax_params(params, cfg, device=dev)
+    j = _JaxTree()
+    j.vit(params_m["visual_encoder"], cfg)
+    j.med(params_m["text_encoder"], cfg)
+    j.lin("vision_proj", params_m["vision_proj"])
+    j.lin("text_proj", params_m["text_proj"])
+    names = {n for n, _ in model.named_parameters() if n.split(".", 1)[0] in MOMENTUM_KEYS}
+    if set(j.sd) != names:
+        raise KeyError(f"momentum towers: {sorted(set(j.sd) ^ names)[:3]} do not match")
+    params_m_t = {n: j.sd[n].to(dev) for n, _ in model.named_parameters() if n in names}
+    q = FeatureQueue(_tensor(queue.image).to(dev), _tensor(queue.text).to(dev),
+                     torch.from_numpy(np.asarray(queue.idx, np.int64)).to(dev),
+                     torch.tensor(int(np.asarray(queue.ptr)), dtype=torch.long, device=dev))
+    return RetrievalTrainState(model, params_m_t, q,
+                               torch.tensor(float(np.asarray(temp)), device=dev))

@@ -5,11 +5,14 @@
   twin cross-attention MED and the 2-way head (``:39-124``, eval and train
   branches);
 * :class:`RetrievalModel` — image and text features for the ITC shortlist
-  and the ITM score of the rerank (``:216-262``), eval only;
+  and the ITM score of the rerank (``:216-262``); its training (momentum
+  towers, queue, ITC and ITM losses) is in :mod:`madtp_tpu_torch.train.loops`;
 * :class:`VQAModel` — the image tower, the question encoder over the image
-  (``blip_vqa_encode``, ``:180-208``) and the answer decoder, eval only;
+  (``blip_vqa_encode``, ``:180-208``) and the answer decoder; its training
+  loss is in :mod:`madtp_tpu_torch.train.loops`;
 * :class:`CaptionModel` — the image tower and the caption decoder over its
-  tokens (``blip_caption_encode_image``, ``:132-149``), eval only.
+  tokens (``blip_caption_encode_image``, ``:132-149``), and the training
+  pass with the LM loss (``blip_caption_forward``, ``:151-172``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from torch import nn
 
 from madtp_tpu_torch.core.config import BlipConfig
 from madtp_tpu_torch.core.device import resolve_device
-from madtp_tpu_torch.models.med import MedDecoder, MedEncoder
+from madtp_tpu_torch.models.med import MedDecoder, MedEncoder, lm_loss
 from madtp_tpu_torch.models.vit import EncoderOut, VisionTransformer
 from madtp_tpu_torch.ops.layers import cosine_embedding_loss, linear
 from madtp_tpu_torch.prune.dtp import TokenState
@@ -255,7 +258,7 @@ def init_vqa_model(cfg: BlipConfig, seed: int = 0, device="cuda",
 
 
 class CaptionModel(nn.Module):
-    """BLIP captioning (``BLIP_Decoder``), eval side.  Parameter names follow
+    """BLIP captioning (``BLIP_Decoder``).  Parameter names follow
     the reference BLIP caption state dict (``visual_encoder.``,
     ``text_decoder.bert.*``, ``text_decoder.cls.predictions.*``,
     ``space_dict``).  The model computes in the dtype of its weights."""
@@ -279,6 +282,23 @@ class CaptionModel(nn.Module):
         out = self.visual_encoder(images, space_dict=self.space_dict, temperature=temperature,
                                   prune_active=prune_active, capacities=capacities)
         return out.state, out.sd_ft, out.kept_counts
+
+    def forward(self, images: torch.Tensor, text_ids: torch.Tensor, text_mask: torch.Tensor,
+                *, temperature=0.0, prune_active: bool = False,
+                capacities: Optional[Sequence[int]] = None,
+                labels: Optional[torch.Tensor] = None):
+        """The training and scoring pass (``blip_caption_forward``): the image
+        tower with DTP (gather mode with ``capacities``), then the decoder,
+        never pruned, over ``text_ids`` (BOS at slot 0) and the LM head.
+        Returns the fp32 logits [B, N, V]; with ``labels`` [B, N] (-100 where
+        ignored) ``(loss_lm, sd_img_ft, logits)``."""
+        state, sd_img_ft, _ = self.encode_image(images, temperature=temperature,
+                                                prune_active=prune_active,
+                                                capacities=capacities)
+        logits = self.text_decoder.lm_head(self.text_decoder(text_ids, text_mask, state))
+        if labels is None:
+            return logits
+        return lm_loss(logits, labels), sd_img_ft, logits
 
 
 def init_caption_model(cfg: BlipConfig, seed: int = 0, device="cuda",

@@ -16,7 +16,8 @@ attention core (K1 has no causal mask), cross-attention over the memory
 through :func:`cross_attention` with the memory's key bias, the FFN through
 :func:`mlp`, and the LM head on the tied word embeddings.  Its
 :meth:`MedDecoder.step` decodes one token against a fixed-capacity
-:class:`DecodeCache` (``med_decoder_step``, ``:526-580``).
+:class:`DecodeCache` (``med_decoder_step``, ``:526-580``); :func:`lm_loss`
+is the decoder's training loss (``:596-611``).
 """
 
 from __future__ import annotations
@@ -454,3 +455,21 @@ class MedDecoder(nn.Module):
         h = _ln(gelu(_lin(hidden, p.transform.dense)), p.transform.LayerNorm)
         w = self.bert.embeddings.word_embeddings.weight
         return torch.matmul(h.float(), w.float().t()) + p.bias.float()
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, *, label_smoothing: float = 0.1,
+            reduction: str = "mean") -> torch.Tensor:
+    """Shifted next-token cross-entropy with label smoothing and ignore index
+    -100 (``lm_loss``, ``madtp_tpu/models/med.py:596-611``): position ``i``'s
+    logits [B, N, V] (upcast to fp32) predict ``labels`` [B, N] at ``i+1``.
+    ``reduction="none"`` gives each sample's sum [B]; ``"mean"`` divides the
+    total by the count of valid positions, at least 1."""
+    logits, labels = logits[:, :-1], labels[:, 1:]
+    valid = labels != -100
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, torch.where(valid, labels, 0)[..., None].long())[..., 0]
+    loss = (1.0 - label_smoothing) * nll + label_smoothing * -logp.mean(dim=-1)
+    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    if reduction == "none":
+        return loss.sum(dim=1)
+    return loss.sum() / valid.sum().clamp(min=1)

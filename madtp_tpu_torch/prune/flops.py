@@ -16,6 +16,8 @@ ORI_GFLOPS = 395.7
 ORI_GFLOPS_VQA = 186.1
 # the reference's dense BLIP captioning GFLOPs (madtp_tpu/cli/compress_caption.py:43)
 ORI_GFLOPS_CAPTION = 65.7
+# the reference's dense BLIP retrieval training GFLOPs (madtp_tpu/cli/compress_retrieval.py:28)
+ORI_GFLOPS_RETRIEVAL = 153.2
 
 
 def _layer_macs(n_in: float, n_out: float, D: int, I: int, n_kv: float = None):

@@ -1,5 +1,5 @@
-"""BLIP COCO caption evaluation (counterpart of ``madtp_tpu/tasks/caption.py:
-28-188`` and of the eval half of ``madtp_tpu/cli/compress_caption.py:47-212``),
+"""BLIP COCO caption evaluation and compression training (counterpart of
+``madtp_tpu/tasks/caption.py:28-188`` and of ``madtp_tpu/cli/compress_caption.py``),
 single process.
 
 * :func:`beam_generate`: HF-style beam search with the beams folded into the
@@ -9,8 +9,14 @@ single process.
 * :func:`generate_captions` and :func:`finish_captions`: the pruned image
   encode and the decode from the prompt ``"a picture of "`` as one captured
   step, then the captions as text.
-* :func:`probe_capacities` is ``--fast_eval``'s calibration, and
-  :func:`evaluate` the whole eval with the analytic GFLOPs.
+* :func:`probe_capacities` is ``--fast_eval``'s calibration (and
+  ``--fast_train``'s), and :func:`evaluate` the whole eval with the
+  analytic GFLOPs.
+* Compression training (the train half of ``madtp_tpu/cli/compress_caption.py:
+  280-440``): :func:`presearch` finds the starting temperature,
+  :func:`train_batch` tokenizes a batch of captions, :func:`train_epoch`
+  runs one epoch of a step from
+  :func:`madtp_tpu_torch.train.loops.make_caption_train_step`.
 
 Batches are ``(images, image_ids)`` numpy arrays, ``images`` float
 [b, 3, H, W] or the uint8 feed [b, H, W, 3].
@@ -19,7 +25,7 @@ Batches are ``(images, image_ids)`` numpy arrays, ``images`` float
 from __future__ import annotations
 
 import itertools
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,11 +35,14 @@ from madtp_tpu_torch.models.med import DecodeCache, MedDecoder, init_decode_cach
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.prune.flops import caption_gflops
+from madtp_tpu_torch.train.controller import presearch_temperature
+from madtp_tpu_torch.train.epoch import run_epoch
 from madtp_tpu_torch.utils.graph import CapturedStep
 
 NEG = -1e9
 PROMPT = "a picture of "
 N_TEXT0 = 14  # the decoder's token count in the caption driver's GFLOPs
+MAX_LENGTH = 40  # the training captions' token limit (compress_caption.py:406)
 
 
 def _expand_state(state: TokenState, nb: int) -> TokenState:
@@ -265,3 +274,59 @@ def evaluate(model: CaptionModel, tokenizer, batches: Iterable, *, temperature: 
     if pending is not None:
         consume(pending)
     return results, g_sum / max(n, 1)
+
+
+@torch.inference_mode()
+def presearch(model: CaptionModel, images, target_gflops: float, *, t0: float = 1.0,
+              tol: float = 1.0, max_iters: int = 25) -> float:
+    """The temperature a compression run starts from
+    (``madtp_tpu/cli/compress_caption.py:311-324``): the mask-mode image tower
+    on one probe batch, ``caption_gflops`` of its kept counts (the decoder at
+    14 tokens), stepped by the controller's ladder until within ``tol``
+    GFLOPs of the target."""
+    cfg = model.cfg
+    x = _to_device(images, model.space_dict.device)
+
+    def measure(t):
+        kept = model.encode_image(x, temperature=t, prune_active=True)[2]
+        return caption_gflops(cfg.vit, cfg.med, kept.cpu().numpy(), N_TEXT0)
+
+    return presearch_temperature(measure, target_gflops, t0=t0, max_iters=max_iters, tol=tol)
+
+
+def train_batch(tokenizer, captions: Sequence[str], prompt_length: int
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A batch of training captions (``compress_caption.py:400-409``): ids and
+    mask padded to the longest caption (at most ``MAX_LENGTH``), BOS in slot
+    0, labels -100 at padding and over the first ``prompt_length`` tokens
+    (``len(tokenizer.encode(PROMPT)) - 1``).  int64 numpy arrays."""
+    tok = tokenizer(list(captions), padding="longest", max_length=MAX_LENGTH)
+    ids = np.array(tok["input_ids"], np.int64)
+    mask = np.array(tok["attention_mask"], np.int64)
+    ids[:, 0] = tokenizer.bos_token_id
+    labels = np.where(ids == tokenizer.pad_token_id, -100, ids)
+    labels[:, :prompt_length] = -100
+    return ids, mask, labels
+
+
+def train_epoch(model: CaptionModel, train_step, loader_fn: Callable[[], Iterable], tokenizer,
+                temperature: float, *, print_fn=print, print_freq: int = 50,
+                lr: float = 0.0, stop=None) -> dict:
+    """One compression-training epoch (single process) of ``train_step``
+    (:func:`~madtp_tpu_torch.train.loops.make_caption_train_step`'s step)
+    over ``loader_fn()``'s ``(images, captions, image_ids)`` batches, each
+    tokenized by :func:`train_batch`.  Returns the stats of
+    :func:`~madtp_tpu_torch.train.epoch.run_epoch`: the means of
+    ``temperature``, ``lr``, ``loss``, ``loss_lm`` and ``loss_fdt``, and
+    ``batches_done``."""
+    dev = model.space_dict.device
+    prompt_length = len(tokenizer.encode(PROMPT)) - 1
+
+    def run_step(_, batch):
+        images, captions = batch[0], batch[1]
+        ids, mask, labels = train_batch(tokenizer, captions, prompt_length)
+        return train_step(_to_device(images, dev), *(_to_device(a, dev) for a in
+                                                     (ids, mask, labels)), temperature)
+
+    return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
+                     print_freq=print_freq, stop=stop)

@@ -17,6 +17,7 @@ import torch
 from madtp_tpu_torch.models.blip import NLVRModel, NLVROut
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.flops import nlvr_gflops
+from madtp_tpu_torch.train.epoch import run_epoch
 from madtp_tpu_torch.utils.graph import CapturedStep
 
 
@@ -119,34 +120,14 @@ def train_epoch(model: NLVRModel, train_step, loader_fn: Callable[[], Iterable],
     ``loss_ori`` and ``loss_fdt`` as ``"%.4f"`` strings, and
     ``batches_done`` (int)."""
     device = model.space_dict.device
-    sums: dict = {}
 
-    def record(metrics):
-        vals = dict(temperature=float(temperature), lr=lr,
-                    **{k: float(v) for k, v in metrics.items()})
-        for k, v in vals.items():
-            total, count = sums.get(k, (0.0, 0))
-            sums[k] = (total + v, count + 1)
+    def run_step(_, batch):
+        image0, image1, sentences, targets = batch
+        x, _ = _device_batch(image0, image1, sentences, tokenize, enc_token_id, device)
+        return train_step(*x, torch.from_numpy(np.asarray(targets)).to(device), temperature)
 
-    pending = None
-    batches_done = 0
-    for i, (image0, image1, sentences, targets) in enumerate(loader_fn()):
-        batch, _ = _device_batch(image0, image1, sentences, tokenize, enc_token_id, device)
-        metrics = train_step(*batch, torch.from_numpy(np.asarray(targets)).to(device),
-                             temperature)
-        if pending is not None:
-            record(pending)
-        pending = metrics
-        batches_done += 1
-        if print_freq and i % print_freq == 0:
-            print_fn(f"Train: [{i}] T={temperature} lr={lr}")
-        if stop is not None and stop():
-            break
-    if pending is not None:
-        record(pending)
-    stats = {k: f"{total / max(count, 1):.4f}" for k, (total, count) in sums.items()}
-    stats["batches_done"] = batches_done
-    return stats
+    return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
+                     print_freq=print_freq, stop=stop)
 
 
 def cached_probe_batches(cache: list, loader_factory: Callable[[], Iterable],

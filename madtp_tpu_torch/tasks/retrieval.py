@@ -1,4 +1,5 @@
-"""BLIP image-text retrieval evaluation: ITC shortlist, then ITM rerank
+"""BLIP image-text retrieval evaluation (ITC shortlist, then ITM rerank) and
+compression training
 (counterpart of ``madtp_tpu/tasks/retrieval.py:80-139`` and ``:242-389``, and
 of the eval half of ``madtp_tpu/cli/compress_retrieval.py:130-229``),
 single process.
@@ -13,14 +14,18 @@ single process.
   DTP batch, as in the reference's one-row-per-step loop (the JAX package
   ``vmap`` s the rows, which keeps them apart the same way); stacking rows
   into one forward would couple them.  Unscored entries stay at -100.
-* :func:`probe_capacities` is ``--fast_eval``'s calibration;
-  :func:`evaluate` runs the whole eval and returns ``itm_eval``'s recalls.
+* :func:`probe_capacities` is ``--fast_eval``'s calibration (and
+  ``--fast_train``'s); :func:`evaluate` runs the whole eval and returns
+  ``itm_eval``'s recalls.
+* :func:`train_epoch` runs one compression-training epoch
+  (``madtp_tpu/cli/compress_retrieval.py:405-450``) of a step from
+  :func:`madtp_tpu_torch.train.loops.make_retrieval_train_step`.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,8 +34,11 @@ from madtp_tpu_torch.eval.metrics import itm_eval
 from madtp_tpu_torch.models.blip import RetrievalModel
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
+from madtp_tpu_torch.train.epoch import run_epoch
 from madtp_tpu_torch.utils.cache import BoundedCache
 from madtp_tpu_torch.utils.graph import CapturedStep
+
+MAX_LENGTH = 35  # the training captions' padded length (compress_retrieval.py:425)
 
 
 def _ids(a, device) -> torch.Tensor:
@@ -206,3 +214,32 @@ def evaluate(model: RetrievalModel, image_batches: Iterable[np.ndarray],
         k_test=min(k_test, len(enc_ids)), temperature=temperature, prune_active=prune,
         capacities_t=capacities_t, graph=graph)
     return itm_eval(s_i2t, s_t2i, txt2img, img2txt)
+
+
+def train_epoch(model: RetrievalModel, train_step, loader_fn: Callable[[], Iterable], tokenizer,
+                temperature: float, *, epoch: int, epoch_len: int, alpha: float = 0.4,
+                generator: Optional[torch.Generator] = None, max_length: int = MAX_LENGTH,
+                print_fn=print, print_freq: int = 50, lr: float = 0.0, stop=None) -> dict:
+    """One compression-training epoch (single process) of ``train_step``
+    (:func:`~madtp_tpu_torch.train.loops.make_retrieval_train_step`'s step,
+    over ``model``'s train state) on ``loader_fn()``'s ``(images, captions,
+    image_ids)`` batches, the captions padded to ``max_length``.  Epoch 0
+    ramps the soft-target weight, ``alpha * min(1, done / epoch_len)`` at its
+    ``done``-th batch; ``generator`` (one per run, on the model's device)
+    draws every step's hard negatives.  Returns the stats of
+    :func:`~madtp_tpu_torch.train.epoch.run_epoch`: the means of
+    ``temperature``, ``lr``, ``alpha``, ``loss``, ``loss_ita``,
+    ``loss_itm``, ``loss_fdt`` and ``loss_fdt_m``, and ``batches_done``."""
+    dev = model.space_dict.device
+
+    def run_step(done, batch):
+        images, captions, img_idx = batch
+        tok = tokenizer(list(captions), padding="max_length", max_length=max_length)
+        a = alpha if epoch > 0 else alpha * min(1.0, done / max(1, epoch_len))
+        metrics = train_step(torch.from_numpy(np.asarray(images)).to(dev),
+                             _ids(tok["input_ids"], dev), _ids(tok["attention_mask"], dev),
+                             _ids(img_idx, dev), temperature, a, generator=generator)
+        return dict(metrics, alpha=a)
+
+    return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
+                     print_freq=print_freq, stop=stop)

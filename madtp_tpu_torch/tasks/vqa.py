@@ -8,8 +8,13 @@
   tokens, and each question's top ``k`` answers; one decoder pass over the
   k candidates (the question memory shared, the BOS prefix reused) gives
   each candidate's label-smoothed loss; the lowest wins.
-* :func:`probe_capacities` is ``--fast_eval``'s calibration, and
-  :func:`evaluate` the whole eval with the analytic GFLOPs.
+* :func:`probe_capacities` is ``--fast_eval``'s calibration (and
+  ``--fast_train``'s), and :func:`evaluate` the whole eval with the
+  analytic GFLOPs.
+* Compression training (the train half of ``madtp_tpu/cli/compress_vqa.py:
+  296-460``): :func:`train_batch` pads each question's answers to
+  ``MAX_A`` with zero weights, :func:`train_epoch` runs one epoch of a step
+  from :func:`madtp_tpu_torch.train.loops.make_vqa_train_step`.
 
 Batches are ``(images [b, 3, H, W], q_ids [b, N], q_mask [b, N],
 question_ids)`` numpy arrays, ``q_ids`` with the encoder token at slot 0 and
@@ -22,7 +27,7 @@ padded to the batch's longest question (the tokenizer's
 from __future__ import annotations
 
 import itertools
-from typing import Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +38,12 @@ from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.prune.flops import vqa_gflops
 from madtp_tpu_torch.tasks.caption import beam_generate
+from madtp_tpu_torch.train.epoch import run_epoch
 from madtp_tpu_torch.utils.graph import CapturedStep
 
 LABEL_SMOOTHING = 0.1  # reference models/med.py:1045
+MAX_A = 10  # answers per training question: VQAv2 has 10 annotators
+Q_MAX_LENGTH = 35  # the questions' token limit (reference models/blip_vqa.py)
 
 
 def _ids(a, device) -> torch.Tensor:
@@ -216,3 +224,64 @@ def evaluate(model: VQAModel, batches: Iterable, answer_ids, answer_mask, *,
     if pending is not None:
         consume(pending)
     return results, g_sum / max(n, 1)
+
+
+def tokenize_answers(tokenizer, answers: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+    """Answers padded to the longest, BOS in slot 0 (``tokenize_answers``,
+    ``madtp_tpu/cli/compress_vqa.py:33-37``): int64 ``(ids, mask)``."""
+    out = tokenizer(list(answers), padding="longest")
+    ids = np.array(out["input_ids"], np.int64)
+    ids[:, 0] = tokenizer.bos_token_id
+    return ids, np.array(out["attention_mask"], np.int64)
+
+
+def train_batch(tokenizer, questions: Sequence[str], answers: Sequence[str], weights,
+                counts: Sequence[int]):
+    """A training batch (``compress_vqa.py:425-446``) from ``vqa_collate``'s
+    ragged answers: ``answers`` and ``weights`` flat, ``counts`` per
+    question.  Questions padded to the longest (at most 35 tokens), the
+    encoder token in slot 0; each question's first ``MAX_A`` answers in
+    ``[B, MAX_A, La]`` with BOS in slot 0, the rest of the rows padding
+    with weight 0.  Returns int64 ``q_ids, q_mask, a_ids, a_mask`` and fp32
+    ``weights`` [B, MAX_A].  A question with more answers than ``MAX_A``
+    drops the extra ones (the JAX driver would then
+    misalign the next question's; VQAv2 never has more than 10)."""
+    q = tokenizer(list(questions), padding="longest", max_length=Q_MAX_LENGTH)
+    q_ids = np.array(q["input_ids"], np.int64)
+    q_ids[:, 0] = tokenizer.enc_token_id
+    a_ids, a_mask = tokenize_answers(tokenizer, answers)
+    weights = np.asarray(weights, np.float32)
+    B, La = len(counts), a_ids.shape[1]
+    ids = np.zeros((B, MAX_A, La), np.int64)
+    msk = np.zeros((B, MAX_A, La), np.int64)
+    w = np.zeros((B, MAX_A), np.float32)
+    pos = 0
+    for b, cnt in enumerate(counts):
+        k = min(cnt, MAX_A)
+        ids[b, :k] = a_ids[pos:pos + k]
+        msk[b, :k] = a_mask[pos:pos + k]
+        w[b, :k] = weights[pos:pos + k]
+        pos += cnt
+    return q_ids, np.array(q["attention_mask"], np.int64), ids, msk, w
+
+
+def train_epoch(model: VQAModel, train_step, loader_fn: Callable[[], Iterable], tokenizer,
+                temperature: float, *, print_fn=print, print_freq: int = 50,
+                lr: float = 0.0, stop=None) -> dict:
+    """One compression-training epoch (single process) of ``train_step``
+    (:func:`~madtp_tpu_torch.train.loops.make_vqa_train_step`'s step) over
+    ``loader_fn()``'s ``(images, questions, answers, weights, counts)``
+    batches (``vqa_collate``'s), each made by :func:`train_batch`.  Returns
+    the stats of :func:`~madtp_tpu_torch.train.epoch.run_epoch`: the means of
+    ``temperature``, ``lr``, ``loss``, ``loss_vqa`` and ``loss_fdt``, and
+    ``batches_done``."""
+    dev = model.space_dict.device
+
+    def run_step(_, batch):
+        images, questions, answers, weights, counts = batch
+        arrays = train_batch(tokenizer, questions, answers, weights, counts)
+        return train_step(torch.from_numpy(np.asarray(images)).to(dev),
+                          *(torch.from_numpy(a).to(dev) for a in arrays), temperature)
+
+    return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
+                     print_freq=print_freq, stop=stop)

@@ -194,7 +194,7 @@ def _k2_compare(c):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,with_bias", [
     (32, 592, False), (32, 584, False), (16, 40, True), (16, 26, True),
-    (3, 2, True), (3, 65, False)])
+    (3, 2, True), (3, 65, False), (16, 901, False)])
 def test_k2_matches_plain(cuda, B, N, with_bias, dtype):
     _k2_compare(k2_case(B, N, with_bias=with_bias, dtype=dtype, device=cuda))
 
@@ -782,3 +782,50 @@ def test_capture_refuses_a_read_back(cuda):
             captured(torch.ones(2, 4, device=cuda), 1.0)
     assert len(model_cache(owner)) == 0
     assert len(calls) == 4  # per call: the warm-up and the capture, nothing eager after
+
+
+# ---------------------------------------------------------------- retrieval training
+
+
+@pytest.mark.parametrize("mode", ["mask", "gather"])
+def test_retrieval_train_step_keeps_its_state_on_the_card(cuda, mode):
+    """Two BLIP retrieval train steps (the kernels' widths: heads of 64) under
+    ``set_sync_debug_mode("error")``: nothing reads back to the host, the
+    queue's pointer stays a 0-d device tensor and moves on by the batch, the
+    momentum towers and the queue stay fp32 on the card."""
+    from madtp_tpu_torch.core.config import BlipConfig, ViTConfig
+    from madtp_tpu_torch.models.blip import init_retrieval_model
+    from madtp_tpu_torch.train.loops import init_retrieval_train_state, make_retrieval_train_step
+    from madtp_tpu_torch.train.optim import make_adamw
+
+    vit = ViTConfig(image_size=64, patch_size=16, embed_dim=128, depth=2, num_heads=2,
+                    sd_dim=128)
+    med = MedConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                    intermediate_size=256, encoder_width=128, vocab_size=64,
+                    max_position_embeddings=16, sd_dim=128)
+    model = init_retrieval_model(BlipConfig(vit, med, sd_num=16, sd_dim=128), device=cuda)
+    state = init_retrieval_train_state(model, queue_size=8)
+    caps = {"mask": (None, None), "gather": ((24, 16), (12, 12))}[mode]
+    step = make_retrieval_train_step(state, make_adamw(model.parameters(), 1e-5, 0.05),
+                                     enc_token_id=63, capacities_v=caps[0],
+                                     capacities_t=caps[1])
+    g = torch.Generator().manual_seed(1)
+    images = torch.randn(4, 3, 64, 64, generator=g).to(cuda)
+    ids = torch.randint(1, 60, (4, 10), generator=g).to(cuda)
+    mask = torch.ones(4, 10, dtype=torch.long, device=cuda)
+    idx = torch.tensor([0, 1, 1, 2], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            m = step(images, ids, mask, idx, 2.0, 0.2, generator=gen)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    q = state.queue
+    assert q.ptr.device.type == "cuda" and q.ptr.dim() == 0 and int(q.ptr) == 0  # 2 x 4 of 8
+    assert torch.equal(q.idx.cpu(), torch.tensor([0, 1, 1, 2] * 2))
+    assert q.image.dtype == q.text.dtype == torch.float32
+    assert all(t.device.type == "cuda" and t.dtype == torch.float32
+               for t in state.params_m.values())
+    assert all(torch.isfinite(v) for v in m.values())
