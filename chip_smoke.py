@@ -55,7 +55,8 @@ Phases, each fatal on failure:
    cosine LR, a mask-mode fp32 train epoch, an eval for the GFLOPs), then a
    ``--fast_train`` epoch (probe, capacities, gather-mode train) in fp32 and
    with ``amp``; a gather step under the sync guard; the checkpoint round
-   trip; step times, a profile of the gather amp step;
+   trip; step times, profiles of the gather amp and the mask fp32 step;
+   K1, K4 and K5 held on the path's own inputs (fp32 and bf16);
 8. the full-width BLIP retrieval model (ViT-B/16@384 + 12-layer MED with
    single-stream cross-attention, the width of ``configs/retrieval_coco.yaml``,
    seeded random weights, fp32) on the card against the CPU: 4 images, 8
@@ -126,6 +127,9 @@ Phases, each fatal on failure:
    sequences within 1e-4, and equal sequences wherever every beam decision
    stands >= 64 fp32 steps and >= 4x the card's logit drift from its edge
    (the steps where one does not are named);
+   each card-against-CPU phase that searches ``PARITY_FACTORS`` logs the
+   factor it settles at and the card's drift there on one
+   ``[parity-settled]`` line;
 18-20. compression training (PR 10) of the caption (``configs/caption_coco.yaml``:
    batch 32, 384 px, the pre-search first), VQA (``configs/vqa.yaml``: batch
    16, 480 px, 10 answers a question with soft weights) and retrieval
@@ -196,6 +200,11 @@ wall times.  Every phase logs its wall time (``[time]``).
 Prints the card's name and power limit, a JSON line of kernel measurements,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits non-zero before printing any result.
+
+``python3 chip_smoke.py probe`` runs ``probe_fp32`` alone: the fp32
+training path's kernels through their wrappers, on whichever
+``madtp_tpu_torch`` is first on ``sys.path``, so that one call can measure a
+parent tree's package (``PYTHONPATH=<its checkout>``) beside this one.
 """
 
 from __future__ import annotations
@@ -686,6 +695,16 @@ def host_ms(fn, iters, stat=None):
     return (stat or statistics.fmean)(times) * 1e3
 
 
+def lead_spins(n=32):
+    """Opens a profile: ``n`` spin kernels (``spin_kernel``, which the
+    profiles leave out) and a synchronize.  A trace can miss the first
+    device activities after it starts (2-10 of them on some hosts, once the
+    first K1 of the VQA-640 graph's replay); the spins take those places."""
+    for _ in range(n):
+        torch.cuda._sleep(100_000)
+    torch.cuda.synchronize()
+
+
 def profile_step(label, fn, step_ms, top=10):
     """Device time by kernel for one call of ``fn`` under torch.profiler, and
     the device's busy share of ``step_ms``, the call's time without the
@@ -698,10 +717,12 @@ def profile_step(label, fn, step_ms, top=10):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lead_spins()
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]  # ranges, not kernels
+               and not getattr(e, "is_user_annotation", False)  # ranges, not kernels
+               and "spin_kernel" not in e.key]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"[profile] {label}: device busy {busy_ms:.2f} ms of the {step_ms:.2f} ms step "
         f"({busy_ms / step_ms:.1%}); {sum(e.count for e in kernels)} launches of "
@@ -715,9 +736,9 @@ def profile_step(label, fn, step_ms, top=10):
 # The kernel each wrapper launch runs once, by its name in a profile: K1's pass
 # A (``k1_fwd``, ``k1_fwd_simt``), K4's main kernel (``k4_mma``, ``k4_simt``;
 # ``k4_combine`` only when the keys split), and K5's two GEMMs (``k5_wgmma``
-# or ``k5_sgemm``, twice a launch).
+# or ``k5_ffma``, twice a launch).
 WRAPPER_KERNELS = {"K1": (("::k1_fwd",), 1), "K4": (("::k4_mma", "::k4_simt"), 1),
-                   "K5": (("::k5_wgmma", "::k5_sgemm"), 2)}
+                   "K5": (("::k5_wgmma", "::k5_ffma"), 2)}
 
 
 def wrapper_launches(kernels):
@@ -929,12 +950,14 @@ def previous_k4(q, k, v, alive, bias, scale):
 
 
 def previous_k5(x, w1, b1, w2, b2, act):
-    """The K5 design that ``csrc/ffn.cu`` replaced (``csrc/previous/ffn.cu``,
-    bf16 only), on the same inputs: the yardstick of ``previous_ms``."""
+    """The K5 design that ``csrc/ffn.cu`` replaced (``csrc/previous/ffn.cu``:
+    bf16 on mma.sync, ``k5_ffn``; fp32 on the first FFMA SGEMM, ``k5_ffn_fp32``),
+    on the same inputs: the yardstick of ``previous_ms``."""
     from madtp_tpu_torch.kernels.ffn import ACTS
 
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _previous_fn("K5", "k5_ffn", [p, p, p, p, p, p, p, i32, i32, i32, i32, p])
+    symbol = "k5_ffn_fp32" if x.dtype == torch.float32 else "k5_ffn"
+    fn = _previous_fn("K5", symbol, [p, p, p, p, p, p, p, i32, i32, i32, i32, p])
     M, D = x.shape
     F = w1.shape[0]
     hidden = torch.empty((M, F), dtype=x.dtype, device=x.device)
@@ -987,7 +1010,7 @@ def phase_build():
     for name, b in built.items():
         log(f"[build] {name}: nvcc {b.seconds:.2f} s -> {b.path.name}")
         for line in b.log.splitlines():
-            if "registers" in line or "bytes stack" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers", "bytes stack", "spill")):
                 log(f"[build]   {line.strip()}")
 
 
@@ -1240,10 +1263,8 @@ def ffn_library(x, w1, b1, w2, b2, act):
 def hold_k5(name, x, w1, b1, w2, b2, act, iters):
     """K5 against its plain version on one set of inputs, within
     ``TOLERANCES`` of their dtype, a relaunch bit-identical; times of K5,
-    the plain version, the library call and, in bf16, the replaced design
-    (``previous_k5``; in fp32 the FFNs ran as two linears before K5 took
-    them, so ``previous_ms`` is the library call's time), and the bound.
-    Returns the record."""
+    the plain version, the library call, the replaced design
+    (``previous_k5``) and the bound.  Returns the record."""
     from madtp_tpu_torch.kernels.ffn import TOLERANCES, ffn_cuda
     from madtp_tpu_torch.ops.layers import mlp_plain
 
@@ -1257,8 +1278,7 @@ def hold_k5(name, x, w1, b1, w2, b2, act, iters):
         ms = kernel_ms(lambda: ffn_cuda(*args), iters)
         plain_ms = kernel_ms(lambda: mlp_plain(*args), max(3, iters // 4))
         library_ms = kernel_ms(lambda: ffn_library(*args), iters)
-        previous_ms = (kernel_ms(lambda: previous_k5(*args), iters) if x.dtype == torch.bfloat16
-                       else library_ms)
+        previous_ms = kernel_ms(lambda: previous_k5(*args), iters)
     M, D = x.shape
     F = w1.shape[0]
     bound_ms, bound_by = bound(*k5_work(M, D, F, x.element_size()), x.dtype)
@@ -1782,10 +1802,13 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     """Compression training as ``madtp_tpu/cli/compress_nlvr.py:335-384``
     runs it, on synthetic data: controller epochs in mask mode fp32, then a
     ``--fast_train`` epoch in fp32 and with ``amp``.  K2 is held on the
-    inputs of the mask-mode fp32 epochs and of the amp epoch.  Returns the
-    K1, K2, K4 and bf16 K5 launch counts of that run (the amp epoch's FFNs),
-    the fp32 K5 launches (every other FFN of the run), K5's fp32 record at
-    the path's most-called fp32 shape and K2's records of the two captures."""
+    inputs of the mask-mode fp32 epochs and of the amp epoch, K1, K4 and K5
+    on every input of the run, and the mask fp32 step is profiled by kernel.
+    Returns the K1, K2, K4 and bf16 K5 launch counts of that run (the amp
+    epoch's FFNs), the fp32 K5 launches (every other FFN of the run), K5's
+    fp32 record at the path's most-called fp32 shape, K2's records of the
+    two captures, K1's record at its most-called shape and K4's at its
+    most-called fp32 shape."""
     import tempfile
 
     from madtp_tpu_torch.ckpt.convert import load_nlvr_state_dict, save_nlvr_checkpoint
@@ -1827,7 +1850,8 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
 
     attention_scores_cuda.launches = attention_scores_bwd_cuda.launches = 0
     cross_attention_cuda.launches = ffn_cuda.launches = ffn_cuda.fp32_launches = 0
-    with K4Capture() as capture, K5Capture() as k5_capture:  # the path's own inputs
+    with K4Capture() as capture, K5Capture() as k5_capture, \
+            K1Capture() as k1_capture:  # the path's own inputs
         step_mask = make_nlvr_train_step(model, opt)  # mask mode, fp32: compress_nlvr's default
         cur_g = ori
         with K2Capture() as k2_fp32:  # the mask-mode fp32 epochs' own backward inputs
@@ -1882,8 +1906,9 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
         raise AssertionError(f"training main path launched fp32 K5 {k5_fp32} times, want a "
                              f"positive multiple of {per_forward}: every FFN of the fp32 "
                              "forwards")
-    check_k4_cases("nlvr train", capture)
+    record4_32 = check_k4_cases("nlvr train", capture, where=dict(dtype="float32"))
     record32 = check_k5_cases("nlvr train", k5_capture, where=dict(dtype="float32"))
+    record1 = check_k1_cases("nlvr train", k1_capture, iters=5)
     record2_fp32 = check_k2_cases("nlvr train mask fp32", k2_fp32)
     record2_amp = check_k2_cases("nlvr train gather amp", k2_amp)
 
@@ -1924,6 +1949,8 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     ffn_ab("train mask fp32 step", lambda: steps["mask fp32"](*batch), iters)
     profile_step("gather amp train step", lambda: steps["gather amp"](*batch),
                  times["gather amp"], top=12)
+    profile_step("mask fp32 train step", lambda: steps["mask fp32"](*batch),
+                 times["mask fp32"], top=16)
 
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/checkpoint_best.pth"
@@ -1936,7 +1963,7 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, it
     if not (torch.equal(a.logits, b.logits) and ck["temperature"] == temperature):
         raise AssertionError("the reloaded checkpoint gives other logits or temperature")
     log(f"[train] checkpoint round trip: identical logits, temperature {ck['temperature']:.2f}")
-    return launches, k5_fp32, record32, record2_fp32, record2_amp
+    return launches, k5_fp32, record32, record2_fp32, record2_amp, record1, record4_32
 
 
 def retrieval_config():
@@ -2053,16 +2080,22 @@ def dtp_drift(want, got):
     return drift
 
 
-def card_drift(label, margin, pairs):
+def card_drift(label, margin, pairs, factor):
     """The card's largest drift (``dtp_drift``) over ``(CPU run, card
     run)`` pairs, and whether it stays ``DRIFT_FACTOR`` times below the
     CPU's ``margin``.  Where it does not, the temperature is not clear of
-    rounding and the parity phase tries the next one."""
+    rounding and the parity phase tries the next one; where it does, one
+    ``[parity-settled]`` line names the phase's settled temperature by its
+    ``factor`` of the main path's (one of ``PARITY_FACTORS``) and the
+    drift, so that two runs compare line by line."""
     drift = max(dtp_drift(want["dtp"], got["dtp"]) for want, got in pairs)
     clear = drift * DRIFT_FACTOR <= margin
     log(f"{label}: the card's DTP scores drift {drift:.3e} from the CPU's, "
         f"{margin / drift if drift else math.inf:.1f}x below the margin (want >= {DRIFT_FACTOR}x)"
         + ("" if clear else ": the next temperature"))
+    if clear:
+        log(f"[parity-settled] {label}: factor {factor:g} of the main path's T, the card's "
+            f"drift {drift:.3e}, margin {margin:.3e}")
     return drift, clear
 
 
@@ -2132,7 +2165,8 @@ def phase_retrieval_parity(device, cfg, t_main, k_test=4):
                 raise AssertionError(f"retrieval {mode}: kept counts differ: card {card['kept']} "
                                      f"cpu {cpu_runs[mode]['kept']}")
         drift, clear = card_drift(f"[r-parity] T={temperature:.4f}", margin,
-                                  [(cpu_runs[m], card_runs[m]) for m in modes])
+                                  [(cpu_runs[m], card_runs[m]) for m in modes],
+                                  temperature / t_main)
         if clear:
             break
     else:
@@ -2561,7 +2595,8 @@ def phase_clip_parity(device, cfg, t_main, n_images=2, texts_per_image=2):
                 raise AssertionError(f"clip {mode}: kept counts differ: card {card['kept']} "
                                      f"cpu {cpu_runs[mode]['kept']}")
         drift, clear = card_drift(f"[clip-parity] T={temperature:.4f}", margin,
-                                  [(cpu_runs[m], card_runs[m]) for m in modes])
+                                  [(cpu_runs[m], card_runs[m]) for m in modes],
+                                  temperature / t_main)
         if clear:
             break
     else:
@@ -2731,7 +2766,7 @@ def phase_vqa_parity(device, t_main, k_test=8, n_answers=64):
                 raise AssertionError(f"{label}: kept counts differ: card {got['kept']} cpu "
                                      f"{want['kept']}")
             drift, clear = card_drift(f"[vqa-parity] {label} T={temperature:.4f}", margin,
-                                      [(want, got)])
+                                      [(want, got)], temperature / t_main)
             if clear:
                 return temperature, want, got, margin, drift
         raise AssertionError(f"{label}: no temperature near the main path's prunes with every "
@@ -3370,7 +3405,7 @@ def phase_caption_parity(device, tokenizer, t_main, n_images=2):
                 raise AssertionError(f"caption parity: kept counts differ: card {got['kept']} "
                                      f"cpu {want['kept']}")
             drift, clear = card_drift(f"[caption-parity] T={temperature:.4f}", margin,
-                                      [(want, got)])
+                                      [(want, got)], temperature / t_main)
             if clear:
                 return temperature, want, got, drift
         raise AssertionError("caption parity: no temperature near the main path's prunes with "
@@ -3962,7 +3997,8 @@ def train_parity(label, t_main, modes_at, run, grad_params, want_launches):
                 raise AssertionError(f"{label} {mode}: keep counts differ: card {card['kept']} "
                                      f"cpu {cpu_runs[mode]['kept']}")
         drift, clear = card_drift(f"[{label}] T={temperature:.4f}", margin,
-                                  [(cpu_runs[m], card_runs[m]) for m in modes])
+                                  [(cpu_runs[m], card_runs[m]) for m in modes],
+                                  temperature / t_main)
         if clear:
             break
     else:
@@ -4193,7 +4229,7 @@ def main():
     _, fp32_k5["train_parity"], _ = timed(fp32_k5_held, "nlvr train parity", phase_train_parity,
                                           device, cfg)
     (k1_train, k2_train, k4_train, k5_train), fp32_k5["train"], record5_train, record2_fp32, \
-        record2_amp = timed(phase_train_main, device, cfg)
+        record2_amp, record1_train, record4_train32 = timed(phase_train_main, device, cfg)
     rcfg = retrieval_config()
     t_ret, k1_ret, k4_ret, k5_ret, record4, record1_ret = timed(phase_retrieval_main, device,
                                                                 rcfg)
@@ -4264,7 +4300,7 @@ def main():
              launches_in_profiled_replays=REPLAYS["K1"],
              **record, at_nlvr_gather_eval=record1_eval, at_retrieval_eval=record1_ret,
              at_clip_vision_h16=record1_clip, at_vqa_gather_eval=record1_vqa,
-             at_caption_eval=record1_cap,
+             at_caption_eval=record1_cap, at_train_nlvr=record1_train,
              **{f"at_train_{f}": r["K1"] for f, r in trec.items()},
              fp32_at_train_shape=record1_32,
              library_note="library_ms is scaled_dot_product_attention, out only; vqa640 "
@@ -4306,7 +4342,7 @@ def main():
              launches_in_profiled_replays=REPLAYS["K4"],
              **record4, at_vqa_gather_eval=record4_vqa, at_vqa_dense_eval=dense4_vqa,
              at_vqa640_eval=record4_640, at_vqa_generate=record4_gen,
-             at_caption_eval=record4_cap,
+             at_caption_eval=record4_cap, fp32_at_train_nlvr=record4_train32,
              **{f"at_train_{f}": r["K4"] for f, r in trec.items()},
              library_note="library_ms is scaled_dot_product_attention with the "
                           "same additive mask: the same function",
@@ -4330,10 +4366,9 @@ def main():
              fp32_launches=sum(fp32_k5.values()), fp32_launches_by_path=fp32_k5,
              library_note="library_ms is two F.linear and the activation: the same function",
              previous_note="previous_ms is the replaced design (madtp_tpu_torch/csrc/previous/"
-                           "ffn.cu, bf16 only) on the same inputs and card; in fp32 the FFNs "
-                           "ran as two linears before K5 took them, so there it is library_ms; "
-                           "launches counts the bf16 main paths, fp32_launches the fp32 "
-                           "paths"),
+                           "ffn.cu: bf16 k5_ffn, fp32 k5_ffn_fp32, the first SGEMM) on the same "
+                           "inputs and card; launches counts the bf16 main paths, "
+                           "fp32_launches the fp32 paths"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))
@@ -4343,5 +4378,94 @@ def main():
     return 0
 
 
+def pass_times(label, fn, iters):
+    """Device time per call of each kernel that ``fn`` launches (the passes
+    of K1, the two GEMMs of K5), from torch.profiler over ``iters`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_spins()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count and "spin_kernel" not in e.key:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            log(f"[probe-pass] {label}: {e.self_device_time_total / 1e3 / iters:.4f} ms a call, "
+                f"x{e.count // iters} {name[:70]}")
+
+
+def probe_fp32():
+    """``python3 chip_smoke.py probe``: the fp32 training path's kernels on
+    whatever ``madtp_tpu_torch`` comes first on the path (a parent tree's,
+    for a comparison inside one call), through the wrappers alone: the mask
+    fp32 NLVR train step (16 pairs) timed and profiled by kernel, then fp32
+    K5 (D = 768, F = 3072, GELU) at the paths' row counts and fp32 K1 at
+    their lengths, each with the library call's time and its passes' or
+    GEMMs' device times apart."""
+    import torch.nn.functional as F
+
+    import madtp_tpu_torch
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+    from madtp_tpu_torch.models.blip import init_nlvr_model
+    from madtp_tpu_torch.train.loops import make_nlvr_train_step
+    from madtp_tpu_torch.train.optim import make_adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    log(f"[probe] {madtp_tpu_torch.__file__}; {card_line()}")
+    phase_build()
+    cfg = full_config()
+    model = init_nlvr_model(cfg, seed=0, device=device)
+    opt = make_adamw(model.parameters(), lr=3e-6, weight_decay=0.05)
+    rng = np.random.default_rng(5)
+    pairs, text_len, s = 16, 26, cfg.vit.image_size
+    ids = rng.integers(1, cfg.med.vocab_size, size=(pairs, text_len))
+    ids[:, 0] = 2
+    mask = np.ones((pairs, text_len), np.int64)
+    mask[-1, text_len - 5:] = 0
+    batch = tuple(torch.from_numpy(a).to(device) for a in (
+        rng.standard_normal((2 * pairs, 3, s, s), dtype=np.float32), ids, mask,
+        rng.integers(0, 2, size=pairs))) + (1.0,)
+    step = make_nlvr_train_step(model, opt)  # mask mode, fp32
+    ms = time_ms(lambda: step(*batch), 5)
+    log(f"[probe] mask fp32 NLVR train step, 16 pairs: {ms:.2f} ms")
+    profile_step("mask fp32 train step", lambda: step(*batch), ms, top=16)
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        for M in (1, 2, 16, 480, 608, 800, 1000, 18944):
+            args = k5_case(M, 768, 3072, device, dtype=torch.float32) + ("gelu",)
+            iters = 20 if M < 5000 else 5
+            k5_ms = kernel_ms(lambda: ffn_cuda(*args), iters)
+            lib_ms = kernel_ms(lambda: ffn_library(*args), iters)
+            log(f"[probe] fp32 K5 M={M}: {k5_ms:.4f} ms, library {lib_ms:.4f} ms")
+            pass_times(f"fp32 K5 M={M}", lambda: ffn_cuda(*args), 5)
+            del args
+        for B, N, H, with_bias in ((32, 592, 12, False), (16, 920, 12, False),
+                                   (2, 1608, 12, False), (16, 26, 12, True),
+                                   (32, 35, 12, True), (2, 584, 16, False)):
+            q, k, v, alive, bias = k1_case(B, N, with_bias=with_bias, dtype=torch.float32,
+                                           device=device, H=H)
+            bias_in = torch.zeros(alive.shape, device=device) if bias is None else bias
+            k1_ms = kernel_ms(lambda: attention_scores_cuda(q, k, v, alive, bias_in, 0.125), 10)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            attn_mask = sdpa_mask(alive, bias_in, torch.float32)
+            sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=attn_mask, scale=0.125), 10)
+            log(f"[probe] fp32 K1 B={B} N={N} H={H}: {k1_ms:.4f} ms, sdpa (out only) "
+                f"{sdpa_ms:.4f} ms")
+            pass_times(f"fp32 K1 B={B} N={N} H={H}",
+                       lambda: attention_scores_cuda(q, k, v, alive, bias_in, 0.125), 5)
+            del q, k, v, alive, bias, bias_in, qh, kh, vh, attn_mask
+            torch.cuda.empty_cache()
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(probe_fp32() if sys.argv[1:] == ["probe"] else main())

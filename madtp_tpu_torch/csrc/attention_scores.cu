@@ -59,10 +59,18 @@
 // rounded copy of the max, and with a PAD_BIAS key as a row's max, ulp(1e4)
 // = 1e-3 of error in the exponent: P off by 0.07%.)
 //
-// The design above is bf16's.  fp32 (the fp32 train step and the
-// card-against-CPU checks) runs two passes of the same split on the CUDA
-// cores (`simt::`, below), K1's first design: 3xTF32 on the tensor cores kept
-// K1 within its fp32 tolerance but not the checks' limits.
+// The design above is bf16's.  fp32 (the mask-mode train step, the drivers'
+// default, and the card-against-CPU checks) runs the same two passes on the
+// CUDA cores (`simt::`, below; 3xTF32 on the tensor cores kept K1 within its
+// fp32 tolerance but not the checks' limits), redesigned for
+// occupancy, the measured limit of FFMA tiles here: pass A keeps 51 KB of
+// shared memory so that four 128-thread blocks share an SM (Q once, K and V
+// by cp.async in their own layout, P through the consumed K tile), pass B
+// two 256-thread blocks of a 2-stage ring of (Q tile, K rows of its head)
+// over row 0 and the alive rows only, packed; both hold 4 x 8 outputs a
+// thread, take the logits in one fixed order and P = exp(x - m) times
+// 1/l, and pass B takes the query split of bf16.  The
+// first FFMA design is csrc/previous/attention_scores.cu.
 //
 // Bound on the card.  At the NLVR gather path's first layer (B = 64 images,
 // H = 12, N = 584, Dh = 64, bf16) the function needs 4 N^2 Dh flops per
@@ -602,287 +610,416 @@ __global__ void __launch_bounds__(256) k1_colsum(const float* __restrict__ part,
 
 // ---------------------------------------------------------------- fp32, CUDA cores
 
-// fp32 multiplies on the CUDA cores (FFMA): K1's first design, kept.  Tensor
-// cores would mean 3xTF32, and the card's fp32 results then drift from the
-// CPU's (the fp32 plain version) twice as far as with FFMA: the VQA
-// card-against-CPU check's question states by 1.1e-5 against its 1e-5
-// limit, even with a fourth (lo lo) product (PERF.md).
+// fp32 multiplies on the CUDA cores (FFMA).  Tensor cores would mean
+// 3xTF32, and the card's fp32 results then drift from the CPU's (the fp32
+// plain version) twice as far as with FFMA: the VQA card-against-CPU
+// check's question states by 1.1e-5 against its 1e-5 limit, even with a
+// fourth (lo lo) product (PERF.md).  The same two passes as bf16, on FFMA
+// tiles; every tile row is padded to 68 floats (272 bytes), so that a warp's
+// float4 reads of 4 or 8 consecutive rows at one head dim fall in distinct
+// bank groups.
 namespace simt {
 
-constexpr int TQ = 64;      // query rows per tile
-constexpr int TK = 64;      // key columns per tile
-constexpr int NT = 256;     // threads: 16 row groups x 16 column groups
-constexpr int LD = 68;      // padded leading dim of the transposed tiles
-static_assert(TK == DH, "pass A reuses the K tile buffer for P^T");
-static_assert(LD % 4 == 0, "float4 reads need 16-byte aligned rows");
+constexpr int LD = DH + 4;  // a padded Q, K, V or P row, floats
+constexpr int TK = 64;      // keys of a pass-A tile and of a pass-B block
+constexpr int A_TQ = 64;    // pass A: query rows a block
+constexpr int A_NT = 128;   // pass A: 4 warps, four blocks an SM
+constexpr int B_TQ = BQ;    // pass B: query rows a stage
+constexpr int B_NT = 256;   // pass B: 8 warps, two blocks an SM
+constexpr int A_SMEM = (A_TQ * LD + 2 * TK * LD + TK) * 4;
+constexpr int B_STAGE = B_TQ * LD + TK * LD + 2 * B_TQ;  // floats: Q, K, the rows' m and l
 
-// dst[d * LD + r] = src[(r0 + r) * row_stride + d]; rows >= n are 0.
-__device__ void load_transposed(float* dst, const float* __restrict__ src,
-                                int64_t row_stride, int r0, int n) {
-  for (int e = threadIdx.x; e < TQ * DH; e += NT) {
-    const int r = e / DH, d = e % DH;
-    dst[d * LD + r] = (r0 + r < n) ? (src[(int64_t)(r0 + r) * row_stride + d]) : 0.f;
+constexpr int pass_b_smem(int H) { return (2 * B_STAGE + H * TK + 8 * TK + 2 * B_TQ) * 4; }
+
+// cp.async of rows [row0, row0 + rows) of a [row][DH] fp32 array (row
+// stride `sn`) into a padded tile; rows >= n are zeros.  row0 < n.
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t sn, int row0,
+                                          int rows, int n, int tid, int nthreads) {
+  for (int c = tid; c < rows * (DH / 4); c += nthreads) {
+    const int r = c / (DH / 4), ch = c % (DH / 4), row = row0 + r;
+    const bool in = row < n;
+    cp_async16(smem_addr(dst + r * LD + 4 * ch), src + (int64_t)(in ? row : row0) * sn + 4 * ch,
+               in ? 16 : 0);
   }
 }
 
-// s[i][j] = sum_d A[d][rg*4+i] * Bt[d][cg*4+j]
-__device__ __forceinline__ void tile_dot(float s[4][4], const float* At, const float* Bt,
-                                         int rg, int cg) {
+// s[i][j] = the sum over d = 0, 1, ..., 63 in that order of Q row r0 +
+// RS i times K row cl + 8 j, both padded tiles: the one sequence both
+// passes run, so pass B's logits are pass A's bit for bit.
+template <int RS>
+__device__ __forceinline__ void qk(float (&s)[4][8], const float* Q, const float* K, int r0,
+                                   int cl) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(&At[d * LD + rg * 4]);
-    const float4 c = *reinterpret_cast<const float4*>(&Bt[d * LD + cg * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float cv[4] = {c.x, c.y, c.z, c.w};
+    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < DH; d += 4) {
+    float4 kk[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) kk[j] = *reinterpret_cast<const float4*>(K + (cl + 8 * j) * LD + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
+    for (int i = 0; i < 4; ++i) {
+      const float4 a = *reinterpret_cast<const float4*>(Q + (r0 + RS * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = fmaf(a.x, kk[j].x, s[i][j]);
+        s[i][j] = fmaf(a.y, kk[j].y, s[i][j]);
+        s[i][j] = fmaf(a.z, kk[j].z, s[i][j]);
+        s[i][j] = fmaf(a.w, kk[j].w, s[i][j]);
+      }
+    }
   }
 }
 
-// Reductions over the 16 lanes of one row group (a half warp).
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Pass A: grid (ceil(N/TQ), H, B).
-__global__ void __launch_bounds__(NT) k1_fwd_simt(
+// Pass A, a FlashAttention-2 forward: grid (ceil(N / 64), H, B), 128
+// threads, 51 KB of shared memory, so that four blocks (16 warps) share an
+// SM and hide each other's loads and barriers.  Q is loaded once; each
+// 64-key tile of K and V lands by cp.async in its own row-major layout, and
+// P goes to the P V product through the K tile's buffer, which S has
+// consumed.  Thread (warp w, lane 8 rl + cl) holds query rows r0 + 16 i (r0
+// = 4 w + rl, i < 4) against keys cl + 8 j (j < 8) of a tile for S, and the
+// same rows of out at dims 4 cl .. 4 cl + 3 and 32 + 4 cl .. 32 + 4 cl + 3;
+// a row's 64 keys live in 8 lanes of one warp, so its max and sum close by
+// shuffles.
+__global__ void __launch_bounds__(A_NT, 4) k1_fwd_simt(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    int64_t sb, int64_t sn, const uint8_t* __restrict__ alive,
-    const float* __restrict__ bias, float* __restrict__ out, float* __restrict__ stat_m,
-    float* __restrict__ stat_l, float* __restrict__ rnorm, int N, int H, float scale) {
-  extern __shared__ float smem[];
-  float* Qt = smem;             // [DH][LD]
-  float* Kt = Qt + DH * LD;     // [DH][LD]; after the scores, P^T as [TK][LD]
-  float* Vs = Kt + DH * LD;     // [TK][DH]
-  float* kb = Vs + TK * DH;     // [TK] key bias, -inf where dead or past N
+    int64_t sb, int64_t sn, const uint8_t* __restrict__ alive, const float* __restrict__ bias,
+    float* __restrict__ out, float* __restrict__ stat_m, float* __restrict__ stat_l,
+    float* __restrict__ rnorm, int N, int H, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;             // [A_TQ][LD]
+  float* Ks = Qs + A_TQ * LD;  // [TK][LD]: K of the tile, then its P [A_TQ][LD]
+  float* Vs = Ks + TK * LD;    // [TK][LD]
+  float* kb = Vs + TK * LD;    // [TK]: key bias, -inf where dead or past N
 
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
-  const int64_t head = (int64_t)b * sb + (int64_t)h * DH;
+  const int q0 = blockIdx.x * A_TQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = 4 * warp + lane / 8, cl = lane % 8;
+  const int64_t head = (int64_t)b * sb + (int64_t)h * DH, bN = (int64_t)b * N;
+  const int ntiles = (N + TK - 1) / TK;
 
-  load_transposed(Qt, q + head, sn, q0, N);
+  auto load_kv = [&](int tile) {
+    load_rows(Ks, k + head, sn, tile * TK, TK, N, tid, A_NT);
+    load_rows(Vs, v + head, sn, tile * TK, TK, N, tid, A_NT);
+    cp_async_commit();
+    if (tid < TK) {
+      const int key = tile * TK + tid;
+      kb[tid] = (key < N && alive[bN + key]) ? bias[bN + key] : -INFINITY;
+    }
+  };
+  load_rows(Qs, q + head, sn, q0, A_TQ, N, tid, A_NT);
+  load_kv(0);
 
-  float m[4], l[4], o[4][4];
+  float o[4][8], m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int d = 0; d < 4; ++d) o[i][d] = 0.f;
+    for (int d = 0; d < 8; ++d) o[i][d] = 0.f;
   }
 
-  for (int k0 = 0; k0 < N; k0 += TK) {
-    __syncthreads();  // the previous tile's P^T and V are consumed
-    load_transposed(Kt, k + head, sn, k0, N);
-    for (int e = tid; e < TK * DH; e += NT) {
-      const int r = e / DH, d = e % DH;
-      Vs[e] = (k0 + r < N) ? (v[head + (int64_t)(k0 + r) * sn + d]) : 0.f;
-    }
-    if (tid < TK) {
-      const int j = k0 + tid;
-      kb[tid] = (j < N && alive[(int64_t)b * N + j]) ? bias[(int64_t)b * N + j] : -INFINITY;
-    }
-    __syncthreads();
-
-    float s[4][4];
-    tile_dot(s, Qt, Kt, rg, cg);
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t and its key bias landed for every thread
+    float s[4][8];
+    qk<16>(s, Qs, Ks, r0, cl);
+    __syncthreads();  // every thread has read the K tile: it takes P now
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      float tmax = -INFINITY;
+      float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float kbj = kb[cg * 4 + j];
-        s[i][j] = (kbj == -INFINITY) ? -INFINITY : s[i][j] * scale + kbj;
-        tmax = fmaxf(tmax, s[i][j]);
+      for (int j = 0; j < 8; ++j) {
+        const float kbv = kb[cl + 8 * j];
+        s[i][j] = kbv == -INFINITY ? -INFINITY : fmaf(s[i][j], scale, kbv);
+        mx = fmaxf(mx, s[i][j]);
       }
-      const float mn = fmaxf(m[i], group_max(tmax));
-      const float alpha = (mn == -INFINITY) ? 1.f : expf(m[i] - mn);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = (s[i][j] == -INFINITY) ? 0.f : expf(s[i][j] - mn);
-        psum += s[i][j];
-      }
-      l[i] = l[i] * alpha + psum;  // per-lane partial; summed over the group at the end
-#pragma unroll
-      for (int d = 0; d < 4; ++d) o[i][d] *= alpha;
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float mn = fmaxf(m[i], mx);
+      const float alpha = mn == -INFINITY ? 1.f : expf(m[i] - mn);
       m[i] = mn;
-    }
-    __syncthreads();  // every lane is done reading the K tile
+      l[i] *= alpha;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Kt[(cg * 4 + j) * LD + rg * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-#pragma unroll 8
-    for (int jj = 0; jj < TK; ++jj) {
-      const float4 p = *reinterpret_cast<const float4*>(&Kt[jj * LD + rg * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&Vs[jj * DH + cg * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
-      const float wv[4] = {w.x, w.y, w.z, w.w};
+      for (int d = 0; d < 8; ++d) o[i][d] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - mn);
+        l[i] += p;
+        Ks[(r0 + 16 * i) * LD + cl + 8 * j] = p;
+      }
+    }
+    __syncthreads();  // P of the tile is written
+
+#pragma unroll 2
+    for (int kq = 0; kq < TK; kq += 4) {
+      float4 pv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ks + (r0 + 16 * i) * LD + kq);
 #pragma unroll
-        for (int d = 0; d < 4; ++d) o[i][d] = fmaf(pv[i], wv[d], o[i][d]);
+      for (int u = 0; u < 4; ++u) {
+        const float4 va = *reinterpret_cast<const float4*>(Vs + (kq + u) * LD + 4 * cl);
+        const float4 vb = *reinterpret_cast<const float4*>(Vs + (kq + u) * LD + 32 + 4 * cl);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y : u == 2 ? pv[i].z : pv[i].w;
+          o[i][0] = fmaf(p, va.x, o[i][0]);
+          o[i][1] = fmaf(p, va.y, o[i][1]);
+          o[i][2] = fmaf(p, va.z, o[i][2]);
+          o[i][3] = fmaf(p, va.w, o[i][3]);
+          o[i][4] = fmaf(p, vb.x, o[i][4]);
+          o[i][5] = fmaf(p, vb.y, o[i][5]);
+          o[i][6] = fmaf(p, vb.z, o[i][6]);
+          o[i][7] = fmaf(p, vb.w, o[i][7]);
+        }
+      }
+    }
+    if (t + 1 < ntiles) {
+      __syncthreads();  // P and V of the tile are consumed
+      load_kv(t + 1);
     }
   }
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg * 4 + i;
-    const float lsum = group_sum(l[i]);
-    const float denom = fmaxf(lsum, 1e-30f);
+    const int row = q0 + r0 + 16 * i;
+    float lsum = l[i];
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 4);
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);  // no alive key: o is 0
     float sq = 0.f;
 #pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      o[i][d] = o[i][d] / denom;
-      sq += o[i][d] * o[i][d];
+    for (int d = 0; d < 8; ++d) {
+      o[i][d] *= inv;
+      sq = fmaf(o[i][d], o[i][d], sq);
     }
-    const float rn = sqrtf(group_sum(sq));
-    if (row < N) {
-      float* dst = out + (((int64_t)b * N + row) * H + h) * DH + cg * 4;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) dst[d] = (o[i][d]);
-      if (cg == 0) {
-        const int64_t s_idx = ((int64_t)b * H + h) * N + row;
-        stat_m[s_idx] = (m[i] == -INFINITY) ? 0.f : m[i];
-        stat_l[s_idx] = lsum;
-        rnorm[s_idx] = rn;
-      }
+    sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+    sq += __shfl_xor_sync(0xffffffffu, sq, 4);
+    if (row >= N) continue;
+    float* dst = out + ((bN + row) * H + h) * DH;
+    *reinterpret_cast<float4*>(dst + 4 * cl) = make_float4(o[i][0], o[i][1], o[i][2], o[i][3]);
+    *reinterpret_cast<float4*>(dst + 32 + 4 * cl) =
+        make_float4(o[i][4], o[i][5], o[i][6], o[i][7]);
+    if (cl == 0) {
+      const int64_t s_idx = ((int64_t)b * H + h) * N + row;
+      stat_m[s_idx] = m[i] == -INFINITY ? 0.f : m[i];
+      stat_l[s_idx] = lsum;
+      rnorm[s_idx] = sqrtf(sq);
     }
   }
 }
 
-// Pass B: grid (ceil(N/TK), B).
-__global__ void __launch_bounds__(NT) k1_scores_simt(
+// Pass B: grid (ceil(N / 64), chunks, B), 256 threads, two blocks an SM.
+// Only the rows that count are recomputed: row 0 (cls_attn) and the alive
+// rows >= 1 (col_mass), in row order, packed into 128-row query tiles (the
+// block scans its image's alive row once; mask mode's pruned tokens drop
+// out).  The block's chunk walks its (packed query tile, head) stages,
+// heads inner, through a 2-stage cp.async ring that holds the Q rows of the
+// tile, the K rows of the block's 64 keys for that head and the rows' m
+// and l.  (fp32 K rows of every head would take 192 KB at H = 12 and leave
+// no room for the ring; streamed beside Q they cost half as many bytes
+// again a stage.)  Thread (warp w, lane 8 rl + cl) holds tile rows r0 + 32
+// i (r0 = 4 w + rl, i < 4) against keys cl + 8 j (j < 8).  P = exp(x - m)
+// times the row's 1/l, from pass A's m and l and the logits x of `qk`, as
+// in pass A; the head max stays in registers, and a tile's rows >= 1 add
+// it into per-thread column sums after its last head.  Column sums close
+// in a fixed order (the 4 row lanes by shuffles, then the 8 warps in
+// order); chunk c walks packed tiles [c per, min((c + 1) per, packed
+// tiles)), per = ceil(ceil(N / 128) / chunks), and with chunks > 1 writes
+// fp32 partials part[c][b][n] (added by `k1_colsum`).  The block of chunk
+// 0 forms cls_attn.
+__global__ void __launch_bounds__(B_NT, 2) k1_scores_simt(
     const float* __restrict__ q, const float* __restrict__ k, int64_t sb, int64_t sn,
     const uint8_t* __restrict__ alive, const float* __restrict__ bias,
     const float* __restrict__ stat_m, const float* __restrict__ stat_l,
-    const float* __restrict__ rnorm, float* __restrict__ col, float* __restrict__ cls,
-    int N, int H, float scale) {
-  __shared__ __align__(16) float Qt[DH * LD];
-  __shared__ __align__(16) float Kt[DH * LD];
-  __shared__ float kb[TK], ms[TQ], ls[TQ], rn_s[TK];
-  __shared__ float red[16][TK];
+    const float* __restrict__ rnorm, float* __restrict__ col, float* __restrict__ part,
+    float* __restrict__ cls, int N, int H, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* rnk = fsm + 2 * B_STAGE;                              // [H][TK]: r_h of the keys
+  float* red = rnk + H * TK;                                   // [8][TK]
+  int* idx = reinterpret_cast<int*>(red + (B_NT / 32) * TK);   // [2][B_TQ]: tile rows, -1 past
+  int* cnt = reinterpret_cast<int*>(red);                      // [B_NT], before `red` is used
 
-  const int k0 = blockIdx.x * TK, b = blockIdx.y;
-  const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
+  const int k0 = blockIdx.x * TK, chunk = blockIdx.y, chunks = gridDim.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = 4 * warp + lane / 8, cl = lane % 8;
+  const int64_t bN = (int64_t)b * N;
 
-  if (tid < TK) {
-    const int j = k0 + tid;
-    kb[tid] = (j < N && alive[(int64_t)b * N + j]) ? bias[(int64_t)b * N + j] : -INFINITY;
+  // pack the rows that count: thread t holds rows [s0, s1) and their first
+  // place `base` among them
+  const int seg = (N + B_NT - 1) / B_NT, s0 = min(N, tid * seg), s1 = min(N, s0 + seg);
+  int mine = 0;
+  for (int i = s0; i < s1; ++i) mine += (i == 0 || alive[bN + i]) ? 1 : 0;
+  cnt[tid] = mine;
+  __syncthreads();
+  int base = 0, packed = 0;
+  for (int j = 0; j < B_NT; ++j) {
+    const int c = cnt[j];
+    base += j < tid ? c : 0;
+    packed += c;
   }
-  float colacc[4] = {0.f, 0.f, 0.f, 0.f}, num[4] = {0.f, 0.f, 0.f, 0.f},
-        den[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int q0 = 0; q0 < N; q0 += TQ) {
-    float mx[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mx[i][j] = 0.f;
-
-    for (int h = 0; h < H; ++h) {
-      const int64_t head = (int64_t)b * sb + (int64_t)h * DH;
-      const int64_t srow = ((int64_t)b * H + h) * N;
-      __syncthreads();  // the previous head's tiles are consumed
-      load_transposed(Qt, q + head, sn, q0, N);
-      load_transposed(Kt, k + head, sn, k0, N);
-      if (tid < TQ) {
-        const int i = q0 + tid;
-        ms[tid] = (i < N) ? stat_m[srow + i] : 0.f;
-        ls[tid] = (i < N) ? stat_l[srow + i] : 1.f;
-      } else if (tid < TQ + TK && q0 == 0) {
-        const int j = k0 + tid - TQ;
-        rn_s[tid - TQ] = (j < N) ? rnorm[srow + j] : 0.f;
-      }
-      __syncthreads();
-
-      float s[4][4];
-      tile_dot(s, Qt, Kt, rg, cg);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = rg * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float kbj = kb[cg * 4 + j];
-          const float p = (kbj == -INFINITY)
-                              ? 0.f
-                              : expf(s[i][j] * scale + kbj - ms[r]) / fmaxf(ls[r], 1e-30f);
-          s[i][j] = p;
-          mx[i][j] = fmaxf(mx[i][j], p);
-        }
-      }
-      if (q0 == 0 && rg == 0) {  // this lane holds query row 0
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float r = rn_s[cg * 4 + j];
-          num[j] = fmaf(s[0][j], r, num[j]);
-          den[j] += r;
-        }
-      }
+  const int nqt = (N + B_TQ - 1) / B_TQ, per = (nqt + chunks - 1) / chunks;
+  const int qt0 = chunk * per, qt1 = min((packed + B_TQ - 1) / B_TQ, qt0 + per);
+  const int nst = max(0, qt1 - qt0) * H;  // stages: (packed query tile, head), heads inner
+  // the rows of packed tile qt into idx[buf]
+  auto pack = [&](int buf, int qt) {
+    int* ix = idx + buf * B_TQ;
+    const int lo = qt * B_TQ;
+    if (tid < B_TQ && lo + tid >= packed) ix[tid] = -1;
+    int pos = base;
+    for (int i = s0; i < s1 && pos < lo + B_TQ; ++i) {
+      if (i != 0 && !alive[bN + i]) continue;
+      if (pos >= lo) ix[pos - lo] = i;
+      ++pos;
     }
+  };
+
+  for (int i = tid; i < H * TK; i += B_NT) {
+    const int key = k0 + i % TK;
+    rnk[i] = key < N ? rnorm[((int64_t)b * H + i / TK) * N + key] : 0.f;
+  }
+  // a stage: the Q rows and K rows of one (packed query tile, head) and the
+  // rows' m and l (a place past the packed rows gets zeros)
+  auto load = [&](int stage, int it) {
+    const int* ix = idx + (it / H & 1) * B_TQ;
+    const int hh = it % H;
+    float* Qs = fsm + stage * B_STAGE;
+    float* ml = Qs + B_TQ * LD + TK * LD;
+    const int64_t head = (int64_t)b * sb + hh * DH;
+    for (int c = tid; c < B_TQ * (DH / 4); c += B_NT) {
+      const int r = c / (DH / 4), ch = c % (DH / 4), row = ix[r];
+      cp_async16(smem_addr(Qs + r * LD + 4 * ch),
+                 q + head + (int64_t)(row >= 0 ? row : 0) * sn + 4 * ch, row >= 0 ? 16 : 0);
+    }
+    load_rows(Qs + B_TQ * LD, k + head, sn, k0, TK, N, tid, B_NT);
+    if (tid < B_TQ) {
+      const int row = ix[tid];
+      const int64_t s = ((int64_t)b * H + hh) * N + max(row, 0);
+      const int bytes = row >= 0 ? 4 : 0;
+      cp_async4(smem_addr(ml + tid), stat_m + s, bytes);
+      cp_async4(smem_addr(ml + B_TQ + tid), stat_l + s, bytes);
+    }
+  };
+  if (nst > 0) pack(0, qt0);
+  __syncthreads();  // every count is read (`red` is reused at the end); the first tile packed
+  if (nst > 0) load(0, 0);
+  cp_async_commit();
+
+  float kbr[8], mx[4][8], colacc[8], num[8], den[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int key = k0 + cl + 8 * j;
+    kbr[j] = (key < N && alive[bN + key]) ? bias[bN + key] : -INFINITY;
+    colacc[j] = num[j] = den[j] = 0.f;
+  }
+
+  for (int it = 0; it < nst; ++it) {
+    const int st = it & 1, t = it / H, hh = it % H;
+    cp_async_wait<0>();
+    __syncthreads();  // stage it landed for every thread; stage it - 1 is consumed
+    if (hh == 0 && qt0 + t + 1 < qt1) {
+      pack((t + 1) & 1, qt0 + t + 1);  // the buffer of tile t - 1, whose loads are issued
+      if (H == 1) __syncthreads();     // its first stage is loaded next
+    }
+    if (it + 1 < nst) load(st ^ 1, it + 1);
+    cp_async_commit();
+    if (hh == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx[i][j] = 0.f;
+    }
+    const float* Qs = fsm + st * B_STAGE;
+    const float* ml = Qs + B_TQ * LD + TK * LD;
+    const int* ix = idx + (t & 1) * B_TQ;
+    float s[4][8];
+    qk<32>(s, Qs, Qs + B_TQ * LD, r0, cl);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = q0 + rg * 4 + i;
-      if (row >= 1 && row < N && alive[(int64_t)b * N + row]) {
+      const int r = r0 + 32 * i;
+      const float rm = ml[r], lv = ml[B_TQ + r];
+      const float rinv = lv > 0.f ? 1.f / lv : 0.f;  // no alive key, or no row: P is 0
 #pragma unroll
-        for (int j = 0; j < 4; ++j) colacc[j] += mx[i][j];
+      for (int j = 0; j < 8; ++j) {
+        const float p =
+            kbr[j] == -INFINITY ? 0.f : expf(fmaf(s[i][j], scale, kbr[j]) - rm) * rinv;
+        mx[i][j] = fmaxf(mx[i][j], p);
+        if (ix[r] == 0) {  // query row 0
+          const float rr = rnk[hh * TK + cl + 8 * j];
+          num[j] = fmaf(p, rr, num[j]);
+          den[j] += rr;
+        }
+      }
+    }
+    if (hh == H - 1) {  // the tile's head max is complete: add its rows >= 1, all alive
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (ix[r0 + 32 * i] >= 1) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) colacc[j] += mx[i][j];
+        }
       }
     }
   }
+  cp_async_wait<0>();
 
+  // column sums: over the 4 row lanes, then the 8 warps in order
 #pragma unroll
-  for (int j = 0; j < 4; ++j) red[rg][cg * 4 + j] = colacc[j];
-  __syncthreads();
-  if (tid < TK) {
-    const int j = k0 + tid;
-    if (j < N) {
-      float acc = 0.f;
-      for (int g = 0; g < 16; ++g) acc += red[g][tid];
-      col[(int64_t)b * N + j] = alive[(int64_t)b * N + j] ? acc : 0.f;
-    }
+  for (int j = 0; j < 8; ++j) {
+    float x = colacc[j];
+    x += __shfl_xor_sync(0xffffffffu, x, 8);
+    x += __shfl_xor_sync(0xffffffffu, x, 16);
+    if (lane < 8) red[warp * TK + cl + 8 * j] = x;
   }
-  if (rg == 0) {
+  __syncthreads();
+  if (tid < TK && k0 + tid < N) {
+    const int key = k0 + tid;
+    float acc = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int jj = k0 + cg * 4 + j;
-      if (jj < N) cls[(int64_t)b * N + jj] = num[j] / (den[j] + 1e-8f);
+    for (int w = 0; w < B_NT / 32; ++w) acc += red[w * TK + tid];
+    if (chunks == 1)
+      col[bN + key] = alive[bN + key] ? acc : 0.f;
+    else
+      part[((int64_t)chunk * gridDim.z + b) * N + key] = acc;
+  }
+  if (qt0 == 0 && lane < 8 && warp == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = k0 + cl + 8 * j;
+      if (key < N) cls[bN + key] = num[j] / (den[j] + 1e-8f);
     }
   }
 }
 
 cudaError_t launch(const float* q, const float* k, const float* v, int64_t sb, int64_t sn,
                    const uint8_t* alive, const float* bias, float* out, float* col, float* cls,
-                   float* stat_m, float* stat_l, float* rnorm, int B, int N, int H, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = (2 * DH * LD + TK * DH + TK) * sizeof(float);
-  static bool configured = false;
+                   float* stat_m, float* stat_l, float* rnorm, float* part, int B, int N, int H,
+                   int chunks, float scale, cudaStream_t stream) {
+  static bool configured = false;  // both attributes at their largest, once
   if (!configured) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(k1_fwd_simt, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err =
+        cudaFuncSetAttribute(k1_fwd_simt, cudaFuncAttributeMaxDynamicSharedMemorySize, A_SMEM);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(k1_scores_simt, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               pass_b_smem(MAX_HEADS));
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  k1_fwd_simt<<<dim3((N + TQ - 1) / TQ, H, B), NT, smem, stream>>>(
+  k1_fwd_simt<<<dim3((N + A_TQ - 1) / A_TQ, H, B), A_NT, A_SMEM, stream>>>(
       q, k, v, sb, sn, alive, bias, out, stat_m, stat_l, rnorm, N, H, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  k1_scores_simt<<<dim3((N + TK - 1) / TK, B), NT, 0, stream>>>(
-      q, k, sb, sn, alive, bias, stat_m, stat_l, rnorm, col, cls, N, H, scale);
+  k1_scores_simt<<<dim3((N + TK - 1) / TK, chunks, B), B_NT, pass_b_smem(H), stream>>>(
+      q, k, sb, sn, alive, bias, stat_m, stat_l, rnorm, col, part, cls, N, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return err;
+  const int64_t total = (int64_t)B * N;
+  k1_colsum<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(part, alive, col, B, N, chunks);
   return cudaGetLastError();
 }
 
@@ -949,15 +1086,12 @@ extern "C" int k1_attention_scores(int dtype, const void* q, const void* k, cons
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return chunks != 1 ? (int)cudaErrorInvalidValue
-                       : (int)simt::launch(
-                             static_cast<const float*>(q), static_cast<const float*>(k),
-                             static_cast<const float*>(v), sb, sn,
-                             static_cast<const uint8_t*>(alive), static_cast<const float*>(bias),
-                             static_cast<float*>(out), static_cast<float*>(col),
-                             static_cast<float*>(cls), static_cast<float*>(stat_m),
-                             static_cast<float*>(stat_l), static_cast<float*>(rnorm), B, N, H,
-                             scale, st);
+    return (int)simt::launch(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        sb, sn, static_cast<const uint8_t*>(alive), static_cast<const float*>(bias),
+        static_cast<float*>(out), static_cast<float*>(col), static_cast<float*>(cls),
+        static_cast<float*>(stat_m), static_cast<float*>(stat_l), static_cast<float*>(rnorm),
+        static_cast<float*>(part), B, N, H, chunks, scale, st);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(q, k, v, sb, sn, alive, bias, out, col, cls, stat_m,
                                       stat_l, rnorm, part, B, N, H, chunks, scale, st);

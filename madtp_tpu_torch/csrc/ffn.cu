@@ -58,26 +58,42 @@
 // (clusters with TMA multicast would share it; a first try with 2-block
 // clusters ran slower and was not kept), and fc2's wave tail.
 //
-// fp32 (`k5_sgemm`): a classic shared-memory SGEMM on the CUDA cores, FFMA
-// and no TF32 (TF32 keeps ~3 decimal digits; the fp32 parity checks hold
-// logits to 1e-4 and features to 1e-5).  128 x 128 block tiles, 256
-// threads, 8 x 8 outputs a thread (two 4-wide row and column groups, so
-// shared-memory reads are conflict-free float4s), 8-deep k steps, the next
-// step's tiles read into registers while this one computes and stored
-// transposed into the other of two shared buffers.  Rows past M are read
-// as zeros and not stored.  What holds it back: small M (one row tile
-// gives fc2 at D = 768 six blocks for 132 SMs, and without split-K, which
-// would need a second pass to stay deterministic, each walks all of F).
+// fp32 (`k5_ffma`): FFMA on the CUDA cores, no TF32 (TF32 keeps ~3 decimal
+// digits, and the fp32 parity checks hold features to 1e-5: 3xTF32 failed
+// them in K1).  Each block computes a 16 TM x 128 tile (TM = 8, 4, 2 or 1)
+// with 256 threads of TM x 8 outputs, in 16-deep steps: each step comes
+// from device memory into registers while the one before it computes, and
+// is stored transposed into the other of two shared buffers, one barrier a
+// step.  For TM < 8 a thread keeps to 128 registers, so that two blocks (16
+// warps) share an SM; the 128-row tile runs faster with one block and 161
+// registers.  (A cp.async ring of 3-4 steps, in the tiles' own layout or
+// transposed by 4-byte copies, and 32-deep steps all ran slower on the
+// H100: PERF.md.)  The design it replaced (csrc/previous/ffn.cu
+// `k5_sgemm`) had one 128 x 128 tile shape, 8-deep steps and no split: at
+// small M fc2 at D = 768 had six blocks for 132 SMs, each walking all of F,
+// a floor of ~0.48 ms a call.  Here a plan of each GEMM, a function of (M,
+// N, K) chosen by the wrapper (madtp_tpu_torch/kernels/ffn.py
+// `fp32_plan`), takes a row tile by M and, where the blocks fall short of
+// the SMs, splits K into 2, 4 or 8 slices.  The slices of one tile are one
+// thread-block cluster: each writes its partial tile into its own shared
+// memory, and after a cluster barrier block z adds rows [z BM / s, (z + 1)
+// BM / s) of the partials of blocks 0, 1, ..., s - 1 in that order over
+// distributed shared memory, then the bias and activation.  Rows past M are
+// read as zeros and not stored.  What still holds it back: at M <= 16 every
+// block reads its 128 weight rows into shared memory for one useful row
+// (~0.038 ms against the library's 0.013-0.020 at M = 1-2).
 //
-// No atomics and no split-K: two launches give the same bits.  Any M >= 1;
-// D and F multiples of 128.  Each kernel's shared-memory attribute is set
-// once per process.
+// No atomics: every sum runs in a fixed order, so two launches give the same
+// bits.  Any M >= 1; D and F multiples of 128.  Each kernel's shared-memory
+// attribute is set once per process.
 //
 // Launch count: the Python wrapper madtp_tpu_torch/kernels/ffn.py
 // (`ffn_cuda`) adds one to `ffn_cuda.launches` per successful call of
 // `k5_ffn` below (the two grid launches of one FFN).
 
+#ifndef CUDA_EMULATOR
 #include <cuda.h>
+#endif
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -93,6 +109,15 @@ __device__ __forceinline__ float act_fp32(float h) {
   if (ACT == ACT_QUICK_GELU) return h / (1.f + expf(-1.702f * h));  // h sigmoid(1.702 h)
   return h;
 }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The bf16 half (wgmma, TMA, mbarriers).  CUDA_EMULATOR builds the fp32 half
+// alone: the CPU emulator of tests/cuda_emu.h models the CUDA cores, cp.async
+// and clusters, not these.
+#ifndef CUDA_EMULATOR
 
 // bf16 epilogue: fc1's sum rounded to bf16 before the activation, which is
 // rounded to bf16 again.  Its cost is the epilogue's, and the epilogue is
@@ -112,10 +137,6 @@ __device__ __forceinline__ float act_bf16(float v) {
        0.254829592f) * t;
   const float erf_x = copysignf(1.f - poly * __expf(-ax * ax), x);
   return 0.5f * h * (1.f + erf_x);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // ---------------------------------------------------------------- bf16, wgmma
@@ -482,130 +503,283 @@ cudaError_t launch_wgmma(const void* A, const void* B, const void* bias, void* C
   return cudaGetLastError();
 }
 
+#endif  // CUDA_EMULATOR
+
 // ---------------------------------------------------------------- fp32, FFMA
 
-constexpr int SM = 128, SN = 128, SK = 8;  // block tile and k step
-constexpr int NT_S = 256;                  // 16 x 16 threads, 8 x 8 outputs each
-constexpr int SLD = SM + 4;                // padded row of the transposed tiles
+constexpr int FBN = 128;        // columns of a block tile
+constexpr int FBK = 16;         // depth of a main-loop step
+constexpr int BLD = FBN + 4;    // a k row of the staged B tile, floats
+constexpr int F_THREADS = 256;  // 16 row groups x 16 column groups
+constexpr int PLD = FBN + 8;    // a row of the split-K partial tile
+constexpr int MAX_SPLIT = 8;    // the portable cluster size
 
-// C[M, N] = act(A[M, K] B[N, K]^T + bias[N]), fp32 row-major; K % 8 == 0,
-// N % 128 == 0.  Grid (N / 128, ceil(M / 128)).
-template <int ACT>
-__global__ void __launch_bounds__(NT_S) k5_sgemm(const float* __restrict__ A,
-                                                 const float* __restrict__ B,
-                                                 const float* __restrict__ bias,
-                                                 float* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(16) float As[2][SK][SLD];  // As[k][m]
-  __shared__ __align__(16) float Bs[2][SK][SLD];  // Bs[k][n]
+// a k row of the staged A tile (16 TM rows), floats
+template <int TM>
+__host__ __device__ constexpr int f_ald() {
+  return 16 * TM + 4;
+}
+// Shared memory of the fp32 kernel with 16 TM rows a block: two staged
+// steps of A and B, or the split-K partial tile, whichever is larger.
+template <int TM>
+constexpr int ffma_smem() {
+  return 2 * FBK * (f_ald<TM>() + BLD) * 4 > 16 * TM * PLD * 4
+             ? 2 * FBK * (f_ald<TM>() + BLD) * 4
+             : 16 * TM * PLD * 4;
+}
+
+// Every thread of the cluster's blocks arrives; returns once all have, their
+// shared-memory writes visible (the barrier's default release / acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// The float4 at `p` (this block's shared memory) in the cluster's block `rank`.
+__device__ __forceinline__ float4 ld_cluster4(const float* p, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// C[M, N] = act(A[M, K] B[N, K]^T + bias[N]), fp32 row-major, FFMA.  Grid
+// (N / 128, ceil(M / (16 TM)), split): block z takes the z-th of `split`
+// equal slices of K, and with split > 1 the split's blocks are one cluster
+// (1, 1, split) that sums their partial tiles in rank order.  Each 16-deep
+// step of A and B is read from device memory into registers (16-byte
+// loads, 64 bytes of a row) while the step before it computes, then stored
+// transposed, [k][row], into the other of two shared buffers: one barrier
+// a step.  Thread (ty, tx) reads its TM rows ty TM .. ty TM + TM - 1 and
+// its 8 columns 4 tx .. 4 tx + 3, 64 + 4 tx .. 64 + 4 tx + 3 at one k as
+// float4s: two row groups a warp (broadcast) and 16 consecutive column
+// groups, free of bank conflicts.
+template <int TM, int ACT>
+__global__ void __launch_bounds__(F_THREADS, TM == 8 ? 1 : 2)
+    k5_ffma(const float* __restrict__ A, const float* __restrict__ B,
+            const float* __restrict__ bias, float* __restrict__ C, int M, int N, int K) {
+  constexpr int BM = 16 * TM, ALD = f_ald<TM>();
+  constexpr int STAGE = FBK * (ALD + BLD);           // floats of a staged step
+  constexpr int RQ = FBK / 4;                       // float4s of a row in a step
+  constexpr int UA = (BM * RQ + F_THREADS - 1) / F_THREADS;  // A float4s a thread
+  constexpr int UB = FBN * RQ / F_THREADS;          // B float4s a thread
+  extern __shared__ __align__(16) float fsmem[];
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int m0 = blockIdx.y * SM, n0 = blockIdx.x * SN;
-  // each thread copies one float4 (4 consecutive k) of one row of A and of B
-  const int lr = tid / 2, lk = (tid % 2) * 4;
-  const bool a_in = m0 + lr < M;
-  const float* a_src = A + (int64_t)(a_in ? m0 + lr : 0) * K + lk;
-  const float* b_src = B + (int64_t)(n0 + lr) * K + lk;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * FBN;
+  const int split = gridDim.z, slice = K / split, kbeg = blockIdx.z * slice;
 
-  float acc[8][8];
+  float4 ra[UA], rb[UB];  // the next step, on its way from device memory
+  // float4 c of a step: row c / RQ, k 4 (c % RQ) .. 4 (c % RQ) + 3; rows of A past M are zeros
+  auto fetch = [&](int kt) {
+    const int k = kbeg + kt * FBK;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int u = 0; u < UA; ++u) {
+      const int c = tid + u * F_THREADS, row = m0 + c / RQ;
+      ra[u] = (c < BM * RQ && row < M)
+                  ? *reinterpret_cast<const float4*>(A + (int64_t)row * K + k + 4 * (c % RQ))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < UB; ++u) {
+      const int c = tid + u * F_THREADS;
+      rb[u] = *reinterpret_cast<const float4*>(B + (int64_t)(n0 + c / RQ) * K + k + 4 * (c % RQ));
+    }
+  };
+  auto stash = [&](int buf) {
+    float* sa = fsmem + buf * STAGE;
+    float* sb = sa + FBK * ALD;
+#pragma unroll
+    for (int u = 0; u < UA; ++u) {
+      const int c = tid + u * F_THREADS, r = c / RQ, k = 4 * (c % RQ);
+      if (c < BM * RQ) {
+        sa[(k + 0) * ALD + r] = ra[u].x, sa[(k + 1) * ALD + r] = ra[u].y;
+        sa[(k + 2) * ALD + r] = ra[u].z, sa[(k + 3) * ALD + r] = ra[u].w;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UB; ++u) {
+      const int c = tid + u * F_THREADS, r = c / RQ, k = 4 * (c % RQ);
+      sb[(k + 0) * BLD + r] = rb[u].x, sb[(k + 1) * BLD + r] = rb[u].y;
+      sb[(k + 2) * BLD + r] = rb[u].z, sb[(k + 3) * BLD + r] = rb[u].w;
+    }
+  };
+
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  float4 ra = a_in ? *reinterpret_cast<const float4*>(a_src) : make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 rb = *reinterpret_cast<const float4*>(b_src);
-  auto store = [&](int buf) {
-    As[buf][lk + 0][lr] = ra.x, As[buf][lk + 1][lr] = ra.y;
-    As[buf][lk + 2][lr] = ra.z, As[buf][lk + 3][lr] = ra.w;
-    Bs[buf][lk + 0][lr] = rb.x, Bs[buf][lk + 1][lr] = rb.y;
-    Bs[buf][lk + 2][lr] = rb.z, Bs[buf][lk + 3][lr] = rb.w;
-  };
-  store(0);
+  const int KT = slice / FBK;
+  fetch(0);
+  stash(0);
   __syncthreads();
-
-  const int KT = K / SK;
   for (int kt = 0; kt < KT; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < KT) {  // the next step's tiles into registers while this one computes
-      if (a_in) ra = *reinterpret_cast<const float4*>(a_src + (kt + 1) * SK);
-      rb = *reinterpret_cast<const float4*>(b_src + (kt + 1) * SK);
-    }
+    if (kt + 1 < KT) fetch(kt + 1);  // in flight while step kt computes
+    const float* sa = fsmem + (kt & 1) * STAGE + ty * TM;
+    const float* sb = fsmem + (kt & 1) * STAGE + FBK * ALD + 4 * tx;
 #pragma unroll
-    for (int k = 0; k < SK; ++k) {
-      float a[8], b[8];
-      *reinterpret_cast<float4*>(&a[0]) = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
-      *reinterpret_cast<float4*>(&a[4]) =
-          *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
-      *reinterpret_cast<float4*>(&b[0]) = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
-      *reinterpret_cast<float4*>(&b[4]) =
-          *reinterpret_cast<const float4*>(&Bs[buf][k][64 + tx * 4]);
+    for (int k = 0; k < FBK; ++k) {  // every output's sum runs k = 0, 1, ... in order
+      float a[TM], b[8];
+      if (TM >= 4) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < TM; i += 4)
+          *reinterpret_cast<float4*>(&a[i]) = *reinterpret_cast<const float4*>(sa + k * ALD + i);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = sa[k * ALD + i];
+      }
+      *reinterpret_cast<float4*>(&b[0]) = *reinterpret_cast<const float4*>(sb + k * BLD);
+      *reinterpret_cast<float4*>(&b[4]) = *reinterpret_cast<const float4*>(sb + k * BLD + 64);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     if (kt + 1 < KT) {
-      store(buf ^ 1);  // the other buffer: its last readers passed the previous sync
+      stash((kt + 1) & 1);  // the other buffer: its readers passed the last barrier
       __syncthreads();
     }
   }
 
-  // thread rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; columns likewise with tx
+  if (split == 1) {
+    float bj[8];
+    *reinterpret_cast<float4*>(&bj[0]) = *reinterpret_cast<const float4*>(bias + n0 + 4 * tx);
+    *reinterpret_cast<float4*>(&bj[4]) =
+        *reinterpret_cast<const float4*>(bias + n0 + 64 + 4 * tx);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (row >= M) continue;
+    for (int i = 0; i < TM; ++i) {
+      const int row = m0 + ty * TM + i;
+      if (row >= M) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = n0 + h * 64 + tx * 4;
-      const float4 bv = *reinterpret_cast<const float4*>(bias + col);
-      float4 o;
-      o.x = act_fp32<ACT>(acc[i][4 * h + 0] + bv.x);
-      o.y = act_fp32<ACT>(acc[i][4 * h + 1] + bv.y);
-      o.z = act_fp32<ACT>(acc[i][4 * h + 2] + bv.z);
-      o.w = act_fp32<ACT>(acc[i][4 * h + 3] + bv.w);
-      *reinterpret_cast<float4*>(C + (int64_t)row * N + col) = o;
+      for (int h = 0; h < 2; ++h) {
+        float4 o;
+        o.x = act_fp32<ACT>(acc[i][4 * h + 0] + bj[4 * h + 0]);
+        o.y = act_fp32<ACT>(acc[i][4 * h + 1] + bj[4 * h + 1]);
+        o.z = act_fp32<ACT>(acc[i][4 * h + 2] + bj[4 * h + 2]);
+        o.w = act_fp32<ACT>(acc[i][4 * h + 3] + bj[4 * h + 3]);
+        *reinterpret_cast<float4*>(C + (int64_t)row * N + n0 + 64 * h + 4 * tx) = o;
+      }
     }
+    return;
   }
+  __syncthreads();  // every thread is done with the staged steps: the partial tile goes there
+  float* part = fsmem;  // [BM][PLD]
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(part + (ty * TM + i) * PLD + 64 * h + 4 * tx) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+  cluster_sync();  // every block of the split has written its partial tile
+  // block z finishes rows [z BM / split, (z + 1) BM / split): the partials of
+  // blocks 0, 1, ..., split - 1 added in that order, then bias and activation
+  const int rows = BM / split, rbeg = blockIdx.z * rows;
+  for (int c = tid; c < rows * (FBN / 4); c += F_THREADS) {
+    const int r = rbeg + c / (FBN / 4), q = c % (FBN / 4), row = m0 + r;
+    if (row >= M) continue;
+    const float* p = part + r * PLD + 4 * q;
+    float4 s = ld_cluster4(p, 0);
+    for (int z = 1; z < split; ++z) {
+      const float4 t = ld_cluster4(p, z);
+      s.x += t.x, s.y += t.y, s.z += t.z, s.w += t.w;
+    }
+    const float4 bv = *reinterpret_cast<const float4*>(bias + n0 + 4 * q);
+    float4 o;
+    o.x = act_fp32<ACT>(s.x + bv.x);
+    o.y = act_fp32<ACT>(s.y + bv.y);
+    o.z = act_fp32<ACT>(s.z + bv.z);
+    o.w = act_fp32<ACT>(s.w + bv.w);
+    *reinterpret_cast<float4*>(C + (int64_t)row * N + n0 + 4 * q) = o;
+  }
+  cluster_sync();  // no block leaves while another still reads its partial tile
+}
+
+template <int TM, int ACT>
+cudaError_t launch_ffma(const void* A, const void* B, const void* bias, void* C, int M, int N,
+                        int K, int split, cudaStream_t stream) {
+  constexpr int smem = ffma_smem<TM>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k5_ffma<TM, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N / FBN, (M + 16 * TM - 1) / (16 * TM), split);
+  cfg.blockDim = dim3(F_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, k5_ffma<TM, ACT>, static_cast<const float*>(A), static_cast<const float*>(B),
+      static_cast<const float*>(bias), static_cast<float*>(C), M, N, K);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int ACT>
-cudaError_t launch_sgemm(const void* A, const void* B, const void* bias, void* C, int M, int N,
-                         int K, cudaStream_t stream) {
-  const dim3 grid(N / SN, (M + SM - 1) / SM);
-  k5_sgemm<ACT><<<grid, NT_S, 0, stream>>>(static_cast<const float*>(A),
-                                           static_cast<const float*>(B),
-                                           static_cast<const float*>(bias),
-                                           static_cast<float*>(C), M, N, K);
-  return cudaGetLastError();
+cudaError_t launch_fp32(const void* A, const void* B, const void* bias, void* C, int M, int N,
+                        int K, int tm, int split, cudaStream_t st) {
+  switch (tm) {
+    case 8: return launch_ffma<8, ACT>(A, B, bias, C, M, N, K, split, st);
+    case 4: return launch_ffma<4, ACT>(A, B, bias, C, M, N, K, split, st);
+    case 2: return launch_ffma<2, ACT>(A, B, bias, C, M, N, K, split, st);
+    case 1: return launch_ffma<1, ACT>(A, B, bias, C, M, N, K, split, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// A plan (tm, split) for C[M, N] = A[M, K] B[N, K]^T that the kernel takes.
+bool plan_ok(int M, int K, int tm, int split) {
+  return (tm == 1 || tm == 2 || tm == 4 || tm == 8) &&
+         (split == 1 || split == 2 || split == 4 || split == MAX_SPLIT) &&
+         K % (FBK * split) == 0 && (M + 16 * tm - 1) / (16 * tm) <= 65535;
 }
 
 template <int ACT>
 cudaError_t gemm(int dtype, const void* A, const void* B, const void* bias, void* C, int M, int N,
-                 int K, cudaStream_t st) {
-  return dtype == 1 ? launch_wgmma<ACT>(A, B, bias, C, M, N, K, st)
-                    : launch_sgemm<ACT>(A, B, bias, C, M, N, K, st);
+                 int K, int tm, int split, cudaStream_t st) {
+#ifndef CUDA_EMULATOR
+  if (dtype == 1) return launch_wgmma<ACT>(A, B, bias, C, M, N, K, st);
+#endif
+  return dtype == 0 ? launch_fp32<ACT>(A, B, bias, C, M, N, K, tm, split, st)
+                    : cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  act: 1 = exact-erf GELU, 2 = QuickGELU.
 // x [M, D], w1 [F, D], b1 [F], w2 [D, F], b2 [D], hidden [M, F] scratch,
-// y [M, D]: contiguous, all of `dtype`, with 16-byte aligned bases.
+// y [M, D]: contiguous, all of `dtype`, with 16-byte aligned bases.  fp32
+// takes the plan of each GEMM, fc1 (tm1, split1) and fc2 (tm2, split2):
+// 16 tm rows a block and K cut into `split` slices
+// (madtp_tpu_torch/kernels/ffn.py `fp32_plan`); bf16 ignores them.
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int k5_ffn(int dtype, const void* x, const void* w1, const void* b1, const void* w2,
                       const void* b2, void* hidden, void* y, int M, int D, int F, int act,
-                      void* stream) {
+                      int tm1, int split1, int tm2, int split2, void* stream) {
   if (M < 1 || D < 128 || F < 128 || D % 128 || F % 128 || (dtype != 0 && dtype != 1) ||
-      (dtype == 0 && (M + SM - 1) / SM > 65535))
+      (dtype == 0 && !(plan_ok(M, D, tm1, split1) && plan_ok(M, F, tm2, split2))))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (act == ACT_GELU)
-    err = gemm<ACT_GELU>(dtype, x, w1, b1, hidden, M, F, D, st);
+    err = gemm<ACT_GELU>(dtype, x, w1, b1, hidden, M, F, D, tm1, split1, st);
   else if (act == ACT_QUICK_GELU)
-    err = gemm<ACT_QUICK_GELU>(dtype, x, w1, b1, hidden, M, F, D, st);
+    err = gemm<ACT_QUICK_GELU>(dtype, x, w1, b1, hidden, M, F, D, tm1, split1, st);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-  return (int)gemm<ACT_NONE>(dtype, hidden, w2, b2, y, M, D, F, st);
+  return (int)gemm<ACT_NONE>(dtype, hidden, w2, b2, y, M, D, F, tm2, split2, st);
 }

@@ -1,5 +1,7 @@
-// The design that madtp_tpu_torch/csrc/ffn.cu replaced: K5 (bf16 only; mma.sync from a cp.async ring).
-// Kept unchanged as a yardstick: chip_smoke.py times it beside the current
+// The designs that madtp_tpu_torch/csrc/ffn.cu replaced: K5 in bf16 (mma.sync
+// from a cp.async ring; entry point `k5_ffn`) and in fp32 (the first FFMA
+// SGEMM, `k5_sgemm`; entry point `k5_ffn_fp32`, at the end).
+// Kept unchanged as yardsticks: chip_smoke.py times it beside the current
 // kernel on the same card and inputs (`previous_ms`).  The port never calls
 // it, and its launches are not counted in the wrapper's `launches`.
 //
@@ -248,4 +250,138 @@ extern "C" int k5_ffn(const void* x, const void* w1, const void* b1, const void*
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
   return (int)launch_gemm<ACT_NONE>(hidden, w2, b2, y, M, D, F, st);
+}
+
+// ---------------------------------------------------------------- fp32, FFMA
+//
+// A classic shared-memory SGEMM on the CUDA cores, FFMA and no TF32.  128 x
+// 128 block tiles, 256 threads, 8 x 8 outputs a thread (two 4-wide row and
+// column groups, so shared-memory reads are conflict-free float4s), 8-deep k
+// steps, the next step's tiles read into registers while this one computes
+// and stored transposed into the other of two shared buffers.  Rows past M
+// are read as zeros and not stored.  No split-K: at small M fc2 at D = 768
+// has six blocks for 132 SMs, each walking all of F.
+
+namespace {
+
+template <int ACT>
+__device__ __forceinline__ float act_fp32(float h) {
+  if (ACT == ACT_GELU) return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
+  if (ACT == ACT_QUICK_GELU) return h / (1.f + expf(-1.702f * h));  // h sigmoid(1.702 h)
+  return h;
+}
+
+constexpr int SM = 128, SN = 128, SK = 8;  // block tile and k step
+constexpr int NT_S = 256;                  // 16 x 16 threads, 8 x 8 outputs each
+constexpr int SLD = SM + 4;                // padded row of the transposed tiles
+
+// C[M, N] = act(A[M, K] B[N, K]^T + bias[N]), fp32 row-major; K % 8 == 0,
+// N % 128 == 0.  Grid (N / 128, ceil(M / 128)).
+template <int ACT>
+__global__ void __launch_bounds__(NT_S) k5_sgemm(const float* __restrict__ A,
+                                                 const float* __restrict__ B,
+                                                 const float* __restrict__ bias,
+                                                 float* __restrict__ C, int M, int N, int K) {
+  __shared__ __align__(16) float As[2][SK][SLD];  // As[k][m]
+  __shared__ __align__(16) float Bs[2][SK][SLD];  // Bs[k][n]
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int m0 = blockIdx.y * SM, n0 = blockIdx.x * SN;
+  // each thread copies one float4 (4 consecutive k) of one row of A and of B
+  const int lr = tid / 2, lk = (tid % 2) * 4;
+  const bool a_in = m0 + lr < M;
+  const float* a_src = A + (int64_t)(a_in ? m0 + lr : 0) * K + lk;
+  const float* b_src = B + (int64_t)(n0 + lr) * K + lk;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  float4 ra = a_in ? *reinterpret_cast<const float4*>(a_src) : make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 rb = *reinterpret_cast<const float4*>(b_src);
+  auto store = [&](int buf) {
+    As[buf][lk + 0][lr] = ra.x, As[buf][lk + 1][lr] = ra.y;
+    As[buf][lk + 2][lr] = ra.z, As[buf][lk + 3][lr] = ra.w;
+    Bs[buf][lk + 0][lr] = rb.x, Bs[buf][lk + 1][lr] = rb.y;
+    Bs[buf][lk + 2][lr] = rb.z, Bs[buf][lk + 3][lr] = rb.w;
+  };
+  store(0);
+  __syncthreads();
+
+  const int KT = K / SK;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < KT) {  // the next step's tiles into registers while this one computes
+      if (a_in) ra = *reinterpret_cast<const float4*>(a_src + (kt + 1) * SK);
+      rb = *reinterpret_cast<const float4*>(b_src + (kt + 1) * SK);
+    }
+#pragma unroll
+    for (int k = 0; k < SK; ++k) {
+      float a[8], b[8];
+      *reinterpret_cast<float4*>(&a[0]) = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
+      *reinterpret_cast<float4*>(&a[4]) =
+          *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
+      *reinterpret_cast<float4*>(&b[0]) = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
+      *reinterpret_cast<float4*>(&b[4]) =
+          *reinterpret_cast<const float4*>(&Bs[buf][k][64 + tx * 4]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (kt + 1 < KT) {
+      store(buf ^ 1);  // the other buffer: its last readers passed the previous sync
+      __syncthreads();
+    }
+  }
+
+  // thread rows ty*4 + {0..3} and 64 + ty*4 + {0..3}; columns likewise with tx
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (row >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + h * 64 + tx * 4;
+      const float4 bv = *reinterpret_cast<const float4*>(bias + col);
+      float4 o;
+      o.x = act_fp32<ACT>(acc[i][4 * h + 0] + bv.x);
+      o.y = act_fp32<ACT>(acc[i][4 * h + 1] + bv.y);
+      o.z = act_fp32<ACT>(acc[i][4 * h + 2] + bv.z);
+      o.w = act_fp32<ACT>(acc[i][4 * h + 3] + bv.w);
+      *reinterpret_cast<float4*>(C + (int64_t)row * N + col) = o;
+    }
+  }
+}
+
+template <int ACT>
+cudaError_t launch_sgemm(const void* A, const void* B, const void* bias, void* C, int M, int N,
+                         int K, cudaStream_t stream) {
+  const dim3 grid(N / SN, (M + SM - 1) / SM);
+  k5_sgemm<ACT><<<grid, NT_S, 0, stream>>>(static_cast<const float*>(A),
+                                           static_cast<const float*>(B),
+                                           static_cast<const float*>(bias),
+                                           static_cast<float*>(C), M, N, K);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The fp32 FFN on `k5_sgemm`: arguments as `k5_ffn`, all float32.
+extern "C" int k5_ffn_fp32(const void* x, const void* w1, const void* b1, const void* w2,
+                           const void* b2, void* hidden, void* y, int M, int D, int F, int act,
+                           void* stream) {
+  if (M < 1 || D < SN || F < SN || D % SN || F % SN || (M + SM - 1) / SM > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (act == ACT_GELU)
+    err = launch_sgemm<ACT_GELU>(x, w1, b1, hidden, M, F, D, st);
+  else if (act == ACT_QUICK_GELU)
+    err = launch_sgemm<ACT_QUICK_GELU>(x, w1, b1, hidden, M, F, D, st);
+  else
+    err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_sgemm<ACT_NONE>(hidden, w2, b2, y, M, D, F, st);
 }

@@ -25,7 +25,7 @@ HEAD_DIM = 64  # the one head width the kernel is built for
 # (madtp_tpu/ops/attention.py:56-76: N rounded up to 128 > 1536, i.e. N > 1536)
 LARGE_N = 1536
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KEY_TILE = 64  # keys per block of bf16 pass B: K of all heads, 128 KB at H = 16
+KEY_TILE = 64  # keys per block of pass B (bf16: K of all heads, 128 KB at H = 16)
 QUERY_TILE = 128  # query rows of one pass-B stage: 8 warps of 16
 SMS = 132  # the H100 SXM's streaming multiprocessors
 WAVES = 4  # pass B's blocks: enough that the last wave's tail stays short
@@ -44,18 +44,17 @@ def query_split(blocks: int, N: int) -> int:
     return min(-(-N // QUERY_TILE), -(-WAVES * SMS // blocks))
 
 
-def pass_b_chunks(B: int, N: int, dtype) -> int:
-    """K1's pass-B split (``query_split`` of its ceil(N / 64) B blocks; CLIP's
-    B = 32, N = 320: 160 blocks, 3 chunks, added by ``k1_colsum``).  The
-    fp32 kernels split nothing."""
-    if dtype != torch.bfloat16:
-        return 1
+def pass_b_chunks(B: int, N: int) -> int:
+    """K1's pass-B split, fp32 and bf16 alike (``query_split`` of its
+    ceil(N / 64) B blocks, added by ``k1_colsum``; CLIP's B = 32, N = 320:
+    160 blocks, 3 chunks)."""
     return query_split(-(-N // KEY_TILE) * B, N)
 
 
 # (rtol, atol) of K1 against the plain version on the same inputs.
 # float32: both compute logits, probabilities and sums in fp32 (K1 on the
-# CUDA cores) and differ only in summation order.  bfloat16: the logits are
+# CUDA cores) and differ only in summation order and in K1's P taken as
+# exp(x - m) times 1/l (one rounding more than a division).  bfloat16: the logits are
 # fp32 sums of exact products of the same bf16 values, so col_mass stays
 # close; out differs by rounding (both round P to bf16 for P.v, K1 before
 # dividing by the row sum and the plain version after; both round out to
@@ -141,7 +140,7 @@ def attention_scores_cuda(q, k, v, key_alive, key_bias, scale: float, *,
     col = torch.empty((B, N), dtype=torch.float32, device=dev)
     cls = torch.empty((B, N), dtype=torch.float32, device=dev)
     stats = torch.empty((3, B, H, N), dtype=torch.float32, device=dev)
-    chunks = pass_b_chunks(B, N, q.dtype)
+    chunks = pass_b_chunks(B, N)
     part = torch.empty((chunks, B, N), dtype=torch.float32, device=dev) if chunks > 1 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

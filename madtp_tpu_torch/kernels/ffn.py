@@ -1,6 +1,6 @@
 """K5: the transformer FFN ``act(x W1^T + b1) W2^T + b2``, as a CUDA kernel
 for Hopper: bf16 on the tensor cores (wgmma fed by TMA), fp32 on the CUDA
-cores (no TF32).
+cores (no TF32), each GEMM on a plan chosen from its shape (``fp32_plan``).
 
 Replaces ``madtp_tpu/ops/pallas/fused_ffn.py`` ``fused_mlp_2d``.  The source,
 its design and its bound are in ``csrc/ffn.cu``.  The plain PyTorch version
@@ -19,6 +19,42 @@ SOURCE = "ffn.cu"
 TILE = 128  # D and F must be multiples of 128
 ACTS = {"gelu": 1, "quick_gelu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SMS = 132  # the H100 SXM's streaming multiprocessors
+MAX_SPLIT = 8  # the fp32 kernel's split of K: one thread-block cluster, at most 8 blocks
+MIN_SLICE = 64  # the least depth of a slice of K
+FEW_BLOCKS = 80  # 128-row tiles split K until there are this many blocks (one an SM)
+
+
+def fp32_plan(M: int, N: int, K: int):
+    """``(tm, split)`` of one fp32 GEMM ``C[M, N] = A[M, K] B[N, K]^T``, a
+    function of the shape alone, so a relaunch runs alike.  Blocks are ``16
+    tm`` rows by 128 columns: 128 rows (tm 8, one block an SM, the most
+    efficient tile) above M = 64, else the smallest tile that holds M (tm
+    4, 2 or 1, two blocks an SM).  K is then cut into ``split`` slices (2, 4
+    or 8, each at least ``MIN_SLICE`` deep) until the 128-row tiles make
+    ``FEW_BLOCKS`` blocks and the smaller ones a block for every SM, and a
+    128-row plan that would end in a partly filled second wave splits once
+    more.  The slices of a tile are one cluster, which adds their partials
+    in slice order (``csrc/ffn.cu``).  The thresholds are the H100's
+    measured best at the paths' M = 480-1,000 (PERF.md)."""
+    if M > 64:
+        tm, target = 8, FEW_BLOCKS
+    else:
+        tm, target = 4, SMS
+        while tm > 1 and 8 * tm >= M:
+            tm //= 2
+    blocks = -(-M // (16 * tm)) * (N // TILE)
+
+    def can_split(split):
+        return split < MAX_SPLIT and K // (2 * split) >= MIN_SLICE
+
+    split = 1
+    while blocks * split < target and can_split(split):
+        split *= 2
+    if tm == 8 and SMS < blocks * split < 2 * SMS and can_split(split):
+        split *= 2
+    return tm, split
+
 
 # (rtol, atol) of K5's y against the plain version on the same inputs.
 # bfloat16: both take exact products of the same bf16 values, sum them in
@@ -41,7 +77,7 @@ def _load():
     fn = build(SOURCE).lib.k5_ffn
     if fn.argtypes is None:
         p, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i32, p, p, p, p, p, p, p, i32, i32, i32, i32, p]
+        fn.argtypes = [i32, p, p, p, p, p, p, p, i32, i32, i32, i32, i32, i32, i32, i32, p]
         fn.restype = i32
     return fn
 
@@ -96,10 +132,12 @@ def ffn_cuda(x, w1, b1, w2, b2, act: str = "gelu"):
     F = w1.shape[0]
     hidden = torch.empty((M, F), dtype=x.dtype, device=x.device)
     y = torch.empty((M, D), dtype=x.dtype, device=x.device)
+    plans = (*fp32_plan(M, F, D), *fp32_plan(M, D, F)) if x.dtype == torch.float32 else (0,) * 4
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(_DTYPES[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), hidden.data_ptr(), y.data_ptr(), M, D, F, ACTS[act], stream)
+                 b2.data_ptr(), hidden.data_ptr(), y.data_ptr(), M, D, F, ACTS[act], *plans,
+                 stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed with cudaError_t {err}")
     ffn_cuda.launches += 1

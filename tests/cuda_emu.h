@@ -1,12 +1,14 @@
 // A CPU emulator of the CUDA features that the port's kernels use, for the
 // CPU tests (tests/cuda_emu.py turns a kernel source into host C++ against
-// this header).  Blocks run one after another; each thread of a block is a
-// ucontext fiber.  __syncthreads and the warp collectives (shuffles,
-// ldmatrix, mma.sync) are barriers with data exchange, following the PTX
-// fragment layouts; mma accumulates in double.  cp.async copies land at the
-// wait that covers them, and dynamic shared memory starts filled with NaN
-// bytes, so that a read before a landing or of memory never written shows.
-// Global memory is the host's.
+// this header).  Blocks run one after another, the blocks of a thread-block
+// cluster together; each thread is a ucontext fiber.  __syncthreads, the
+// cluster barrier and the warp collectives (shuffles, ldmatrix, mma.sync)
+// are barriers with data exchange, following the PTX fragment layouts; mma
+// accumulates in double.  cp.async copies land at the wait that covers them,
+// and dynamic shared memory starts filled with NaN bytes, so that a read
+// before a landing or of memory never written shows.  A block reads another
+// block's shared memory of its cluster through ld_cluster4.  Global memory is
+// the host's.
 #pragma once
 #include <ucontext.h>
 #include <cmath>
@@ -69,54 +71,74 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 struct EmuThread {
   ucontext_t ctx;
   uint3v tid;
-  int lin;
+  int lin;  // linear index in its block
+  int blk;  // its block's rank in the cluster
   bool done;
-  std::vector<char> stack;
+  char* stack = nullptr;  // malloc'd once and kept: pages are touched only as used
   // pending cp.async groups: (dst offset, src, bytes)
   struct Copy { uint32_t dst; const void* src; int bytes; int size; };
   std::vector<Copy> open;
   std::vector<std::vector<Copy>> groups;
 };
 
-struct EmuState {
-  ucontext_t sched;
-  std::vector<EmuThread> th;
-  EmuThread* cur = nullptr;
-  uint3v bid, bdim, gdim;
+struct EmuBlock {
+  uint3v bid;
   std::vector<unsigned char> smem;
-  int nthreads = 0, alive = 0;
+  int alive = 0;
   // block barrier
   unsigned long gen = 0; int arrived = 0;
   // warp barriers
   unsigned long wgen[32] = {0}; int warrived[32] = {0};
   uint64_t wslot[32][32][16];
 };
+
+struct EmuState {
+  ucontext_t sched;
+  std::vector<EmuThread> th;
+  EmuThread* cur = nullptr;
+  uint3v bdim, gdim;
+  std::vector<EmuBlock> blocks;  // the cluster's blocks, by rank
+  // cluster barrier
+  unsigned long cgen = 0; int carrived = 0, calive = 0;
+  EmuBlock& blk() { return blocks[cur->blk]; }
+};
 inline EmuState& emu() { static EmuState s; return s; }
 
 #define threadIdx (emu().cur->tid)
-#define blockIdx (emu().bid)
-#define blockDim (emu().bdim)
-#define gridDim (emu().gdim)
+#define blockIdx (emu().blk().bid)
+// free functions in kernels; members of cudaLaunchConfig_t in `cfg.gridDim`
+inline uint3v& emu_bdim() { return emu().bdim; }
+inline uint3v& emu_gdim() { return emu().gdim; }
+#define blockDim emu_bdim()
+#define gridDim emu_gdim()
 
 inline void emu_yield() { swapcontext(&emu().cur->ctx, &emu().sched); }
 
 inline void __syncthreads() {
+  EmuBlock& b = emu().blk();
+  unsigned long g0 = b.gen;
+  if (++b.arrived == b.alive) { b.arrived = 0; b.gen++; return; }
+  while (b.gen == g0) emu_yield();
+}
+
+// barrier.cluster.arrive + wait: every live thread of the cluster's blocks
+inline void cluster_sync() {
   EmuState& s = emu();
-  unsigned long g0 = s.gen;
-  if (++s.arrived == s.alive) { s.arrived = 0; s.gen++; return; }
-  while (s.gen == g0) emu_yield();
+  unsigned long g0 = s.cgen;
+  if (++s.carrived == s.calive) { s.carrived = 0; s.cgen++; return; }
+  while (s.cgen == g0) emu_yield();
 }
 
 // warp exchange: each lane deposits n words, then reads any lane's.
 inline void emu_warp_sync() {
-  EmuState& s = emu();
-  int w = s.cur->lin / 32;
-  unsigned long g0 = s.wgen[w];
-  if (++s.warrived[w] == 32) { s.warrived[w] = 0; s.wgen[w]++; return; }
-  while (s.wgen[w] == g0) emu_yield();
+  EmuBlock& b = emu().blk();
+  int w = emu().cur->lin / 32;
+  unsigned long g0 = b.wgen[w];
+  if (++b.warrived[w] == 32) { b.warrived[w] = 0; b.wgen[w]++; return; }
+  while (b.wgen[w] == g0) emu_yield();
 }
 inline int emu_lane() { return emu().cur->lin % 32; }
-inline uint64_t* emu_slot(int lane) { return emu().wslot[emu().cur->lin / 32][lane]; }
+inline uint64_t* emu_slot(int lane) { return emu().blk().wslot[emu().cur->lin / 32][lane]; }
 
 template <class T> inline T __shfl_xor_sync(unsigned, T v, int off) {
   static_assert(sizeof(T) <= 8, "");
@@ -130,16 +152,27 @@ template <class T> inline T __shfl_xor_sync(unsigned, T v, int off) {
 }
 
 // ---------------------------------------------------------------- shared memory, PTX helpers
-inline void* emu_dyn_smem() { return emu().smem.data(); }
+inline void* emu_dyn_smem() { return emu().blk().smem.data(); }
 inline uint32_t smem_addr(const void* p) {
-  const unsigned char* b = emu().smem.data();
-  long off = (const unsigned char*)p - b;
-  if (off < 0 || off >= (long)emu().smem.size()) { fprintf(stderr, "smem_addr outside dynamic smem\n"); abort(); }
+  const std::vector<unsigned char>& m = emu().blk().smem;
+  long off = (const unsigned char*)p - m.data();
+  if (off < 0 || off >= (long)m.size()) { fprintf(stderr, "smem_addr outside dynamic smem\n"); abort(); }
   return (uint32_t)off;
 }
 inline unsigned char* emu_sp(uint32_t a, int bytes) {
-  if ((size_t)a + bytes > emu().smem.size()) { fprintf(stderr, "smem access out of range %u\n", a); abort(); }
-  return emu().smem.data() + a;
+  std::vector<unsigned char>& m = emu().blk().smem;
+  if ((size_t)a + bytes > m.size()) { fprintf(stderr, "smem access out of range %u\n", a); abort(); }
+  return m.data() + a;
+}
+// the float4 at this block's shared address of p, in the shared memory of
+// the cluster's block `rank` (mapa + ld.shared::cluster)
+inline float4 ld_cluster4(const float* p, int rank) {
+  EmuState& s = emu();
+  uint32_t a = smem_addr(p);
+  if (a % 16 || rank < 0 || rank >= (int)s.blocks.size() || a + 16 > s.blocks[rank].smem.size()) {
+    fprintf(stderr, "ld_cluster4 out of range\n"); abort();
+  }
+  float4 v; memcpy(&v, s.blocks[rank].smem.data() + a, 16); return v;
 }
 inline void emu_do_copy(const EmuThread::Copy& c) {
   if (c.bytes) memcpy(emu_sp(c.dst, c.size), c.src, c.size); else memset(emu_sp(c.dst, c.size), 0, c.size);
@@ -260,33 +293,46 @@ inline void emu_trampoline(unsigned lo, unsigned hi) {
   emu().cur->done = true;
   swapcontext(&emu().cur->ctx, &emu().sched);
 }
+constexpr size_t EMU_STACK = 1 << 18;
+// Runs the grid cluster by cluster (cluster dims `cl`, dividing the grid's),
+// the blocks of a cluster together, ranked x fastest.
 template <class K, class... A>
-void emu_launch(EmuCfg cfg, K kernel, A... args) {
+void emu_launch_cluster(EmuCfg cfg, dim3 cl, K kernel, A... args) {
   EmuState& s = emu();
   int nt = cfg.block.x * cfg.block.y * cfg.block.z;
+  int nb = cl.x * cl.y * cl.z;
+  if (cfg.grid.x % cl.x || cfg.grid.y % cl.y || cfg.grid.z % cl.z) { fprintf(stderr, "emu: cluster does not divide the grid\n"); abort(); }
   s.gdim = {cfg.grid.x, cfg.grid.y, cfg.grid.z};
   s.bdim = {cfg.block.x, cfg.block.y, cfg.block.z};
   std::function<void()> body = [&]() { kernel(args...); };
-  s.th.resize(nt);
-  for (auto& t : s.th) if (t.stack.size() == 0) t.stack.resize(1 << 18);
-  for (unsigned bz = 0; bz < cfg.grid.z; ++bz)
-    for (unsigned by = 0; by < cfg.grid.y; ++by)
-      for (unsigned bx = 0; bx < cfg.grid.x; ++bx) {
-        s.bid = {bx, by, bz};
-        s.smem.assign(cfg.smem, 0xFF);  // NaN bytes: unwritten memory shows
-        s.nthreads = s.alive = nt;
-        s.arrived = 0;
-        for (int w = 0; w < 32; ++w) s.warrived[w] = 0;
-        for (int i = 0; i < nt; ++i) {
+  if ((int)s.th.size() < nt * nb) s.th.resize(nt * nb);
+  for (auto& t : s.th) if (!t.stack) t.stack = (char*)malloc(EMU_STACK);
+  s.blocks.resize(nb);
+  for (unsigned cz = 0; cz < cfg.grid.z; cz += cl.z)
+    for (unsigned cy = 0; cy < cfg.grid.y; cy += cl.y)
+      for (unsigned cx = 0; cx < cfg.grid.x; cx += cl.x) {
+        for (int r = 0; r < nb; ++r) {
+          EmuBlock& b = s.blocks[r];
+          b.bid = {cx + r % cl.x, cy + (r / cl.x) % cl.y, cz + r / (cl.x * cl.y)};
+          b.smem.assign(cfg.smem, 0xFF);  // NaN bytes: unwritten memory shows
+          b.alive = nt;
+          b.arrived = 0;
+          for (int w = 0; w < 32; ++w) b.warrived[w] = 0;
+        }
+        s.calive = nt * nb;
+        s.carrived = 0;
+        for (int i = 0; i < nt * nb; ++i) {
           EmuThread& t = s.th[i];
-          t.lin = i;
-          t.tid = {(unsigned)(i % cfg.block.x), (unsigned)((i / cfg.block.x) % cfg.block.y),
-                   (unsigned)(i / (cfg.block.x * cfg.block.y))};
+          int l = i % nt;
+          t.lin = l;
+          t.blk = i / nt;
+          t.tid = {(unsigned)(l % cfg.block.x), (unsigned)((l / cfg.block.x) % cfg.block.y),
+                   (unsigned)(l / (cfg.block.x * cfg.block.y))};
           t.done = false;
           t.open.clear(); t.groups.clear();
           getcontext(&t.ctx);
-          t.ctx.uc_stack.ss_sp = t.stack.data();
-          t.ctx.uc_stack.ss_size = t.stack.size();
+          t.ctx.uc_stack.ss_sp = t.stack;
+          t.ctx.uc_stack.ss_size = EMU_STACK;
           t.ctx.uc_link = nullptr;
           uintptr_t p = (uintptr_t)&body;
           makecontext(&t.ctx, (void (*)())emu_trampoline, 2, (unsigned)(p & 0xffffffffu),
@@ -295,19 +341,52 @@ void emu_launch(EmuCfg cfg, K kernel, A... args) {
         long rounds = 0;
         while (true) {
           bool any = false;
-          for (int i = 0; i < nt; ++i) {
+          for (int i = 0; i < nt * nb; ++i) {
             EmuThread& t = s.th[i];
             if (t.done) continue;
             any = true;
             s.cur = &t;
             swapcontext(&s.sched, &t.ctx);
             if (t.done) {
-              s.alive--;
-              if (s.arrived > 0 && s.arrived == s.alive) { s.arrived = 0; s.gen++; }
+              EmuBlock& b = s.blocks[t.blk];
+              b.alive--;
+              if (b.arrived > 0 && b.arrived == b.alive) { b.arrived = 0; b.gen++; }
+              s.calive--;
+              if (s.carrived > 0 && s.carrived == s.calive) { s.carrived = 0; s.cgen++; }
             }
           }
           if (!any) break;
           if (++rounds > 50000000) { fprintf(stderr, "emu: deadlock?\n"); abort(); }
         }
       }
+}
+template <class K, class... A>
+void emu_launch(EmuCfg cfg, K kernel, A... args) {
+  emu_launch_cluster(cfg, dim3(1, 1, 1), kernel, args...);
+}
+
+// cudaLaunchKernelEx with a cluster dimension attribute
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue { struct { unsigned x, y, z; } clusterDim; };
+struct cudaLaunchAttribute { cudaLaunchAttributeID id; cudaLaunchAttributeValue val; };
+struct cudaLaunchConfig_t {
+  dim3 gd, bd;  // gridDim, blockDim
+  dim3& emu_gdim() { return gd; }
+  dim3& emu_bdim() { return bd; }
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... E, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c, void (*kernel)(E...), A&&... args) {
+  dim3 cl(1, 1, 1);
+  for (unsigned i = 0; i < c->numAttrs; ++i)
+    if (c->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cl = dim3(c->attrs[i].val.clusterDim.x, c->attrs[i].val.clusterDim.y,
+                c->attrs[i].val.clusterDim.z);
+  if (cl.x * cl.y * cl.z > 8) return cudaErrorInvalidValue;
+  emu_launch_cluster(EmuCfg{c->gd, c->bd, c->dynamicSmemBytes}, cl, kernel,
+                     static_cast<E>(args)...);
+  return cudaSuccess;
 }

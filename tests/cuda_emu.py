@@ -4,9 +4,11 @@ The source is turned into host C++: its PTX helpers (``cp_async16``,
 ``ldmatrix_x4``, ``mma_bf16``, ...) are dropped for the header's emulated
 ones, ``extern __shared__`` arrays point at the block's emulated shared
 memory, and ``kernel<<<grid, block, smem, stream>>>(args)`` becomes
-``emu_launch``.  g++ compiles it into a shared library under ``build/emu``
-at the repository root, loaded with ``ctypes``: the same C entry point as the
-nvcc build, taking host pointers."""
+``emu_launch`` (``cudaLaunchKernelEx`` with a cluster dimension runs the
+cluster's blocks together).  g++ compiles it, with ``CUDA_EMULATOR`` defined
+(``csrc/ffn.cu`` then builds its fp32 half alone), into a shared library
+under ``build/emu`` at the repository root, loaded with ``ctypes``: the same
+C entry point as the nvcc build, taking host pointers."""
 
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 OUT = HERE.parent / "build" / "emu"
 HELPERS = ("smem_addr", "cp_async16", "cp_async4", "cp_async_commit", "cp_async_wait",
-           "ldmatrix_x4", "ldmatrix_x4_trans", "mma_bf16", "mma_tf32", "to_tf32", "ex2")
+           "ldmatrix_x4", "ldmatrix_x4_trans", "mma_bf16", "mma_tf32", "to_tf32", "ex2",
+           "cluster_sync", "ld_cluster4")
 
 
 def _drop_function(src: str, name: str) -> str:
@@ -71,6 +74,7 @@ def build(source: Path) -> ctypes.CDLL:
         cpp.write_text(text)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{HERE}",
+                        "-DCUDA_EMULATOR",
                         "-Wno-unused", "-o", str(tmp), str(cpp)], check=True,
                        capture_output=True, text=True)
         tmp.replace(lib)

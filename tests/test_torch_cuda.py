@@ -91,9 +91,9 @@ def test_k1_in_k3_range(cuda, B, N, with_bias, dtype):
     assert attention_scores_cuda.large_n_launches == before + 2
 
 
-# N on both sides of every tile edge: 16-row warps, 32-key (fp32) and
-# 64-key (bf16) pass-B blocks, 64-key pass-A and pass-Q/K tiles, 128-row
-# pass-B stages
+# N on both sides of every tile edge: 16-row warps, 32-key (K2's fp32
+# pass-B blocks) and 64-key pass-B blocks, 64-row and 64-key pass-A and
+# pass-Q/K tiles, 128-row pass-B stages
 EDGE_NS = [15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129]
 
 
@@ -113,15 +113,28 @@ def test_k1_tile_edges(cuda, N, dtype):
     _relaunch_k1(*case, _compare(*case))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,N,H", [(2, 300, 12), (1, 700, 16)])
-def test_k1_query_split(cuda, B, N, H):
-    """Shapes short of blocks, where bf16 pass B splits the query tiles
-    across blocks and ``k1_colsum`` adds their column partials: within
-    tolerance and bit-identical on a second launch."""
-    dtype = torch.bfloat16
-    assert pass_b_chunks(B, N, dtype) > 1
+def test_k1_query_split(cuda, B, N, H, dtype):
+    """Shapes short of blocks, where pass B splits the query tiles across
+    blocks and ``k1_colsum`` adds their column partials: within tolerance
+    and bit-identical on a second launch."""
+    assert pass_b_chunks(B, N) > 1
     case = k1_case(B, N, with_bias=False, dtype=dtype, device=cuda, H=H)
     _relaunch_k1(*case, _compare(*case))
+
+
+@pytest.mark.parametrize("B,N,H", [(16, 26, 12), (16, 40, 12), (8, 592, 12), (4, 920, 12),
+                                   (2, 1608, 12), (4, 584, 16)])
+def test_k1_fp32_path_shapes(cuda, B, N, H):
+    """fp32 K1 at the paths' lengths (text 26 and 40, the ViT's 592, VQA's
+    920 and 1,608, CLIP's H = 16) with PAD_BIAS keys: within tolerance, a
+    relaunch bit-identical, and K2 fed the new stats within its own
+    tolerance."""
+    c = k2_case(B, N, with_bias=True, dtype=torch.float32, device=cuda, H=H)
+    got = _compare(c["q"], c["k"], c["v"], c["alive"], c["bias"])
+    _relaunch_k1(c["q"], c["k"], c["v"], c["alive"], c["bias"], got)
+    _relaunch_k2(c, _k2_compare(c))
 
 
 def test_k1_large_n_count(cuda):
@@ -501,6 +514,21 @@ def test_k5_determinism_and_count(cuda, dtype):
     assert torch.equal(out, k5.ffn_cuda(*args, "quick_gelu"))
     assert k5.ffn_cuda.launches == before + 2
     assert k5.ffn_cuda.fp32_launches == before32 + (2 if dtype == torch.float32 else 0)
+
+
+@pytest.mark.parametrize("M", [1, 16, 608, 800, 1000, 18944])
+def test_k5_fp32_plans(cuda, M):
+    """fp32 K5 at the paths' row counts, D = 768, F = 3072: split-K (M = 1,
+    16, 608, 800, 1,000) and unsplit (18,944) plans of ``fp32_plan``, within
+    ``TOLERANCES``, a relaunch bit-identical, one launch and one fp32 launch
+    a call."""
+    args = k5_case(M, 768, 3072, cuda, dtype=torch.float32)
+    before, before32 = k5.ffn_cuda.launches, k5.ffn_cuda.fp32_launches
+    out = _k5_compare(*args, "gelu")
+    assert torch.equal(out, k5.ffn_cuda(*args, "gelu"))
+    assert k5.ffn_cuda.launches == before + 2 and k5.ffn_cuda.fp32_launches == before32 + 2
+    plans = k5.fp32_plan(M, 3072, 768), k5.fp32_plan(M, 768, 3072)
+    assert (M == 18944) == all(split == 1 for _, split in plans)
 
 
 def test_k5_refusals(cuda):

@@ -1,9 +1,10 @@
-"""K1 and K2, the CUDA sources themselves, run on the CPU through the emulator
-of ``tests/cuda_emu.h`` (g++; skipped without it) against their plain
-versions and the JAX package's ``attention_core``, fp32 (K1 on the CUDA
-cores, K2 as 3xTF32 on the emulated tensor cores) and bf16, at small shapes
-that cross the tiles' edges and take pass B's and pass M's query splits, a
-row with no alive key and PAD_BIAS keys among them.  The emulator follows the PTX fragment layouts and lands
+"""K1, K2 and fp32 K5, the CUDA sources themselves, run on the CPU through the
+emulator of ``tests/cuda_emu.h`` (g++; skipped without it) against their
+plain versions and the JAX package's ``attention_core`` and ``fused_mlp_2d``,
+fp32 (K1 and K5 on the CUDA cores, K2 as 3xTF32 on the emulated tensor
+cores) and bf16, at small shapes that cross the tiles' edges and take pass
+B's and pass M's query splits and K5's split-K clusters, a row with no
+alive key and PAD_BIAS keys among them.  The emulator follows the PTX fragment layouts and lands
 ``cp.async`` copies only at their waits, with shared memory starting as NaN
 bytes, so a layout, masking or ordering slip shows here before the card."""
 
@@ -18,9 +19,13 @@ import torch
 import cuda_emu
 from chip_smoke import compare_k2
 from madtp_tpu.ops import attention as JA
+from madtp_tpu.ops.pallas.fused_ffn import fused_mlp_2d
 from madtp_tpu_torch.kernels.attention_scores import _DTYPES, TOLERANCES, pass_b_chunks
 from madtp_tpu_torch.kernels.attention_scores_bwd import TOLERANCES as K2_TOL, pass_m_chunks
+from madtp_tpu_torch.kernels.ffn import ACTS, MAX_SPLIT, MIN_SLICE, fp32_plan
+from madtp_tpu_torch.kernels.ffn import TOLERANCES as K5_TOL
 from madtp_tpu_torch.ops.attention import attention_scores_bwd_plain, attention_scores_plain
+from madtp_tpu_torch.ops.layers import mlp_plain
 
 CSRC = Path(__file__).resolve().parent.parent / "madtp_tpu_torch" / "csrc"
 P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -60,7 +65,7 @@ def _k1(fn, q, k, v, alive, bias, scale):
     out = torch.empty(B, N, H, 64, dtype=q.dtype)
     col, cls = torch.empty(B, N), torch.empty(B, N)
     stats = torch.empty(3, B, H, N)
-    chunks = pass_b_chunks(B, N, q.dtype)
+    chunks = pass_b_chunks(B, N)
     part = torch.empty(chunks, B, N)
     err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0),
              q.stride(1), alive.data_ptr(), bias_in.data_ptr(), out.data_ptr(), col.data_ptr(),
@@ -75,6 +80,19 @@ def _k1(fn, q, k, v, alive, bias, scale):
 # the text side's 40
 SHAPES = [(2, 70, 2, True, False), (1, 17, 3, False, False), (2, 130, 2, False, False),
           (2, 40, 2, True, True)]
+
+
+# fp32 K1's own tile edges: N on both sides of 64 (pass A's query and key
+# tiles, pass B's key blocks) and 128 (pass B's query stages), and 300 at B
+# = 1, where pass B splits its three query tiles into three chunks
+FP32_EDGES = [(1, 63, 2, True, False), (1, 64, 2, False, False), (2, 65, 2, True, True),
+              (1, 127, 3, False, False), (1, 128, 2, True, False), (1, 129, 2, False, True),
+              (1, 300, 2, True, False)]
+
+
+@pytest.mark.parametrize("B,N,H,with_bias,dead_row", FP32_EDGES)
+def test_k1_fp32_tile_edges(kernels, B, N, H, with_bias, dead_row):
+    test_k1_source_matches_plain_and_jax(kernels, B, N, H, with_bias, dead_row, torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -130,3 +148,79 @@ def test_k2_source_matches_plain(kernels, B, N, H, with_bias, dead_row, dtype):
                K2_TOL[dtype], "emulated")
     if dead_row:
         assert all(not g[-1].float().any() for g in got)
+
+
+@pytest.fixture(scope="module")
+def k5():
+    if not cuda_emu.available():
+        pytest.skip("needs g++ for the CPU emulator")
+    fn = cuda_emu.build(CSRC / "ffn.cu").k5_ffn  # its fp32 half (CUDA_EMULATOR)
+    fn.argtypes = [I32] + [P] * 7 + [I32] * 8 + [P]
+    fn.restype = I32
+    return fn
+
+
+def _k5_case(M, D, F, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(M, D).astype(np.float32),
+            (rng.randn(F, D) * D ** -0.5).astype(np.float32),
+            (rng.randn(F) * 0.1).astype(np.float32),
+            (rng.randn(D, F) * F ** -0.5).astype(np.float32),
+            (rng.randn(D) * 0.1).astype(np.float32))
+
+
+def _k5(fn, args, act, plans=None):
+    x, w1, b1, w2, b2 = (torch.from_numpy(a) for a in args)
+    M, D = x.shape
+    F = w1.shape[0]
+    plans = plans or (*fp32_plan(M, F, D), *fp32_plan(M, D, F))
+    hidden, y = torch.empty(M, F), torch.empty(M, D)
+    assert fn(0, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+              hidden.data_ptr(), y.data_ptr(), M, D, F, ACTS[act], *plans, None) == 0
+    return y, mlp_plain(x, w1, b1, w2, b2, act)
+
+
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
+@pytest.mark.parametrize("M,D,F", [(M, D, F) for M in (1, 17, 130, 300)
+                                   for D, F in ((128, 256), (256, 512))])
+def test_k5_fp32_source_matches_plain_and_jax(k5, M, D, F, act):
+    """fp32 K5 on ``fp32_plan``'s plans (row tiles of 16, 32 and 128 rows,
+    K split 2 to 8 ways into clusters) against ``mlp_plain`` and the TPU
+    kernel in interpret mode, at 1e-5."""
+    args = _k5_case(M, D, F, seed=M + D)
+    got, want = _k5(k5, args, act)
+    rtol, atol = K5_TOL[torch.float32]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    x, w1, b1, w2, b2 = args
+    jax_y = np.asarray(fused_mlp_2d(jnp.asarray(x), jnp.asarray(w1.T), jnp.asarray(b1),
+                                    jnp.asarray(w2.T), jnp.asarray(b2), act=act,
+                                    interpret=True))
+    np.testing.assert_allclose(got.numpy(), jax_y, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("tm,split", [(1, 1), (2, 1), (4, 1), (8, 1), (1, MAX_SPLIT),
+                                      (4, 2), (8, 4)])
+def test_k5_fp32_every_tile_and_split(k5, tm, split):
+    """Every row tile, unsplit and split, on both GEMMs of a ragged M = 70
+    (past the 16-, 32- and 64-row tiles' edges)."""
+    args = _k5_case(70, 128, 256, seed=tm * 10 + split)
+    got, want = _k5(k5, args, "gelu", plans=(tm, split, tm, split))
+    torch.testing.assert_close(got, want, rtol=K5_TOL[torch.float32][0],
+                               atol=K5_TOL[torch.float32][1])
+
+
+@pytest.mark.parametrize("M,N,K,plan", [
+    (1, 3072, 768, (1, 8)), (16, 768, 3072, (1, 8)), (17, 768, 3072, (2, 8)),
+    (32, 768, 3072, (2, 8)), (33, 768, 3072, (4, 8)), (64, 3072, 768, (4, 8)),
+    (65, 768, 3072, (8, 8)), (480, 3072, 768, (8, 1)), (608, 768, 3072, (8, 4)),
+    (800, 3072, 768, (8, 2)), (800, 768, 3072, (8, 2)), (18944, 768, 3072, (8, 1)),
+    (1, 128, 128, (1, 2)), (1, 128, 256, (1, 4))])
+def test_k5_fp32_plan_edges(M, N, K, plan):
+    """``fp32_plan`` at its edges: the row tile steps at M = 16, 32, 64;
+    split until 80 blocks of 128 rows (a block an SM) or 132 of the smaller
+    tiles, once more where 128-row blocks would end in a partial second
+    wave (M = 800 at F = 3072), never past 8 ways or below 64-deep slices
+    (K = 128: 2 ways at most)."""
+    assert fp32_plan(M, N, K) == plan
+    tm, split = plan
+    assert split == 1 or (K // split >= MIN_SLICE and split <= MAX_SPLIT)
