@@ -14,13 +14,15 @@ function's counterpart is found at the same path:
 * :mod:`.ckpt` — weights from the JAX param tree or a reference ``.pth``,
   and the checkpoint a compression run writes;
 * :mod:`.eval` — retrieval recall (``itm_eval``);
-* :mod:`.train` — losses, AdamW and LR schedules, the temperature
-  controller, the NLVR train step (fp32 or bf16 compute on fp32 masters);
+* :mod:`.data` — the BERT WordPiece and CLIP BPE tokenizers;
+* :mod:`.train` — losses, momentum towers and the feature queue, AdamW and
+  LR schedules, the temperature controller, the train steps of all five
+  task families (fp32 or bf16 compute on fp32 masters);
 * :mod:`.tasks` — the NLVR2 eval step and loop, the train epoch and the
   ``--fast_train`` capacity probe; BLIP retrieval eval (corpus encode, ITM
   rerank, the ``--fast_eval`` probe); CLIP retrieval eval (both towers,
   ``itm_eval`` of the similarities, the ``--fast_eval`` probe); VQA and
-  caption eval;
+  caption eval; each family's train epoch;
 * :mod:`.utils` — the step cache and the captured steps: every eval step
   runs on the card as one CUDA graph (``graph=False`` runs it eagerly).
 

@@ -20,12 +20,14 @@ retrieval checkpoint's momentum towers (``*_m.``) and queues are read only by
 training and are ignored here.
 
 Out: :func:`save_nlvr_checkpoint`, :func:`save_caption_checkpoint`,
-:func:`save_vqa_checkpoint` and :func:`save_retrieval_checkpoint` write what a
+:func:`save_vqa_checkpoint`, :func:`save_retrieval_checkpoint` and
+:func:`save_clip_checkpoint` write what a
 compression run leaves behind, the weights and the temperature, in the
 reference ``.pth`` layout, with the keys the JAX drivers write.
 
-:func:`retrieval_train_state_from_jax` carries the JAX package's retrieval
-train state (momentum towers, queue, ``temp``) across, for training.
+:func:`retrieval_train_state_from_jax` and :func:`clip_train_state_from_jax`
+carry the JAX package's retrieval and CLIP train states (momentum copies,
+queue, retrieval's ``temp``) across, for training.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from madtp_tpu_torch.core.config import BlipConfig, CLIPConfig
 from madtp_tpu_torch.core.device import resolve_device
 from madtp_tpu_torch.models.blip import CaptionModel, NLVRModel, RetrievalModel, VQAModel
 from madtp_tpu_torch.models.clip import CLIPModel
-from madtp_tpu_torch.train.loops import MOMENTUM_KEYS, RetrievalTrainState
+from madtp_tpu_torch.train.loops import (CLIP_MOMENTUM_KEYS, MOMENTUM_KEYS, ClipTrainState,
+                                         RetrievalTrainState)
 from madtp_tpu_torch.train.momentum import FeatureQueue
 
 
@@ -470,3 +473,36 @@ def retrieval_train_state_from_jax(params: Mapping, params_m: Mapping, queue, te
                      torch.tensor(int(np.asarray(queue.ptr)), dtype=torch.long, device=dev))
     return RetrievalTrainState(model, params_m_t, q,
                                torch.tensor(float(np.asarray(temp)), device=dev))
+
+
+def save_clip_checkpoint(model: CLIPModel, path: str, *, epoch: int,
+                         temperature: float) -> None:
+    """The CLIP checkpoint (``compress_retrieval_clip.py:521-531``): the two
+    towers in ``export_clip``'s layout with ``logit_scale``, and the
+    codebook ``space_dict``; no momentum copy or queue.
+    :func:`load_clip_state_dict` and the JAX package's ``load_state_dict``
+    + ``remap_clip`` read it back."""
+    _save(model, path, epoch, temperature)
+
+
+def clip_train_state_from_jax(params: Mapping, params_m: Mapping, queue, space_dict,
+                              cfg: CLIPConfig, device="cuda"):
+    """A :class:`~madtp_tpu_torch.train.loops.ClipTrainState` from the JAX
+    package's ``ClipTrainState`` parts (numpy leaves): ``params`` and the
+    codebook through :func:`clip_from_jax_params`, the momentum copies
+    ``params_m`` (``visual``, ``token_embedding``, ``positional_embedding``,
+    ``blocks``, ``ln_final``, ``text_projection``) by the model's parameter
+    names, and the ``FeatureQueue`` (``image``, ``text``, ``idx``,
+    ``ptr``)."""
+    dev = resolve_device(device)
+    model = clip_from_jax_params(params, cfg, space_dict, device=dev)
+    if set(params_m) != {"visual", "token_embedding", "positional_embedding", "blocks",
+                         "ln_final", "text_projection"}:
+        raise KeyError(f"momentum copies: {sorted(params_m)}")
+    merged = clip_from_jax_params({**params, **params_m}, cfg, None, device="cpu")
+    params_m_t = {n: p.detach().to(dev, copy=True) for n, p in merged.named_parameters()
+                  if n.split(".", 1)[0] in CLIP_MOMENTUM_KEYS}
+    q = FeatureQueue(_tensor(queue.image).to(dev), _tensor(queue.text).to(dev),
+                     torch.from_numpy(np.asarray(queue.idx, np.int64)).to(dev),
+                     torch.tensor(int(np.asarray(queue.ptr)), dtype=torch.long, device=dev))
+    return ClipTrainState(model, params_m_t, q)

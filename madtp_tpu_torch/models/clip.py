@@ -16,7 +16,9 @@ weights.
 * Vision, mask mode: 577 tokens and 24 merge slots in a buffer padded to 8
   (608 slots), the merge slot of layer ``i`` at ``1 + P0 + i``; gather mode
   (``capacities``): 577 tokens padded to 584, compacted after each layer's
-  decision.  The scoring attention goes to K1.
+  decision.  The scoring attention goes to K1; with gradients (CLIP
+  training) K1 forward and K2 backward (``ScoringAttention``), in both
+  modes.
 * Text, mask mode only: 77 tokens and 12 merge slots padded to 96, a causal
   bias over slot indices (merge slots included), features read at the
   *original* EOT slot.  Its causal scoring attention runs on the plain

@@ -11,23 +11,33 @@
 * :func:`evaluate` ranks ``sims = img @ txt.T`` with ``itm_eval`` and
   reports :func:`~madtp_tpu_torch.prune.flops.clip_gflops` from the last
   batch of each tower.  The text tower runs in mask mode in both modes.
+
+Compression training (``madtp_tpu/cli/compress_retrieval_clip.py:336-540``):
+:func:`train_epoch` runs one epoch of
+:func:`~madtp_tpu_torch.train.loops.make_clip_train_step`'s step on batches
+of captions it tokenizes, :func:`train_capacities` is ``--fast_train``'s
+per-epoch calibration and :func:`eval_epoch` the per-epoch eval with the
+best-checkpoint gate.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from madtp_tpu_torch.data.tokenizer_clip import clip_tokenize
 from madtp_tpu_torch.eval.metrics import itm_eval
 from madtp_tpu_torch.models.clip import CLIPModel
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.flops import clip_gflops
+from madtp_tpu_torch.train.epoch import run_epoch
 from madtp_tpu_torch.utils.graph import CapturedStep
 
 BATCH_SIZE_TEST = 32  # configs/retrieval_*_clip.yaml batch_size_test
 PROBE_IMAGES, PROBE_BATCH = 64, 16  # the --fast_eval probe's images and batch
+BEST_SLACK = 5.0  # GFLOPs above the target a best checkpoint may be (compress_retrieval_clip.py:518)
 
 
 def _device(model: CLIPModel) -> torch.device:
@@ -133,3 +143,66 @@ def evaluate(model: CLIPModel, image_batches: Iterable[np.ndarray], text: np.nda
     sims = img @ txt.T
     return itm_eval(sims, sims.T, txt2img, img2txt), clip_gflops(model.cfg, v_kept, t_kept)
 
+
+
+def train_epoch(model: CLIPModel, train_step, loader_fn: Callable[[], Iterable], tokenizer,
+                temperature: float, *, epoch: int, epoch_len: int, alpha: float = 0.4,
+                print_fn=print, print_freq: int = 50, lr: float = 0.0, stop=None) -> dict:
+    """One compression-training epoch (single process,
+    ``compress_retrieval_clip.py:463-492``) of ``train_step``
+    (:func:`~madtp_tpu_torch.train.loops.make_clip_train_step`'s step, over
+    ``model``'s train state) on ``loader_fn()``'s ``(images, captions,
+    image_ids)`` batches, the captions through :func:`~madtp_tpu_torch.data.
+    tokenizer_clip.clip_tokenize` at the model's context length.  Epoch 0
+    ramps the soft-target weight, ``alpha * min(1, done / epoch_len)`` at
+    its ``done``-th batch.  Returns the stats of :func:`~madtp_tpu_torch.
+    train.epoch.run_epoch`: the means of ``temperature``, ``lr``, ``alpha``,
+    ``loss``, ``loss_ita``, ``loss_fdt`` and ``loss_fdt_m``, and
+    ``batches_done``."""
+    dev = _device(model)
+    context = model.cfg.context_length
+
+    def run_step(done, batch):
+        images, captions, img_idx = batch
+        text = clip_tokenize(tokenizer, list(captions), context)
+        a = alpha if epoch > 0 else alpha * min(1.0, done / max(1, epoch_len))
+        metrics = train_step(torch.from_numpy(np.asarray(images)).to(dev),
+                             torch.from_numpy(text.astype(np.int64)).to(dev),
+                             torch.as_tensor(np.asarray(img_idx), dtype=torch.long).to(dev),
+                             temperature, a)
+        return dict(metrics, alpha=a)
+
+    return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
+                     print_freq=print_freq, stop=stop)
+
+
+@torch.inference_mode()
+def train_capacities(model: CLIPModel, batches: Iterable, temperature: float,
+                     cap_mode: str = "ceil") -> Tuple[int, ...]:
+    """``--fast_train``'s per-epoch calibration (``fast_train_step``,
+    ``compress_retrieval_clip.py:393-421``): the mask-mode vision tower at
+    this epoch's temperature on each cached probe batch ``(images, captions,
+    image_ids)`` as it is, then the vision schedule of
+    :func:`fast_capacity_schedule` over their kept counts.  The text tower
+    stays in mask mode, so it has no schedule."""
+    dev = _device(model)
+    kept = [model.encode_image(torch.from_numpy(np.asarray(images)).to(dev),
+                               temperature=temperature, prune_active=True).kept_counts
+            for images, _, _ in batches]
+    return fast_capacity_schedule(torch.stack(kept).cpu().numpy(), None, cap_mode)[0]
+
+
+def eval_epoch(model: CLIPModel, image_batches: Iterable[np.ndarray], text: np.ndarray,
+               txt2img: Sequence[int], img2txt: Sequence[Sequence[int]], temperature: float, *,
+               best: float, target_gflops: float, graph: bool = True
+               ) -> Tuple[Dict[str, float], float, bool]:
+    """A training epoch's eval (``compress_retrieval_clip.py:499-531``):
+    :func:`evaluate` at the epoch's temperature, so it prunes when that
+    temperature is > 0 whatever the checkpoint the run started from, in
+    mask mode (a training run calibrates no eval capacities).  Returns
+    ``(stats, Cur_Gflops, improved)``: ``improved`` is the best-checkpoint
+    gate, ``r_mean > best`` and at most :data:`BEST_SLACK` GFLOPs above
+    the target."""
+    stats, cur_g = evaluate(model, image_batches, text, txt2img, img2txt, temperature,
+                            graph=graph)
+    return stats, cur_g, stats["r_mean"] > best and cur_g - target_gflops < BEST_SLACK

@@ -1,11 +1,12 @@
 """The compression train steps
-(counterpart of ``madtp_tpu/train/loops.py:42-359``): NLVR, caption, VQA and
-BLIP retrieval.
+(counterpart of ``madtp_tpu/train/loops.py:42-481``): NLVR, caption, VQA,
+BLIP retrieval and CLIP retrieval.
 
 Each factory returns ``step(...)``, which runs one forward, backward and
 optimizer update of the model in place and returns its losses as device
 scalars; nothing in a step waits on the card.  The total loss is the task
-loss plus ``0.1 * loss_fdt`` (retrieval: plus ``0.1 * loss_fdt_m`` too).
+loss plus ``0.1 * loss_fdt`` (retrieval and CLIP: plus ``0.1 * loss_fdt_m``
+too).
 Dropout and drop-path stay off, as in the JAX package's drivers.  ``amp``
 computes in bf16 against the fp32 masters (:func:`_amp_cast`).
 """
@@ -21,6 +22,7 @@ from torch.func import functional_call
 from madtp_tpu_torch.core.device import resolve_device
 from madtp_tpu_torch.models.blip import (CaptionModel, NLVRModel, RetrievalModel, VQAModel,
                                          fdt_alignment_loss)
+from madtp_tpu_torch.models.clip import CLIPModel
 from madtp_tpu_torch.models.med import lm_loss
 from madtp_tpu_torch.ops.layers import linear
 from madtp_tpu_torch.prune.dtp import TokenState
@@ -29,6 +31,10 @@ from madtp_tpu_torch.train.momentum import FeatureQueue, enqueue, init_queue, mo
 
 FDT_WEIGHT = 0.1
 MOMENTUM_KEYS = ("visual_encoder", "vision_proj", "text_encoder", "text_proj")
+# the JAX package's ``blocks`` is the port's ``transformer``
+CLIP_MOMENTUM_KEYS = ("visual", "token_embedding", "positional_embedding", "transformer",
+                      "ln_final", "text_projection")
+LOGIT_SCALE_MAX = 4.6052  # ln 100, the reference clamp (clip/model.py:530-531)
 
 
 def _amp_cast(amp: bool, params: dict, *tensors: torch.Tensor):
@@ -343,3 +349,121 @@ def make_retrieval_train_step(state: RetrievalTrainState, optimizer: torch.optim
 
     return _optimize(optimizer, loss_fn,
                      ("loss", "loss_ita", "loss_itm", "loss_fdt", "loss_fdt_m"), after)
+
+
+class ClipTrainState(NamedTuple):
+    """What CLIP training carries from step to step, on the model's device:
+    the online model (trained by the optimizer, its codebook ``space_dict``
+    and ``logit_scale`` included), ``params_m`` the momentum copies of the
+    ``CLIP_MOMENTUM_KEYS`` parameters by the model's names (never trained,
+    updated by EMA), and the feature queue."""
+
+    model: CLIPModel
+    params_m: Dict[str, torch.Tensor]
+    queue: FeatureQueue
+
+
+def init_clip_train_state(model: CLIPModel, *, queue_size: int = 57600,
+                          seed: int = 0) -> ClipTrainState:
+    """The state a CLIP run starts from: momentum copies of the online
+    weights and a queue from :func:`~madtp_tpu_torch.train.momentum.
+    init_queue` at ``embed_dim`` (``compress_retrieval_clip.py:378-384``)."""
+    if model.space_dict is None:
+        raise ValueError("CLIP compression training needs the codebook: this model has no "
+                         "space_dict")
+    dev = model.space_dict.device
+    params_m = {n: p.detach().clone() for n, p in model.named_parameters()
+                if n.split(".", 1)[0] in CLIP_MOMENTUM_KEYS}
+    return ClipTrainState(model, params_m,
+                          init_queue(model.cfg.embed_dim, queue_size, seed, dev))
+
+
+def _clip_towers(model: CLIPModel, images, text, *, temperature, prune_active, capacities_v):
+    """Both towers (``towers`` in ``make_clip_train_step``): L2-normalised
+    image and text features in the model's dtype and their MAG features."""
+    v = model.encode_image(images, temperature=temperature, prune_active=prune_active,
+                           capacities=capacities_v)
+    t = model.encode_text(text, temperature=temperature, prune_active=prune_active)
+    img = v.features / torch.linalg.vector_norm(v.features, dim=-1, keepdim=True)
+    txt = t.features / torch.linalg.vector_norm(t.features, dim=-1, keepdim=True)
+    return img, txt, v.sd_ft, t.sd_ft
+
+
+def make_clip_train_step(state: ClipTrainState, optimizer: torch.optim.Optimizer, *,
+                         alpha: float = 0.4, momentum: float = 0.995,
+                         prune_active: bool = True,
+                         capacities_v: Optional[Sequence[int]] = None,
+                         amp: bool = False, device="cuda"):
+    """The CLIP compression step (``make_clip_train_step``,
+    ``madtp_tpu/train/loops.py:371-481``), over ``state`` in place:
+    ``step(images, text, idx, temperature, alpha=None)``, ``text`` the
+    token ids [B, context_length], ``idx`` [B] the image ids; ``alpha``
+    (default the factory's) is taken per batch.  In order:
+
+    1. the EMA of the momentum copies toward the current online weights;
+    2. ``logit_scale`` read in fp32 from the master before the amp cast,
+       clamped to [0, 4.6052] (no gradient outside) and exponentiated;
+    3. the online towers with gradients (vision in mask mode, or gather
+       mode with ``capacities_v``; text in mask mode);
+    4. the momentum towers without gradients, with the reference's quirk:
+       the *online* ``transformer`` and ``ln_final`` under the momentum
+       token and positional embeddings and ``text_projection`` (the
+       momentum ``transformer`` and ``ln_final`` copies are updated but
+       never read), and the online codebook;
+    5. soft targets ``alpha * softmax(s * m_img @ [m_txt^T, queue.text]) +
+       (1 - alpha) * id_match_targets`` and back, the ITC loss of the
+       online features against the same concatenations, ``s`` the scale;
+    6. the FDT losses of both towers' MAG features, the momentum one
+       without gradient (both ``loss_ita`` when a tower gives none);
+    7. ``loss_ita + 0.1 loss_fdt + 0.1 loss_fdt_m``, backward, the
+       optimizer's update of every parameter;
+    8. the *online* features (fp32) and ``idx`` into the queue.
+
+    ``amp`` runs both towers in bf16 (online, momentum and codebook cast);
+    ``logit_scale``, the masters, the optimizer state and the queue stay
+    fp32.  Returns ``{"loss", "loss_ita", "loss_fdt", "loss_fdt_m"}`` as
+    device scalars; nothing waits on the card.  ``device`` as
+    :func:`make_nlvr_train_step`.  ``step.loss_fn`` takes the same
+    arguments and returns the four losses and the online features without
+    the update and the enqueue; it advances the EMA."""
+    model = state.model
+    _check_device(model, device)
+    params = dict(model.named_parameters())
+    names_m = list(state.params_m)
+    online_m = [params[n] for n in names_m]
+    towers = _Bound(model, _clip_towers)
+    kw = dict(prune_active=prune_active, capacities_v=capacities_v)
+    default_alpha = alpha
+
+    def loss_fn(images, text, idx, temperature, alpha=None):
+        a = default_alpha if alpha is None else alpha
+        momentum_update(online_m, state.params_m.values(), momentum)
+        scale = params["logit_scale"].float().clamp(0.0, LOGIT_SCALE_MAX).exp()
+        p, x = _amp_cast(amp, params, images)
+        img, txt, sd_img, sd_txt = functional_call(
+            towers, _prefixed(p), (x, text), dict(kw, temperature=temperature))
+        with torch.no_grad():
+            pm = {n: t for n, t in _amp_cast(amp, state.params_m)[0].items()
+                  if n.split(".", 1)[0] not in ("transformer", "ln_final")}
+            m_img, m_txt, sd_img_m, sd_txt_m = functional_call(
+                towers, _prefixed({**p, **pm}), (x, text), dict(kw, temperature=temperature))
+            q = state.queue
+            sim_targets = L.id_match_targets(idx, torch.cat([idx, q.idx]))
+            img_m_all = torch.cat([m_img.T.float(), q.image], dim=1)
+            txt_m_all = torch.cat([m_txt.T.float(), q.text], dim=1)
+            t_i2t = L.itc_soft_targets(m_img, txt_m_all, sim_targets, None, a, logit_scale=scale)
+            t_t2i = L.itc_soft_targets(m_txt, img_m_all, sim_targets, None, a, logit_scale=scale)
+        loss_ita = 0.5 * (L.itc_loss(img, txt_m_all, t_i2t, None, logit_scale=scale)
+                          + L.itc_loss(txt, img_m_all, t_t2i, None, logit_scale=scale))
+        loss_fdt = loss_fdt_m = loss_ita
+        if prune_active and sd_img is not None and sd_txt is not None:
+            sd_dim = model.cfg.sd_dim
+            loss_fdt = fdt_alignment_loss(sd_img, sd_txt, sd_dim)
+            loss_fdt_m = fdt_alignment_loss(sd_img_m, sd_txt_m, sd_dim)
+        loss = loss_ita + FDT_WEIGHT * loss_fdt + FDT_WEIGHT * loss_fdt_m
+        return loss, loss_ita, loss_fdt, loss_fdt_m, img.detach(), txt.detach()
+
+    def after(out, images, text, idx, *args, **kwargs):
+        enqueue(state.queue, out[4], out[5], idx)
+
+    return _optimize(optimizer, loss_fn, ("loss", "loss_ita", "loss_fdt", "loss_fdt_m"), after)

@@ -1,6 +1,8 @@
 """Task losses (counterpart of ``madtp_tpu/train/losses.py:19-87``): the NLVR
 cross-entropy, and retrieval's soft-target ITC over momentum features and the
-queue, its ITM over hard negatives and the hard-negative sampler.  Every
+queue (BLIP's over a temperature, CLIP's times ``logit_scale``, as
+``madtp_tpu/train/loops.py:429-440`` computes it in place), its ITM over hard
+negatives and the hard-negative sampler.  Every
 loss computes in fp32 whatever the features' dtype."""
 
 from __future__ import annotations
@@ -17,20 +19,31 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, targets[:, None].long()).mean()
 
 
+def itc_logits(feat: torch.Tensor, other_m_all: torch.Tensor, temp=None, *,
+               logit_scale=None) -> torch.Tensor:
+    """``feat @ other_m_all`` in fp32, divided by ``temp`` (BLIP) or, given
+    ``logit_scale``, multiplied by it (CLIP, ``logit_scale * (img @ txt)``:
+    a product rounds otherwise than a division by its inverse)."""
+    sim = feat.float() @ other_m_all.float()
+    return logit_scale * sim if logit_scale is not None else sim / temp
+
+
 def itc_soft_targets(feat_m: torch.Tensor, other_m_all: torch.Tensor,
-                     sim_targets: torch.Tensor, temp, alpha) -> torch.Tensor:
-    """``alpha * softmax(feat_m @ other_m_all / temp) + (1 - alpha) *
+                     sim_targets: torch.Tensor, temp, alpha, *, logit_scale=None
+                     ) -> torch.Tensor:
+    """``alpha * softmax(itc_logits(feat_m, other_m_all)) + (1 - alpha) *
     sim_targets``: momentum features [B, E] against the other modality's
     momentum features and queue [E, B+Q]."""
-    sim_m = feat_m.float() @ other_m_all.float() / temp
+    sim_m = itc_logits(feat_m, other_m_all, temp, logit_scale=logit_scale)
     return alpha * torch.softmax(sim_m, dim=1) + (1 - alpha) * sim_targets
 
 
 def itc_loss(feat: torch.Tensor, other_m_all: torch.Tensor, targets: torch.Tensor,
-             temp) -> torch.Tensor:
+             temp, *, logit_scale=None) -> torch.Tensor:
     """Soft-target contrastive loss of online features [B, E] against
-    [E, B+Q]: the mean over rows of ``-sum(log_softmax(sim) * targets)``."""
-    sim = feat.float() @ other_m_all.float() / temp
+    [E, B+Q]: the mean over rows of ``-sum(log_softmax(sim) * targets)``,
+    ``sim`` from :func:`itc_logits`."""
+    sim = itc_logits(feat, other_m_all, temp, logit_scale=logit_scale)
     return -(torch.log_softmax(sim, dim=1) * targets).sum(dim=1).mean()
 
 

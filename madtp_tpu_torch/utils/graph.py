@@ -42,7 +42,9 @@ During a capture the launch is recorded into the graph and does not run, so
 the capture's counts are taken back and every replay adds them again: the
 counts stay those of the kernels that ran.  ``CapturedStep.captures`` counts
 the graphs captured and ``CapturedStep.capture_seconds`` the host's time in
-their warm-ups and captures."""
+their warm-ups and captures.  Each graph is kept beside its executable
+(``keep_graph``), so its nodes can be listed (``raw_cuda_graph()``): the
+launches it holds, which every replay runs."""
 
 from __future__ import annotations
 
@@ -191,7 +193,7 @@ class _Entry:
             with torch.cuda.stream(step.stream):
                 first = _clone(fn(*self.buffers))
                 before = [getattr(f, a) for f, a in counters]
-                graph = torch.cuda.CUDAGraph()
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
                 mode = torch.cuda.get_sync_debug_mode()
                 torch.cuda.set_sync_debug_mode("error")
                 try:
@@ -208,6 +210,7 @@ class _Entry:
                     recorded = [getattr(f, a) - n for (f, a), n in zip(counters, before)]
                     for (f, a), n in zip(counters, before):
                         setattr(f, a, n)
+                graph.instantiate()
             current.wait_stream(step.stream)
             for t in _tensors(first):
                 t.record_stream(current)

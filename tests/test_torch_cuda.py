@@ -857,3 +857,41 @@ def test_retrieval_train_step_keeps_its_state_on_the_card(cuda, mode):
     assert all(t.device.type == "cuda" and t.dtype == torch.float32
                for t in state.params_m.values())
     assert all(torch.isfinite(v) for v in m.values())
+
+
+# --- the CLIP training path's shapes ------------------------------------------------
+
+
+@pytest.mark.parametrize("N", [608, 584])
+def test_k1_k2_at_clip_train_shape(cuda, N):
+    """fp32 K1 and K2 at the CLIP ViT-L vision tower's training shape (H = 16,
+    mask mode's 608 slots and gather mode's 584, no key bias): each against
+    its plain version, relaunches bit-identical, and through
+    ``ScoringAttention`` the gradients are K2's on K1's statistics, one
+    launch each."""
+    c = k2_case(2, N, with_bias=False, dtype=torch.float32, device=cuda, H=16)
+    _relaunch_k1(c["q"], c["k"], c["v"], c["alive"], None,
+                 _compare(c["q"], c["k"], c["v"], c["alive"], None))
+    want = _k2_compare(c)
+    _relaunch_k2(c, want)
+    q, k, v = (c[n].detach().clone().requires_grad_() for n in ("q", "k", "v"))
+    before = attention_scores_cuda.launches, attention_scores_bwd_cuda.launches
+    outs = attention_scores(q, k, v, c["alive"])
+    torch.autograd.backward(outs, (c["d_out"], c["d_cls"], c["d_col"]))
+    assert (attention_scores_cuda.launches, attention_scores_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(outs[0].detach(), c["out"])
+    for got, w in zip((q.grad, k.grad, v.grad), want[:3]):
+        assert torch.equal(got, w)
+
+
+def test_k5_at_clip_train_shape(cuda):
+    """fp32 and bf16 K5 with QuickGELU at the CLIP vision tower's mask-mode
+    training shape (M = 16 x 608 = 9,728, D = 1,024, F = 4,096) against the
+    plain version, a relaunch bit-identical, fp32 counted apart."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = k5_case(16 * 608, 1024, 4096, cuda, dtype=dtype)
+        before32 = k5.ffn_cuda.fp32_launches
+        out = _k5_compare(*args, "quick_gelu")
+        assert torch.equal(out, k5.ffn_cuda(*args, "quick_gelu"))
+        assert k5.ffn_cuda.fp32_launches == before32 + (2 if dtype == torch.float32 else 0)
