@@ -22,9 +22,10 @@ Phases, each fatal on failure:
 3b. K4 against its plain version on synthetic inputs at the ITM rerank's,
    the NLVR twin cross's, the VQA-640 memory's and ragged shapes (bf16
    splitting the keys into chunks), with and without bias, fp32 and bf16,
-   a row with no alive key, two launches bit-identical, with times, the
-   replaced design's, the bound, and SDPA with the same additive mask (the
-   same function);
+   and in fp32 alone at the NLVR train step's shape and one query a row
+   (the caption controller's fp32 decode), a row with no alive key, two
+   launches bit-identical, with times, the replaced design's, the bound,
+   and SDPA with the same additive mask (the same function);
 3c. K5 against its plain version at the CLIP vision (M = 32 x 584, 1024 /
    4096), CLIP text (M = 32 x 96, 768 / 3072), BLIP (M = 64 x 584, 768 /
    3072), a ragged, the BOS step's and a half-tile shape in bf16, the fp32
@@ -373,13 +374,14 @@ def k4_case(B, Nq, S, *, with_bias, dtype, device, H=12, Dh=64, seed=0, packed_q
 
 def k4_work(q, k, alive, bias):
     """(flops, bytes) of the cross-attention: 4 Dh flops per (head, query,
-    alive key) for q k^T and P v; q, k, v, alive, bias read once, out
-    written once."""
+    alive key) for q k^T and P v; q, the alive keys' rows of k and v, alive
+    and bias read once, out written once (a dead key's row is never needed)."""
     B, Nq, H, Dh = q.shape
     S = k.shape[1]
-    flops = 4.0 * H * Dh * Nq * int(alive.sum())
+    n_alive = int(alive.sum())
+    flops = 4.0 * H * Dh * Nq * n_alive
     el = q.element_size()
-    nbytes = (2 * B * Nq * H * Dh + 2 * B * S * H * Dh) * el + B * S
+    nbytes = (2 * B * Nq * H * Dh + 2 * n_alive * H * Dh) * el + B * S
     return flops, nbytes + (0 if bias is None else B * S * 4)
 
 
@@ -593,14 +595,15 @@ def check_k4_cases(label, capture, iters=20, where=None):
             sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask, scale=scale), iters)
             bound_ms, bound_by = bound(*k4_work(q, k, alive, bias), dtype)
+            alive_share = float(alive.float().mean())
             log(f"[k4-main] {name} {str(dtype)[6:]}: max|err| {errs[0]:.2e}"
                 + (f" (as fp32 {errs[1]:.2e})" if len(errs) > 1 else "")
                 + f", bit-identical relaunch | K4 {ms:.4f} ms, previous {previous_ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), sdpa (same "
-                f"function) {sdpa_ms:.4f} ms")
+                f"function) {sdpa_ms:.4f} ms; alive keys {alive_share:.3f}")
             records[key] = dict(max_abs_err=errs[0], ms=ms, previous_ms=previous_ms,
                                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                library_ms=sdpa_ms,
+                                library_ms=sdpa_ms, alive_share=alive_share,
                                 shape=dict(B=B, Nq=Nq, S=S, dtype=str(dtype)[6:]))
             del mask, qh, kh, vh
     capture.cases.clear()
@@ -747,10 +750,10 @@ def profile_step(label, fn, step_ms, top=10):
 
 
 # The kernel each wrapper launch runs once, by its name in a profile: K1's pass
-# A (``k1_fwd``, ``k1_fwd_simt``), K4's main kernel (``k4_mma``, ``k4_simt``;
-# ``k4_combine`` only when the keys split), and K5's two GEMMs (``k5_wgmma``
-# or ``k5_ffma``, twice a launch).
-WRAPPER_KERNELS = {"K1": (("::k1_fwd",), 1), "K4": (("::k4_mma", "::k4_simt"), 1),
+# A (``k1_fwd``, ``k1_fwd_simt``), K4's main kernel (``k4_mma``, ``k4_ffma``
+# or ``k4_ffma_decode``; ``k4_combine`` only when the keys split), and K5's
+# two GEMMs (``k5_wgmma`` or ``k5_ffma``, twice a launch).
+WRAPPER_KERNELS = {"K1": (("::k1_fwd",), 1), "K4": (("::k4_mma", "::k4_ffma"), 1),
                    "K5": (("::k5_wgmma", "::k5_ffma"), 2)}
 
 
@@ -1006,17 +1009,22 @@ def previous_k2(q, k, v, alive, bias, scale, out, stats, d_out, d_cls, d_col):
 
 def previous_k4(q, k, v, alive, bias, scale):
     """The K4 design that ``csrc/cross_attention.cu`` replaced
-    (``csrc/previous/cross_attention.cu``), on the same inputs: the yardstick
-    of ``previous_ms``.  Its launches count nowhere."""
+    (``csrc/previous/cross_attention.cu``: bf16 ``k4_cross_attention``, the
+    first FFMA design; fp32 ``k4_cross_attention_fp32``, ``k4_simt``), on
+    the same inputs: the yardstick of ``previous_ms``.  Its launches count
+    nowhere."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn = _previous_fn("K4", "k4_cross_attention", [i32, p, p, p, i64, i64, i64, i64, p, p, p,
-                                                   i32, i32, i32, i32, i32, ctypes.c_float, p])
+    types = [p, p, p, i64, i64, i64, i64, p, p, p, i32, i32, i32, i32, i32, ctypes.c_float, p]
     B, Nq, H, Dh = q.shape
     out = torch.empty((B, Nq, H, Dh), dtype=q.dtype, device=q.device)
-    err = fn(0 if q.dtype == torch.float32 else 1, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             q.stride(0), q.stride(1), k.stride(0), k.stride(1), alive.data_ptr(),
-             None if bias is None else bias.data_ptr(), out.data_ptr(), B, Nq, k.shape[1], H,
-             Dh, float(scale), torch.cuda.current_stream().cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), alive.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), B, Nq, k.shape[1], H, Dh, float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    if q.dtype == torch.float32:
+        err = _previous_fn("K4", "k4_cross_attention_fp32", types)(*args)
+    else:
+        err = _previous_fn("K4", "k4_cross_attention", [i32] + types)(1, *args)
     if err != 0:
         raise RuntimeError(f"previous K4 launch failed with cudaError_t {err}")
     return out.view(B, Nq, H * Dh)
@@ -1259,10 +1267,14 @@ def phase_k4(device):
     gather mode), the NLVR twin cross's (32 pairs, 32 text slots, 320 image
     slots), the VQA-640 mask memory's (16 questions, 40 query slots, 1,616
     image slots) and ragged ones (Nq 1, 7, 22 and 70, S not a multiple of
-    the 64-key tile), with and without bias, fp32 and bf16; in bf16 the
-    VQA-640 case and B=4, Nq=22, S=600 split the keys (``split_chunks``); a
-    batch row with no alive key gives zeros; two launches bit-identical.  The shapes the main paths
-    really give K4 are checked on their own inputs (``check_k4_cases``)."""
+    the 64-key tile), with and without bias, fp32 and bf16, and in fp32
+    alone at the NLVR train step's (16 pairs, 40 text slots, 592 image
+    slots) and one query a row (96 beams over 577 and 192 image slots, the
+    caption controller's fp32 decode); the keys split where
+    ``split_chunks``' rule for the dtype says so; a batch row with no alive
+    key gives zeros; two launches bit-identical.  The shapes the main paths
+    really give K4 are checked on their own inputs (``check_k4_cases``).
+    Returns the record of fp32 K4 at one query a row over 577 slots."""
     import torch.nn.functional as F
 
     from madtp_tpu_torch.kernels.cross_attention import (TOLERANCES, cross_attention_cuda,
@@ -1271,8 +1283,10 @@ def phase_k4(device):
 
     cases = [(256, 35, 592), (256, 35, 320), (32, 32, 320), (16, 40, 1616), (8, 1, 100),
              (8, 7, 130), (4, 70, 200), (4, 22, 600)]
+    fp32_cases = [(16, 40, 592), (96, 1, 577), (96, 1, 192)]
+    one_query = None
     for dtype in (torch.float32, torch.bfloat16):
-        for B, Nq, S in cases:
+        for B, Nq, S in cases + (fp32_cases if dtype == torch.float32 else []):
             for with_bias in (False, True):
                 q, k, v, alive, bias = k4_case(B, Nq, S, with_bias=with_bias, dtype=dtype,
                                                device=device, packed_q=Nq == 7)
@@ -1281,7 +1295,7 @@ def phase_k4(device):
                 got = cross_attention_cuda(q, k, v, alive, bias, scale)
                 want = cross_attention_plain(q, k, v, alive, bias, scale)
                 torch.cuda.synchronize()
-                chunks = split_chunks(B, q.shape[2], Nq, S)[0] if dtype == torch.bfloat16 else 1
+                chunks = split_chunks(B, q.shape[2], Nq, S, dtype)[0]
                 label = (f"B={B} Nq={Nq} S={S} bias={with_bias} {str(dtype)[6:]} "
                          f"({chunks} key chunk{'s' if chunks > 1 else ''})")
                 err = check_close(f"K4 {label}", got, want, *TOLERANCES[dtype])
@@ -1300,8 +1314,15 @@ def phase_k4(device):
                 log(f"[k4] {label}: max|err| {err:.2e}, bit-identical relaunch | K4 {ms:.4f} ms, "
                     f"previous {previous_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                     f"{bound_ms:.4f} ms ({bound_by}), sdpa (same function) {sdpa_ms:.4f} ms")
+                if (B, Nq, S, with_bias, dtype) == (96, 1, 577, False, torch.float32):
+                    one_query = dict(max_abs_err=err, ms=ms, previous_ms=previous_ms,
+                                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                     library_ms=sdpa_ms,
+                                     shape=dict(B=B, Nq=Nq, S=S, dtype="float32",
+                                                dead_share=0.25))
                 del q, k, v, got, want, mask
                 torch.cuda.empty_cache()
+    return one_query
 
 
 def k5_case(M, D, F, device, seed=0, dtype=torch.bfloat16):
@@ -1870,7 +1891,7 @@ def phase_train_parity(device, cfg, temperature=1.0):
             f"{r:.2e}" for n, r in rel.items()))
 
 
-def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, iters=5,
+def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, iters=3,
                      p_target=0.5, enc_token_id=2):
     """Compression training as ``madtp_tpu/cli/compress_nlvr.py:335-384``
     runs it, on synthetic data: controller epochs in mask mode fp32, then a
@@ -3604,7 +3625,7 @@ def train_words(rng, lo, hi):
 
 def train_main(label, *, opt, make_step, run_epoch, eval_gflops, probe, target, t0, init_lr,
                timing_batch, n_samples, unit, ffn_per_forward, save_and_load,
-               epochs=TRAIN_EPOCHS, batches=TRAIN_BATCHES, iters=5, cross_attention=True):
+               epochs=TRAIN_EPOCHS, batches=TRAIN_BATCHES, iters=3, cross_attention=True):
     """A compression-training main path as the JAX drivers run it, on
     synthetic data: ``epochs`` controller epochs (the temperature updated
     from the last epoch's GFLOPs, cosine LR) in mask mode fp32
@@ -4476,7 +4497,7 @@ def main():
     timed(phase_build)
     record, record1_32 = timed(phase_k1, device)
     record2, record2_16 = timed(phase_k2, device)
-    timed(phase_k4, device)
+    record4_one_query = timed(phase_k4, device)
     record5, record5_fp32 = timed(phase_k5, device)
     record3 = timed(phase_k1_large, device)
     cfg = full_config()
@@ -4606,12 +4627,14 @@ def main():
              **record4, at_vqa_gather_eval=record4_vqa, at_vqa_dense_eval=dense4_vqa,
              at_vqa640_eval=record4_640, at_vqa_generate=record4_gen,
              at_caption_eval=record4_cap, fp32_at_train_nlvr=record4_train32,
+             fp32_at_one_query=record4_one_query,
              **{f"at_train_{f}": r["K4"] for f, r in trec.items() if r["K4"] is not None},
              library_note="library_ms is scaled_dot_product_attention with the "
                           "same additive mask: the same function",
              previous_note="previous_ms is the replaced design "
-                           "(madtp_tpu_torch/csrc/previous/cross_attention.cu) on the same "
-                           "inputs and card"),
+                           "(madtp_tpu_torch/csrc/previous/cross_attention.cu: bf16 "
+                           "k4_cross_attention, fp32 k4_cross_attention_fp32, k4_simt) on the "
+                           "same inputs and card"),
         dict(name="ffn", route="cuda", source="madtp_tpu_torch/csrc/ffn.cu",
              replaces="madtp_tpu/ops/pallas/fused_ffn.py:79",
              launches=k5_eval + k5_train + k5_ret + k5_clip + k5_vqa + k5_640 + k5_gen + k5_cap
@@ -4666,13 +4689,16 @@ def probe_fp32():
     whatever ``madtp_tpu_torch`` comes first on the path (a parent tree's,
     for a comparison inside one call), through the wrappers alone: the mask
     fp32 NLVR train step (16 pairs) timed and profiled by kernel, then fp32
-    K5 (D = 768, F = 3072, GELU) at the paths' row counts and fp32 K1 at
-    their lengths, each with the library call's time and its passes' or
-    GEMMs' device times apart."""
+    K5 (D = 768, F = 3072, GELU) at the paths' row counts, fp32 K1 at their
+    lengths and fp32 K4 at their shapes (a quarter of the keys dead), each
+    with the library call's time and its passes' or GEMMs' device times
+    apart."""
     import torch.nn.functional as F
 
     import madtp_tpu_torch
+    from madtp_tpu_torch.kernels import cross_attention as k4
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.kernels.ffn import ffn_cuda
     from madtp_tpu_torch.models.blip import init_nlvr_model
     from madtp_tpu_torch.train.loops import make_nlvr_train_step
@@ -4727,7 +4753,43 @@ def probe_fp32():
                        lambda: attention_scores_cuda(q, k, v, alive, bias_in, 0.125), 5)
             del q, k, v, alive, bias, bias_in, qh, kh, vh, attn_mask
             torch.cuda.empty_cache()
+        for B, Nq, S in ((16, 40, 592), (96, 35, 592), (32, 35, 577), (96, 1, 577)):
+            q, k, v, alive, bias = k4_case(B, Nq, S, with_bias=True, dtype=torch.float32,
+                                           device=device)
+            k4_ms = kernel_ms(lambda: cross_attention_cuda(q, k, v, alive, bias, 0.125), 20)
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            attn_mask = sdpa_mask(alive, bias, torch.float32)
+            sdpa_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=attn_mask, scale=0.125), 20)
+            log(f"[probe] fp32 K4 B={B} Nq={Nq} S={S}: {k4_ms:.4f} ms, sdpa (same function) "
+                f"{sdpa_ms:.4f} ms")
+            pass_times(f"fp32 K4 B={B} Nq={Nq} S={S}",
+                       lambda: cross_attention_cuda(q, k, v, alive, bias, 0.125), 5)
+            if hasattr(k4, "FP32_MAX_CHUNK_KEYS"):  # a package whose fp32 K4 splits
+                log(f"[probe] fp32 K4 B={B} Nq={Nq} S={S}, 1-5 chunks (the rule's "
+                    f"{k4.split_chunks(B, 12, Nq, S, torch.float32)}): "
+                    + k4_split_sweep(k4, lambda: cross_attention_cuda(q, k, v, alive, bias,
+                                                                      0.125), S))
+            del q, k, v, alive, bias, qh, kh, vh, attn_mask
     return 0
+
+
+def k4_split_sweep(k4, fn, S):
+    """Device times of ``fn`` (an fp32 K4 call) with the keys in 1 to 5
+    chunks of whole 64-key tiles, ``k4.split_chunks`` forced for each and
+    put back after."""
+    rule, times, tiles = k4.split_chunks, {}, -(-S // k4.KEY_TILE)
+    for c in range(1, 6):
+        chunk_keys = -(-tiles // c) * k4.KEY_TILE
+        split = (-(-S // chunk_keys), chunk_keys)
+        if split in times or chunk_keys > k4.FP32_MAX_CHUNK_KEYS:
+            continue
+        k4.split_chunks = lambda *args, _split=split: _split
+        try:
+            times[split] = kernel_ms(fn, 20)
+        finally:
+            k4.split_chunks = rule
+    return ", ".join(f"{c}x{n} keys {ms:.4f} ms" for (c, n), ms in times.items())
 
 
 if __name__ == "__main__":

@@ -1,7 +1,10 @@
-// The design that madtp_tpu_torch/csrc/cross_attention.cu replaced: K4 (fp32 on the CUDA cores in both dtypes; one block per (b, h)).
-// Kept unchanged as a yardstick: chip_smoke.py times it beside the current
+// The designs that madtp_tpu_torch/csrc/cross_attention.cu replaced: K4 in
+// bf16 (fp32 on the CUDA cores in both dtypes; one block per (b, h); entry
+// point `k4_cross_attention`) and in fp32 (the same design written for fp32
+// alone, `k4_simt`; entry point `k4_cross_attention_fp32`, at the end).
+// Kept unchanged as yardsticks: chip_smoke.py times them beside the current
 // kernel on the same card and inputs (`previous_ms`).  The port never calls
-// it, and its launches are not counted in the wrapper's `launches`.
+// them, and their launches are not counted in the wrapper's `launches`.
 //
 // K4 on Hopper: masked-softmax cross-attention, no scores.
 //
@@ -252,4 +255,157 @@ extern "C" int k4_cross_attention(int dtype, const void* q, const void* k, const
   else
     err = cudaErrorInvalidValue;
   return (int)err;
+}
+
+// ---------------------------------------------------------------- fp32, SIMT
+//
+// One block per (b, h) holds up to 64 queries and streams 64-key tiles of K
+// and V, converted to transposed fp32 tiles in shared memory by synchronous
+// scalar loads, with an online softmax; Nq > 64 loops over query tiles
+// inside the block.  P goes through shared memory (the K tile reused as
+// P^T).  No split of the keys.
+
+namespace {
+
+// fp32.  Grid (B, H).
+__global__ void __launch_bounds__(NT) k4_simt(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    int64_t qsb, int64_t qsn, int64_t ksb, int64_t ksn, const uint8_t* __restrict__ alive,
+    const float* __restrict__ bias, float* __restrict__ out, int Nq, int S, int H,
+    float scale) {
+  extern __shared__ float smem[];
+  float* Qt = smem;             // [DH][LD]
+  float* Kt = Qt + DH * LD;     // [DH][LD]; after the scores, P^T as [TK][LD]
+  float* Vs = Kt + DH * LD;     // [TK][DH]
+  float* kb = Vs + TK * DH;     // [TK] key bias, -inf where dead or past S
+
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int tid = threadIdx.x, rg = tid / 16, cg = tid % 16;
+  const int64_t qhead = (int64_t)b * qsb + (int64_t)h * DH;
+  const int64_t khead = (int64_t)b * ksb + (int64_t)h * DH;
+
+  for (int q0 = 0; q0 < Nq; q0 += TQ) {
+    // warp-uniform: this warp holds query rows q0 + 8 w .. q0 + 8 w + 7
+    const bool active = (tid / 32) * ROWS_PER_WARP < Nq - q0;
+    __syncthreads();  // the previous query tile's buffers are consumed
+    load_transposed(Qt, q + qhead, qsn, q0, Nq);
+
+    float m[4], l[4], o[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+#pragma unroll
+      for (int d = 0; d < 4; ++d) o[i][d] = 0.f;
+    }
+
+    for (int k0 = 0; k0 < S; k0 += TK) {
+      __syncthreads();  // the previous key tile's P^T and V are consumed
+      load_transposed(Kt, k + khead, ksn, k0, S);
+      for (int e = tid; e < TK * DH; e += NT) {
+        const int r = e / DH, d = e % DH;
+        Vs[e] = (k0 + r < S) ? v[khead + (int64_t)(k0 + r) * ksn + d] : 0.f;
+      }
+      if (tid < TK) {
+        const int j = k0 + tid;
+        const bool live = j < S && alive[(int64_t)b * S + j];
+        kb[tid] = !live ? -INFINITY : (bias ? bias[(int64_t)b * S + j] : 0.f);
+      }
+      __syncthreads();
+
+      float s[4][4];
+      if (active) {
+        tile_dot(s, Qt, Kt, rg, cg);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float tmax = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float kbj = kb[cg * 4 + j];
+            s[i][j] = (kbj == -INFINITY) ? -INFINITY : s[i][j] * scale + kbj;
+            tmax = fmaxf(tmax, s[i][j]);
+          }
+          const float mn = fmaxf(m[i], group_max(tmax));
+          const float alpha = (mn == -INFINITY) ? 1.f : expf(m[i] - mn);
+          float psum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = (s[i][j] == -INFINITY) ? 0.f : expf(s[i][j] - mn);
+            psum += s[i][j];
+          }
+          l[i] = l[i] * alpha + psum;  // per-lane partial; summed over the group at the end
+#pragma unroll
+          for (int d = 0; d < 4; ++d) o[i][d] *= alpha;
+          m[i] = mn;
+        }
+      }
+      __syncthreads();  // every lane is done reading the K tile
+      if (active) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float4*>(&Kt[(cg * 4 + j) * LD + rg * 4]) =
+              make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      }
+      __syncthreads();
+      if (active) {
+#pragma unroll 8
+        for (int jj = 0; jj < TK; ++jj) {
+          const float4 p = *reinterpret_cast<const float4*>(&Kt[jj * LD + rg * 4]);
+          const float4 w = *reinterpret_cast<const float4*>(&Vs[jj * DH + cg * 4]);
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+          const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int d = 0; d < 4; ++d) o[i][d] = fmaf(pv[i], wv[d], o[i][d]);
+        }
+      }
+    }
+
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + rg * 4 + i;
+        const float denom = fmaxf(group_sum(l[i]), 1e-30f);
+        if (row < Nq) {
+          float* dst = out + (((int64_t)b * Nq + row) * H + h) * DH + cg * 4;
+#pragma unroll
+          for (int d = 0; d < 4; ++d) dst[d] = o[i][d] / denom;
+        }
+      }
+    }
+  }
+}
+
+cudaError_t launch_simt(const void* q, const void* k, const void* v, int64_t qsb, int64_t qsn,
+                        int64_t ksb, int64_t ksn, const void* alive, const void* bias,
+                        void* out, int B, int Nq, int S, int H, float scale,
+                        cudaStream_t stream) {
+  constexpr size_t smem = (2 * DH * LD + TK * DH + TK) * sizeof(float);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(k4_simt, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  k4_simt<<<dim3(B, H), NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      qsb, qsn, ksb, ksn, static_cast<const uint8_t*>(alive), static_cast<const float*>(bias),
+      static_cast<float*>(out), Nq, S, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Arguments as `k4_cross_attention`'s, fp32 only.
+extern "C" int k4_cross_attention_fp32(const void* q, const void* k, const void* v,
+                                       long long qsb, long long qsn, long long ksb,
+                                       long long ksn, const void* alive, const void* bias,
+                                       void* out, int B, int Nq, int S, int H, int Dh,
+                                       float scale, void* stream) {
+  if (Dh != DH || B < 1 || Nq < 1 || S < 1 || H < 1 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_simt(q, k, v, qsb, qsn, ksb, ksn, alive, bias, out, B, Nq, S, H, scale,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -27,32 +27,39 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # to ~2^-8 of |v|).
 TOLERANCES = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 2e-2)}
 
-# The bf16 kernel's split of the keys (``split_chunks``): a block holds up
-# to 64 query rows of one (b, h).  Where that gives fewer than MIN_BLOCKS
-# blocks (2 on each of the H100's 132 SMs), the keys are cut into chunks of
-# whole 64-key tiles until there are about TARGET_BLOCKS blocks (8 an SM),
-# at most one chunk for every MIN_CHUNK_KEYS keys.  Measured on the H100:
-# splitting where B H already fills the card, or into chunks of 128 keys,
-# costs more in partials and merging than it gains.
+# The split of the keys (``split_chunks``): a block holds up to 64 query
+# rows of one (b, h) in bf16, 40 in fp32.  Where that gives fewer than
+# MIN_BLOCKS blocks, the keys are cut into chunks of whole 64-key tiles until
+# there are about TARGET_BLOCKS blocks, at most one chunk for every
+# MIN_CHUNK_KEYS keys; one rule for each dtype.  bf16 (2 and 8 blocks on each
+# of the H100's 132 SMs, 256 keys): splitting where B H already fills the
+# card, or into chunks of 128 keys, costs more in partials and merging than
+# it gains.  fp32 lists each chunk's alive keys first, so a chunk costs a
+# block more; measured on the H100, one chunk beats any split wherever B H
+# gives a block an SM (the NLVR train step's 192, the decode's 288 and up),
+# and a chunk holds at most FP32_MAX_CHUNK_KEYS keys, the list's room.
 KEY_TILE = 64
-QUERY_TILE = 64
-MIN_BLOCKS = 2 * 132
-TARGET_BLOCKS = 8 * 132
-MIN_CHUNK_KEYS = 256
+QUERY_TILE = {torch.bfloat16: 64, torch.float32: 40}
+MIN_BLOCKS = {torch.bfloat16: 2 * 132, torch.float32: 132}
+TARGET_BLOCKS = {torch.bfloat16: 8 * 132, torch.float32: 2 * 132}
+MIN_CHUNK_KEYS = {torch.bfloat16: 256, torch.float32: 256}
+FP32_MAX_CHUNK_KEYS = 1024
 
 
-def split_chunks(B: int, H: int, Nq: int, S: int):
-    """(chunks, chunk_keys) of the bf16 kernel: chunk c covers keys
-    ``[c chunk_keys, min(S, (c + 1) chunk_keys))``, a function of the
-    shape alone, so a relaunch splits alike.  With blocks = B H ceil(Nq /
-    64): one chunk if blocks >= MIN_BLOCKS, else chunks =
-    min(ceil(TARGET_BLOCKS / blocks), ceil(S / MIN_CHUNK_KEYS)), then
-    rounded so that every chunk is a whole number of 64-key tiles and none
-    is empty."""
-    blocks = B * H * -(-Nq // QUERY_TILE)
+def split_chunks(B: int, H: int, Nq: int, S: int, dtype=torch.bfloat16):
+    """(chunks, chunk_keys) of the kernel in ``dtype``: chunk c covers keys
+    ``[c chunk_keys, min(S, (c + 1) chunk_keys))``, a function of the shape
+    and dtype alone, so a relaunch splits alike.  With blocks = B H ceil(Nq
+    / QUERY_TILE): one chunk if blocks >= MIN_BLOCKS, else chunks =
+    min(ceil(TARGET_BLOCKS / blocks), ceil(S / MIN_CHUNK_KEYS)); in fp32 at
+    least ceil(S / FP32_MAX_CHUNK_KEYS); then rounded so that every chunk is
+    a whole number of 64-key tiles and none is empty."""
+    blocks = B * H * -(-Nq // QUERY_TILE[dtype])
     chunks = 1
-    if blocks < MIN_BLOCKS:
-        chunks = max(1, min(-(-TARGET_BLOCKS // blocks), -(-S // MIN_CHUNK_KEYS)))
+    if blocks < MIN_BLOCKS[dtype]:
+        chunks = max(1, min(-(-TARGET_BLOCKS[dtype] // blocks), -(-S // MIN_CHUNK_KEYS[dtype])))
+    if dtype == torch.float32:
+        chunks = max(chunks, -(-S // FP32_MAX_CHUNK_KEYS))
     tiles = -(-S // KEY_TILE)
     chunk_keys = -(-tiles // chunks) * KEY_TILE
     return -(-S // chunk_keys), chunk_keys
@@ -60,7 +67,7 @@ def split_chunks(B: int, H: int, Nq: int, S: int):
 
 def cross_attention_split_plain(q, k, v, key_alive, key_bias, scale: float, chunks: int,
                                 chunk_keys: int):
-    """The bf16 kernel's split in plain PyTorch, in fp32: for each chunk of
+    """The kernel's split in plain PyTorch, in fp32: for each chunk of
     ``chunk_keys`` keys the running max, the sum and the unnormalised out of
     its alive keys, then the merge of ``k4_combine`` in chunk order 0, 1, ...
     Equals :func:`madtp_tpu_torch.ops.attention.cross_attention_plain` up to
@@ -122,11 +129,12 @@ def _check(q, k, v, key_alive, key_bias):
         if t.stride(3) != 1 or t.stride(2) != Dh:
             raise ValueError(f"{name} needs contiguous [H, Dh] rows (a view of a "
                              "[B, N, H*Dh] tensor)")
-    if q.dtype == torch.bfloat16:  # 16-byte copies of k and v rows, 4-byte reads of q
-        if any(t.data_ptr() % 16 for t in (k, v)) or k.stride(0) % 8 or k.stride(1) % 8:
-            raise ValueError("bf16 k and v need 16-byte aligned rows (base and strides)")
-        if q.data_ptr() % 4 or q.stride(0) % 2 or q.stride(1) % 2:
-            raise ValueError("bf16 q needs 4-byte aligned rows (base and strides)")
+    el = k.element_size()  # 16-byte copies of k and v rows
+    if any(t.data_ptr() % 16 for t in (k, v)) or k.stride(0) * el % 16 \
+            or k.stride(1) * el % 16:
+        raise ValueError("k and v need 16-byte aligned rows (base and strides)")
+    if q.dtype == torch.bfloat16 and (q.data_ptr() % 4 or q.stride(0) % 2 or q.stride(1) % 2):
+        raise ValueError("bf16 q needs 4-byte aligned rows (base and strides)")  # 4-byte reads
     if key_alive.dtype != torch.bool or key_alive.shape != (B, S) \
             or not key_alive.is_contiguous() or key_alive.device != q.device:
         raise ValueError("key_alive must be a contiguous bool [B, S] tensor on q's device")
@@ -158,7 +166,7 @@ def cross_attention_cuda(q, k, v, key_alive, key_bias, scale: float):
     S = k.shape[1]
     dev = q.device
     out = torch.empty((B, Nq, H, Dh), dtype=q.dtype, device=dev)
-    chunks, chunk_keys = split_chunks(B, H, Nq, S) if q.dtype == torch.bfloat16 else (1, S)
+    chunks, chunk_keys = split_chunks(B, H, Nq, S, q.dtype)
     part = None  # fp32 partials of the chunks: out unnormalised, then (max, sum)
     if chunks > 1:
         part = torch.empty(chunks * B * H * Nq * (Dh + 2), dtype=torch.float32, device=dev)

@@ -2,8 +2,8 @@
 // CPU tests (tests/cuda_emu.py turns a kernel source into host C++ against
 // this header).  Blocks run one after another, the blocks of a thread-block
 // cluster together; each thread is a ucontext fiber.  __syncthreads, the
-// cluster barrier and the warp collectives (shuffles, ldmatrix, mma.sync)
-// are barriers with data exchange, following the PTX fragment layouts; mma
+// cluster barrier and the warp collectives (shuffles, ballots, __syncwarp,
+// ldmatrix, mma.sync) are barriers with data exchange, following the PTX fragment layouts; mma
 // accumulates in double.  cp.async copies land at the wait that covers them,
 // and dynamic shared memory starts filled with NaN bytes, so that a read
 // before a landing or of memory never written shows.  A block reads another
@@ -149,6 +149,36 @@ template <class T> inline T __shfl_xor_sync(unsigned, T v, int off) {
   uint64_t r = emu_slot(lane ^ off)[0];
   emu_warp_sync();
   T out; memcpy(&out, &r, sizeof(T)); return out;
+}
+template <class T> inline T __shfl_sync(unsigned, T v, int src) {
+  static_assert(sizeof(T) <= 8, "");
+  int lane = emu_lane();
+  uint64_t u = 0; memcpy(&u, &v, sizeof(T));
+  emu_slot(lane)[0] = u;
+  emu_warp_sync();
+  uint64_t r = emu_slot(src & 31)[0];
+  emu_warp_sync();
+  T out; memcpy(&out, &r, sizeof(T)); return out;
+}
+inline void __syncwarp() { emu_warp_sync(); }
+template <class T> inline T __shfl_up_sync(unsigned, T v, int off) {
+  static_assert(sizeof(T) <= 8, "");
+  int lane = emu_lane();
+  uint64_t u = 0; memcpy(&u, &v, sizeof(T));
+  emu_slot(lane)[0] = u;
+  emu_warp_sync();
+  uint64_t r = emu_slot(lane >= off ? lane - off : lane)[0];
+  emu_warp_sync();
+  T out; memcpy(&out, &r, sizeof(T)); return out;
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  int lane = emu_lane();
+  emu_slot(lane)[0] = pred != 0;
+  emu_warp_sync();
+  unsigned bits = 0;
+  for (int l = 0; l < 32; ++l) bits |= (unsigned)emu_slot(l)[0] << l;
+  emu_warp_sync();
+  return bits;
 }
 
 // ---------------------------------------------------------------- shared memory, PTX helpers

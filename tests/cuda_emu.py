@@ -22,6 +22,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 OUT = HERE.parent / "build" / "emu"
+# -fsanitize=alignment: a misaligned vector access (a float4 off its 16 bytes)
+# aborts here as it faults on the card
+GXX_FLAGS = ("-std=c++17", "-O1", "-shared", "-fPIC", "-DCUDA_EMULATOR", "-Wno-unused",
+             "-fsanitize=alignment", "-fno-sanitize-recover=alignment")
 HELPERS = ("smem_addr", "cp_async16", "cp_async4", "cp_async_commit", "cp_async_wait",
            "ldmatrix_x4", "ldmatrix_x4_trans", "mma_bf16", "mma_tf32", "to_tf32", "ex2",
            "cluster_sync", "ld_cluster4")
@@ -66,16 +70,15 @@ def available() -> bool:
 def build(source: Path) -> ctypes.CDLL:
     """Compiles ``source`` (if its text or the header changed) and loads it."""
     text = host_source(source.read_text())
-    key = hashlib.sha256((text + (HERE / "cuda_emu.h").read_text()).encode()).hexdigest()[:16]
+    key = hashlib.sha256((text + (HERE / "cuda_emu.h").read_text()
+                          + " ".join(GXX_FLAGS)).encode()).hexdigest()[:16]
     lib = OUT / f"{source.stem}-{key}.so"
     if not lib.exists():
         OUT.mkdir(parents=True, exist_ok=True)
         cpp = lib.with_suffix(f".{os.getpid()}.cpp")
         cpp.write_text(text)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{HERE}",
-                        "-DCUDA_EMULATOR",
-                        "-Wno-unused", "-o", str(tmp), str(cpp)], check=True,
+        subprocess.run(["g++", *GXX_FLAGS, f"-I{HERE}", "-o", str(tmp), str(cpp)], check=True,
                        capture_output=True, text=True)
         tmp.replace(lib)
     return ctypes.CDLL(str(lib))

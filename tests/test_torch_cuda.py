@@ -387,13 +387,17 @@ def _k4_compare(q, k, v, alive, bias):
 @pytest.mark.parametrize("B,Nq,S,packed_q", [
     (256, 35, 592, False), (256, 35, 320, False), (32, 32, 320, False), (4, 1, 100, False),
     (4, 7, 130, True), (3, 65, 64, False), (2, 130, 1, True), (16, 1, 40, False),
-    (16, 40, 1616, False), (16, 22, 901, True)])
+    (16, 40, 1616, False), (16, 22, 901, True), (16, 40, 592, False), (8, 3, 577, True),
+    (6, 2, 65, False), (5, 4, 300, False), (1, 41, 2100, False)])
 def test_k4_matches_plain(cuda, B, Nq, S, packed_q, with_bias, dtype):
     """The ITM and twin-cross shapes; ragged Nq (1, 7, and past one 64-row
     query tile), S not a multiple of the 64-key tile, a strided q view; the
     VQA decoder's BOS step (one query over a ~40-slot question state, whose
     padding rides as the key bias); the VQA-640 mask memory (1,616 slots)
-    and the VQA dense one (901), where bf16 splits the keys into chunks."""
+    and the VQA dense one (901), where bf16 splits the keys into chunks; the
+    NLVR train step's twin cross (fp32: split by its own rule), fp32's
+    decode plan at 2-4 queries, and past both its 40-row query block and
+    its 1,024-key chunk."""
     _k4_compare(*k4_case(B, Nq, S, with_bias=with_bias, dtype=dtype, device=cuda,
                          packed_q=packed_q))
 
@@ -408,16 +412,17 @@ def test_k4_at_one_query(cuda, B, S, with_bias, dtype):
     _k4_compare(*k4_case(B, 1, S, with_bias=with_bias, dtype=dtype, device=cuda))
 
 
-@pytest.mark.parametrize("dtype,S", [(torch.float32, 150), (torch.bfloat16, 150),
-                                     (torch.bfloat16, 600)])
-def test_k4_dead_rows_determinism_and_count(cuda, dtype, S):
+@pytest.mark.parametrize("dtype,Nq,S", [(torch.float32, 40, 150), (torch.bfloat16, 40, 150),
+                                        (torch.bfloat16, 40, 600), (torch.float32, 40, 600),
+                                        (torch.float32, 1, 600), (torch.float32, 3, 150)])
+def test_k4_dead_rows_determinism_and_count(cuda, dtype, Nq, S):
     """A batch row with no alive key gives zeros (the plain version's rule);
-    a second launch gives the same bits, also where bf16 splits the keys and
-    merges the chunks (S = 600: 3 chunks); each launch adds one to the
-    count."""
-    if dtype == torch.bfloat16:
-        assert k4.split_chunks(4, 12, 40, S)[0] == (1 if S == 150 else 3)
-    q, k, v, alive, bias = k4_case(4, 40, S, with_bias=True, dtype=dtype, device=cuda)
+    a second launch gives the same bits, also where the keys split and the
+    chunks merge (S = 600: 3 chunks in either dtype's rule; fp32 in the row
+    plan and in the decode plan at 1 and 3 queries); each launch adds one
+    to the count."""
+    assert k4.split_chunks(4, 12, Nq, S, dtype)[0] == (1 if S == 150 else 3)
+    q, k, v, alive, bias = k4_case(4, Nq, S, with_bias=True, dtype=dtype, device=cuda)
     alive[1] = False
     before = cross_attention_cuda.launches
     out = _k4_compare(q, k, v, alive, bias)
@@ -429,10 +434,12 @@ def test_k4_dead_rows_determinism_and_count(cuda, dtype, S):
 
 def test_k4_refusals(cuda):
     """K4 raises on what it does not take: CPU tensors, another dtype or
-    head width, mismatched shapes or strides, and inputs that need a
-    gradient while grad mode is on."""
+    head width, mismatched shapes or strides, k and v rows off 16 bytes,
+    and inputs that need a gradient while grad mode is on."""
     q, k, v, alive, bias = k4_case(2, 9, 70, with_bias=True, dtype=torch.float32, device=cuda)
     scale = 0.125
+    off = torch.zeros(2, 70, 2 * 768 + 1, device=cuda)[..., 1:]  # rows 4 bytes past 16
+    k_off, v_off = (t.unflatten(-1, (12, 64)) for t in (off[..., :768], off[..., 768:]))
 
     def call(**repl):
         a = dict(q=q, k=k, v=v, alive=alive, bias=bias)
@@ -445,7 +452,8 @@ def test_k4_refusals(cuda):
                 dict(v=v[:, :-1]),
                 dict(k=k.transpose(1, 2).contiguous().transpose(1, 2)),
                 dict(alive=alive[:, :-1]),
-                dict(bias=bias.double())):
+                dict(bias=bias.double()),
+                dict(k=k_off, v=v_off)):
         with pytest.raises(ValueError):
             call(**bad)
     with pytest.raises(RuntimeError, match="no gradient"):

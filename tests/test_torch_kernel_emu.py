@@ -1,10 +1,11 @@
-"""K1, K2 and fp32 K5, the CUDA sources themselves, run on the CPU through the
-emulator of ``tests/cuda_emu.h`` (g++; skipped without it) against their
-plain versions and the JAX package's ``attention_core`` and ``fused_mlp_2d``,
-fp32 (K1 and K5 on the CUDA cores, K2 as 3xTF32 on the emulated tensor
-cores) and bf16, at small shapes that cross the tiles' edges and take pass
-B's and pass M's query splits and K5's split-K clusters, a row with no
-alive key and PAD_BIAS keys among them.  The emulator follows the PTX fragment layouts and lands
+"""K1, K2, fp32 K4 and fp32 K5, the CUDA sources themselves, run on the CPU
+through the emulator of ``tests/cuda_emu.h`` (g++; skipped without it)
+against their plain versions and the JAX package's ``attention_core``,
+``fused_cross_attention`` and ``fused_mlp_2d``, fp32 (K1, K4 and K5 on the
+CUDA cores, K2 as 3xTF32 on the emulated tensor cores) and bf16, at small
+shapes that cross the tiles' edges and take pass B's and pass M's query
+splits, K4's key chunks and decode plan and K5's split-K clusters, a row
+with no alive key and PAD_BIAS keys among them.  The emulator follows the PTX fragment layouts and lands
 ``cp.async`` copies only at their waits, with shared memory starting as NaN
 bytes, so a layout, masking or ordering slip shows here before the card."""
 
@@ -19,12 +20,16 @@ import torch
 import cuda_emu
 from chip_smoke import compare_k2
 from madtp_tpu.ops import attention as JA
+from madtp_tpu.ops.pallas.cross_attention import fused_cross_attention
 from madtp_tpu.ops.pallas.fused_ffn import fused_mlp_2d
 from madtp_tpu_torch.kernels.attention_scores import _DTYPES, TOLERANCES, pass_b_chunks
 from madtp_tpu_torch.kernels.attention_scores_bwd import TOLERANCES as K2_TOL, pass_m_chunks
+from madtp_tpu_torch.kernels.cross_attention import FP32_MAX_CHUNK_KEYS, KEY_TILE, split_chunks
+from madtp_tpu_torch.kernels.cross_attention import TOLERANCES as K4_TOL
 from madtp_tpu_torch.kernels.ffn import ACTS, MAX_SPLIT, MIN_SLICE, fp32_plan
 from madtp_tpu_torch.kernels.ffn import TOLERANCES as K5_TOL
-from madtp_tpu_torch.ops.attention import attention_scores_bwd_plain, attention_scores_plain
+from madtp_tpu_torch.ops.attention import (attention_scores_bwd_plain, attention_scores_plain,
+                                           cross_attention_plain)
 from madtp_tpu_torch.ops.layers import mlp_plain
 
 CSRC = Path(__file__).resolve().parent.parent / "madtp_tpu_torch" / "csrc"
@@ -224,3 +229,90 @@ def test_k5_fp32_plan_edges(M, N, K, plan):
     assert fp32_plan(M, N, K) == plan
     tm, split = plan
     assert split == 1 or (K // split >= MIN_SLICE and split <= MAX_SPLIT)
+
+
+@pytest.fixture(scope="module")
+def k4():
+    if not cuda_emu.available():
+        pytest.skip("needs g++ for the CPU emulator")
+    fn = cuda_emu.build(CSRC / "cross_attention.cu").k4_cross_attention
+    fn.argtypes = [I32, P, P, P, I64, I64, I64, I64, P, P, P, P] + [I32] * 7 \
+        + [ctypes.c_float, P]
+    fn.restype = I32
+    return fn
+
+
+def _k4_case(B, Nq, S, H, with_bias, seed):
+    """fp32 K4 inputs: q a strided view of a packed [B, Nq, 3 H 64] tensor, k
+    and v views of one [B, S, 2 H 64] tensor (the key and value linears
+    packed), a quarter of the keys dead, the last batch row with none alive,
+    PAD_BIAS on about a fifth with ``with_bias``."""
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(B, Nq, 3 * H * 64).astype(np.float32))[..., :H * 64]
+    kv = torch.from_numpy(rng.randn(B, S, 2 * H * 64).astype(np.float32))
+    q, k, v = (t.unflatten(-1, (H, 64)) for t in (q, kv[..., :H * 64], kv[..., H * 64:]))
+    alive = rng.rand(B, S) > 0.25
+    alive[:, 0] = True
+    alive[-1] = False
+    bias = (rng.rand(B, S) < 0.2).astype(np.float32) * -10000.0 if with_bias else None
+    return (q, k, v, torch.from_numpy(alive),
+            None if bias is None else torch.from_numpy(bias), 64 ** -0.5)
+
+
+def _k4(fn, q, k, v, alive, bias, scale, chunks, chunk_keys, want_err=0):
+    B, Nq, H, Dh = q.shape
+    S = k.shape[1]
+    out = torch.empty(B, Nq, H, Dh)
+    part = torch.empty(chunks * B * H * Nq * (Dh + 2)) if chunks > 1 else None
+    err = fn(0, q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
+             k.stride(0), k.stride(1), alive.data_ptr(),
+             None if bias is None else bias.data_ptr(), out.data_ptr(),
+             None if part is None else part.data_ptr(), B, Nq, S, H, Dh, chunks, chunk_keys,
+             scale, None)
+    assert err == want_err
+    return out.view(B, Nq, H * Dh)
+
+
+@pytest.mark.parametrize("Nq", [1, 7, 40, 70])
+@pytest.mark.parametrize("S", [1, 65, 300, 1100])
+def test_k4_fp32_source_matches_plain(k4, Nq, S):
+    """fp32 K4 (the decode plan at Nq = 1, the row plan at 7, 40 and 70, past
+    one 40-row query block) in the fewest chunks it takes (one, or two past
+    its 1,024 keys), in 64-key chunks and as ``split_chunks``' fp32 rule
+    splits, against ``cross_attention_plain`` within K4's fp32 tolerance;
+    the batch row with no alive key gives zeros.  A longer chunk is
+    refused."""
+    B, H = 2, 2
+    q, k, v, alive, bias, scale = _k4_case(B, Nq, S, H, with_bias=(Nq + S) % 2 == 1,
+                                           seed=Nq * 1000 + S)
+    want = cross_attention_plain(q, k, v, alive, bias, scale)
+    tiles = -(-S // KEY_TILE)
+    fewest = -(-tiles // -(-S // FP32_MAX_CHUNK_KEYS)) * KEY_TILE
+    splits = {(-(-S // fewest), fewest), (tiles, KEY_TILE),
+              split_chunks(B, H, Nq, S, torch.float32)}
+    if S > FP32_MAX_CHUNK_KEYS:  # cudaErrorInvalidValue
+        _k4(k4, q, k, v, alive, bias, scale, 1, tiles * KEY_TILE, want_err=1)
+    for chunks, chunk_keys in sorted(splits):
+        got = _k4(k4, q, k, v, alive, bias, scale, chunks, chunk_keys)
+        torch.testing.assert_close(got, want, rtol=K4_TOL[torch.float32][0],
+                                   atol=K4_TOL[torch.float32][1],
+                                   msg=lambda m: f"{chunks} chunks of {chunk_keys}: {m}")
+        assert not got[-1].any()
+
+
+@pytest.mark.parametrize("Nq", [2, 4, 40])
+def test_k4_fp32_source_matches_jax(k4, Nq):
+    """Where every row has an alive key, fp32 K4 (the decode plan at 2 and 4
+    queries, the row plan at 40) equals the TPU kernel in interpret mode
+    within K4's fp32 tolerance, split by the fp32 rule."""
+    B, H, S = 2, 2, 130
+    q, k, v, alive, bias, scale = _k4_case(B, Nq, S, H, with_bias=True, seed=Nq)
+    alive[-1] = torch.from_numpy(np.random.RandomState(7).rand(S) > 0.25)
+    alive[-1, 0] = True
+    got = _k4(k4, q, k, v, alive, bias, scale, *split_chunks(B, H, Nq, S, torch.float32))
+    j = fused_cross_attention(*(jnp.asarray(t.permute(0, 2, 3, 1).numpy()) for t in (q, k, v)),
+                              jnp.asarray(alive.numpy()), jnp.asarray(bias.numpy()),
+                              scale=scale, interpret=True)
+    j = np.asarray(j).transpose(0, 3, 1, 2).reshape(B, Nq, H * 64)
+    np.testing.assert_allclose(got.numpy(), j, rtol=K4_TOL[torch.float32][0],
+                               atol=K4_TOL[torch.float32][1])
