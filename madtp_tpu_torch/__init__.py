@@ -14,7 +14,9 @@ function's counterpart is found at the same path:
 * :mod:`.ckpt` — weights from the JAX param tree or a reference ``.pth``,
   and the checkpoint a compression run writes;
 * :mod:`.eval` — retrieval recall (``itm_eval``);
-* :mod:`.data` — the BERT WordPiece and CLIP BPE tokenizers;
+* :mod:`.data` — the BERT WordPiece and CLIP BPE tokenizers; images
+  (PNG decoded without PIL), Pillow-exact transforms in numpy, the task
+  datasets and the threaded loader;
 * :mod:`.train` — losses, momentum towers and the feature queue, AdamW and
   LR schedules, the temperature controller, the train steps of all five
   task families (fp32 or bf16 compute on fp32 masters);
@@ -24,7 +26,11 @@ function's counterpart is found at the same path:
   ``itm_eval`` of the similarities, the ``--fast_eval`` probe); VQA and
   caption eval; each family's train epoch;
 * :mod:`.utils` — the step cache and the captured steps: every eval step
-  runs on the card as one CUDA graph (``graph=False`` runs it eagerly).
+  runs on the card as one CUDA graph (``graph=False`` runs it eagerly);
+  the preemption guard and the metric logger;
+* :mod:`.cli` — the NLVR2, COCO caption and VQAv2 compression drivers,
+  ``python -m madtp_tpu_torch.cli.compress_<task>``, and their shared
+  plumbing.
 
 The package imports neither ``jax`` nor anything of :mod:`madtp_tpu`.
 Entry points run on ``device="cuda"`` unless the caller passes

@@ -106,7 +106,8 @@ def rank_answers(decoder: MedDecoder, q_state: TokenState, answer_ids: torch.Ten
 def generate_answers(model: VQAModel, images: torch.Tensor, q_ids: torch.Tensor,
                      q_mask: torch.Tensor, *, temperature: float, bos_token_id: int,
                      eos_token_id: int, pad_token_id: int = 0, num_beams: int = 3,
-                     max_length: int = 10, min_length: int = 1, graph: bool = True
+                     max_length: int = 10, min_length: int = 1, graph: bool = True,
+                     prune_active: Optional[bool] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``inference: 'generate'`` (``gen_step``, ``madtp_tpu/cli/
     compress_vqa.py:128-146``): :meth:`VQAModel.encode` in mask mode, pruned
@@ -114,8 +115,9 @@ def generate_answers(model: VQAModel, images: torch.Tensor, q_ids: torch.Tensor,
     beam_generate` over the question state from a BOS prompt, as one captured
     step (``graph=False``: eagerly).  Inputs are tensors on the model's
     device.  Returns ``(sequences [B, max_length], v_kept, q_kept)`` without
-    waiting for them."""
-    prune = temperature > 0
+    waiting for them.  ``prune_active`` (default ``temperature > 0``) forces
+    the mode, as the JAX driver's ``gen_step`` prunes at any temperature."""
+    prune = temperature > 0 if prune_active is None else prune_active
 
     @torch.inference_mode()
     def step(images, q_ids, q_mask, t):
@@ -185,7 +187,8 @@ def evaluate(model: VQAModel, batches: Iterable, answer_ids, answer_mask, *,
              temperature: float, k_test: int = 128,
              capacities_v: Optional[Sequence[int]] = None,
              capacities_t: Optional[Sequence[int]] = None, pad_token_id: int = 0,
-             graph: bool = True) -> Tuple[List[Tuple[int, int]], float]:
+             graph: bool = True, prune_active: Optional[bool] = None
+             ) -> Tuple[List[Tuple[int, int]], float]:
     """The VQA eval of ``compress_vqa`` (single process): prune when
     ``temperature > 0`` (gather mode with capacities), rank each batch's
     questions against the answer list at ``k_test`` (capped at the list's
@@ -194,12 +197,14 @@ def evaluate(model: VQAModel, batches: Iterable, answer_ids, answer_mask, *,
     read back.  Returns ``(results, Cur_Gflops)``, ``results`` the
     ``(question_id, answer index)`` pairs in order.  It runs where the model
     lives.  Each batch (encode and ranking) runs as a captured step, the
-    answer list one of its inputs (``graph=False``: eagerly)."""
+    answer list one of its inputs (``graph=False``: eagerly).
+    ``prune_active`` (default ``temperature > 0``) forces the mode, as the
+    JAX driver's ``eval_step`` prunes at any temperature."""
     cfg = model.cfg
     dev = model.space_dict.device
     a_ids, a_mask = _ids(answer_ids, dev), _ids(answer_mask, dev)
     k = min(k_test, a_ids.shape[0])
-    prune = temperature > 0
+    prune = temperature > 0 if prune_active is None else prune_active
     results: List[Tuple[int, int]] = []
     g_sum, n = 0.0, 0
 

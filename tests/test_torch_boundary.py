@@ -36,6 +36,45 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+def test_port_runs_its_png_path_without_jax_pil_or_yaml(tmp_path):
+    """Every port module imports with ``jax``, ``PIL`` and ``yaml`` blocked,
+    and a PNG goes through ``data/image.py`` and the eval transform there."""
+    import zlib
+
+    row = b"\x00" + bytes(range(24))  # 8 RGB pixels, filter None
+    png = tmp_path / "a.png"
+    png.write_bytes(b"\x89PNG\r\n\x1a\n" + b"".join(
+        len(body).to_bytes(4, "big") + kind + body
+        + zlib.crc32(kind + body).to_bytes(4, "big")
+        for kind, body in ((b"IHDR", (8).to_bytes(4, "big") + (2).to_bytes(4, "big")
+                            + bytes([8, 2, 0, 0, 0])),
+                           (b"IDAT", zlib.compress(row * 2)), (b"IEND", b""))))
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'PIL', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from madtp_tpu_torch.data.image import open_image\n"
+        "from madtp_tpu_torch.data.transforms import eval_transform\n"
+        f"img = open_image({str(png)!r})\n"
+        "assert img.shape == (2, 8, 3) and img[1, 7].tolist() == [21, 22, 23], img\n"
+        "assert eval_transform(img, 16).shape == (3, 16, 16)\n"
+        "bad = [m for m in sys.modules if m == 'madtp_tpu' or m.startswith('madtp_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_pattern_check_covers_drivers_data_and_utils():
+    checked = {p.relative_to(PORT).parts[0] for p in PORT.rglob("*.py")}
+    assert {"cli", "data", "utils"} <= checked
+    assert {"compress_nlvr.py", "compress_caption.py", "compress_vqa.py", "common.py"} <= \
+        {p.name for p in (PORT / "cli").glob("*.py")}
+
+
 def test_port_sources_do_not_name_the_jax_package():
     pattern = re.compile(r"^\s*(import\s+madtp_tpu|from\s+madtp_tpu)(?!_torch)\b", re.M)
     for path in list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
