@@ -140,14 +140,14 @@ Phases, each fatal on failure:
    controller epochs of two batches in mask mode fp32, then a
    ``--fast_train`` epoch in fp32 and one with ``amp``; then a gather step
    under the sync guard, step times and samples/s of mask fp32, gather fp32
-   and amp, dense fp32 and amp, peak memory, the gather amp step's host
+   and amp, dense fp32 and amp (the median of 2), peak memory, the gather amp step's host
    dispatch, the ``.pth`` written and read back by ``load_*_state_dict``,
    and K1, K2 (the VQA ViT's N = 920 slots in fp32, and the amp epoch's),
    K4 (the retrieval ITM's 96 rows with gradients) and fp32 K5 held on the
    path's own inputs;
 21-23. each of those models card against CPU, one fp32 train forward and
    backward from the same weights (caption 2 images, VQA 1 question with 10
-   answers, retrieval 3 pairs from the same state with one Gumbel draw made
+   answers, retrieval 2 pairs from the same state with one Gumbel draw made
    on the CPU), mask and gather mode at lossless capacities, at the first
    temperature from the main path's whose DTP decisions stand clear of
    fp32 rounding (as phase 8): equal keep counts in every DTP decision,
@@ -165,7 +165,7 @@ Phases, each fatal on failure:
    K1, K2 (H = 16, fp32 and the amp epoch's) and fp32 K5 (QuickGELU,
    D = 1,024) held on the path's own inputs; no K4;
 25. that model card against CPU, one fp32 train step from the same state
-   (online and momentum weights 1e-3 apart, the queue), 2 pairs, mask and
+   (online and momentum weights 1e-3 apart, the queue), 1 pair, mask and
    gather mode, as phases 21-23: 48 K1, 24 K2, 72 fp32 K5 a step; after
    it the momentum weights and the queue within 1e-5, equal ids and
    pointer;
@@ -182,7 +182,20 @@ Phases, each fatal on failure:
    temperature against the controller, K1, K2, K4 and K5 launched on every
    driver's path (``driver_<family>`` in the kernels line), K1, K4 and K5
    held on the NLVR driver's own inputs; each driver's wall, step times
-   and where its run spends its time.
+   and where its run spends its time;
+27. the BLIP and CLIP retrieval drivers through ``main(argv)`` on that
+   fixture (8 test images with 5 captions each): ``compress_retrieval`` at
+   ``configs/retrieval_coco.yaml``'s width (BLIP base, 384 px, queue
+   57,600), random init, ``--epoch 2``, and ``compress_retrieval_clip`` on
+   a seeded random ViT-L/14@336 ``.pth``, ``--epoch 1``, each at batch 8
+   and then ``--evaluate`` on its best checkpoint, which reproduces the
+   best epoch;
+   ``compress_retrieval_clip --evaluate`` on a seeded random RN50 ``.pth``;
+   the files, the controller's temperatures, K1, K2, K4 and K5 launched on
+   the BLIP driver and K1, K2 and K5 on the CLIP driver, K4 held on the
+   BLIP driver's ITM inputs and K1 (H = 16) on the CLIP driver's; then
+   ``mp_batched_loader`` against the threaded loader in this process and
+   ``device_prefetch`` to the card (``phase_retrieval_drivers``).
 
 The card-against-CPU searches try first the factor of ``PARITY_FACTORS``
 where each settled in earlier runs of these seeds (``parity_factors``),
@@ -1909,7 +1922,7 @@ def phase_train_parity(device, cfg, temperature=1.0):
             f"{r:.2e}" for n, r in rel.items()))
 
 
-def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=3, batches=2, iters=3,
+def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=2, batches=2, iters=2,
                      p_target=0.5, enc_token_id=2):
     """Compression training as ``madtp_tpu/cli/compress_nlvr.py:335-384``
     runs it, on synthetic data: controller epochs in mask mode fp32, then a
@@ -3652,7 +3665,7 @@ def train_words(rng, lo, hi):
 
 def train_main(label, *, opt, make_step, run_epoch, eval_gflops, probe, target, t0, init_lr,
                timing_batch, n_samples, unit, ffn_per_forward, save_and_load,
-               epochs=TRAIN_EPOCHS, batches=TRAIN_BATCHES, iters=3, cross_attention=True):
+               epochs=TRAIN_EPOCHS, batches=TRAIN_BATCHES, iters=2, cross_attention=True):
     """A compression-training main path as the JAX drivers run it, on
     synthetic data: ``epochs`` controller epochs (the temperature updated
     from the last epoch's GFLOPs, cosine LR) in mask mode fp32
@@ -3953,11 +3966,11 @@ def phase_train_retrieval_main(device, cfg, tokenizer, batch=32, text_len=35):
     config's 1e-7 would hardly move the weights), on synthetic float images
     and captions of 7-14 words, two captions an image, one Gumbel generator
     on the card for the run: ``train_main``; each epoch's GFLOPs as the
-    driver computes them, from a mask-mode image-tower probe.  The ITM runs
+    driver computes them (``tasks.retrieval.epoch_gflops``).  The ITM runs
     96 rows (3B) with gradients through K4."""
     from madtp_tpu_torch.ckpt.convert import load_retrieval_state_dict, save_retrieval_checkpoint
     from madtp_tpu_torch.models.blip import init_retrieval_model
-    from madtp_tpu_torch.prune.flops import ORI_GFLOPS_RETRIEVAL, retrieval_gflops
+    from madtp_tpu_torch.prune.flops import ORI_GFLOPS_RETRIEVAL
     from madtp_tpu_torch.tasks import retrieval as TR
     from madtp_tpu_torch.train.loops import init_retrieval_train_state, make_retrieval_train_step
     from madtp_tpu_torch.train.optim import make_adamw
@@ -3984,13 +3997,8 @@ def phase_train_retrieval_main(device, cfg, tokenizer, batch=32, text_len=35):
     tok = tokenizer(probe_text, padding="max_length", max_length=text_len)
     probe_ids, probe_mask = tok["input_ids"], tok["attention_mask"]
 
-    @torch.inference_mode()
     def eval_gflops(temperature):
-        _, out = model.image_features(torch.from_numpy(probe_images).to(device),
-                                      temperature=temperature, prune_active=True)
-        v_alive = int(out.state.alive[0].sum()) - 1
-        return retrieval_gflops(cfg.vit, cfg.med, [v_alive] * cfg.vit.depth,
-                                [text_len - 1] * cfg.med.num_hidden_layers, text_len)
+        return TR.epoch_gflops(model, probe_images, temperature, text_len)
 
     def probe(temperature):
         return TR.probe_capacities(model, [probe_images], probe_ids, probe_mask, temperature,
@@ -4238,7 +4246,7 @@ def state_to(state, device):
                        *(t.to(device, copy=True) for t in rest))
 
 
-def phase_train_retrieval_parity(device, cfg, tokenizer, t_main, n=3, text_len=35):
+def phase_train_retrieval_parity(device, cfg, tokenizer, t_main, n=2, text_len=35):
     """23. One fp32 retrieval train step of the full-width model on the card
     and on the CPU from the same state (online and momentum towers, the
     57,600-slot queue, ``temp``), ``n`` pairs, one Gumbel draw made on the
@@ -4421,7 +4429,7 @@ CLIP_GRADS = ("visual.conv1.weight", "visual.transformer.resblocks.0.attn.in_pro
               "transformer.resblocks.11.query_model.q_map.0.weight", "text_projection")
 
 
-def phase_train_clip_parity(device, cfg, tokenizer, t_main, n=2):
+def phase_train_clip_parity(device, cfg, tokenizer, t_main, n=1):
     """25. One fp32 CLIP train step of the full-width model on the card and on
     the CPU from the same state (online and momentum weights, the
     57,600-slot queue), ``n`` pairs, mask mode and gather mode at the
@@ -4536,11 +4544,12 @@ def driver_fixture(root, sizes=((480, 640), (375, 500)), n_images=8, nlvr_pairs=
     """The drivers' fixture, written under ``root`` without PIL: ``n_images``
     PNG images (seeded gradients and noise) of the ``sizes`` (H, W) in turn,
     annotations in ``tools/make_fixture.py``'s layout (NLVR2 train, dev and
-    test; COCO-Karpathy caption train, val and test; VQAv2 train, test and
+    test; COCO-Karpathy and Flickr30k train, val and test, for captioning
+    and retrieval, each eval image with 5 captions; VQAv2 train, test and
     the answer list) and a 30,522-entry BERT-layout ``vocab.txt`` holding the
-    fixture's words.  Caption eval images are named ``coco_<id>`` (no
-    extension: the dataset reads the COCO id from the name, and the decoder
-    goes by the PNG signature)."""
+    fixture's words.  Eval images are named ``coco_<id>`` (no extension: the
+    caption dataset reads the COCO id from the name, and the decoder goes by
+    the PNG signature)."""
     import shutil
 
     shutil.rmtree(root, ignore_errors=True)
@@ -4569,14 +4578,18 @@ def driver_fixture(root, sizes=((480, 640), (375, 500)), n_images=8, nlvr_pairs=
     def caption(i):
         return f"a picture of {words[4 + i % 6]} number {i} on the {words[6 + i % 2]}"
 
-    dump("coco_karpathy_train.json", [{"image": names[i % n_images], "caption": caption(i),
-                                       "image_id": f"img{i}"} for i in range(caption_train)])
+    train = [{"image": names[i % n_images], "caption": caption(i), "image_id": f"img{i}"}
+             for i in range(caption_train)]
     evals = []
     for i in range(caption_eval):
         shutil.copyfile(root / "images" / names[i % n_images], root / "images" / f"coco_{i:04d}")
-        evals.append({"image": f"coco_{i:04d}", "caption": [caption(i), caption(i) + " indeed"]})
-    for split in ("coco_karpathy_val.json", "coco_karpathy_test.json"):
-        dump(split, evals)
+        evals.append({"image": f"coco_{i:04d}",
+                      "caption": [caption(i)] + [f"{caption(i)} {w}"
+                                                 for w in ("indeed", "today", "again", "here")]})
+    for name in ("coco_karpathy", "flickr30k"):
+        dump(f"{name}_train.json", train)
+        for split in ("val", "test"):
+            dump(f"{name}_{split}.json", evals)
     answers = [f"{a} {b}" for a in words for b in words if a != b][:n_answers]
     dump("vqa_train.json", [{"image": names[i % n_images], "dataset": "vqa",
                              "question": f"what color is the {words[4 + i % 6]}",
@@ -4648,11 +4661,14 @@ class StepTimes:
 
 class Stopwatch:
     """While active, each ``(module, attr)`` function adds its wall time
-    (the card synchronised at its end) to ``seconds[attr]``: where a
-    driver's run spends its time."""
+    (the card synchronised at its end) to ``seconds[attr]``, and its
+    positional arguments that are numbers or strings to ``args[attr]``
+    (others as None): where a driver's run spends its time, and what it
+    passed."""
 
     def __init__(self, *targets):
         self.targets, self.seconds = targets, collections.Counter()
+        self.args = collections.defaultdict(list)
 
     def __enter__(self):
         self._saved = []
@@ -4661,6 +4677,9 @@ class Stopwatch:
             orig = getattr(mod, attr)
 
             def timed(*a, _orig=orig, _attr=attr, **k):
+                # numbers only: a model or a batch held here would outlive the run
+                self.args[_attr].append(tuple(x if isinstance(x, (int, float, str)) else None
+                                              for x in a))
                 t0 = time.perf_counter()
                 try:
                     return _orig(*a, **k)
@@ -4818,6 +4837,340 @@ def phase_drivers(device, fixture_sizes=((480, 640), (375, 500)), override=None,
     return launches, steps, records
 
 
+RN50 = dict(embed_dim=1024, image_resolution=224, vision_layers=16, vision_width=64,
+            vision_patch_size=32, context_length=77, vocab_size=49408, transformer_width=512,
+            transformer_heads=8, transformer_layers=12, sd_dim=768, resnet_layers=(3, 4, 6, 3))
+CLIP_DRIVER_P = 0.01  # phase 27's CLIP --p: see phase_retrieval_drivers
+
+
+def check_loaders(root, device, image_size, batch=8):
+    """Phase 27's loader checks, in this process with CUDA up:
+    ``mp_batched_loader`` (2 forked workers) against the threaded loader on
+    the fixture's retrieval train set (COCO-Karpathy, the train transform at
+    ``image_size``, shuffled epoch 1): equal batches in the same order and
+    no shared-memory segment left in ``/dev/shm``; then ``device_prefetch``
+    of those batches onto ``device``: equal tensors in order, captions
+    passed through, every host source pinned (on a card).  Returns the two
+    loaders' walls (s)."""
+    import glob
+
+    from madtp_tpu_torch.data import loader as L
+    from madtp_tpu_torch.data.datasets import CaptionTrainDataset
+    from madtp_tpu_torch.data.mp_loader import mp_batched_loader
+    from madtp_tpu_torch.data.transforms import PerSampleRng, train_transform
+
+    rng = PerSampleRng(42)
+    ds = CaptionTrainDataset(lambda im: train_transform(im, image_size, rng),
+                             str(root / "images"), str(root / "annotation"), dataset="coco")
+    before = set(glob.glob("/dev/shm/madtp*"))
+    walls = []
+    for fn in (L.batched_loader, mp_batched_loader):
+        t0 = time.perf_counter()
+        walls.append((list(fn(ds, batch, shuffle=True, epoch=1, num_workers=2)),
+                      time.perf_counter() - t0))
+    (want, t_threads), (got, t_procs) = walls
+    if len(got) != len(want) or not all(
+            np.array_equal(a[0], b[0]) and list(a[1]) == list(b[1])
+            and np.array_equal(a[2], b[2]) for a, b in zip(want, got)):
+        raise AssertionError("mp_batched_loader: batches differ from the threaded loader's")
+    left = set(glob.glob("/dev/shm/madtp*")) - before
+    if left:
+        raise AssertionError(f"mp_batched_loader left shared-memory segments: {sorted(left)}")
+    staged, real = [], L._stage
+    L._stage = lambda x: staged.append(real(x)) or staged[-1]
+    try:
+        out = list(L.device_prefetch(iter(want), size=2, device=device))
+    finally:
+        L._stage = real
+    if device.type == "cuda" and (len(staged) != 2 * len(want)
+                                  or not all(t.is_pinned() for t in staged)):
+        raise AssertionError(f"device_prefetch: {len(staged)} host sources staged, pinned "
+                             f"{[t.is_pinned() for t in staged]}")
+    if len(out) != len(want) or not all(
+            o[0].device.type == device.type and torch.equal(o[0].cpu(), torch.from_numpy(w[0]))
+            and o[1] == w[1] and torch.equal(o[2].cpu(), torch.from_numpy(w[2]))
+            for o, w in zip(out, want)):
+        raise AssertionError("device_prefetch: batches differ from their sources")
+    log(f"[retrieval-drivers] loaders: mp_batched_loader (2 processes) gave the threaded "
+        f"loader's {len(want)} batches of {batch} in order, no segment left in /dev/shm; "
+        f"threads {t_threads:.2f} s, processes {t_procs:.2f} s; device_prefetch put them on "
+        f"{device.type} from {len(staged)} pinned host sources, equal and in order")
+    return t_threads, t_procs
+
+
+def run_driver(label, module, factory, tasks, watch_names, argvs, captures=(), epochs=0):
+    """``main(argv)`` of ``madtp_tpu_torch.cli.<module>`` for each (run,
+    argv) of ``argvs``, with the launch counts zeroed just before and read
+    just after all of them, the train steps' walls (``StepTimes`` on
+    ``factory``, logged by epoch of the ``epochs`` trained), the seconds in
+    ``watch_names`` of the driver module and ``tasks`` (``Stopwatch``) and
+    each run's wall, inside ``captures``.  Returns ``(walls, launches, step
+    times, watch)``."""
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+
+    driver = f"madtp_tpu_torch.cli.{module}"
+    main = importlib.import_module(driver).main
+    walls = {}
+    zero_launch_counts()
+    with contextlib.ExitStack() as stack:
+        for c in captures:
+            stack.enter_context(c)
+        timer = stack.enter_context(StepTimes(driver, factory))
+        watch = stack.enter_context(Stopwatch(
+            *((driver, a) for a in watch_names[0]), *((tasks, a) for a in watch_names[1])))
+        for run, argv in argvs:
+            t0 = time.perf_counter()
+            main(argv)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            walls[run] = time.perf_counter() - t0
+    launches = dict(K1=attention_scores_cuda.launches, K2=attention_scores_bwd_cuda.launches,
+                    K4=cross_attention_cuda.launches, K5=ffn_cuda.launches)
+    log(f"[retrieval-drivers] {label}: " + ", ".join(f"{r} run {w:.1f} s" for r, w in walls.items())
+        + f"; launches {launches}")
+    n = len(timer.times) // max(1, epochs)
+    log(f"[retrieval-drivers] {label}: "
+        + "".join(f"epoch {e}'s step times (ms) "
+                  f"{[round(t, 1) for t in timer.times[e * n:(e + 1) * n]]}, "
+                  for e in range(epochs))
+        + "seconds in " + ", ".join(f"{k} {v:.1f}" for k, v in watch.seconds.items())
+        + f" (train steps {sum(timer.times) / 1e3:.1f}, within train_epoch)")
+    return walls, launches, timer.times, watch
+
+
+def check_run(label, out, want_epochs, eval_name="evaluate.txt"):
+    """The files a driver's training run leaves, and its log's epochs."""
+    for name in ("config.yaml", "log.txt", "checkpoint_best.pth", "resume_ckpt"):
+        if not (out / "train" / name).is_file():
+            raise AssertionError(f"driver {label}: no {name} in its output")
+    if not (out / "evaluate" / eval_name).is_file():
+        raise AssertionError(f"driver {label}: --evaluate wrote no {eval_name}")
+    train_log = read_log(out / "train" / "log.txt")
+    if [e["epoch"] for e in train_log] != list(range(want_epochs)):
+        raise AssertionError(f"driver {label}: log.txt has epochs "
+                             f"{[e['epoch'] for e in train_log]}, want {list(range(want_epochs))}")
+    return train_log
+
+
+def check_controller(label, temps, train_log, target):
+    """Epoch 0 at T = 1, each later epoch one controller step from the last
+    epoch's logged GFLOPs."""
+    from madtp_tpu_torch.train.controller import temperature_step
+
+    want = [1.0]
+    for e in train_log[:-1]:
+        want.append(want[-1] + temperature_step(e["Cur_Gflops"], target))
+    if len(temps) != len(want) or not all(math.isclose(a, b, abs_tol=1e-9)
+                                          for a, b in zip(temps, want)):
+        raise AssertionError(f"driver {label}: epochs ran at T {temps}, the controller gives "
+                             f"{want}")
+
+
+RECALL_KEYS = ("txt_r1", "txt_r5", "txt_r10", "img_r1", "img_r5", "img_r10", "txt_r_mean",
+               "img_r_mean", "r_mean")
+
+
+def phase_retrieval_drivers(device, fixture_sizes=((480, 640), (375, 500)), override=None,
+                            clip_cfg=None, clip_override=None, rn_cfg=None, captures=True):
+    """Phase 27: the BLIP and CLIP retrieval drivers through ``main(argv)``,
+    as a user runs them, on ``driver_fixture``'s PNG fixture (8 test images
+    with 5 captions each, 16 train pairs), then the loader checks
+    (``check_loaders``).
+
+    * ``compress_retrieval`` at ``configs/retrieval_coco.yaml``'s width (BLIP
+      base, 384 px, 12-layer MED, queue 57,600, ``negative_all_rank``),
+      random init, ``--batch_size_train 8 --batch_size_test 8 --epoch 2 --p
+      0.1`` (2 train batches an epoch; ``k_test`` min(256, 40) = 40), then
+      ``--evaluate`` on ``checkpoint_best.pth``, which must give the best
+      epoch's recalls, and that checkpoint's GFLOPs (``epoch_gflops`` at its
+      temperature on the first test batch) the logged ``Cur_Gflops``.  K4 is
+      held against its plain version on the driver's own ITM inputs.
+    * ``compress_retrieval_clip`` on a seeded random ViT-L/14@336 ``.pth``
+      written here (``configs/retrieval_flickr_clip.yaml``'s checkpoint
+      widths, codebook 100 x 768, temperature 0), ``--batch_size_train 8
+      --batch_size_test 8 --epoch 1 --p 0.01`` (one epoch: the script's
+      time; the BLIP driver covers a second controller epoch), then
+      ``--evaluate`` on its best checkpoint, which must give the epoch's
+      recalls and GFLOPs.
+      p = 0.01: on random weights CLIP prunes 2.5-4.5% at T = 1-2 (386 and
+      378 of the reference's 395.7 GFLOPs, phase 24), and the best gate
+      takes only an epoch within 5 GFLOPs of the target, so p must stay
+      below about 0.037.  K1 is held at H = 16 on the driver's own inputs.
+    * the same driver ``--evaluate`` on a seeded random RN50 ``.pth``
+      (OpenAI CLIP's RN50: stages (3, 4, 6, 3), width 64, 224 px, embed
+      1,024, text 512 wide, 12 layers, 77 tokens): finite recalls and the
+      RN ``Cur_Gflops`` (the ResNet's and the dense text tower's).
+
+    Each training run's ``log.txt`` has a line per epoch, ``config.yaml``,
+    the checkpoint and the resume checkpoint exist, and its epochs ran at
+    the controller's temperatures; K1, K2, K4 and K5 are launched on the
+    BLIP driver's train and evaluate runs, K1, K2 and K5 on the CLIP
+    driver's (counts zeroed just before and read just after, as phase 26);
+    each run's wall, step times per epoch and seconds in init, ``train_epoch``,
+    evaluation, checkpoint and resume writes are logged.  The CPU rehearsal
+    passes a tiny ``override`` (BLIP yaml), ``clip_cfg``, ``clip_override``
+    and ``rn_cfg``.  Returns the launch counts by driver and the K4 and K1
+    records."""
+    import shutil
+
+    import yaml
+
+    from madtp_tpu_torch.ckpt.convert import load_retrieval_state_dict, save_clip_checkpoint
+    from madtp_tpu_torch.cli.common import build_blip_cfg, read_checkpoint
+    from madtp_tpu_torch.core.config import CLIPConfig
+    from madtp_tpu_torch.data.datasets import RetrievalEvalDataset
+    from madtp_tpu_torch.data.loader import batched_loader
+    from madtp_tpu_torch.data.tokenizer_bert import BertWordPieceTokenizer
+    from madtp_tpu_torch.data.transforms import eval_transform
+    from madtp_tpu_torch.kernels.build import BUILD_DIR
+    from madtp_tpu_torch.models.clip import init_clip_model
+    from madtp_tpu_torch.prune.flops import clip_gflops
+    from madtp_tpu_torch.tasks import retrieval as TR
+
+    override, clip_override = override or {}, clip_override or {}
+    clip_cfg = clip_cfg or clip_config()
+    rn_cfg = rn_cfg or CLIPConfig(**RN50)
+    flag = ["--device", device.type]
+    small = ["--batch_size_train", "8", "--batch_size_test", "8"]
+    t_fix = time.perf_counter()
+    root = driver_fixture(BUILD_DIR / "retrieval_fixture", sizes=fixture_sizes)
+    runs = BUILD_DIR / "retrieval_runs"
+    shutil.rmtree(runs, ignore_errors=True)
+    log(f"[retrieval-drivers] PNG fixture written in {time.perf_counter() - t_fix:.1f} s; "
+        f"{card_line() if device.type == 'cuda' else 'cpu'}")
+    launches, records = {}, {}
+
+    # ---- BLIP retrieval ----
+    out = runs / "retrieval"
+    out.mkdir(parents=True)
+    yaml_path = driver_yaml("retrieval_coco.yaml", root, out / "fixture.yaml", **override)
+    p = 0.1
+    target = 153.2 * (1 - p)  # ORI_GFLOPS of compress_retrieval
+    k4c = K4Capture() if captures else None
+    walls, launches["retrieval"], steps, watch = run_driver(
+        "retrieval", "compress_retrieval", "make_retrieval_train_step",
+        "madtp_tpu_torch.tasks.retrieval",
+        (("init_retrieval_model", "save_retrieval_checkpoint", "save_resume",
+          "read_checkpoint", "load_retrieval_state_dict"),
+         ("train_epoch", "encode_corpus", "rerank_scores", "epoch_gflops")),
+        (("train", ["--config", str(yaml_path), "--output_dir", str(out / "train"), "--epoch",
+                    "2", "--pretrained", "", "--p", str(p), *small, *flag]),
+         ("evaluate", ["--config", str(yaml_path), "--output_dir", str(out / "evaluate"),
+                       "--evaluate", "--pretrained", str(out / "train" / "checkpoint_best.pth"),
+                       *small, *flag])),
+        captures=(k4c,) if k4c else (), epochs=2)
+    train_log = check_run("retrieval", out, 2)
+    check_controller("retrieval", [a[4] for a in watch.args["train_epoch"]], train_log, target)
+    sd, extras = read_checkpoint(str(out / "train" / "checkpoint_best.pth"))
+    best = train_log[int(extras["epoch"])]
+    got = read_log(out / "evaluate" / "evaluate.txt")[0]
+    with open(yaml_path) as f:
+        config = yaml.safe_load(f)
+    size = config.get("image_size", 384)
+    model = load_retrieval_state_dict(sd, build_blip_cfg(config, size), device=device)
+    del sd
+    ds = RetrievalEvalDataset(lambda im: eval_transform(im, size), str(root / "images"),
+                              str(root / "annotation"), "test", dataset="coco")
+    tok = BertWordPieceTokenizer(str(root / "vocab.txt"))(ds.text, padding="longest",
+                                                          max_length=35)
+    first = next(iter(batched_loader(ds, 8, num_workers=0)))[0]
+    g = TR.epoch_gflops(model, first, float(extras["temperature"]),
+                        np.asarray(tok["input_ids"]).shape[1])
+    del model
+    if {k: got[k] for k in RECALL_KEYS} != {k: best[k] for k in RECALL_KEYS} or \
+            round(g, 2) != best["Cur_Gflops"] or len(ds.text) != 40:
+        raise AssertionError(f"driver retrieval: --evaluate logged {got} and its checkpoint "
+                             f"{g:.2f} GFLOPs; the best epoch {best}")
+    log(f"[retrieval-drivers] retrieval: best epoch {int(extras['epoch'])} (T "
+        f"{float(extras['temperature']):.4f}): {best}; --evaluate {got}, its checkpoint's "
+        f"GFLOPs {g:.2f}")
+    if device.type == "cuda" and min(launches["retrieval"].values()) == 0:
+        raise AssertionError(f"driver retrieval: launches {launches['retrieval']}: a kernel of "
+                             "the path was not launched")
+    shutil.rmtree(out)
+    if k4c:
+        records["K4"] = check_k4_cases("driver retrieval", k4c, iters=5,
+                                       where=dict(dtype="float32"))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- CLIP retrieval, ViT-L/14@336 ----
+    out = runs / "clip"
+    out.mkdir(parents=True)
+    t0 = time.perf_counter()
+    pth = out / "clip_vit.pth"
+    save_clip_checkpoint(init_clip_model(clip_cfg, seed=27, device=device), str(pth), epoch=0,
+                         temperature=0.0)
+    log(f"[retrieval-drivers] clip: random {clip_cfg.vision_layers}-layer "
+        f"{clip_cfg.image_resolution}-px checkpoint written in {time.perf_counter() - t0:.1f} s")
+    yaml_path = driver_yaml("retrieval_flickr_clip.yaml", root, out / "fixture.yaml",
+                            **clip_override)
+    target = 395.7 * (1 - CLIP_DRIVER_P)
+    k1c = K1Capture() if captures else None
+    walls, launches["retrieval_clip"], steps, watch = run_driver(
+        "clip", "compress_retrieval_clip", "make_clip_train_step",
+        "madtp_tpu_torch.tasks.clip_retrieval",
+        (("save_clip_checkpoint", "save_resume", "read_checkpoint", "load_clip_state_dict"),
+         ("train_epoch", "encode_towers")),
+        (("train", ["--config", str(yaml_path), "--output_dir", str(out / "train"), "--epoch",
+                    "1", "--pretrained", str(pth), "--p", str(CLIP_DRIVER_P), *small, *flag]),
+         ("evaluate", ["--config", str(yaml_path), "--output_dir", str(out / "evaluate"),
+                       "--evaluate", "--pretrained", str(out / "train" / "checkpoint_best.pth"),
+                       *small, *flag])),
+        captures=(k1c,) if k1c else (), epochs=1)
+    train_log = check_run("clip", out, 1)
+    check_controller("clip", [a[4] for a in watch.args["train_epoch"]], train_log, target)
+    ck = torch.load(out / "train" / "checkpoint_best.pth", map_location="cpu")
+    best = train_log[int(ck["epoch"])]
+    got = read_log(out / "evaluate" / "evaluate.txt")[0]
+    if {k: got[k] for k in RECALL_KEYS} != {k: best[k] for k in RECALL_KEYS} or \
+            round(got["Cur_Gflops"], 2) != best["Cur_Gflops"]:
+        raise AssertionError(f"driver clip: --evaluate logged {got}, the best epoch {best}")
+    log(f"[retrieval-drivers] clip: best epoch {int(ck['epoch'])} (T "
+        f"{float(ck['temperature']):.4f}): {best}; --evaluate {got}")
+    del ck
+    if device.type == "cuda" and (min(launches["retrieval_clip"][k] for k in ("K1", "K2", "K5"))
+                                  == 0 or launches["retrieval_clip"]["K4"]):
+        raise AssertionError(f"driver clip: launches {launches['retrieval_clip']}: want K1, "
+                             "K2 and K5, and no K4")
+    shutil.rmtree(out)
+    if k1c:
+        records["K1"] = check_k1_cases("driver clip", k1c, iters=3)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- CLIP retrieval, RN50, --evaluate ----
+    out = runs / "clip_rn50"
+    out.mkdir(parents=True)
+    pth = out / "clip_rn50.pth"
+    save_clip_checkpoint(init_clip_model(rn_cfg, seed=27, device=device), str(pth), epoch=0,
+                         temperature=0.0)
+    yaml_path = driver_yaml("retrieval_flickr_clip.yaml", root, out / "fixture.yaml",
+                            **clip_override)
+    walls, launches["retrieval_clip_rn50"], _, _ = run_driver(
+        "clip RN50", "compress_retrieval_clip", "make_clip_train_step",
+        "madtp_tpu_torch.tasks.clip_retrieval", (("load_clip_state_dict",), ("encode_towers",)),
+        (("evaluate", ["--config", str(yaml_path), "--output_dir", str(out / "evaluate"),
+                       "--evaluate", "--pretrained", str(pth), *small, *flag]),))
+    got = read_log(out / "evaluate" / "evaluate.txt")[0]
+    want_g = round(clip_gflops(rn_cfg, [], [rn_cfg.context_length - 1]
+                               * rn_cfg.transformer_layers), 3)
+    if not (all(math.isfinite(got[k]) for k in RECALL_KEYS) and got["Cur_Gflops"] == want_g):
+        raise AssertionError(f"driver clip RN50: --evaluate logged {got}, want finite recalls "
+                             f"and {want_g} GFLOPs")
+    log(f"[retrieval-drivers] clip RN50: --evaluate {got}")
+    if device.type == "cuda" and launches["retrieval_clip_rn50"]["K5"] == 0:
+        raise AssertionError(f"driver clip RN50: launches {launches['retrieval_clip_rn50']}: "
+                             "the text tower's FFNs ran no K5")
+    shutil.rmtree(runs)
+    check_loaders(root, device, 384 if not override else override.get("image_size", 384))
+    shutil.rmtree(root)
+    return launches, records
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4921,6 +5274,9 @@ def main():
     # phase 26: the NLVR, caption and VQA drivers through their entry points
     drivers, _, driver_records = timed(phase_drivers, device)
     tk.update({f"driver_{f}": c for f, c in drivers.items()})
+    # phase 27: the BLIP and CLIP retrieval drivers (CLIP ViT-L/14@336 and RN50), the loaders
+    retrieval_drivers, retrieval_driver_records = timed(phase_retrieval_drivers, device)
+    tk.update({f"driver_{f}": c for f, c in retrieval_drivers.items()})
 
     def train_total(k):
         return sum(c[k] for c in (*tk.values(), *te.values()))
@@ -4944,6 +5300,7 @@ def main():
              at_caption_eval=record1_cap, at_train_nlvr=record1_train,
              **{f"at_train_{f}": r["K1"] for f, r in trec.items()},
              fp32_at_train_shape=record1_32, fp32_at_driver_nlvr=driver_records["K1"],
+             fp32_at_driver_clip_h16=retrieval_driver_records["K1"],
              library_note="library_ms is scaled_dot_product_attention, out only; vqa640 "
                           "counts the launches in K3's range too (attention_scores_large_n); "
                           "train_<family>_eval counts the training path's controller evals "
@@ -4986,6 +5343,7 @@ def main():
              at_vqa640_eval=record4_640, at_vqa_generate=record4_gen,
              at_caption_eval=record4_cap, fp32_at_train_nlvr=record4_train32,
              fp32_at_one_query=record4_one_query, fp32_at_driver_nlvr=driver_records["K4"],
+             fp32_at_driver_retrieval_itm=retrieval_driver_records["K4"],
              **{f"at_train_{f}": r["K4"] for f, r in trec.items() if r["K4"] is not None},
              library_note="library_ms is scaled_dot_product_attention with the "
                           "same additive mask: the same function",

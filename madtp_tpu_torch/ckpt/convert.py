@@ -206,9 +206,13 @@ def load_clip_state_dict(sd: Mapping[str, object], cfg: CLIPConfig,
     layout (numpy arrays or tensors; fp16 weights are upcast), as
     ``remap_clip`` reads it: a block without ``query_model.q_map.0`` gets a
     zero map, and the codebook ``space_dict`` is taken when present (without
-    it the model runs dense only).  Keys the model does not have are
-    ignored.  ``cfg`` usually comes from :func:`~madtp_tpu_torch.core.config.
-    infer_clip_config`."""
+    it the model runs dense only).  An RN checkpoint's visual keys are the
+    ModifiedResNet's (``madtp_tpu/ckpt/remap.py:229-266``: the stem's
+    ``conv1-3`` / ``bn1-3``, ``layer{1-4}.{i}.conv1-3`` / ``bn1-3`` and
+    ``downsample.0`` / ``.1``, BatchNorm with its running statistics, and
+    ``attnpool``'s position embedding and projections).  Keys the model does
+    not have are ignored.  ``cfg`` usually comes from
+    :func:`~madtp_tpu_torch.core.config.infer_clip_config`."""
     dev = resolve_device(device)
     sd_num = int(np.shape(sd["space_dict"])[0]) if "space_dict" in sd else 0
     new: Dict[str, torch.Tensor] = {}

@@ -16,6 +16,7 @@ import dataclasses
 import json
 import os
 import random
+from typing import Optional
 
 import numpy as np
 import torch
@@ -245,19 +246,31 @@ def read_checkpoint(path: str):
 # ---------------------------------------------------------------------------
 
 
+def _extra_state(extra: Optional[dict]) -> dict:
+    """The saved form of ``extra``: tensors as CPU copies, generators as
+    their state."""
+    out = {}
+    for k, v in (extra or {}).items():
+        out[k] = v.get_state() if isinstance(v, torch.Generator) else v.detach().cpu().clone()
+    return out
+
+
 def save_resume(output_dir: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                meta: dict) -> str:
-    """``torch.save`` of the model's and the optimizer's state and ``meta``
-    (a flat dict of numbers) into ``<output_dir>/resume_ckpt``, the path that
-    ``--resume`` takes.  The new file is written beside the old one and
-    renamed into place, so a kill during the save keeps the last state."""
+                meta: dict, *, extra: Optional[dict] = None) -> str:
+    """``torch.save`` of the model's and the optimizer's state, ``meta`` (a
+    flat dict of numbers) and ``extra`` (named tensors a run carries besides
+    its parameters, such as momentum copies and feature queues, and
+    ``torch.Generator`` s, saved as their state) into
+    ``<output_dir>/resume_ckpt``, the path that ``--resume`` takes.  The new
+    file is written beside the old one and renamed into place, so a kill
+    during the save keeps the last state."""
     path = os.path.abspath(os.path.join(output_dir, "resume_ckpt"))
     new, old = path + ".new", path + ".stale"
     for p in (new, old):
         if os.path.exists(p):
             os.remove(p)
     torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                "meta": dict(meta)}, new)
+                "meta": dict(meta), "extra": _extra_state(extra)}, new)
     if os.path.exists(path):
         os.rename(path, old)
     os.rename(new, path)
@@ -267,12 +280,19 @@ def save_resume(output_dir: str, model: torch.nn.Module, optimizer: torch.optim.
 
 
 def load_resume(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                meta_template: dict) -> dict:
-    """Restore a :func:`save_resume` checkpoint into ``model`` and
-    ``optimizer`` in place; returns the meta, with ``meta_template``'s
-    defaults for keys it lacks."""
+                meta_template: dict, *, extra: Optional[dict] = None) -> dict:
+    """Restore a :func:`save_resume` checkpoint into ``model``,
+    ``optimizer`` and the tensors and generators of ``extra`` (by the names
+    they were saved under), in place; returns the meta, with
+    ``meta_template``'s defaults for keys it lacks."""
     state = torch.load(path, map_location=model.space_dict.device)
     model.load_state_dict(state["model"])
     optimizer.load_state_dict(state["optimizer"])
+    saved = state.get("extra", {})
+    for k, v in (extra or {}).items():
+        if isinstance(v, torch.Generator):
+            v.set_state(saved[k].cpu())
+        else:
+            with torch.no_grad():
+                v.copy_(saved[k])
     return {k: state["meta"].get(k, v) for k, v in meta_template.items()}
-

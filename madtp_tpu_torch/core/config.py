@@ -65,9 +65,10 @@ class MedConfig:
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
     """OpenAI-CLIP dual-tower config (``madtp_tpu/core/config.py:97-134``),
-    normally inferred from a checkpoint's weight shapes.  The ViT visual
-    tower only: a ``resnet_layers`` config (ModifiedResNet) raises, since that
-    tower is not ported yet."""
+    normally inferred from a checkpoint's weight shapes.  A non-empty
+    ``resnet_layers`` (blocks per stage, RN50 ``(3, 4, 6, 3)``) selects the
+    ModifiedResNet visual tower, ``vision_width`` then its stem width; that
+    tower runs unpruned."""
 
     embed_dim: int = 512
     image_resolution: int = 224
@@ -84,10 +85,9 @@ class CLIPConfig:
     vision_heads_override: int = 0  # 0: vision_width // 64
     resnet_layers: tuple = ()
 
-    def __post_init__(self):
-        if self.resnet_layers:
-            raise NotImplementedError(
-                "the ModifiedResNet visual tower is not ported to madtp_tpu_torch yet")
+    @property
+    def is_resnet(self) -> bool:
+        return bool(self.resnet_layers)
 
     @property
     def vision_heads(self) -> int:
@@ -99,35 +99,37 @@ class CLIPConfig:
 
 
 def infer_clip_config(sd, sd_dim: int = 768) -> CLIPConfig:
-    """The ViT CLIP architecture from a reference-layout state dict's shapes
-    (``madtp_tpu/cli/compress_retrieval_clip.py:54-72``; reference
-    ``clip/model.py:678-701``).  A ModifiedResNet checkpoint (no
-    ``visual.proj``) raises."""
-    if "visual.proj" not in sd:
-        raise NotImplementedError(
-            "a ModifiedResNet CLIP checkpoint: that tower is not ported to madtp_tpu_torch yet")
+    """The CLIP architecture from a reference-layout state dict's shapes
+    (``madtp_tpu/cli/compress_retrieval_clip.py:29-72``; reference
+    ``clip/model.py:678-701``), the ModifiedResNet branch (no
+    ``visual.proj``) included."""
 
     def shape(k):
         return tuple(sd[k].shape)
 
+    width = shape("ln_final.weight")[0]
+    text = dict(embed_dim=shape("text_projection")[1],
+                context_length=shape("positional_embedding")[0],
+                vocab_size=shape("token_embedding.weight")[0], transformer_width=width,
+                transformer_heads=width // 64,
+                transformer_layers=len({k.split(".")[2] for k in sd
+                                        if k.startswith("transformer.resblocks")}),
+                sd_dim=sd_dim)
+    if "visual.proj" not in sd:  # ModifiedResNet
+        counts = tuple(len({k.split(".")[2] for k in sd if k.startswith(f"visual.layer{b}.")})
+                       for b in (1, 2, 3, 4))
+        grid = round((shape("visual.attnpool.positional_embedding")[0] - 1) ** 0.5)
+        return CLIPConfig(image_resolution=grid * 32, vision_layers=sum(counts),
+                          vision_width=shape("visual.layer1.0.conv1.weight")[0],
+                          vision_patch_size=32,  # unused by the RN tower (grid = res // 32)
+                          resnet_layers=counts, **text)
     conv = shape("visual.conv1.weight")
     grid = round((shape("visual.positional_embedding")[0] - 1) ** 0.5)
-    width = shape("ln_final.weight")[0]
     return CLIPConfig(
-        embed_dim=shape("text_projection")[1],
         image_resolution=conv[-1] * grid,
         vision_layers=len([k for k in sd if k.startswith("visual.")
                            and k.endswith(".attn.in_proj_weight")]),
-        vision_width=conv[0],
-        vision_patch_size=conv[-1],
-        context_length=shape("positional_embedding")[0],
-        vocab_size=shape("token_embedding.weight")[0],
-        transformer_width=width,
-        transformer_heads=width // 64,
-        transformer_layers=len({k.split(".")[2] for k in sd
-                                if k.startswith("transformer.resblocks")}),
-        sd_dim=sd_dim,
-    )
+        vision_width=conv[0], vision_patch_size=conv[-1], **text)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,14 @@
 """Batched loader with sharding and threaded prefetch (counterpart of
-``madtp_tpu/data/loader.py:20-189``): a ``DistributedSampler``-style index
+``madtp_tpu/data/loader.py:20-215``): a ``DistributedSampler``-style index
 schedule, worker threads that decode ahead of the card, and the same batch
-order whatever the thread count."""
+order whatever the thread count; ``MADTP_MP_LOADER=1`` routes it through the
+process-worker loader of :mod:`madtp_tpu_torch.data.mp_loader`.
+:func:`device_prefetch` keeps batches on the card ahead of their consumer."""
 
 from __future__ import annotations
 
+import collections
+import os
 import queue as queue_mod
 import threading
 import time
@@ -12,6 +16,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator
 
 import numpy as np
+import torch
 
 from madtp_tpu_torch.data.transforms import fetch_with_ctx
 
@@ -66,7 +71,21 @@ def batched_loader(dataset, batch_size: int, *, shuffle: bool = False, seed: int
     (none: in line) with ``prefetch`` batches in flight.  ``batch_range=(lo,
     hi)`` keeps that slice of the batch schedule without fetching the
     batches before it.  A failed fetch is raised to the consumer; a consumer
-    that stops early unblocks and ends the producer thread."""
+    that stops early unblocks and ends the producer thread.
+
+    With ``MADTP_MP_LOADER`` set and ``num_workers > 0`` the batches come
+    from :func:`~madtp_tpu_torch.data.mp_loader.mp_batched_loader` on up to
+    ``num_workers`` processes (no more than the host's cores): the same
+    batches in the same order."""
+    if os.environ.get("MADTP_MP_LOADER") and num_workers > 0:
+        from madtp_tpu_torch.data.mp_loader import mp_batched_loader
+
+        yield from mp_batched_loader(
+            dataset, batch_size, shuffle=shuffle, seed=seed, epoch=epoch,
+            num_shards=num_shards, shard_id=shard_id, drop_last=drop_last,
+            num_workers=min(num_workers, os.cpu_count() or 1), prefetch=prefetch,
+            collate=collate, batch_range=batch_range)
+        return
     idx = shard_indices(len(dataset), shuffle=shuffle, seed=seed, epoch=epoch,
                         num_shards=num_shards, shard_id=shard_id, drop_last=drop_last)
     batches = [idx[i:i + batch_size] for i in range(0, len(idx), batch_size)]
@@ -130,3 +149,60 @@ def batched_loader(dataset, batch_size: int, *, shuffle: bool = False, seed: int
             except queue_mod.Empty:
                 break
         pool.shutdown(wait=False)
+
+
+def _stage(x: np.ndarray) -> torch.Tensor:
+    """A pinned host copy of ``x``, the source of an asynchronous upload."""
+    return torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
+
+
+def device_prefetch(iterator, *, size: int = 2, device):
+    """Keep ``size`` batches' arrays on ``device`` ahead of the consumer
+    (``madtp_tpu/data/loader.py:190-215``), so a step never waits on its
+    upload.  Each batch is a tuple: its numpy arrays become tensors on
+    ``device``, its other columns pass through; order and contents are the
+    input's.
+
+    On a card each array is staged in pinned host memory and copied on a
+    side stream with ``non_blocking=True``; when the batch is handed out,
+    the consumer's current stream waits on that copy's event and each
+    tensor is recorded as in use on it (``record_stream``), so the
+    allocator does not reuse its memory while the consumer's work is
+    queued.  On the CPU the batches are yielded as they come, their arrays
+    as tensors."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        for batch in iterator:
+            yield tuple(torch.from_numpy(x) if isinstance(x, np.ndarray) else x for x in batch)
+        return
+    side = torch.cuda.Stream(dev)
+
+    def put(batch):
+        hosts, out = [], []
+        with torch.cuda.stream(side):
+            for x in batch:
+                if isinstance(x, np.ndarray):
+                    hosts.append(_stage(x))
+                    out.append(hosts[-1].to(dev, non_blocking=True))
+                else:
+                    out.append(x)
+            done = torch.cuda.Event()
+            done.record(side)
+        return out, hosts, done
+
+    def hand_out(item):
+        out, _, done = item
+        consumer = torch.cuda.current_stream(dev)
+        consumer.wait_event(done)
+        for t in out:
+            if isinstance(t, torch.Tensor):
+                t.record_stream(consumer)
+        return tuple(out)
+
+    buf = collections.deque()
+    for batch in iterator:
+        buf.append(put(batch))
+        if len(buf) > size:
+            yield hand_out(buf.popleft())
+    while buf:
+        yield hand_out(buf.popleft())

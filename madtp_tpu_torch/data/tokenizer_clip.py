@@ -3,8 +3,8 @@
 
 Vocab layout (OpenAI CLIP): 256 byte-units + 256 byte-units+'</w>' +
 48894 merged symbols + 2 specials = 49408.  The merge table is the public
-``bpe_simple_vocab_16e6.txt.gz``, read by path from the repo's vendored copy
-(:data:`DEFAULT_BPE`) or from ``vocab_path``.
+``bpe_simple_vocab_16e6.txt.gz``, read from the package's own copy in
+``madtp_tpu_torch/data/assets/`` (:data:`DEFAULT_BPE`) or from ``vocab_path``.
 
 The JAX tokenizer splits text with the ``regex`` pattern
 ``<\\|startoftext\\|>|<\\|endoftext\\|>|'s|'t|'re|'ve|'m|'ll|'d|[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+``
@@ -28,9 +28,8 @@ from typing import List, Sequence
 
 import numpy as np
 
-DEFAULT_BPE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "madtp_tpu", "data", "assets", "bpe_simple_vocab_16e6.txt.gz")
+DEFAULT_BPE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                           "bpe_simple_vocab_16e6.txt.gz")
 SOT, EOT = "<|startoftext|>", "<|endoftext|>"
 _SPECIALS = (SOT, EOT)
 _CONTRACTIONS = ("'s", "'t", "'re", "'ve", "'m", "'ll", "'d")

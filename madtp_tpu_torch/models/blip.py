@@ -201,12 +201,12 @@ def _unit(feat: torch.Tensor) -> torch.Tensor:
 
 
 def init_retrieval_model(cfg: BlipConfig, seed: int = 0, device="cuda",
-                         dtype=torch.float32) -> RetrievalModel:
+                         dtype=torch.float32, embed_dim: int = 256) -> RetrievalModel:
     """A retrieval model with seeded random weights (:func:`_init_weights`;
-    the counterpart of ``init_blip_params(heads=("retrieval",))``), with the
-    reference's 256-wide projections."""
+    the counterpart of ``init_blip_params(heads=("retrieval",))``), with
+    ``embed_dim``-wide projections (the reference's 256 by default)."""
     dev = resolve_device(device)
-    model = RetrievalModel(cfg)
+    model = RetrievalModel(cfg, embed_dim)
     _init_weights(model, seed)
     return model.to(device=dev, dtype=dtype).eval()
 

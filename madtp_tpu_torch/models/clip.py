@@ -1,5 +1,7 @@
 """CLIP dual-tower encoders with per-layer DTP
-(counterpart of ``madtp_tpu/models/clip.py:44-343``), the ViT visual tower.
+(counterpart of ``madtp_tpu/models/clip.py:44-343``), with the ViT visual
+tower or, for an RN checkpoint (``cfg.is_resnet``), the ModifiedResNet one of
+:mod:`madtp_tpu_torch.models.clip_resnet`, which runs unpruned.
 
 Parameter names follow the reference ``clip/model.py`` state dict
 (``visual.conv1``, ``visual.transformer.resblocks.{i}.attn.in_proj_weight``,
@@ -37,6 +39,7 @@ from torch import nn
 
 from madtp_tpu_torch.core.config import CLIPConfig
 from madtp_tpu_torch.core.device import resolve_device
+from madtp_tpu_torch.models.clip_resnet import BatchNorm, ModifiedResNet
 from madtp_tpu_torch.ops.attention import AttnAux, attention_core, multi_head_attention
 from madtp_tpu_torch.ops.layers import layer_norm, linear, mlp, normalize_images, patch_embed
 from madtp_tpu_torch.prune.dtp import (DTPSignals, TokenState, dtp_prune, dtp_prune_gather,
@@ -143,7 +146,8 @@ class CLIPModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         TW = cfg.transformer_width
-        self.visual = _Visual(cfg)
+        self.visual = (ModifiedResNet(cfg.resnet_layers, cfg.embed_dim, cfg.vision_width,
+                                      cfg.image_resolution) if cfg.is_resnet else _Visual(cfg))
         self.token_embedding = nn.Embedding(cfg.vocab_size, TW)
         self.positional_embedding = nn.Parameter(torch.zeros(cfg.context_length, TW))
         self.transformer = _Transformer(TW, cfg.transformer_layers, cfg.transformer_heads,
@@ -160,11 +164,16 @@ class CLIPModel(nn.Module):
         """Vision tower (``clip_encode_image``).  ``images`` [B, 3, H, W]
         floats, or the uint8 feed [B, H, W, 3] normalized here.
         ``prune_active`` must be True exactly when the temperature is > 0;
-        ``capacities`` (one per layer) switches to gather mode."""
+        ``capacities`` (one per layer) switches to gather mode.  The RN
+        tower ignores both (it is not pruned) and gives no MAG features and
+        no kept counts."""
         v = self.visual
-        dtype = v.positional_embedding.dtype
+        dtype = self.positional_embedding.dtype
         if images.dtype == torch.uint8:
             images = normalize_images(images, dtype)
+        if self.cfg.is_resnet:
+            return TowerOut(v(images.to(dtype)), None,
+                            torch.zeros((0,), dtype=torch.long, device=images.device))
         x = patch_embed(images.to(dtype), v.conv1.weight, None)
         cls = v.class_embedding.expand(x.shape[0], 1, x.shape[-1])
         x = torch.cat([cls, x], dim=1) + v.positional_embedding
@@ -257,15 +266,19 @@ def init_clip_model(cfg: CLIPConfig, seed: int = 0, device="cuda", dtype=torch.f
     LayerNorms 1; ``conv1`` and the token embedding N(0, 0.02^2), the text
     position embedding N(0, 0.01^2); the class and vision position embeddings
     and both projections N(0, 1/width); ``logit_scale`` log(1/0.07); the
-    codebook N(0, 1)."""
+    codebook N(0, 1).  An RN tower as ``init_modified_resnet_params`` draws
+    it: convolutions N(0, 1/fan_in), BatchNorm weights 1 and biases 0 over
+    running means N(0, 0.1^2) and variances |N(1, 0.1^2)|, the pool's
+    position embedding N(0, 1/width)."""
     dev = resolve_device(device)
     model = CLIPModel(cfg, sd_num)
     g = torch.Generator().manual_seed(seed)
-    norms = {id(m.weight) for m in model.modules() if isinstance(m, nn.LayerNorm)}
+    norms = {id(m.weight) for m in model.modules() if isinstance(m, (nn.LayerNorm, BatchNorm))}
     scales = {"visual.conv1.weight": 0.02, "token_embedding.weight": 0.02,
               "positional_embedding": 0.01, "space_dict": 1.0,
               "visual.class_embedding": cfg.vision_width ** -0.5,
               "visual.positional_embedding": cfg.vision_width ** -0.5,
+              "visual.attnpool.positional_embedding": (cfg.vision_width * 32) ** -0.5,
               "visual.proj": cfg.vision_width ** -0.5,
               "text_projection": cfg.transformer_width ** -0.5}
     with torch.no_grad():
@@ -276,9 +289,16 @@ def init_clip_model(cfg: CLIPConfig, seed: int = 0, device="cuda", dtype=torch.f
                 p.zero_()
             elif name == "logit_scale":
                 p.fill_(math.log(1.0 / 0.07))
+            elif p.dim() == 4 and cfg.is_resnet:
+                p.copy_(torch.randn(p.shape, generator=g) * p[0].numel() ** -0.5)
             else:
                 scale = scales.get(name, p.shape[-1] ** -0.5 if p.dim() == 2 else None)
                 if scale is None:
                     raise AssertionError(f"no init rule for {name}")
                 p.copy_(torch.randn(p.shape, generator=g) * scale)
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g) * 0.1)
+                m.running_var.copy_((torch.randn(m.running_var.shape, generator=g) * 0.1
+                                     + 1.0).abs())
     return model.to(device=dev, dtype=dtype).eval()

@@ -1,5 +1,5 @@
 """Closed-form compute model, one multiply-add = one FLOP as fvcore counts
-(copy of ``madtp_tpu/prune/flops.py:23-164``, the ViT branch of CLIP).  Per-layer kept counts fix the
+(copy of ``madtp_tpu/prune/flops.py:23-164``).  Per-layer kept counts fix the
 compute of a transformer stack, so the GFLOPs the temperature controller reads
 need no tracing."""
 
@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import Sequence
 
 from madtp_tpu_torch.core.config import CLIPConfig, MedConfig, ViTConfig
+from madtp_tpu_torch.models.clip_resnet import resnet_gflops
 
 # the reference's dense CLIP ViT-L/14@336 GFLOPs, the base of its compression
 # target (madtp_tpu/cli/compress_retrieval_clip.py:26)
@@ -121,17 +122,24 @@ def vqa_gflops(vit_cfg: ViTConfig, med_cfg: MedConfig, v_kept: Sequence[int],
 def clip_gflops(cfg: CLIPConfig, v_kept: Sequence[int], t_kept: Sequence[int]) -> float:
     """Both CLIP towers per sample, twice: the reference's controller traces
     ``CLIP.forward``, which also runs the momentum towers
-    (``clip/model.py:549-550``); 395.7 for ViT-L/14@336 in the reference."""
-    Dv, Iv = cfg.vision_width, cfg.vision_width * 4
+    (``clip/model.py:549-550``); 395.7 for ViT-L/14@336 in the reference.  An
+    RN tower counts its unpruned convolutions and attention pool
+    (:func:`~madtp_tpu_torch.models.clip_resnet.resnet_gflops`,
+    ``madtp_tpu/prune/flops.py:141-144``) and takes no ``v_kept``."""
     Dt, It = cfg.transformer_width, cfg.transformer_width * 4
-    total = cfg.vision_num_patches * (3 * cfg.vision_patch_size ** 2) * Dv
-    n_prev = cfg.vision_num_patches + 1
-    for k in v_kept:
-        n_out = float(k) + 1
-        total += _layer_macs(n_prev, n_out, Dv, Iv)
-        total += n_out * 100 * Dv * 2
-        n_prev = n_out
-    total += n_prev * Dv * cfg.embed_dim
+    if cfg.is_resnet:
+        total = resnet_gflops(cfg.resnet_layers, cfg.vision_width, cfg.image_resolution,
+                              cfg.embed_dim) * 1e9
+    else:
+        Dv, Iv = cfg.vision_width, cfg.vision_width * 4
+        total = cfg.vision_num_patches * (3 * cfg.vision_patch_size ** 2) * Dv
+        n_prev = cfg.vision_num_patches + 1
+        for k in v_kept:
+            n_out = float(k) + 1
+            total += _layer_macs(n_prev, n_out, Dv, Iv)
+            total += n_out * 100 * Dv * 2
+            n_prev = n_out
+        total += n_prev * Dv * cfg.embed_dim
     n_prev = float(cfg.context_length)
     for k in t_kept:
         n_out = float(k) + 1

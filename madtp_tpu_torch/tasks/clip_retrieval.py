@@ -147,7 +147,8 @@ def evaluate(model: CLIPModel, image_batches: Iterable[np.ndarray], text: np.nda
 
 def train_epoch(model: CLIPModel, train_step, loader_fn: Callable[[], Iterable], tokenizer,
                 temperature: float, *, epoch: int, epoch_len: int, alpha: float = 0.4,
-                print_fn=print, print_freq: int = 50, lr: float = 0.0, stop=None) -> dict:
+                print_fn=print, print_freq: int = 50, lr: float = 0.0, stop=None,
+                done0: int = 0) -> dict:
     """One compression-training epoch (single process,
     ``compress_retrieval_clip.py:463-492``) of ``train_step``
     (:func:`~madtp_tpu_torch.train.loops.make_clip_train_step`'s step, over
@@ -155,17 +156,18 @@ def train_epoch(model: CLIPModel, train_step, loader_fn: Callable[[], Iterable],
     image_ids)`` batches, the captions through :func:`~madtp_tpu_torch.data.
     tokenizer_clip.clip_tokenize` at the model's context length.  Epoch 0
     ramps the soft-target weight, ``alpha * min(1, done / epoch_len)`` at
-    its ``done``-th batch.  Returns the stats of :func:`~madtp_tpu_torch.
-    train.epoch.run_epoch`: the means of ``temperature``, ``lr``, ``alpha``,
-    ``loss``, ``loss_ita``, ``loss_fdt`` and ``loss_fdt_m``, and
-    ``batches_done``."""
+    its ``done``-th batch of the epoch's schedule (a resumed epoch counts
+    from ``done0``, the batches it skips).  Returns the stats of
+    :func:`~madtp_tpu_torch.train.epoch.run_epoch`: the means of
+    ``temperature``, ``lr``, ``alpha``, ``loss``, ``loss_ita``,
+    ``loss_fdt`` and ``loss_fdt_m``, and ``batches_done``."""
     dev = _device(model)
     context = model.cfg.context_length
 
     def run_step(done, batch):
         images, captions, img_idx = batch
         text = clip_tokenize(tokenizer, list(captions), context)
-        a = alpha if epoch > 0 else alpha * min(1.0, done / max(1, epoch_len))
+        a = alpha if epoch > 0 else alpha * min(1.0, (done0 + done) / max(1, epoch_len))
         metrics = train_step(torch.from_numpy(np.asarray(images)).to(dev),
                              torch.from_numpy(text.astype(np.int64)).to(dev),
                              torch.as_tensor(np.asarray(img_idx), dtype=torch.long).to(dev),
@@ -194,8 +196,8 @@ def train_capacities(model: CLIPModel, batches: Iterable, temperature: float,
 
 def eval_epoch(model: CLIPModel, image_batches: Iterable[np.ndarray], text: np.ndarray,
                txt2img: Sequence[int], img2txt: Sequence[Sequence[int]], temperature: float, *,
-               best: float, target_gflops: float, graph: bool = True
-               ) -> Tuple[Dict[str, float], float, bool]:
+               best: float, target_gflops: float, batch_size: int = BATCH_SIZE_TEST,
+               graph: bool = True) -> Tuple[Dict[str, float], float, bool]:
     """A training epoch's eval (``compress_retrieval_clip.py:499-531``):
     :func:`evaluate` at the epoch's temperature, so it prunes when that
     temperature is > 0 whatever the checkpoint the run started from, in
@@ -204,5 +206,5 @@ def eval_epoch(model: CLIPModel, image_batches: Iterable[np.ndarray], text: np.n
     gate, ``r_mean > best`` and at most :data:`BEST_SLACK` GFLOPs above
     the target."""
     stats, cur_g = evaluate(model, image_batches, text, txt2img, img2txt, temperature,
-                            graph=graph)
+                            batch_size=batch_size, graph=graph)
     return stats, cur_g, stats["r_mean"] > best and cur_g - target_gflops < BEST_SLACK

@@ -19,7 +19,9 @@ single process.
   ``itm_eval``'s recalls.
 * :func:`train_epoch` runs one compression-training epoch
   (``madtp_tpu/cli/compress_retrieval.py:405-450``) of a step from
-  :func:`madtp_tpu_torch.train.loops.make_retrieval_train_step`.
+  :func:`madtp_tpu_torch.train.loops.make_retrieval_train_step`;
+  :func:`train_capacities` is its ``--fast_train`` calibration and
+  :func:`epoch_gflops` the GFLOPs each training epoch logs.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from madtp_tpu_torch.eval.metrics import itm_eval
 from madtp_tpu_torch.models.blip import RetrievalModel
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
+from madtp_tpu_torch.prune.flops import retrieval_gflops
 from madtp_tpu_torch.train.epoch import run_epoch
 from madtp_tpu_torch.utils.cache import BoundedCache
 from madtp_tpu_torch.utils.graph import CapturedStep
@@ -219,14 +222,16 @@ def evaluate(model: RetrievalModel, image_batches: Iterable[np.ndarray],
 def train_epoch(model: RetrievalModel, train_step, loader_fn: Callable[[], Iterable], tokenizer,
                 temperature: float, *, epoch: int, epoch_len: int, alpha: float = 0.4,
                 generator: Optional[torch.Generator] = None, max_length: int = MAX_LENGTH,
-                print_fn=print, print_freq: int = 50, lr: float = 0.0, stop=None) -> dict:
+                print_fn=print, print_freq: int = 50, lr: float = 0.0, stop=None,
+                done0: int = 0) -> dict:
     """One compression-training epoch (single process) of ``train_step``
     (:func:`~madtp_tpu_torch.train.loops.make_retrieval_train_step`'s step,
     over ``model``'s train state) on ``loader_fn()``'s ``(images, captions,
     image_ids)`` batches, the captions padded to ``max_length``.  Epoch 0
     ramps the soft-target weight, ``alpha * min(1, done / epoch_len)`` at its
-    ``done``-th batch; ``generator`` (one per run, on the model's device)
-    draws every step's hard negatives.  Returns the stats of
+    ``done``-th batch of the epoch's schedule (a resumed epoch counts from
+    ``done0``, the batches it skips); ``generator`` (one per run, on the
+    model's device) draws every step's hard negatives.  Returns the stats of
     :func:`~madtp_tpu_torch.train.epoch.run_epoch`: the means of
     ``temperature``, ``lr``, ``alpha``, ``loss``, ``loss_ita``,
     ``loss_itm``, ``loss_fdt`` and ``loss_fdt_m``, and ``batches_done``."""
@@ -235,7 +240,7 @@ def train_epoch(model: RetrievalModel, train_step, loader_fn: Callable[[], Itera
     def run_step(done, batch):
         images, captions, img_idx = batch
         tok = tokenizer(list(captions), padding="max_length", max_length=max_length)
-        a = alpha if epoch > 0 else alpha * min(1.0, done / max(1, epoch_len))
+        a = alpha if epoch > 0 else alpha * min(1.0, (done0 + done) / max(1, epoch_len))
         metrics = train_step(torch.from_numpy(np.asarray(images)).to(dev),
                              _ids(tok["input_ids"], dev), _ids(tok["attention_mask"], dev),
                              _ids(img_idx, dev), temperature, a, generator=generator)
@@ -243,3 +248,53 @@ def train_epoch(model: RetrievalModel, train_step, loader_fn: Callable[[], Itera
 
     return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
                      print_freq=print_freq, stop=stop)
+
+
+@torch.inference_mode()
+def train_capacities(model: RetrievalModel, batches: Iterable, tokenizer, enc_token_id: int,
+                     temperature: float, cap_mode: str = "ceil", *,
+                     max_length: int = MAX_LENGTH):
+    """``--fast_train``'s per-epoch calibration (``fast_train_step``,
+    ``madtp_tpu/cli/compress_retrieval.py:312-381``): on each cached probe
+    batch ``(images, captions, image_ids)``, the three mask-mode passes the
+    gather step runs at this epoch's temperature: the ViT, the text tower,
+    and the multimodal ITM encoder on the captions with the encoder token in
+    slot 0 over the ViT's tokens (its keep counts under the image differ
+    from text mode's).  The text schedule takes each layer's larger count of
+    the two text passes, with ``margin_t=8``: the ITM batches 3B rows, whose
+    batch-max keep can exceed the B-row probe's.  Returns
+    ``(capacities_v, capacities_t)``."""
+    dev = model.space_dict.device
+    vks, tks = [], []
+    for images, captions, _ in batches:
+        tok = tokenizer(list(captions), padding="max_length", max_length=max_length)
+        ids, mask = _ids(tok["input_ids"], dev), _ids(tok["attention_mask"], dev)
+        _, vout = model.image_features(torch.from_numpy(np.asarray(images)).to(dev),
+                                       temperature=temperature, prune_active=True)
+        _, tout = model.text_features(ids, mask, temperature=temperature, prune_active=True)
+        enc_ids = ids.clone()
+        enc_ids[:, 0] = enc_token_id
+        vs = vout.state
+        mm = model.text_encoder(enc_ids, mask, encoder_state=TokenState(vs.x, vs.alive, None),
+                                space_dict=model.space_dict, temperature=temperature,
+                                prune_active=True)
+        vks.append(vout.kept_counts.cpu().numpy())
+        tks.append(torch.maximum(tout.kept_counts, mm.kept_counts).cpu().numpy())
+    return fast_capacity_schedule(np.stack(vks), np.stack(tks), cap_mode, margin_t=8)
+
+
+@torch.inference_mode()
+def epoch_gflops(model: RetrievalModel, images: np.ndarray, temperature: float,
+                 text_len: int) -> float:
+    """The GFLOPs a training epoch logs and the controller reads
+    (``madtp_tpu/cli/compress_retrieval.py:473-483``): the mask-mode image
+    tower on ``images`` (the first eval batch) at ``temperature``, its
+    first image's alive slots but the CLS at every ViT layer, and the
+    eval texts' padded length ``text_len`` unpruned in the text tower, through
+    :func:`~madtp_tpu_torch.prune.flops.retrieval_gflops`."""
+    cfg = model.cfg
+    _, out = model.image_features(torch.from_numpy(np.asarray(images)).to(
+        model.space_dict.device), temperature=temperature, prune_active=True)
+    v_alive = int(out.state.alive[0].sum()) - 1
+    return retrieval_gflops(cfg.vit, cfg.med, [v_alive] * cfg.vit.depth,
+                            [text_len - 1] * cfg.med.num_hidden_layers, text_len)

@@ -135,3 +135,37 @@ def test_train_step_refuses_without_gpu(no_gpu):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_nlvr_train_step(model, opt)
     assert callable(make_nlvr_train_step(model, opt, device="cpu"))
+
+
+def _code_strings(path):
+    """The string constants of a module's code: every string literal but the
+    docstrings."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """No port module builds a path into ``madtp_tpu/``: no string of its
+    code names the JAX package's directory.  The CLIP merge table the port
+    reads is its own copy, byte for byte the JAX package's."""
+    import hashlib
+
+    for path in PORT.rglob("*.py"):
+        for s in _code_strings(path):
+            assert not re.search(r"(^|[/\\])madtp_tpu([/\\]|$)", s), (path, s)
+    from madtp_tpu_torch.data.tokenizer_clip import DEFAULT_BPE
+
+    ours = pathlib.Path(DEFAULT_BPE)
+    assert ours.resolve().is_relative_to(PORT.resolve())
+    theirs = REPO / "madtp_tpu" / "data" / "assets" / ours.name
+    assert hashlib.sha256(ours.read_bytes()).hexdigest() == \
+        hashlib.sha256(theirs.read_bytes()).hexdigest()

@@ -305,8 +305,8 @@ def test_loaders_give_identical_tensors(setup):
 @pytest.mark.parametrize("which", ["tiny", "L14"])
 def test_infer_clip_config_matches_jax(setup, which):
     """The ViT branch of infer_clip_config against the JAX package's CLI, on the
-    tiny model's state dict and on ViT-L/14@336's shapes; a ModifiedResNet
-    checkpoint raises."""
+    tiny model's state dict and on ViT-L/14@336's shapes; a ``resnet_layers``
+    config builds (the RN branch: ``tests/test_torch_driver_clip.py``)."""
     if which == "tiny":
         sd = export_clip(setup["params"])
     else:
@@ -328,10 +328,8 @@ def test_infer_clip_config_matches_jax(setup, which):
     assert got.vision_num_patches == want.vision_num_patches
     if which == "L14":
         assert got == CLIPConfig(**L14)
-    with pytest.raises(NotImplementedError, match="ModifiedResNet"):
-        infer_clip_config({k: v for k, v in sd.items() if k != "visual.proj"})
-    with pytest.raises(NotImplementedError):
-        CLIPConfig(resnet_layers=(3, 4, 6, 3))
+    # the ModifiedResNet tower is ported: a resnet_layers config builds
+    assert CLIPConfig(resnet_layers=(3, 4, 6, 3)).is_resnet and not got.is_resnet
 
 
 def test_clip_gflops_matches_jax():

@@ -903,3 +903,57 @@ def test_k5_at_clip_train_shape(cuda):
         out = _k5_compare(*args, "quick_gelu")
         assert torch.equal(out, k5.ffn_cuda(*args, "quick_gelu"))
         assert k5.ffn_cuda.fp32_launches == before32 + (2 if dtype == torch.float32 else 0)
+
+
+def test_resnet_tower_on_the_card_matches_the_cpu(cuda):
+    """The ModifiedResNet CLIP tower (plain PyTorch convolutions, BatchNorm on
+    running statistics, the attention pool) on the card against the CPU on
+    the same seeded RN weights, fp32 (cuDNN without TF32): features within
+    1e-4 of their largest value, no kept counts."""
+    from madtp_tpu_torch.core.config import CLIPConfig
+    from madtp_tpu_torch.models.clip import init_clip_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = CLIPConfig(embed_dim=64, image_resolution=96, vision_layers=4, vision_width=32,
+                     context_length=16, vocab_size=64, transformer_width=64,
+                     transformer_heads=1, transformer_layers=1, sd_dim=64,
+                     resnet_layers=(1, 1, 1, 1))
+    cpu = init_clip_model(cfg, seed=3, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    images = torch.randn(4, 3, 96, 96, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = cpu.encode_image(images).features
+        out = card.encode_image(images.to(cuda))
+    assert out.kept_counts.numel() == 0 and out.sd_ft is None
+    torch.testing.assert_close(out.features.cpu(), want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_device_prefetch_to_the_card(cuda):
+    """``device_prefetch`` on the card: the batches in order, each array a
+    tensor on the card equal to its source, staged in pinned memory, other
+    columns passed through; usable on the consumer's stream at once."""
+    import numpy as np
+
+    from madtp_tpu_torch.data import loader
+
+    staged = []
+    real = loader._stage
+
+    def stage(x):
+        t = real(x)
+        staged.append(t)
+        return t
+
+    loader._stage = stage
+    try:
+        batches = [(np.full((64, 3, 32, 32), i, np.float32), [f"s{i}"], np.arange(i, i + 4))
+                   for i in range(6)]
+        out = list(loader.device_prefetch(iter(batches), size=2, device=cuda))
+    finally:
+        loader._stage = real
+    assert len(out) == 6 and len(staged) == 12 and all(t.is_pinned() for t in staged)
+    for i, (a, s, ids) in enumerate(out):
+        assert a.device.type == "cuda" and ids.device.type == "cuda" and s == [f"s{i}"]
+        assert float((a * 2).sum()) == 2 * i * a.numel()
+        assert ids.cpu().tolist() == list(range(i, i + 4))

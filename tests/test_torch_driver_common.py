@@ -1,9 +1,9 @@
-"""What the port's NLVR, caption and VQA driver tests share
-(``tests/test_torch_driver_{nlvr,caption,vqa}.py``): ``tools/make_fixture.py``'s
-fixture with a ``vit: tiny`` 96-px yaml, one ``--pretrained`` ``.pth`` per
-family written by the JAX package's ``ckpt/export.py`` from seeded
-parameters, the two drivers' runs, and the comparisons of their logs and
-checkpoints.  The tests here: each driver refuses ``--num_processes 2`` and,
+"""What the port's driver tests share
+(``tests/test_torch_driver_{nlvr,caption,vqa,retrieval,clip}.py``):
+``tools/make_fixture.py``'s fixture with a ``vit: tiny`` 96-px yaml, one
+``--pretrained`` ``.pth`` per BLIP family written by the JAX package's
+``ckpt/export.py`` from seeded parameters, the two drivers' runs, and the
+comparisons of their logs and checkpoints.  The tests here: each driver refuses ``--num_processes 2`` and,
 without a card, runs only when given ``--device cpu``; the preemption guard
 and the metric logger against the JAX package's."""
 
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FAMILIES = ("nlvr", "caption", "vqa")
+FAMILIES = ("nlvr", "caption", "vqa", "retrieval", "retrieval_clip")
 # checkpoint tensors, relative to their scale: a ViT LayerNorm bias that starts at zero
 # ends 4 Adam steps 1.02e-4 of its largest value apart (caption), its gradient agreeing
 # between the packages to about 1e-4 (sums of terms of both signs)
@@ -55,12 +55,14 @@ def make_setup(root, family):
               "sd_dim": 64, "sd_num": 10, "image_size": 96, "k_test": 4,
               "train_files": ["vqa_train", "vqa_val", "vg_qa"],
               "weight_decay": 0.05, "init_lr": 3e-4, "min_lr": 0.0}
+    if family == "retrieval":
+        config["dataset"] = "coco"
     yaml_path = os.path.join(str(root), f"{family}.yaml")
     with open(yaml_path, "w") as f:
         yaml.safe_dump(config, f)
     cfg = build_blip_cfg(config, 96, twin_cross=family == "nlvr")
     kw = dict(nlvr=dict(), caption=dict(heads=(), with_encoder=False, with_decoder=True),
-              vqa=dict(heads=(), with_decoder=True))[family]
+              vqa=dict(heads=(), with_decoder=True), retrieval=dict(heads=("retrieval",)))[family]
     params = jax.tree.map(np.asarray, init_blip_params(cfg, 0, **kw))
     sd = export_vit(params["visual_encoder"], patch_size=16)
     if "text_encoder" in params:
@@ -69,6 +71,10 @@ def make_setup(root, family):
     if "text_decoder" in params:
         sd.update(export_med(params["text_decoder"], "text_decoder.", has_lm_head=True))
     sd["space_dict"] = params["space_dict"]
+    for name in ("vision_proj", "text_proj", "itm_head"):
+        if name in params:
+            sd[f"{name}.weight"] = params[name]["kernel"].T
+            sd[f"{name}.bias"] = params[name]["bias"]
     if family == "nlvr":
         for i, fc in ((0, "fc1"), (2, "fc2")):
             sd[f"cls_head.{i}.weight"] = params["cls_head"][fc]["kernel"].T
@@ -141,7 +147,7 @@ def _key_bias(name, width):
     shift-invariant, so their gradient is zero but for rounding, which Adam
     scales up to steps of about the learning rate in signs of its own in
     either package."""
-    if name.endswith("attn.qkv.bias"):
+    if name.endswith(("attn.qkv.bias", "attn.in_proj_bias")):  # BLIP's ViT, CLIP's towers
         return slice(width // 3, 2 * width // 3)
     if name.endswith("self.key.bias"):
         return slice(None)
@@ -164,7 +170,7 @@ def assert_checkpoints_match(want_path, got_path, start_path, reach):
     assert {k for k in set(w) - set(g) if "position_ids" not in k and "pooler" not in k} == set()
     for name, t in g.items():
         a, b = w[name].float().numpy().copy(), t.float().numpy().copy()
-        kb = _key_bias(name, b.shape[-1])
+        kb = _key_bias(name, b.shape[-1]) if b.ndim else None  # 0-d: CLIP's logit_scale
         if kb is not None:
             s = start[name].float().numpy()
             for x in (a, b):
