@@ -195,7 +195,21 @@ Phases, each fatal on failure:
    the BLIP driver and K1, K2 and K5 on the CLIP driver, K4 held on the
    BLIP driver's ITM inputs and K1 (H = 16) on the CLIP driver's; then
    ``mp_batched_loader`` against the threaded loader in this process and
-   ``device_prefetch`` to the card (``phase_retrieval_drivers``).
+   ``device_prefetch`` to the card (``phase_retrieval_drivers``);
+28. serving (``phase_serving``): phase 5's model, temperature and capacities
+   exported through ``cli/export_serving.py``'s functions as two gather-mode
+   NLVR artifacts (32 pairs, text 26), batch-coupled and row-independent,
+   and the retrieval (3 units), CLIP (2), VQA-480 rank (3,128 answers,
+   ``k_test`` 128) and caption (3 beams) models in mask mode at their main
+   paths' temperatures, served by one ``ArtifactServer`` whose warm-up
+   captures every unit; over HTTP a full NLVR batch on each artifact (equal
+   to the direct step bit for bit), 8 client threads of 1-4-pair requests
+   on the row-independent one (each reply equal to its rows served alone;
+   ``merged`` > 0 there and 0 on the coupled one), one request to each
+   other unit (equal to its direct step); no capture after the warm-up;
+   latency p50/p99 by request size, requests/s and pairs/s, the host codec's
+   time per full request; the requests are the ``serve`` path of the
+   kernels line.
 
 The card-against-CPU searches try first the factor of ``PARITY_FACTORS``
 where each settled in earlier runs of these seeds (``parity_factors``),
@@ -1683,8 +1697,8 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
     K4 and K5 held on its own inputs, exact launch counts) and as CUDA
     graphs (the main path: equal results and launch counts, a capture per
     length); the step as a graph against the eager step.  Returns the graph
-    eval's K1, K4 and K5 launch counts and the K1 record of the gather
-    eval."""
+    eval's K1, K4 and K5 launch counts, the K1 record of the gather eval,
+    and ``(model, T*, capacities)`` for the serving phase."""
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.kernels.ffn import ffn_cuda
@@ -1837,7 +1851,7 @@ def phase_main_path(device, cfg, pairs=32, text_len=26, p_target=0.5, bisect_ste
     profile_step("gather step (eager)", lambda: eager_gather(images, ids, mask, t_star),
                  rec["eager_ms"])
     profile_step("dense step (eager)", lambda: eager_dense(images, ids, mask, 0.0), dense_ms)
-    return launches, k4, k5, record1
+    return launches, k4, k5, record1, (model, t_star, (caps_v, caps_t))
 
 
 GRAD_PARAMS = ("visual_encoder.patch_embed.proj.weight", "visual_encoder.blocks.0.attn.qkv.weight",
@@ -5171,6 +5185,310 @@ def phase_retrieval_drivers(device, fixture_sizes=((480, 640), (375, 500)), over
     return launches, records
 
 
+SERVE_TOL = 2e-2  # logits of a merged request against the same rows served alone (bf16)
+
+
+def _serve_args(task, out, t, *flags):
+    from madtp_tpu_torch.cli import export_serving
+
+    return export_serving.build_parser().parse_args(
+        ["--task", task, "--output_dir", str(out), "--temperature", repr(float(t)), *flags])
+
+
+def _pctl(values, q):
+    return float(np.percentile(np.asarray(values), q)) if values else float("nan")
+
+
+def phase_serving(device, nlvr_model, t_star, caps, tasks, tokenizer, pairs=32, text_len=26,
+                  threads=8, rounds=6, root=None):
+    """Serving (``madtp_tpu_torch/serve``, ``cli/export_serving``): the NLVR
+    eval main path's model, temperature and capacities exported through the
+    CLI's functions as two gather-mode artifacts, batch-coupled and
+    ``--row_independent``, and the other four tasks in mask mode at their
+    main paths' temperatures (``tasks``: ``{task: (config, temperature)}``),
+    all served by one ``ArtifactServer`` on ``127.0.0.1:0``, whose warm-up
+    captures every unit's graph.  Over HTTP: a full NLVR batch on each
+    artifact, ``threads`` clients sending ``rounds`` sub-batches of 1-4
+    pairs each to the row-independent one (each also sent alone first), a
+    burst on the coupled one, one request to each unit of the other tasks.
+    The launch counts are zeroed just before the requests and read just
+    after them (the ``serve`` path).  Then: the full batches equal a direct
+    ``make_eval_step`` call bit for bit (the coupled one the main path's
+    own step), every reply under load its rows served alone (logits within
+    ``SERVE_TOL``, argmax and kept counts equal), ``merged`` > 0 on the
+    row-independent artifact and 0 on the coupled one, no capture after
+    the warm-up, and each other task's replies equal its direct step.
+    Returns the ``serve`` launches of K1, K4 and K5."""
+    import shutil
+    import threading
+
+    from madtp_tpu_torch.cli import export_serving as ES
+    from madtp_tpu_torch.kernels.build import BUILD_DIR
+    from madtp_tpu_torch.models import blip
+    from madtp_tpu_torch.models.clip import init_clip_model
+    from madtp_tpu_torch.serve.server import (ArtifactServer, ServingClient, decode_tensors,
+                                              encode_arrays)
+    from madtp_tpu_torch.tasks.caption import make_caption_step, prompt_ids
+    from madtp_tpu_torch.tasks.clip_retrieval import tower_steps
+    from madtp_tpu_torch.tasks.nlvr import make_eval_step
+    from madtp_tpu_torch.tasks.retrieval import corpus_steps, itm_step
+    from madtp_tpu_torch.tasks.vqa import make_rank_step
+    from madtp_tpu_torch.utils.graph import CapturedStep
+
+    log(f"[serve] {card_line()}")
+    root = BUILD_DIR / "serving" if root is None else root
+    shutil.rmtree(root, ignore_errors=True)
+    caps_v, caps_t = caps
+    dirs = {}
+    t0 = time.perf_counter()
+    for name, flags in (("nlvr", ()), ("nlvr_ri", ("--row_independent",))):
+        args = _serve_args("nlvr", root / name, t_star, "--batch", str(pairs), "--text_len",
+                           str(text_len), *flags)
+        ES.export_nlvr(args, {}, device, model=nlvr_model, capacities=(caps_v, caps_t))
+        dirs[name] = root / name
+    dt = torch.bfloat16
+    models, shapes = {}, {}
+    (rcfg, t_ret), (ccfg, t_clip) = tasks["retrieval"], tasks["clip"]
+    (vcfg, t_vqa), (pcfg, t_cap) = tasks["vqa"], tasks["caption"]
+    models["retrieval"] = blip.init_retrieval_model(rcfg, seed=0, device=device, dtype=dt)
+    ES.export_retrieval(_serve_args("retrieval", root / "retrieval", t_ret, "--batch", "16",
+                                    "--text_len", "35", "--rerank_batch", "16"),
+                        {}, device, model=models["retrieval"])
+    models["clip"] = init_clip_model(ccfg, seed=0, device=device, dtype=dt)
+    ES.export_clip(_serve_args("clip", root / "clip", t_clip, "--batch", "16"), {}, device,
+                   model=models["clip"])
+    models["vqa"] = blip.init_vqa_model(vcfg, seed=0, device=device, dtype=dt)
+    ES.export_vqa(_serve_args("vqa", root / "vqa", t_vqa, "--batch", "8", "--text_len", "20",
+                              "--num_answers", "3128", "--answer_len", "8", "--k_test", "128",
+                              "--pad_id", str(tokenizer.pad_token_id)),
+                  {}, device, model=models["vqa"])
+    prompt = prompt_ids(tokenizer, 8)
+    models["caption"] = blip.init_caption_model(pcfg, seed=0, device=device, dtype=dt)
+    cap_kw = dict(num_beams=3, max_length=20, min_length=5,
+                  eos_token_id=tokenizer.sep_token_id, pad_token_id=tokenizer.pad_token_id)
+    ES.export_caption(_serve_args(
+        "caption", root / "caption", t_cap, "--batch", "8", "--prompt_len",
+        str(prompt.shape[1]), "--num_beams", "3", "--max_length", "20", "--min_length", "5",
+        "--eos_id", str(cap_kw["eos_token_id"]), "--pad_id", str(cap_kw["pad_token_id"])),
+        {}, device, model=models["caption"])
+    for unit in ("image_encoder", "text_encoder", "itm_rerank"):
+        dirs[f"retrieval_{unit}"] = root / "retrieval" / unit
+    for unit in ("image_encoder", "text_encoder"):
+        dirs[f"clip_{unit}"] = root / "clip" / unit
+    dirs["vqa"], dirs["caption"] = root / "vqa", root / "caption"
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    captures = CapturedStep.captures
+    srv = ArtifactServer({k: str(v) for k, v in dirs.items()}, device=device)
+    srv.start_background()
+    warm_s, warm_captures = time.perf_counter() - t0, CapturedStep.captures - captures
+    log(f"[serve] exported {len(dirs)} units in {export_s:.1f} s; the server loaded and warmed "
+        f"them up in {warm_s:.1f} s ({warm_captures} captures)")
+    client = ServingClient(srv.url, timeout=600)
+    try:
+        if not client.healthy():
+            raise AssertionError("the server is not healthy after its warm-up")
+        captures = CapturedStep.captures
+        rng = np.random.default_rng(21)
+        s = nlvr_model.cfg.vit.image_size
+        images = rng.standard_normal((2 * pairs, 3, s, s), dtype=np.float32)
+        ids = rng.integers(1, nlvr_model.cfg.med.vocab_size, (pairs, text_len)).astype(np.int32)
+        ids[:, 0] = ENC_ID
+        mask = np.ones((pairs, text_len), np.int32)
+        mask[-1, text_len - 6:] = 0
+        t32 = np.float32(t_star)
+
+        zero_launch_counts()  # the serve path: every request below, and nothing else
+        serve_t0 = time.perf_counter()
+        full = {name: client.predict(images, ids, mask, t32, name=name)
+                for name in ("nlvr", "nlvr_ri")}
+        # sub-batches of 1-4 pairs drawn from the batch, each sent alone first
+        reqs = []
+        for k in range(threads * rounds):
+            n = 1 + k % 4
+            rows = rng.choice(pairs, n, replace=False)
+            reqs.append((np.concatenate([images[rows], images[pairs + rows]]), ids[rows],
+                         mask[rows], t32))
+        alone = [client.predict(*r, name="nlvr_ri") for r in reqs]
+        merged0, calls0 = srv.runtimes["nlvr_ri"].stats["merged"], \
+            srv.runtimes["nlvr_ri"].stats["calls"]
+        replies, latency = [None] * len(reqs), collections.defaultdict(list)
+
+        def worker(w):
+            for k in range(w, len(reqs), threads):
+                t1 = time.perf_counter()
+                replies[k] = client.predict(*reqs[k], name="nlvr_ri")
+                latency[len(reqs[k][1])].append((time.perf_counter() - t1) * 1e3)
+
+        pool = [threading.Thread(target=worker, args=(w,)) for w in range(threads)]
+        t1 = time.perf_counter()
+        for th in pool:
+            th.start()
+        for th in pool:
+            th.join()
+        load_s = time.perf_counter() - t1
+        coupled_out = [None] * threads
+
+        def coupled_one(k):
+            coupled_out[k] = client.predict(*reqs[k], name="nlvr")
+
+        burst = [threading.Thread(target=coupled_one, args=(k,)) for k in range(threads)]
+        for th in burst:
+            th.start()
+        for th in burst:
+            th.join()
+        # one request to each unit of the other four tasks
+        other = {}
+        rs = rcfg.vit.image_size
+        r_in = {"img": rng.standard_normal((16, 3, rs, rs), dtype=np.float32),
+                "ids": rng.integers(1, rcfg.med.vocab_size, (16, 35)).astype(np.int32),
+                "mask": np.ones((16, 35), np.int32)}
+        tr = np.float32(t_ret)
+        other["retrieval_image_encoder"] = client.predict(r_in["img"], tr,
+                                                          name="retrieval_image_encoder")
+        other["retrieval_text_encoder"] = client.predict(r_in["ids"], r_in["mask"], tr,
+                                                         name="retrieval_text_encoder")
+        _, sx, sa = other["retrieval_image_encoder"]
+        r_in["itm_ids"] = r_in["ids"].copy()
+        r_in["itm_ids"][:, 0] = ENC_ID
+        other["retrieval_itm_rerank"] = client.predict(r_in["itm_ids"], r_in["mask"], sx, sa,
+                                                       tr, name="retrieval_itm_rerank")
+        cs = ccfg.image_resolution
+        c_img = rng.standard_normal((16, 3, cs, cs), dtype=np.float32)
+        c_txt = np.zeros((16, ccfg.context_length), np.int32)
+        for b, n in enumerate(rng.integers(6, ccfg.context_length, 16)):
+            c_txt[b, :n] = rng.integers(1, CLIP_EOT - 1, n)
+            c_txt[b, n - 1] = CLIP_EOT
+        other["clip_image_encoder"] = client.predict(c_img, np.float32(t_clip),
+                                                     name="clip_image_encoder")
+        other["clip_text_encoder"] = client.predict(c_txt, np.float32(t_clip),
+                                                    name="clip_text_encoder")
+        vs = vcfg.vit.image_size
+        v_in = [rng.standard_normal((8, 3, vs, vs), dtype=np.float32),
+                rng.integers(1000, 30000, (8, 20)).astype(np.int32), np.ones((8, 20), np.int32)]
+        v_in[1][:, 0] = ENC_ID
+        a_ids = np.zeros((3128, 8), np.int32)
+        a_ids[:, 0] = DEC_ID
+        for a in range(3128):
+            n = 1 + a % 4
+            a_ids[a, 1:1 + n] = rng.integers(1000, 30000, n)
+            a_ids[a, 1 + n] = SEP_ID
+        v_in += [a_ids, (a_ids > 0).astype(np.int32), np.float32(t_vqa)]
+        other["vqa"] = client.predict(*v_in, name="vqa")
+        ps = pcfg.vit.image_size
+        p_in = [rng.standard_normal((8, 3, ps, ps), dtype=np.float32), prompt.astype(np.int32),
+                np.float32(t_cap)]
+        other["caption"] = client.predict(*p_in, name="caption")
+        serve_s = time.perf_counter() - serve_t0
+        k1, _, k4, k5 = launch_counts()
+        new_captures = CapturedStep.captures - captures
+        stats = {n: dict(rt.stats) for n, rt in srv.runtimes.items()}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    if new_captures:
+        raise AssertionError(f"requests captured {new_captures} graphs after the warm-up")
+    if not (k1 and k4 and k5):
+        raise AssertionError(f"the serve path launched K1, K4, K5 {k1}, {k4}, {k5} times")
+    if stats["nlvr_ri"]["merged"] - merged0 <= 0:
+        raise AssertionError(f"no request merged on the row-independent artifact: "
+                             f"{stats['nlvr_ri']}")
+    if stats["nlvr"]["merged"] != 0:
+        raise AssertionError(f"the coupled artifact merged requests: {stats['nlvr']}")
+
+    # the direct steps on the same inputs
+    # int64 ids and mask, as the main path fed its step: the coupled call replays its graph
+    x = torch.from_numpy(images).to(device, dt)
+    i_d, m_d = (torch.from_numpy(a).long().to(device) for a in (ids, mask))
+    for name, ri in (("nlvr", False), ("nlvr_ri", True)):
+        want = make_eval_step(nlvr_model, True, caps_v, caps_t, row_independent=ri)(
+            x, i_d, m_d, t_star)
+        vk, tk = (want.v_kept.t(), want.t_kept.t()) if ri else (want.v_kept, want.t_kept)
+        got = full[name]
+        if not (np.array_equal(got[0], want.logits.float().cpu().numpy())
+                and np.array_equal(got[1], vk.cpu().numpy())
+                and np.array_equal(got[2], tk.cpu().numpy())):
+            err = float(np.abs(got[0] - want.logits.float().cpu().numpy()).max())
+            raise AssertionError(f"{name}: the full batch over HTTP differs from the direct "
+                                 f"step (max |logit diff| {err:.3e})")
+    worst = 0.0
+    for k, (r, a, g) in enumerate(zip(reqs, alone, replies)):
+        worst = max(worst, float(np.abs(g[0] - a[0]).max()))
+        if not (np.array_equal(g[0].argmax(-1), a[0].argmax(-1))
+                and np.array_equal(g[1], a[1]) and np.array_equal(g[2], a[2])):
+            raise AssertionError(f"request {k} ({len(r[1])} pairs): its reply under load "
+                                 "differs from the same rows served alone")
+    if not worst <= SERVE_TOL:
+        raise AssertionError(f"a reply under load is {worst:.3e} from its rows served alone "
+                             f"(limit {SERVE_TOL})")
+    if any(o is None or o[0].shape != (len(r[1]), 2) for o, r in zip(coupled_out, reqs)):
+        raise AssertionError("the coupled burst's replies are missing or misshapen")
+
+    def equal(label, got, want):
+        want = [w.float().cpu().numpy() if w.is_floating_point() else w.cpu().numpy()
+                for w in want]
+        for j, (g, w) in enumerate(zip(got, want)):
+            if g.shape != w.shape or not np.array_equal(g, w):
+                raise AssertionError(f"{label}: reply {j} differs from the direct step")
+
+    m = models["retrieval"]
+    img_step, txt_step = corpus_steps(m, True)
+    equal("retrieval image_encoder", other["retrieval_image_encoder"],
+          img_step(torch.from_numpy(r_in["img"]).to(device, dt), t_ret))
+    equal("retrieval text_encoder", other["retrieval_text_encoder"],
+          txt_step(torch.from_numpy(r_in["ids"]).to(device), torch.from_numpy(r_in["mask"]).to(
+              device), t_ret))
+    equal("retrieval itm_rerank", other["retrieval_itm_rerank"], [itm_step(m, True)(
+        torch.from_numpy(r_in["itm_ids"]).to(device), torch.from_numpy(r_in["mask"]).to(device),
+        torch.from_numpy(sx).to(device, dt), torch.from_numpy(sa).to(device), t_ret)])
+    c_img_step, c_txt_step = tower_steps(models["clip"], True, normalize=False)
+    equal("clip image_encoder", other["clip_image_encoder"],
+          c_img_step(torch.from_numpy(c_img).to(device, dt), t_clip))
+    equal("clip text_encoder", other["clip_text_encoder"],
+          c_txt_step(torch.from_numpy(c_txt).to(device), t_clip))
+    best, vk, qk, topk = make_rank_step(models["vqa"], True, k=128,
+                                        pad_token_id=tokenizer.pad_token_id)(
+        torch.from_numpy(v_in[0]).to(device, dt), *(torch.from_numpy(a).to(device)
+                                                    for a in v_in[1:5]), t_vqa)
+    equal("vqa rank", other["vqa"], [best, topk, vk, qk])
+    seqs, pk = make_caption_step(models["caption"], True, **cap_kw)(
+        torch.from_numpy(p_in[0]).to(device, dt), torch.from_numpy(p_in[1]).to(device), t_cap)
+    equal("caption", other["caption"], [seqs, pk])
+    del models
+
+    # the host's codec on one full NLVR request and its reply
+    body = encode_arrays([images, ids, mask, t32])
+    enc_ms = 1e3 * min(_timed(lambda: encode_arrays([images, ids, mask, t32])) for _ in range(3))
+    dec_ms = 1e3 * min(_timed(lambda: decode_tensors(body)) for _ in range(3))
+    n_load = sum(len(r[1]) for r in reqs)
+    ri_calls = stats["nlvr_ri"]["calls"] - calls0
+    log(f"[serve] full batch of {pairs} pairs over HTTP equals the direct step bit for bit "
+        f"(coupled: the main path's step; row-independent: a direct row-independent step)")
+    log(f"[serve] load: {threads} threads x {rounds} requests of 1-4 pairs ({len(reqs)} "
+        f"requests, {n_load} pairs) on the row-independent artifact in {load_s:.3f} s: "
+        f"{len(reqs) / load_s:.1f} requests/s, {n_load / load_s:.1f} pairs/s; "
+        f"{ri_calls} device calls, merged {stats['nlvr_ri']['merged'] - merged0}; the coupled "
+        f"artifact merged {stats['nlvr']['merged']} of a burst of {threads}; max |logit "
+        f"diff| against the same rows alone {worst:.3e} (limit {SERVE_TOL}), argmax and kept "
+        f"counts equal")
+    for n in sorted(latency):
+        log(f"[serve] latency under load, {n} pair(s): p50 {_pctl(latency[n], 50):.1f} ms, "
+            f"p99 {_pctl(latency[n], 99):.1f} ms ({len(latency[n])} requests)")
+    log(f"[serve] host codec per full NLVR request ({len(body) / 1e6:.1f} MB npz): encode "
+        f"{enc_ms:.1f} ms, decode {dec_ms:.1f} ms")
+    log(f"[serve] retrieval, CLIP, VQA and caption units: one request each, equal to their "
+        f"direct steps; every request {serve_s:.1f} s; launches on the serve path: K1 {k1}, "
+        f"K4 {k4}, K5 {k5}; no capture after the warm-up")
+    log(f"[serve] stats {json.dumps(stats)}")
+    return k1, k4, k5
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -5210,7 +5528,7 @@ def main():
     fp32_k5 = {}  # fp32 K5 launches of each fp32 path, counted apart
     _, fp32_k5["nlvr_parity"], _ = timed(fp32_k5_held, "nlvr parity", phase_model_parity,
                                          device, cfg)
-    k1_eval, k4_eval, k5_eval, record1_eval = timed(phase_main_path, device, cfg)
+    k1_eval, k4_eval, k5_eval, record1_eval, nlvr_main = timed(phase_main_path, device, cfg)
     _, fp32_k5["train_parity"], _ = timed(fp32_k5_held, "nlvr train parity", phase_train_parity,
                                           device, cfg)
     (k1_train, k2_train, k4_train, k5_train), fp32_k5["train"], record5_train, record2_fp32, \
@@ -5277,6 +5595,13 @@ def main():
     # phase 27: the BLIP and CLIP retrieval drivers (CLIP ViT-L/14@336 and RN50), the loaders
     retrieval_drivers, retrieval_driver_records = timed(phase_retrieval_drivers, device)
     tk.update({f"driver_{f}": c for f, c in retrieval_drivers.items()})
+    torch.cuda.empty_cache()
+    # phase 28: the serving stack over HTTP (the NLVR main path's model, T* and capacities)
+    k1_serve, k4_serve, k5_serve = timed(
+        phase_serving, device, *nlvr_main,
+        {"retrieval": (rcfg, t_ret), "clip": (ccfg, t_clip), "vqa": (vqa_config(480), t_vqa),
+         "caption": (caption_config(), t_cap)}, tokenizer)
+    del nlvr_main
 
     def train_total(k):
         return sum(c[k] for c in (*tk.values(), *te.values()))
@@ -5289,11 +5614,11 @@ def main():
              source="madtp_tpu_torch/csrc/attention_scores.cu",
              replaces="madtp_tpu/ops/pallas/fused_attention.py:595",
              launches=k1_eval + k1_train + k1_ret + k1_clip + k1_vqa + k1_640 + k1_gen + k1_cap
-             + train_total("K1"),
+             + train_total("K1") + k1_serve,
              launches_by_path={"eval": k1_eval, "train": k1_train, "retrieval": k1_ret,
                                "clip": k1_clip, "vqa": k1_vqa, "vqa640": k1_640,
                                "vqa_generate": k1_gen, "caption": k1_cap,
-                               **train_paths("K1")},
+                               **train_paths("K1"), "serve": k1_serve},
              launches_in_profiled_replays=REPLAYS["K1"],
              **record, at_nlvr_gather_eval=record1_eval, at_retrieval_eval=record1_ret,
              at_clip_vision_h16=record1_clip, at_vqa_gather_eval=record1_vqa,
@@ -5334,10 +5659,10 @@ def main():
              source="madtp_tpu_torch/csrc/cross_attention.cu",
              replaces="madtp_tpu/ops/pallas/cross_attention.py:56",
              launches=k4_eval + k4_train + k4_ret + k4_vqa + k4_640 + k4_gen + k4_cap
-             + train_total("K4"),
+             + train_total("K4") + k4_serve,
              launches_by_path={"eval": k4_eval, "train": k4_train, "retrieval": k4_ret,
                                "vqa": k4_vqa, "vqa640": k4_640, "vqa_generate": k4_gen,
-                               "caption": k4_cap, **train_paths("K4")},
+                               "caption": k4_cap, **train_paths("K4"), "serve": k4_serve},
              launches_in_profiled_replays=REPLAYS["K4"],
              **record4, at_vqa_gather_eval=record4_vqa, at_vqa_dense_eval=dense4_vqa,
              at_vqa640_eval=record4_640, at_vqa_generate=record4_gen,
@@ -5354,11 +5679,11 @@ def main():
         dict(name="ffn", route="cuda", source="madtp_tpu_torch/csrc/ffn.cu",
              replaces="madtp_tpu/ops/pallas/fused_ffn.py:79",
              launches=k5_eval + k5_train + k5_ret + k5_clip + k5_vqa + k5_640 + k5_gen + k5_cap
-             + train_total("K5"),
+             + train_total("K5") + k5_serve,
              launches_by_path={"eval": k5_eval, "train": k5_train, "retrieval": k5_ret,
                                "clip": k5_clip, "vqa": k5_vqa, "vqa640": k5_640,
                                "vqa_generate": k5_gen, "caption": k5_cap,
-                               **train_paths("K5")},
+                               **train_paths("K5"), "serve": k5_serve},
              launches_in_profiled_replays=REPLAYS["K5"],
              **record5, at_clip_gather_eval=record5_clip, at_vqa_gather_eval=record5_vqa,
              at_vqa_dense_eval=dense5_vqa, at_vqa640_eval=record5_640,

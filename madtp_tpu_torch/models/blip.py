@@ -74,10 +74,13 @@ class NLVRModel(nn.Module):
                 prune_active: bool = False,
                 capacities_v: Optional[Sequence[int]] = None,
                 capacities_t: Optional[Sequence[int]] = None,
-                targets: Optional[torch.Tensor] = None):
+                targets: Optional[torch.Tensor] = None, row_independent: bool = False):
         """``images`` [2B, 3, H, W]: the first images of the B pairs, then the
         second ones.  ``capacities_v``/``capacities_t`` switch the towers to
-        gather mode.
+        gather mode.  ``row_independent`` (serving): per-row DTP, so each
+        *image* of a pair prunes on its own counts (the vision tower runs on
+        the 2B stack), and the kept counts are per row, ``[L, 2B]`` and
+        ``[L, B]`` (``madtp_tpu/models/blip.py:75-96``).
 
         Returns an :class:`NLVROut`; with ``targets`` [B] (the train branch of
         ``blip_nlvr_forward``) ``(loss_ori, loss_fdt, logits)`` instead:
@@ -87,11 +90,12 @@ class NLVRModel(nn.Module):
         B = text_ids.shape[0]
         v = self.visual_encoder(images, space_dict=self.space_dict,
                                 temperature=temperature, prune_active=prune_active,
-                                capacities=capacities_v)
+                                capacities=capacities_v, row_independent=row_independent)
         st0, st1 = split_state(v.state, B)
         t = self.text_encoder(text_ids, text_mask, encoder_state=st0, encoder_state1=st1,
                               space_dict=self.space_dict, temperature=temperature,
-                              prune_active=prune_active, capacities=capacities_t)
+                              prune_active=prune_active, capacities=capacities_t,
+                              row_independent=row_independent)
         fc1, fc2 = self.cls_head[0], self.cls_head[2]
         h = torch.relu(linear(t.state.x[:, 0, :], fc1.weight, fc1.bias))
         logits = linear(h, fc2.weight, fc2.bias)
@@ -104,8 +108,9 @@ class NLVRModel(nn.Module):
             return loss_ori, loss_fdt, logits
         overflow = None
         if v.overflow is not None or t.overflow is not None:
-            overflow = (0 if v.overflow is None else v.overflow) + (
-                0 if t.overflow is None else t.overflow)
+            # summed over rows too when the towers count them per row
+            overflow = (0 if v.overflow is None else v.overflow.sum()) + (
+                0 if t.overflow is None else t.overflow.sum())
         return NLVROut(logits, v.kept_counts, t.kept_counts, overflow)
 
 
@@ -160,38 +165,43 @@ class RetrievalModel(nn.Module):
 
     def image_features(self, images: torch.Tensor, *, temperature=0.0,
                        prune_active: bool = False,
-                       capacities: Optional[Sequence[int]] = None
+                       capacities: Optional[Sequence[int]] = None,
+                       row_independent: bool = False
                        ) -> Tuple[torch.Tensor, EncoderOut]:
         """Image tower and projection (``blip_retrieval_image_features``):
         ``(feat [B, E] L2-normalized, EncoderOut)``; ``out.state`` is the
-        memory the ITM attends to, ``out.kept_counts`` the GFLOPs input."""
+        memory the ITM attends to, ``out.kept_counts`` the GFLOPs input.
+        ``row_independent``: per-row DTP here and in the next two methods."""
         out = self.visual_encoder(images, space_dict=self.space_dict,
                                   temperature=temperature, prune_active=prune_active,
-                                  capacities=capacities)
+                                  capacities=capacities, row_independent=row_independent)
         return _unit(linear(out.state.x[:, 0, :], self.vision_proj.weight,
                             self.vision_proj.bias)), out
 
     def text_features(self, text_ids: torch.Tensor, text_mask: torch.Tensor, *,
                       temperature=0.0, prune_active: bool = False,
-                      capacities: Optional[Sequence[int]] = None
+                      capacities: Optional[Sequence[int]] = None,
+                      row_independent: bool = False
                       ) -> Tuple[torch.Tensor, EncoderOut]:
         """Text tower in text mode and projection
         (``blip_retrieval_text_features``): ``(feat [B, E], EncoderOut)``."""
         out = self.text_encoder(text_ids, text_mask, space_dict=self.space_dict,
                                 temperature=temperature, prune_active=prune_active,
-                                capacities=capacities)
+                                capacities=capacities, row_independent=row_independent)
         return _unit(linear(out.state.x[:, 0, :], self.text_proj.weight,
                             self.text_proj.bias)), out
 
     def itm_score(self, text_ids: torch.Tensor, text_mask: torch.Tensor,
                   image_state: TokenState, *, temperature=0.0, prune_active: bool = False,
-                  capacities: Optional[Sequence[int]] = None) -> torch.Tensor:
+                  capacities: Optional[Sequence[int]] = None,
+                  row_independent: bool = False) -> torch.Tensor:
         """The ITM head's match logit ``logits[:, 1]`` over the multimodal CLS
         (``blip_itm_score``); ``text_ids`` carry the encoder token at slot
         0.  [B]."""
         out = self.text_encoder(text_ids, text_mask, encoder_state=image_state,
                                 space_dict=self.space_dict, temperature=temperature,
-                                prune_active=prune_active, capacities=capacities)
+                                prune_active=prune_active, capacities=capacities,
+                                row_independent=row_independent)
         logits = linear(out.state.x[:, 0, :], self.itm_head.weight, self.itm_head.bias)
         return logits[:, 1]
 
@@ -231,19 +241,21 @@ class VQAModel(nn.Module):
     def encode(self, images: torch.Tensor, q_ids: torch.Tensor, q_mask: torch.Tensor, *,
                temperature=0.0, prune_active: bool = False,
                capacities_v: Optional[Sequence[int]] = None,
-               capacities_t: Optional[Sequence[int]] = None
+               capacities_t: Optional[Sequence[int]] = None, row_independent: bool = False
                ) -> Tuple[EncoderOut, Optional[torch.Tensor], torch.Tensor]:
         """The image tower, then the question encoder with cross-attention
         over the image (``blip_vqa_encode``); ``q_ids`` carry the encoder
         token at slot 0; ``capacities_v``/``capacities_t`` switch the towers
-        to gather mode.  Returns ``(out, sd_img_ft, v_kept)``: ``out.state``
-        is the decoder's memory, ``out.kept_counts`` and ``v_kept`` the
-        GFLOPs inputs."""
+        to gather mode; ``row_independent`` gives both towers per-row DTP.
+        Returns ``(out, sd_img_ft, v_kept)``: ``out.state`` is the decoder's
+        memory, ``out.kept_counts`` and ``v_kept`` the GFLOPs inputs."""
         v = self.visual_encoder(images, space_dict=self.space_dict, temperature=temperature,
-                                prune_active=prune_active, capacities=capacities_v)
+                                prune_active=prune_active, capacities=capacities_v,
+                                row_independent=row_independent)
         out = self.text_encoder(q_ids, q_mask, encoder_state=v.state,
                                 space_dict=self.space_dict, temperature=temperature,
-                                prune_active=prune_active, capacities=capacities_t)
+                                prune_active=prune_active, capacities=capacities_t,
+                                row_independent=row_independent)
         return out, v.sd_ft, v.kept_counts
 
 
@@ -273,14 +285,16 @@ class CaptionModel(nn.Module):
         self.space_dict = nn.Parameter(torch.zeros(cfg.sd_num, cfg.sd_dim))
 
     def encode_image(self, images: torch.Tensor, *, temperature=0.0, prune_active: bool = False,
-                     capacities: Optional[Sequence[int]] = None
+                     capacities: Optional[Sequence[int]] = None, row_independent: bool = False
                      ) -> Tuple[TokenState, Optional[torch.Tensor], torch.Tensor]:
         """The image tower with DTP, run once per image
         (``blip_caption_encode_image``): dense, mask mode, or gather mode with
-        ``capacities``.  Returns ``(state, sd_img_ft, kept)``: ``state`` is
-        the decoder's memory, ``kept`` [L] the GFLOPs input."""
+        ``capacities``; per-row DTP with ``row_independent``.  Returns
+        ``(state, sd_img_ft, kept)``: ``state`` is the decoder's memory,
+        ``kept`` [L] (``[L, B]`` per row) the GFLOPs input."""
         out = self.visual_encoder(images, space_dict=self.space_dict, temperature=temperature,
-                                  prune_active=prune_active, capacities=capacities)
+                                  prune_active=prune_active, capacities=capacities,
+                                  row_independent=row_independent)
         return out.state, out.sd_ft, out.kept_counts
 
     def forward(self, images: torch.Tensor, text_ids: torch.Tensor, text_mask: torch.Tensor,

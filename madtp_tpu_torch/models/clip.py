@@ -40,6 +40,7 @@ from torch import nn
 from madtp_tpu_torch.core.config import CLIPConfig
 from madtp_tpu_torch.core.device import resolve_device
 from madtp_tpu_torch.models.clip_resnet import BatchNorm, ModifiedResNet
+from madtp_tpu_torch.models.vit import placeholder_kept
 from madtp_tpu_torch.ops.attention import AttnAux, attention_core, multi_head_attention
 from madtp_tpu_torch.ops.layers import layer_norm, linear, mlp, normalize_images, patch_embed
 from madtp_tpu_torch.prune.dtp import (DTPSignals, TokenState, dtp_prune, dtp_prune_gather,
@@ -52,7 +53,7 @@ LN_EPS = 1e-5  # torch nn.LayerNorm's default, CLIP's
 class TowerOut(NamedTuple):
     features: torch.Tensor  # [B, E] projected, not normalized, in the model's dtype
     sd_ft: Optional[torch.Tensor]  # [B, K, sd_dim] MAG features summed over layers
-    kept_counts: torch.Tensor  # [L]
+    kept_counts: torch.Tensor  # [L], or [L, B] when row-independent
 
 
 class _InProj(nn.Module):
@@ -160,15 +161,17 @@ class CLIPModel(nn.Module):
 
     def encode_image(self, images: torch.Tensor, *, temperature=0.0,
                      prune_active: bool = False,
-                     capacities: Optional[Sequence[int]] = None) -> TowerOut:
+                     capacities: Optional[Sequence[int]] = None,
+                     row_independent: bool = False) -> TowerOut:
         """Vision tower (``clip_encode_image``).  ``images`` [B, 3, H, W]
         floats, or the uint8 feed [B, H, W, 3] normalized here.
         ``prune_active`` must be True exactly when the temperature is > 0;
-        ``capacities`` (one per layer) switches to gather mode.  The RN
-        tower ignores both (it is not pruned) and gives no MAG features and
-        no kept counts."""
+        ``capacities`` (one per layer) switches to gather mode;
+        ``row_independent`` gives per-row DTP decisions and kept counts
+        ``[L, B]``.  The RN tower ignores all three (it is not pruned) and
+        gives no MAG features and no kept counts."""
         v = self.visual
-        dtype = self.positional_embedding.dtype
+        dtype = v.conv1.weight.dtype
         if images.dtype == torch.uint8:
             images = normalize_images(images, dtype)
         if self.cfg.is_resnet:
@@ -180,22 +183,27 @@ class CLIPModel(nn.Module):
         x = layer_norm(x, v.ln_pre.weight, v.ln_pre.bias, LN_EPS)
         blocks = v.transformer.resblocks
         if capacities is not None and prune_active:
-            state, sd_all, kept = self._tower_gather(blocks, x, temperature, capacities)
+            state, sd_all, kept = self._tower_gather(blocks, x, temperature, capacities,
+                                                     row_independent)
         else:
             state, sd_all, kept = self._tower(blocks, x, temperature, prune_active,
-                                              causal=False, max_keep=1)
+                                              causal=False, max_keep=1,
+                                              row_independent=row_independent)
         feats = layer_norm(state.x[:, 0, :], v.ln_post.weight, v.ln_post.bias, LN_EPS)
         return TowerOut(linear(feats, v.proj.t()), sd_all, kept)
 
     def encode_text(self, text: torch.Tensor, *, temperature=0.0,
-                    prune_active: bool = False) -> TowerOut:
+                    prune_active: bool = False, row_independent: bool = False) -> TowerOut:
         """Text tower (``clip_encode_text``).  ``text`` [B, context_length]
-        token ids, EOT the highest id of each row."""
+        token ids, EOT the highest id of each row.  The EOT guard is the
+        batch's (the reference's coupling), or each row's own with
+        ``row_independent`` (``madtp_tpu/models/clip.py:276-279``)."""
         x = self.token_embedding.weight[text] + self.positional_embedding
         eot_pos = text.argmax(dim=-1)
-        max_keep = eot_pos.max() + 2  # the reference's batch-coupled EOT guard
+        max_keep = eot_pos + 2 if row_independent else eot_pos.max() + 2
         state, sd_all, kept = self._tower(self.transformer.resblocks, x, temperature,
-                                          prune_active, causal=True, max_keep=max_keep)
+                                          prune_active, causal=True, max_keep=max_keep,
+                                          row_independent=row_independent)
         feats = state.x[torch.arange(x.shape[0], device=x.device), eot_pos]
         feats = layer_norm(feats, self.ln_final.weight, self.ln_final.bias, LN_EPS)
         return TowerOut(linear(feats, self.text_projection.t()), sd_all, kept)
@@ -208,9 +216,11 @@ class CLIPModel(nn.Module):
         return query_model(state.x[:, 1:], self.space_dict, state.alive[:, 1:],
                            q_map=blk.query_model.q_map[0])
 
-    def _tower(self, blocks, x, temperature, prune_active: bool, *, causal: bool, max_keep):
+    def _tower(self, blocks, x, temperature, prune_active: bool, *, causal: bool, max_keep,
+               row_independent: bool = False):
         """Mask mode (``_tower``): ``1 + P0 + depth`` slots padded to 8 when
-        pruning.  Returns ``(state, sd_all, kept [L])``."""
+        pruning.  Returns ``(state, sd_all, kept [L])`` (``[L, B]`` with
+        ``row_independent``)."""
         B, N, _ = x.shape
         depth = len(blocks)
         state = init_token_state(x, depth=depth if prune_active else 0,
@@ -227,15 +237,16 @@ class CLIPModel(nn.Module):
             if sd_ft is not None:
                 sd_all = sd_ft.float() if sd_all is None else sd_all + sd_ft
             state, aux = blk.attn_part(state, causal_bias, need_scores=prune_active)
-            kept = state.alive[0, 1:].sum()
+            kept = placeholder_kept(state.alive, row_independent)
             if prune_active:
                 state, kept = dtp_prune(state, _signals(aux, token_attn), temperature,
-                                        N + i, variant="clip", max_keep=max_keep)
+                                        N + i, variant="clip", max_keep=max_keep,
+                                        row_independent=row_independent)
             state = blk.ffn_part(state)
             kept_list.append(kept)
         return state, sd_all, torch.stack(kept_list)
 
-    def _tower_gather(self, blocks, x, temperature, capacities):
+    def _tower_gather(self, blocks, x, temperature, capacities, row_independent=False):
         """Gather mode (``_tower_gather``), vision only: 1 + P0 tokens padded
         to 8 slots, compacted to ``capacities[i]`` after layer ``i``."""
         if len(capacities) != len(blocks):
@@ -248,7 +259,8 @@ class CLIPModel(nn.Module):
             state, aux = blk.attn_part(state, None, need_scores=True)
             cap = min(capacities[i], state.x.shape[1])
             state, kept, _ = dtp_prune_gather(state, _signals(aux, token_attn), temperature,
-                                              cap, variant="clip", max_keep=1)
+                                              cap, variant="clip", max_keep=1,
+                                              row_independent=row_independent)
             state = blk.ffn_part(state)
             kept_list.append(kept)
         return state, sd_all, torch.stack(kept_list)

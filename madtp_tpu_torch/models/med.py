@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from madtp_tpu_torch.core.config import MedConfig
-from madtp_tpu_torch.models.vit import EncoderOut, _signals, _zeros_sd
+from madtp_tpu_torch.models.vit import EncoderOut, _signals, _zeros_sd, placeholder_kept
 from madtp_tpu_torch.ops.attention import (attention_core, cross_attention,
                                            multi_head_attention)
 from madtp_tpu_torch.ops.layers import gelu, layer_norm, linear, mlp
@@ -211,10 +211,13 @@ class MedEncoder(nn.Module):
                 encoder_state1: Optional[TokenState] = None,
                 space_dict: Optional[torch.Tensor] = None, temperature=0.0,
                 prune_active: bool = False,
-                capacities: Optional[Sequence[int]] = None) -> EncoderOut:
+                capacities: Optional[Sequence[int]] = None,
+                row_independent: bool = False) -> EncoderOut:
         """BertModel encoder pass (``med_encoder``): multimodal with
         ``encoder_state`` (twin cross-attention with ``encoder_state1``), text
-        only without; ``capacities`` switches to gather mode."""
+        only without; ``capacities`` switches to gather mode.
+        ``row_independent``: per-row DTP decisions and kept counts ``[L, B]``
+        (``madtp_tpu/models/med.py:159-166``)."""
         emb = self.embeddings(input_ids)
         pad_bias = (1.0 - attention_mask.float()) * PAD_BIAS
         # cross-attention memories compute in the text tower's dtype
@@ -242,15 +245,16 @@ class MedEncoder(nn.Module):
             h, aux = layer.attention(x, key_alive=alive, key_bias=bias,
                                      need_scores=prune_active)
             state = TokenState(h, alive, bias)
-            kept = alive[0, 1:].sum()
+            kept = placeholder_kept(alive, row_independent)
             if gather:
                 cap = min(capacities[i], h.shape[1])
                 state, kept, ovf = dtp_prune_gather(
-                    state, _signals(aux, token_attn), temperature, cap)
+                    state, _signals(aux, token_attn), temperature, cap,
+                    row_independent=row_independent)
                 overflow = overflow + ovf
             elif prune_active:
                 state, kept = dtp_prune(state, _signals(aux, token_attn),
-                                        temperature, N + i)
+                                        temperature, N + i, row_independent=row_independent)
             x, alive, bias = state
             if enc0 is not None:
                 x = layer.cross(x, enc0, enc1)

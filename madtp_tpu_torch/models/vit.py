@@ -38,7 +38,7 @@ from madtp_tpu_torch.prune.query import query_model
 class EncoderOut(NamedTuple):
     state: TokenState  # final hidden states
     sd_ft: Optional[torch.Tensor]  # [B, K, sd_dim] MAG features summed over layers
-    kept_counts: torch.Tensor  # [L]
+    kept_counts: torch.Tensor  # [L], or [L, B] when row-independent
     overflow: Optional[torch.Tensor]  # gather mode: tokens folded into merge slots, summed
 
 
@@ -116,12 +116,17 @@ class VisionTransformer(nn.Module):
 
     def forward(self, images: torch.Tensor, space_dict: Optional[torch.Tensor] = None,
                 temperature=0.0, prune_active: bool = False,
-                capacities: Optional[Sequence[int]] = None) -> EncoderOut:
+                capacities: Optional[Sequence[int]] = None,
+                row_independent: bool = False) -> EncoderOut:
         """``prune_active`` must be True exactly when the temperature is > 0;
-        ``capacities`` (one per layer) switches to gather mode."""
+        ``capacities`` (one per layer) switches to gather mode.
+        ``row_independent`` (serving): each row keeps its own count, so its
+        result does not depend on the other rows, and ``kept_counts`` is
+        per row, ``[L, B]`` (``madtp_tpu/models/vit.py:101-108``)."""
         x = self.embed(images)
         if capacities is not None and prune_active:
-            return self._forward_gather(x, space_dict, temperature, capacities)
+            return self._forward_gather(x, space_dict, temperature, capacities,
+                                        row_independent)
         B = x.shape[0]
         P0 = x.shape[1] - 1
         depth = self.cfg.depth
@@ -131,7 +136,8 @@ class VisionTransformer(nn.Module):
         first_remat = depth - self.remat_layers() if torch.is_grad_enabled() else depth
         kept_list = []
         for i, blk in enumerate(self.blocks):
-            args = (blk, state, sd_all, space_dict, temperature, prune_active, 1 + P0 + i)
+            args = (blk, state, sd_all, space_dict, temperature, prune_active, 1 + P0 + i,
+                    row_independent)
             if i >= first_remat:
                 state, sd_all, kept = checkpoint(_mask_layer, *args, use_reentrant=False)
             else:
@@ -147,7 +153,8 @@ class VisionTransformer(nn.Module):
         depth = self.cfg.depth
         return depth if self.cfg.ckpt_layers < 0 else min(self.cfg.ckpt_layers, depth)
 
-    def _forward_gather(self, x, space_dict, temperature, capacities) -> EncoderOut:
+    def _forward_gather(self, x, space_dict, temperature, capacities,
+                        row_independent: bool = False) -> EncoderOut:
         if len(capacities) != self.cfg.depth:
             raise ValueError(f"{len(capacities)} capacities for {self.cfg.depth} layers")
         # 1 + 576 tokens padded to 584 slots, like the JAX gather path
@@ -161,7 +168,8 @@ class VisionTransformer(nn.Module):
             state, aux = blk.attn_part(state, need_scores=True)
             cap = min(capacities[i], state.x.shape[1])
             state, kept, ovf = dtp_prune_gather(
-                state, _signals(aux, token_attn), temperature, cap)
+                state, _signals(aux, token_attn), temperature, cap,
+                row_independent=row_independent)
             state = blk.ffn_part(state)
             kept_list.append(kept)
             overflow = overflow + ovf
@@ -175,18 +183,26 @@ class VisionTransformer(nn.Module):
 
 
 def _mask_layer(blk: Block, state: TokenState, sd_all, space_dict, temperature,
-                prune_active: bool, merge_slot: int):
+                prune_active: bool, merge_slot: int, row_independent: bool = False):
     """One mask-mode layer: MAG query, attention, DTP into ``merge_slot``,
-    FFN.  Returns ``(state, sd_all, kept)``."""
+    FFN.  Returns ``(state, sd_all, kept)``, ``kept`` per row with
+    ``row_independent``."""
     token_attn = None
     if space_dict is not None:
         token_attn, sd_ft = query_model(state.x[:, 1:], space_dict, state.alive[:, 1:])
         sd_all = sd_all + sd_ft
     state, aux = blk.attn_part(state, need_scores=prune_active)
-    kept = state.alive[0, 1:].sum()
+    kept = placeholder_kept(state.alive, row_independent)
     if prune_active:
-        state, kept = dtp_prune(state, _signals(aux, token_attn), temperature, merge_slot)
+        state, kept = dtp_prune(state, _signals(aux, token_attn), temperature, merge_slot,
+                                row_independent=row_independent)
     return blk.ffn_part(state), sd_all, kept
+
+
+def placeholder_kept(alive: torch.Tensor, row_independent: bool) -> torch.Tensor:
+    """A layer's kept count when it does not prune: the alive non-CLS slots
+    of row 0, or of each row with ``row_independent``."""
+    return alive[:, 1:].sum(dim=1) if row_independent else alive[0, 1:].sum()
 
 
 def _zeros_sd(B: int, space_dict: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = float("-inf")
 
@@ -60,13 +61,26 @@ def init_token_state(tokens: torch.Tensor, depth: int,
     return TokenState(x=x, alive=alive, bias=bias)
 
 
-def importance_score(signals: DTPSignals, palive: torch.Tensor) -> torch.Tensor:
+def _row_sum(x: torch.Tensor, row_independent: bool = False) -> torch.Tensor:
+    """``x.sum(dim=1, keepdim=True)`` of a [B, P] tensor.  With
+    ``row_independent`` the rows are first padded with zeros to a multiple
+    of 8, so that each starts at an aligned address: the card's vectorized
+    sum adds an unaligned row's head apart, so a row of odd length would be
+    added in an order that depends on its place in the batch, and a served
+    request's DTP decisions on where the dispatcher packed it."""
+    if row_independent:
+        x = F.pad(x, (0, -x.shape[1] % 8))
+    return x.sum(dim=1, keepdim=True)
+
+
+def importance_score(signals: DTPSignals, palive: torch.Tensor,
+                     row_independent: bool = False) -> torch.Tensor:
     """Mean of the three normalized signals; dead slots score 0.  [B, P]."""
     col = signals.col_mass
-    col_w = col / (col.sum(dim=1, keepdim=True) + 1e-8)
+    col_w = col / (_row_sum(col, row_independent) + 1e-8)
     tw = signals.token_attn.amax(dim=2)
     tw = torch.where(palive, tw, torch.zeros_like(tw))
-    tw = tw / (tw.sum(dim=1, keepdim=True) + 1e-8)
+    tw = tw / (_row_sum(tw, row_independent) + 1e-8)
     cls_w = torch.where(palive, signals.cls_attn, torch.zeros_like(signals.cls_attn))
     return (col_w + tw + cls_w) / 3.0
 
@@ -140,7 +154,7 @@ def dtp_prune(state: TokenState, signals: DTPSignals, temperature, merge_slot: i
     palive = alive[:, 1:]
     P = S - 1
 
-    score = importance_score(signals, palive)
+    score = importance_score(signals, palive, row_independent)
     order, topk_num, alive_cnt, apply = _keep_rule(
         score, signals, palive, temperature, row_independent, variant, max_keep)
     ranks = _invert_permutation(order)
@@ -149,7 +163,7 @@ def dtp_prune(state: TokenState, signals: DTPSignals, temperature, merge_slot: i
 
     merge_mask = palive & ~keep
     w = torch.where(merge_mask, score, torch.zeros_like(score))
-    w = w / (w.sum(dim=1, keepdim=True) + 1e-8)
+    w = w / (_row_sum(w, row_independent) + 1e-8)
     merged = _merge_dropped(w, x[:, 1:])
 
     is_merge_slot = torch.arange(S, device=x.device)[None, :] == merge_slot
@@ -209,7 +223,7 @@ def dtp_prune_gather(state: TokenState, signals: DTPSignals, temperature,
     palive = alive[:, 1:]
     cap_p = capacity - 2
 
-    score = importance_score(signals, palive)
+    score = importance_score(signals, palive, row_independent)
     order, topk_num, alive_cnt, apply = _keep_rule(
         score, signals, palive, temperature, row_independent, variant, max_keep)
 
@@ -226,7 +240,7 @@ def dtp_prune_gather(state: TokenState, signals: DTPSignals, temperature,
     rank_full = _invert_permutation(order)
     merge_mask = palive & (rank_full >= eff_keep_col)
     w = torch.where(merge_mask, score, torch.zeros_like(score))
-    w = w / (w.sum(dim=1, keepdim=True) + 1e-8)
+    w = w / (_row_sum(w, row_independent) + 1e-8)
     merged = _merge_dropped(w, x[:, 1:])
 
     do_merge = apply | (overflow > 0)

@@ -181,36 +181,50 @@ def _to_device(a, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def make_caption_step(model: CaptionModel, prune_active: bool,
+                      capacities: Optional[Sequence[int]] = None, *, num_beams: int = 3,
+                      max_length: int = 20, min_length: int = 5, eos_token_id: int = 102,
+                      pad_token_id: int = 0, graph: bool = True, row_independent: bool = False):
+    """``step(images, prompt_ids, temperature) -> (sequences [b,
+    max_length], v_kept)``: the image encode (gather mode with
+    ``capacities``; per-row DTP with ``row_independent``, ``v_kept``
+    ``[L, b]``) and the beam decode from ``prompt_ids`` [b, Lp] (BOS
+    first), as one captured step, the counterpart of the JAX package's
+    single ``fori_loop``: one CUDA graph per batch shape, prune mode,
+    capacities, row independence and beam settings, the temperature an
+    input of it.  ``graph=False`` runs it eagerly.  The decode is per row
+    by construction (each row's beams attend to that row's tokens)."""
+    @torch.inference_mode()
+    def step(images, prompt, t):
+        state, _, v_kept = model.encode_image(images, temperature=t, prune_active=prune_active,
+                                              capacities=capacities,
+                                              row_independent=row_independent)
+        out = beam_generate(model.text_decoder, state, prompt.long(), num_beams=num_beams,
+                            max_length=max_length, min_length=min_length,
+                            eos_token_id=eos_token_id, pad_token_id=pad_token_id)
+        return out, v_kept
+
+    if not graph:
+        return step
+    return CapturedStep(step, "caption", model, static=(
+        prune_active, capacities, num_beams, max_length, min_length, eos_token_id,
+        pad_token_id, row_independent))
+
+
 def generate_captions(model: CaptionModel, tokenizer, images, temperature: float, *,
                       num_beams: int = 3, max_length: int = 20, min_length: int = 5,
                       capacities: Optional[Sequence[int]] = None, graph: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The image encode, pruned when ``temperature > 0`` (gather mode with
     ``capacities``), and the beam decode from the prompt
-    (``generate_captions(defer=True)``).  Returns the device tensors
-    ``(sequences [b, max_length], v_kept [L])`` without waiting for them;
-    :func:`finish_captions` makes the text.
-
-    The encode and the whole decode are one captured step, the counterpart
-    of the JAX package's single ``fori_loop``: one CUDA graph per batch
-    shape, prune mode, capacities and beam settings, the temperature an
-    input of it.  ``graph=False`` runs them eagerly."""
+    (``generate_captions(defer=True)``) through :func:`make_caption_step`.
+    Returns the device tensors ``(sequences [b, max_length], v_kept [L])``
+    without waiting for them; :func:`finish_captions` makes the text."""
     dev = model.space_dict.device
-    prune = temperature > 0
-    eos, pad = tokenizer.sep_token_id, tokenizer.pad_token_id
-
-    @torch.inference_mode()
-    def step(images, prompt, t):
-        state, _, v_kept = model.encode_image(images, temperature=t, prune_active=prune,
-                                              capacities=capacities)
-        out = beam_generate(model.text_decoder, state, prompt, num_beams=num_beams,
-                            max_length=max_length, min_length=min_length,
-                            eos_token_id=eos, pad_token_id=pad)
-        return out, v_kept
-
-    if graph:
-        step = CapturedStep(step, "caption", model, static=(
-            prune, capacities, num_beams, max_length, min_length, eos, pad))
+    step = make_caption_step(model, temperature > 0, capacities, num_beams=num_beams,
+                             max_length=max_length, min_length=min_length,
+                             eos_token_id=tokenizer.sep_token_id,
+                             pad_token_id=tokenizer.pad_token_id, graph=graph)
     prompt = _to_device(prompt_ids(tokenizer, np.shape(images)[0]), dev)
     return step(_to_device(images, dev), prompt, temperature)
 

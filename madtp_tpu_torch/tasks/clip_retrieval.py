@@ -71,27 +71,34 @@ def probe_capacities(model: CLIPModel, image_batches: Iterable[np.ndarray], temp
 
 
 def tower_steps(model: CLIPModel, prune_active: bool,
-                capacities_v: Optional[Sequence[int]] = None, *, graph: bool = True):
+                capacities_v: Optional[Sequence[int]] = None, *, graph: bool = True,
+                row_independent: bool = False, normalize: bool = True):
     """The two towers' steps (``tower_steps`` of ``compress_retrieval_clip``):
     ``img_step(images, temperature)`` and ``txt_step(ids, temperature)``,
-    each ``-> (L2-normalised features, kept counts)``, captured
-    (``graph=False``: eager)."""
+    each ``-> (features, kept counts)``, the features L2-normalised unless
+    ``normalize=False`` (the serving units return them as the towers give
+    them); ``row_independent``: per-row DTP, kept counts ``[L, B]``.
+    Captured (``graph=False``: eager)."""
+    def finish(out):
+        return (_unit(out.features) if normalize else out.features), out.kept_counts
+
     @torch.inference_mode()
     def img_step(images, t):
-        out = model.encode_image(images, temperature=t, prune_active=prune_active,
-                                 capacities=capacities_v)
-        return _unit(out.features), out.kept_counts
+        return finish(model.encode_image(images, temperature=t, prune_active=prune_active,
+                                         capacities=capacities_v,
+                                         row_independent=row_independent))
 
     @torch.inference_mode()
     def txt_step(ids, t):
-        out = model.encode_text(ids, temperature=t, prune_active=prune_active)
-        return _unit(out.features), out.kept_counts
+        return finish(model.encode_text(ids.long(), temperature=t, prune_active=prune_active,
+                                        row_independent=row_independent))
 
     if not graph:
         return img_step, txt_step
     return (CapturedStep(img_step, "clip_image", model,
-                         static=(prune_active, capacities_v)),
-            CapturedStep(txt_step, "clip_text", model, static=(prune_active,)))
+                         static=(prune_active, capacities_v, row_independent, normalize)),
+            CapturedStep(txt_step, "clip_text", model,
+                         static=(prune_active, row_independent, normalize)))
 
 
 @torch.inference_mode()

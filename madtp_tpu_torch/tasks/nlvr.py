@@ -23,21 +23,23 @@ from madtp_tpu_torch.utils.graph import CapturedStep
 
 def make_eval_step(model: NLVRModel, prune_active: bool,
                    capacities_v: Optional[Sequence[int]] = None,
-                   capacities_t: Optional[Sequence[int]] = None, *, graph: bool = True):
+                   capacities_t: Optional[Sequence[int]] = None, *, graph: bool = True,
+                   row_independent: bool = False):
     """``step(images, ids, mask, temperature) -> NLVROut`` without autograd;
-    capacities select gather mode.  The step is captured
-    (:class:`~madtp_tpu_torch.utils.graph.CapturedStep`: one CUDA graph per
-    mode, capacities and input shape, the temperature an input of it);
-    ``graph=False`` runs it eagerly."""
+    capacities select gather mode, ``row_independent`` per-row DTP (the
+    serving mode: kept counts ``[L, 2B]`` and ``[L, B]``).  The step is
+    captured (:class:`~madtp_tpu_torch.utils.graph.CapturedStep`: one CUDA
+    graph per mode, capacities, row independence and input shape, the
+    temperature an input of it); ``graph=False`` runs it eagerly."""
     @torch.inference_mode()
     def step(images, ids, mask, temperature) -> NLVROut:
-        return model(images, ids, mask, temperature=temperature,
+        return model(images, ids.long(), mask, temperature=temperature,
                      prune_active=prune_active, capacities_v=capacities_v,
-                     capacities_t=capacities_t)
+                     capacities_t=capacities_t, row_independent=row_independent)
     if not graph:
         return step
     return CapturedStep(step, "nlvr_eval", model,
-                        static=(prune_active, capacities_v, capacities_t))
+                        static=(prune_active, capacities_v, capacities_t, row_independent))
 
 
 def _device_batch(image0, image1, sentences, tokenize, enc_token_id, device):

@@ -50,27 +50,48 @@ def _ids(a, device) -> torch.Tensor:
 
 def corpus_steps(model: RetrievalModel, prune_active: bool,
                  capacities_v: Optional[Sequence[int]] = None,
-                 capacities_t: Optional[Sequence[int]] = None, *, graph: bool = True):
+                 capacities_t: Optional[Sequence[int]] = None, *, graph: bool = True,
+                 row_independent: bool = False):
     """The corpus encode's two steps (``_corpus_steps``): ``img_step(images,
     temperature) -> (feat, x, alive)`` and ``txt_step(ids, mask,
-    temperature) -> feat``, captured (``graph=False``: eager)."""
+    temperature) -> (feat, kept_counts)``, captured (``graph=False``:
+    eager); ``row_independent``: per-row DTP, kept counts ``[L, B]``."""
     @torch.inference_mode()
     def img_step(images, t):
         feat, out = model.image_features(images, temperature=t, prune_active=prune_active,
-                                         capacities=capacities_v)
+                                         capacities=capacities_v,
+                                         row_independent=row_independent)
         return feat, out.state.x, out.state.alive
 
     @torch.inference_mode()
     def txt_step(ids, mask, t):
-        return model.text_features(ids, mask, temperature=t, prune_active=prune_active,
-                                   capacities=capacities_t)[0]
+        feat, out = model.text_features(ids.long(), mask.long(), temperature=t,
+                                        prune_active=prune_active, capacities=capacities_t,
+                                        row_independent=row_independent)
+        return feat, out.kept_counts
 
     if not graph:
         return img_step, txt_step
     return (CapturedStep(img_step, "retrieval_image", model,
-                         static=(prune_active, capacities_v)),
+                         static=(prune_active, capacities_v, row_independent)),
             CapturedStep(txt_step, "retrieval_text", model,
-                         static=(prune_active, capacities_t)))
+                         static=(prune_active, capacities_t, row_independent)))
+
+
+def itm_step(model: RetrievalModel, prune_active: bool,
+             capacities_t: Optional[Sequence[int]] = None, *, row_independent: bool = False):
+    """The ITM rerank unit (``rerank_fn`` of ``madtp_tpu/cli/
+    export_serving.py``): ``step(ids, mask, x, alive, temperature) ->
+    scores [n]``, row ``i`` text ``i`` against image state ``i`` (``x``,
+    ``alive`` as the image step gives them), captured."""
+    @torch.inference_mode()
+    def step(ids, mask, x, alive, t):
+        return model.itm_score(ids.long(), mask.long(), TokenState(x, alive, None),
+                               temperature=t, prune_active=prune_active,
+                               capacities=capacities_t, row_independent=row_independent)
+
+    return CapturedStep(step, "retrieval_itm", model,
+                        static=(prune_active, capacities_t, row_independent))
 
 
 @torch.inference_mode()
@@ -97,7 +118,8 @@ def encode_corpus(model: RetrievalModel, image_batches: Iterable[np.ndarray],
         alives.append(alive)
     ids, mask = _ids(text_ids, dev), _ids(text_mask, dev)
     for i in range(0, ids.shape[0], text_batch):
-        txt_feats.append(txt_step(ids[i:i + text_batch], mask[i:i + text_batch], temperature))
+        txt_feats.append(txt_step(ids[i:i + text_batch], mask[i:i + text_batch],
+                                  temperature)[0])
     states = TokenState(torch.cat(xs), torch.cat(alives), None)
     return (torch.cat(img_feats).float().cpu().numpy(), states,
             torch.cat(txt_feats).float().cpu().numpy())

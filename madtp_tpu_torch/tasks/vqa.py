@@ -138,24 +138,27 @@ def generate_answers(model: VQAModel, images: torch.Tensor, q_ids: torch.Tensor,
 def make_rank_step(model: VQAModel, prune_active: bool,
                    capacities_v: Optional[Sequence[int]] = None,
                    capacities_t: Optional[Sequence[int]] = None, *, k: int,
-                   pad_token_id: int = 0, graph: bool = True):
+                   pad_token_id: int = 0, graph: bool = True, row_independent: bool = False):
     """``eval_step`` of ``compress_vqa``: ``step(images, q_ids, q_mask,
-    answer_ids, answer_mask, temperature) -> (best, v_kept, q_kept)``, the
-    towers (gather mode with capacities) and :func:`rank_answers` at ``k``,
-    captured with the answer list as an input (``graph=False``: eager)."""
+    answer_ids, answer_mask, temperature) -> (best, v_kept, q_kept,
+    topk_ids)``, the towers (gather mode with capacities; per-row DTP with
+    ``row_independent``, kept counts ``[L, B]``) and :func:`rank_answers`
+    at ``k``, captured with the answer list as an input (``graph=False``:
+    eager)."""
     @torch.inference_mode()
     def step(images, q_ids, q_mask, a_ids, a_mask, t):
-        out, _, v_kept = model.encode(images, q_ids, q_mask, temperature=t,
+        out, _, v_kept = model.encode(images, q_ids.long(), q_mask.long(), temperature=t,
                                       prune_active=prune_active, capacities_v=capacities_v,
-                                      capacities_t=capacities_t)
-        best, _ = rank_answers(model.text_decoder, out.state, a_ids, a_mask, k=k,
-                               pad_token_id=pad_token_id)
-        return best, v_kept, out.kept_counts
+                                      capacities_t=capacities_t,
+                                      row_independent=row_independent)
+        best, topk = rank_answers(model.text_decoder, out.state, a_ids.long(), a_mask.long(),
+                                  k=k, pad_token_id=pad_token_id)
+        return best, v_kept, out.kept_counts, topk
 
     if not graph:
         return step
     return CapturedStep(step, "vqa_rank", model, static=(
-        prune_active, capacities_v, capacities_t, k, pad_token_id))
+        prune_active, capacities_v, capacities_t, k, pad_token_id, row_independent))
 
 
 def _pad_to(a: np.ndarray, n: int) -> np.ndarray:
@@ -213,7 +216,7 @@ def evaluate(model: VQAModel, batches: Iterable, answer_ids, answer_mask, *,
 
     def consume(pend):
         nonlocal g_sum, n
-        (best, v_kept, q_kept), qids, text_w = pend
+        (best, v_kept, q_kept, _), qids, text_w = pend
         results.extend((int(q), int(b)) for q, b in zip(qids, best.cpu().numpy()))
         g_sum += vqa_gflops(cfg.vit, cfg.med, v_kept.cpu().numpy(), q_kept.cpu().numpy(),
                             text_w, n_answers=k_test)

@@ -68,6 +68,29 @@ def test_port_runs_its_png_path_without_jax_pil_or_yaml(tmp_path):
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+def test_serving_imports_without_jax_or_ml_dtypes():
+    """The serving package and both serving CLIs import with ``jax`` and
+    ``ml_dtypes`` blocked, and the wire codec round-trips bfloat16 there."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'ml_dtypes'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "import madtp_tpu_torch.serve, madtp_tpu_torch.cli.export_serving, "
+        "madtp_tpu_torch.cli.serve\n"
+        "from madtp_tpu_torch.serve.server import decode_tensors, encode_arrays\n"
+        "x = torch.linspace(-3, 3, 12).to(torch.bfloat16).reshape(3, 4)\n"
+        "y, = decode_tensors(encode_arrays([x]))\n"
+        "assert y.dtype == torch.bfloat16 and torch.equal(x.view(torch.int16), "
+        "y.view(torch.int16))\n"
+        "bad = [m for m in sys.modules if m == 'madtp_tpu' or m.startswith('madtp_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
 def test_pattern_check_covers_drivers_data_and_utils():
     checked = {p.relative_to(PORT).parts[0] for p in PORT.rglob("*.py")}
     assert {"cli", "data", "utils"} <= checked

@@ -957,3 +957,72 @@ def test_device_prefetch_to_the_card(cuda):
         assert a.device.type == "cuda" and ids.device.type == "cuda" and s == [f"s{i}"]
         assert float((a * 2).sum()) == 2 * i * a.numel()
         assert ids.cpu().tolist() == list(range(i, i + 4))
+
+
+def test_served_nlvr_unit_equals_the_direct_step(cuda, tmp_path):
+    """A bf16 gather NLVR artifact served on the card: a full batch over
+    HTTP is bit-equal to the direct captured step on the same inputs, a
+    one-pair request to the step on its self-padded batch, and no request
+    captures a graph (the server's warm-up did)."""
+    import numpy as np
+
+    from madtp_tpu_torch.cli import export_serving
+    from madtp_tpu_torch.tasks.nlvr import make_eval_step
+    from madtp_tpu_torch.serve.server import ArtifactServer, ServingClient
+    from madtp_tpu_torch.utils.graph import CapturedStep
+
+    model, _ = _tiny_nlvr(cuda, torch.bfloat16)
+    args = export_serving.build_parser().parse_args(
+        ["--task", "nlvr", "--output_dir", str(tmp_path / "nlvr"), "--batch", "2",
+         "--text_len", "10", "--temperature", "2.0"])
+    export_serving.export_nlvr(args, {}, cuda, model=model, capacities=((12, 8), (6, 6)))
+    srv = ArtifactServer(str(tmp_path / "nlvr"))
+    srv.start_background()
+    try:
+        captures = CapturedStep.captures
+        rng = np.random.RandomState(3)
+        images = rng.randn(4, 3, 64, 64).astype(np.float32)
+        ids = rng.randint(1, 64, (2, 10)).astype(np.int32)
+        mask = np.ones((2, 10), np.int32)
+        mask[1, 7:] = 0
+        client = ServingClient(srv.url)
+        got = client.predict(images, ids, mask, np.float32(2.0))
+        sub = client.predict(np.stack([images[0], images[2]]), ids[:1], mask[:1],
+                             np.float32(2.0))
+        assert CapturedStep.captures == captures
+        step = make_eval_step(model, True, (12, 8), (6, 6))
+        x = torch.from_numpy(images).to(cuda, torch.bfloat16)
+        i, m = torch.from_numpy(ids).to(cuda), torch.from_numpy(mask).to(cuda)
+        want = step(x, i, m, 2.0)
+        assert np.array_equal(got[0], want.logits.float().cpu().numpy())
+        assert np.array_equal(got[1], want.v_kept.cpu().numpy())
+        assert np.array_equal(got[2], want.t_kept.cpu().numpy())
+        pad = step(torch.cat([x[:1], x[:1], x[2:3], x[2:3]]), i[:1].expand(2, -1),
+                   m[:1].expand(2, -1), 2.0)
+        assert np.array_equal(sub[0][0], pad.logits[0].float().cpu().numpy())
+    finally:
+        srv.shutdown()
+
+
+@pytest.mark.parametrize("mode", ["mask", "gather"])
+def test_row_independent_step_ignores_row_position(cuda, mode):
+    """The row-independent NLVR step on the card: the same pairs at other
+    rows of the batch give bit-equal logits and kept counts (the DTP's row
+    sums add every row in one order, wherever it lies)."""
+    from madtp_tpu_torch.tasks.nlvr import make_eval_step
+
+    model, _ = _tiny_nlvr(cuda, torch.bfloat16)
+    g = torch.Generator().manual_seed(2)
+    P = 6
+    images = torch.randn(2 * P, 3, 64, 64, generator=g).to(cuda, torch.bfloat16)
+    ids = torch.randint(1, 64, (P, 10), generator=g).to(cuda)
+    mask = torch.ones(P, 10, dtype=torch.long, device=cuda)
+    caps = (None, None) if mode == "mask" else ((12, 8), (6, 6))
+    step = make_eval_step(model, True, *caps, graph=False, row_independent=True)
+    perm = torch.roll(torch.arange(P, device=cuda), 1)
+    a = step(images, ids, mask, 2.0)
+    b = step(torch.cat([images[:P][perm], images[P:][perm]]), ids[perm], mask, 2.0)
+    inv = torch.argsort(perm)
+    assert torch.equal(a.logits, b.logits[inv])
+    assert torch.equal(a.v_kept, b.v_kept[:, torch.cat([inv, P + inv])])
+    assert torch.equal(a.t_kept, b.t_kept[:, inv])

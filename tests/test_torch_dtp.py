@@ -102,6 +102,31 @@ def test_dtp_prune_gather_matches_jax(seed, with_bias, row_independent, capacity
         assert int(t_ovf.max()) > 0
 
 
+@pytest.mark.parametrize("gather", [False, True])
+def test_clip_variant_takes_a_per_row_max_keep(gather):
+    """The CLIP text tower's row-independent EOT guard: the ``"clip"``
+    variant with ``max_keep`` per row ([B], each row's ``eot_pos + 2``)
+    against the JAX step, decisions and kept counts per row."""
+    x, alive, bias, sig = _case(3, with_bias=False)
+    js, ts = _states(x, alive, bias)
+    jsig, tsig = _signals(sig)
+    max_keep = np.array([2, 5, 9])
+    kw = dict(variant="clip", row_independent=True)
+    if gather:
+        j_out = JD.dtp_prune_gather(js, jsig, 2.0, 20, max_keep=jnp.asarray(max_keep), **kw)
+        t_out = TD.dtp_prune_gather(ts, tsig, 2.0, 20, max_keep=_t(max_keep), **kw)
+    else:
+        j_out = JD.dtp_prune(js, jsig, 2.0, 20, max_keep=jnp.asarray(max_keep), **kw)
+        t_out = TD.dtp_prune(ts, tsig, 2.0, 20, max_keep=_t(max_keep), **kw)
+    _assert_state(t_out[0], j_out[0])
+    for t, j in zip(t_out[1:], j_out[1:]):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    # the per-row guard changed some row's decision from the default guard of 1
+    t_none = (TD.dtp_prune_gather(ts, tsig, 2.0, 20, **kw) if gather
+              else TD.dtp_prune(ts, tsig, 2.0, 20, **kw))
+    assert not torch.equal(t_out[1], t_none[1])
+
+
 def test_compact_and_init_token_state_match_jax():
     x, alive, bias, _ = _case(2)
     js, ts = _states(x, alive, bias)
