@@ -76,7 +76,7 @@ Phases, each fatal on failure:
    (``tools/bench_clip.py``'s configuration, seeded random weights): the
    temperature bisected toward half the dense ``clip_gflops`` in mask mode,
    the ``--fast_eval`` capacities, ``tasks.clip_retrieval.evaluate`` in
-   gather mode on 1,024 synthetic uint8 images (32 batches of 32) and 5,120
+   gather mode on 512 synthetic uint8 images (16 batches of 32) and 2,560
    token-id texts, and the dense eval; images/s, texts/s, eval wall time, a
    profile of one image batch;
 11. the full-width CLIP model on the card against the CPU, fp32, 2 images
@@ -209,7 +209,23 @@ Phases, each fatal on failure:
    other unit (equal to its direct step); no capture after the warm-up;
    latency p50/p99 by request size, requests/s and pairs/s, the host codec's
    time per full request; the requests are the ``serve`` path of the
-   kernels line.
+   kernels line;
+29. multi-process runs (``phase_multiprocess``): a one-rank NCCL group in
+   this process holds every helper of ``madtp_tpu_torch/parallel/dist.py``
+   and the global-batch count max and gradient reduction of
+   ``parallel/data.py`` on CUDA tensors; then two ranks under
+   ``--dist_backend gloo`` share the card, spawned with
+   ``torch.multiprocessing``, each running the NLVR driver ``--epoch 1`` at
+   ``configs/nlvr.yaml``'s width on the PNG fixture and then the BLIP
+   retrieval driver's ``--evaluate`` on phase 27's best checkpoint: the
+   NLVR driver's first train step (32 pairs over the two ranks, at the
+   first temperature where each rank's half takes the one-process step's
+   DTP decisions) against the one-process step on the same global batch
+   (equal kept counts, losses
+   within 1e-4, named gradients within 1e-3 of their largest), the same
+   ``LOG:`` lines on both ranks and files from rank 0 only, the retrieval
+   scores bit-equal to one process's; the ranks' K1, K2, K4 and K5
+   launches are the ``multiprocess`` path of the kernels line.
 
 The card-against-CPU searches try first the factor of ``PARITY_FACTORS``
 where each settled in earlier runs of these seeds (``parity_factors``),
@@ -272,6 +288,7 @@ import collections
 import contextlib
 import copy
 import ctypes
+import functools
 import importlib
 import itertools
 import json
@@ -2564,13 +2581,13 @@ def clip_corpus(cfg, n_images, texts_per_image, seed):
     return images, text, txt2img, img2txt
 
 
-def phase_clip_main(device, cfg, p_target=0.5, bisect_steps=10, n_images=1024,
+def phase_clip_main(device, cfg, p_target=0.5, bisect_steps=10, n_images=512,
                     texts_per_image=5, batch=32, iters=5):
     """CLIP retrieval eval at p=0.5, bf16: the temperature bisected toward
     half the dense ``clip_gflops`` in mask mode (``tools/bench_clip.py:
     80-91``; first image batch and first 32 texts), the ``--fast_eval``
     capacities, ``evaluate`` in gather mode on a synthetic corpus cut from
-    COCO's 5,000 images and 25,000 texts to 1,024 and 5,120 (1:5), and the
+    COCO's 5,000 images and 25,000 texts to 512 and 2,560 (1:5), and the
     dense eval.  K5 and K1 (at H=16) held against their plain versions on
     the inputs the evals gave them.  Each eval runs through ``evaluate``
     (the towers' features recorded as ``encode_towers`` returns them):
@@ -5026,9 +5043,12 @@ def phase_retrieval_drivers(device, fixture_sizes=((480, 640), (375, 500)), over
     each run's wall, step times per epoch and seconds in init, ``train_epoch``,
     evaluation, checkpoint and resume writes are logged.  The CPU rehearsal
     passes a tiny ``override`` (BLIP yaml), ``clip_cfg``, ``clip_override``
-    and ``rn_cfg``.  Returns the launch counts by driver and the K4 and K1
-    records."""
+    and ``rn_cfg``.  Returns the launch counts by driver, the K4 and K1
+    records, and what phase 29 reuses (``root``: the fixture; ``yaml``,
+    ``checkpoint`` and ``scores``: the BLIP run's yaml, best checkpoint and
+    the score matrices its ``--evaluate`` dumped, kept under ``dir``)."""
     import shutil
+    from unittest import mock
 
     import yaml
 
@@ -5064,18 +5084,19 @@ def phase_retrieval_drivers(device, fixture_sizes=((480, 640), (375, 500)), over
     p = 0.1
     target = 153.2 * (1 - p)  # ORI_GFLOPS of compress_retrieval
     k4c = K4Capture() if captures else None
-    walls, launches["retrieval"], steps, watch = run_driver(
-        "retrieval", "compress_retrieval", "make_retrieval_train_step",
-        "madtp_tpu_torch.tasks.retrieval",
-        (("init_retrieval_model", "save_retrieval_checkpoint", "save_resume",
-          "read_checkpoint", "load_retrieval_state_dict"),
-         ("train_epoch", "encode_corpus", "rerank_scores", "epoch_gflops")),
-        (("train", ["--config", str(yaml_path), "--output_dir", str(out / "train"), "--epoch",
-                    "2", "--pretrained", "", "--p", str(p), *small, *flag]),
-         ("evaluate", ["--config", str(yaml_path), "--output_dir", str(out / "evaluate"),
-                       "--evaluate", "--pretrained", str(out / "train" / "checkpoint_best.pth"),
-                       *small, *flag])),
-        captures=(k4c,) if k4c else (), epochs=2)
+    with mock.patch.dict("os.environ", {"MADTP_DUMP_SCORES": "1"}):  # phase 29's scores
+        walls, launches["retrieval"], steps, watch = run_driver(
+            "retrieval", "compress_retrieval", "make_retrieval_train_step",
+            "madtp_tpu_torch.tasks.retrieval",
+            (("init_retrieval_model", "save_retrieval_checkpoint", "save_resume",
+              "read_checkpoint", "load_retrieval_state_dict"),
+             ("train_epoch", "encode_corpus", "rerank_scores", "epoch_gflops")),
+            (("train", ["--config", str(yaml_path), "--output_dir", str(out / "train"),
+                        "--epoch", "2", "--pretrained", "", "--p", str(p), *small, *flag]),
+             ("evaluate", ["--config", str(yaml_path), "--output_dir", str(out / "evaluate"),
+                           "--evaluate", "--pretrained",
+                           str(out / "train" / "checkpoint_best.pth"), *small, *flag])),
+            captures=(k4c,) if k4c else (), epochs=2)
     train_log = check_run("retrieval", out, 2)
     check_controller("retrieval", [a[4] for a in watch.args["train_epoch"]], train_log, target)
     sd, extras = read_checkpoint(str(out / "train" / "checkpoint_best.pth"))
@@ -5104,6 +5125,13 @@ def phase_retrieval_drivers(device, fixture_sizes=((480, 640), (375, 500)), over
     if device.type == "cuda" and min(launches["retrieval"].values()) == 0:
         raise AssertionError(f"driver retrieval: launches {launches['retrieval']}: a kernel of "
                              "the path was not launched")
+    kept = dict(root=root, dir=BUILD_DIR / "mp_inputs")  # phase 29 evaluates on two ranks
+    shutil.rmtree(kept["dir"], ignore_errors=True)
+    kept["dir"].mkdir(parents=True)
+    for key, src in (("yaml", yaml_path), ("checkpoint", out / "train" / "checkpoint_best.pth"),
+                     ("scores", out / "evaluate" / "scores.npz")):
+        kept[key] = kept["dir"] / src.name
+        shutil.move(str(src), str(kept[key]))
     shutil.rmtree(out)
     if k4c:
         records["K4"] = check_k4_cases("driver retrieval", k4c, iters=5,
@@ -5181,8 +5209,7 @@ def phase_retrieval_drivers(device, fixture_sizes=((480, 640), (375, 500)), over
                              "the text tower's FFNs ran no K5")
     shutil.rmtree(runs)
     check_loaders(root, device, 384 if not override else override.get("image_size", 384))
-    shutil.rmtree(root)
-    return launches, records
+    return launches, records, kept
 
 
 SERVE_TOL = 2e-2  # logits of a merged request against the same rows served alone (bf16)
@@ -5483,6 +5510,411 @@ def phase_serving(device, nlvr_model, t_star, caps, tasks, tokenizer, pairs=32, 
     return k1, k4, k5
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def nccl_one_rank(device):
+    """Phase 29 (a): every helper of ``parallel/dist.py`` and the global-batch
+    pieces of ``parallel/data.py`` through a one-rank NCCL group in this
+    process, on CUDA tensors, against the values one rank must give."""
+    from unittest import mock
+
+    import torch.distributed as tdist
+
+    from madtp_tpu_torch.parallel import data, dist
+
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                             world_size=1, rank=0, device_id=device)
+    checks = []
+
+    def check(name, ok):
+        checks.append(name)
+        if not ok:
+            raise AssertionError(f"nccl one-rank group: {name} gave a wrong value")
+
+    try:
+        check("backend", tdist.get_backend() == "nccl" and dist.process_count() == 1
+              and dist.is_main_process() and dist.reference_row_shard(10) == (0, 10))
+        a = np.arange(6, dtype=np.float32).reshape(2, 3)
+        check("host_allgather", np.array_equal(dist.host_allgather(a), a[None]))
+        check("host_allgather bool", np.array_equal(dist.host_allgather(a > 2), (a > 2)[None]))
+        check("host_sum", np.array_equal(dist.host_sum(np.array([1.5, 2.0 ** -30])),
+                                         np.array([1.5, 2.0 ** -30])))
+        s = np.full((3, 4), -100.0, np.float32)
+        s[1] = [-250.0, 0.5, 3.0, -100.5]
+        check("merge_scores", np.array_equal(dist.merge_scores(s), s))
+        x = torch.randn(5, 7, device=device)
+        check("all_gather_rows", torch.equal(dist.all_gather_rows(x), x))
+        check("all_gather_rows bool", torch.equal(dist.all_gather_rows(x > 0), x > 0))
+        xg = x.clone().requires_grad_(True)
+        c = dist.concat_all_gather(xg)
+        check("concat_all_gather", torch.equal(c, x) and not c.requires_grad)
+        w = torch.randn(5, 7, device=device)
+        y = dist.all_gather_with_grad(xg)
+        (y * w).sum().backward()
+        check("all_gather_with_grad", torch.equal(y.detach(), x) and torch.equal(xg.grad, w))
+        t = torch.tensor([3, -2], device=device)
+        check("all_reduce sum", torch.equal(dist.all_reduce(t.clone(), "sum"), t))
+        check("all_reduce max", torch.equal(dist.all_reduce(t.clone(), "max"), t))
+        dist.barrier("phase 29")
+        with mock.patch.object(data._SCOPE, "active", True):  # a step that spans the group
+            counts = (torch.tensor(7, device=device), torch.tensor(9, device=device))
+            check("batch_max", [int(v) for v in data.batch_max(*counts)] == [7, 9])
+            lin = torch.nn.Linear(7, 3).to(device)
+            lin(x).square().mean().backward()
+            want = [p.grad.clone() for p in lin.parameters()]
+            m = data.reduce_step(lin.parameters(), [torch.tensor(0.25, device=device)],
+                                 torch.tensor(12, device=device))
+            check("reduce_step", abs(float(m[0]) - 0.25) <= 1e-7 and all(
+                torch.allclose(p.grad, g, rtol=1e-6, atol=0) for p, g in
+                zip(lin.parameters(), want)))
+    finally:
+        tdist.destroy_process_group()
+    log(f"[multiprocess] one-rank NCCL group on {torch.cuda.get_device_name(device)}: "
+        f"{len(checks)} checks held ({', '.join(checks)})")
+    return checks
+
+
+def _mp_rank(rank, plan):
+    """One of phase 29's two ranks (spawned): the NLVR driver's ``--epoch
+    1`` run over gloo at the plan's temperature, its first train step's
+    inputs, global kept counts, losses and named gradients kept, then the
+    BLIP retrieval driver's ``--evaluate``; the launch counts of each (those
+    of the no-grad forward that reads the first step's kept counts taken
+    out), the ``LOG:`` lines, written to ``plan["out"]/rank<r>.pt``."""
+    import io
+    from unittest import mock
+
+    import torch.distributed as tdist
+
+    from madtp_tpu_torch.cli import compress_nlvr, compress_retrieval
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+    from madtp_tpu_torch.parallel import data
+    from madtp_tpu_torch.train.controller import TemperatureController
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = plan["device"]
+    mp = ["--device", dev, "--num_processes", "2", "--process_id", str(rank), "--coordinator",
+          plan["coordinator"], "--dist_backend", "gloo"]
+    first, checked = {}, {}  # checked: the launches of the check forward below
+    make_step = compress_nlvr.make_nlvr_train_step
+    reduce_step, reduce_ms = data.reduce_step, []
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def timed_reduce(*a, **k):  # the step's one all-reduce, over gloo
+        sync()
+        t0 = time.perf_counter()
+        out = reduce_step(*a, **k)
+        sync()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def make(model, opt, **kw):
+        step = make_step(model, opt, **kw)
+
+        def held(images, ids, mask, targets, t):
+            if first:
+                return step(images, ids, mask, targets, t)
+            before = counts()
+            with torch.no_grad():  # inside train_epoch's global-batch scope
+                out = model(images, ids, mask, temperature=t, prune_active=True)
+            checked.update({k: v - before[k] for k, v in counts().items()})
+            sync()
+            t0 = time.perf_counter()
+            m = step(images, ids, mask, targets, t)
+            sync()
+            named = dict(model.named_parameters())
+            first.update(inputs=[a.cpu() for a in (images, ids, mask, targets)],
+                         kept=(out.v_kept.cpu(), out.t_kept.cpu()), t=t,
+                         step_ms=(time.perf_counter() - t0) * 1e3, reduce_ms=reduce_ms[0],
+                         metrics={k: float(v) for k, v in m.items()},
+                         grads={n: named[n].grad.cpu() for n in plan["grad_params"]})
+            return m
+        return held
+
+    class Controller(TemperatureController):  # epoch 0 at the plan's temperature
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.temperature = plan["temperature"]
+
+    def counts():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return dict(K1=attention_scores_cuda.launches, K2=attention_scores_bwd_cuda.launches,
+                    K4=cross_attention_cuda.launches, K5=ffn_cuda.launches)
+
+    out, walls, launches = {}, {}, {}
+    stdout = io.StringIO()
+    loader = compress_nlvr.batched_loader
+
+    def train_in_line(*a, **k):  # the train batches' image swaps drawn in fetch order
+        return loader(*a, **({**k, "num_workers": 0} if k.get("shuffle") else k))
+
+    with mock.patch.object(compress_nlvr, "make_nlvr_train_step", make), \
+            mock.patch.object(data, "reduce_step", timed_reduce), \
+            mock.patch.object(compress_nlvr, "TemperatureController", Controller), \
+            mock.patch.object(compress_nlvr, "batched_loader", train_in_line), \
+            mock.patch.dict("os.environ", {"MADTP_DUMP_SCORES": "1"}), \
+            contextlib.redirect_stdout(stdout):
+        for label, main, argv in (
+                ("nlvr", compress_nlvr.main, plan["nlvr_argv"]),
+                ("retrieval", compress_retrieval.main, plan["retrieval_argv"])):
+            zero_launch_counts()
+            checked.clear()
+            t0 = time.perf_counter()
+            main([*argv, "--output_dir", f"{plan['out']}/{label}_r{rank}", *mp])
+            launches[label] = {k: v - checked.get(k, 0) for k, v in counts().items()}
+            walls[label] = time.perf_counter() - t0
+    tdist.destroy_process_group()
+    out.update(first=first, launches=launches, walls=walls,
+               logs=[line for line in stdout.getvalue().splitlines()
+                     if line.startswith("LOG:")])
+    torch.save(out, f"{plan['out']}/rank{rank}.pt")
+
+
+def nlvr_first_batches(config, tokenizer, batch, ranks=2):
+    """The first train batch of each rank's shard, as the NLVR driver loads
+    and tokenizes it under ``ranks`` processes (in-line loading, so the
+    dataset's image swaps are drawn in fetch order): ``(images, ids, mask,
+    targets)`` of each rank."""
+    from unittest import mock
+
+    from madtp_tpu_torch.cli import compress_nlvr
+    from madtp_tpu_torch.data.loader import batched_loader
+
+    out = []
+    in_line = functools.partial(batched_loader, num_workers=0)
+    with mock.patch.object(compress_nlvr, "batched_loader", in_line):
+        for r in range(ranks):
+            image0, image1, sentences, targets = next(iter(compress_nlvr.real_loader(
+                config, "train", train=True, batch=batch, num_shards=ranks, shard_id=r)()))
+            tok = tokenizer(sentences, padding="max_length", max_length=40)
+            ids = np.array(tok["input_ids"])  # the driver's dtypes (tasks/nlvr.py _device_batch)
+            ids[:, 0] = tokenizer.enc_token_id
+            out.append((torch.from_numpy(np.concatenate([image0, image1])), torch.from_numpy(ids),
+                        torch.from_numpy(np.asarray(tok["attention_mask"])),
+                        torch.from_numpy(np.asarray(targets))))
+    return out
+
+
+def rank_decisions(model, x, halves, rows, t):
+    """Whether two ranks, each running its half of the global batch ``x``,
+    take the one-process forward's DTP decisions at ``t``.  The
+    one-process mask-mode forward records every decision; each half
+    (``halves[r]``: ``(images, ids, mask, ...)``, whose rows are ``rows[r]``
+    = (vision rows, text rows) of the global batch) runs again with
+    ``parallel.data.batch_max`` handing it the recorded global counts, as
+    the ranks' cross-rank max will, at the ranks' batch shapes and so their
+    rounding.  Returns the one-process output and None, or a description of
+    the first decision a half takes otherwise (its rows' above-threshold
+    counts or kept tokens)."""
+    from unittest import mock
+
+    from madtp_tpu_torch.parallel import data
+
+    with DTPRecorder() as rec, torch.no_grad():
+        ref = model(*x[:3], temperature=t, prune_active=True)
+    dev = x[0].device
+    forced = [(torch.tensor(k, device=dev), palive.sum(dim=1).amax().to(dev))
+              for _, _, palive, _, k, _ in rec.records]
+    n_vision = rec.records[0][0].shape[0]
+    for r, half in enumerate(halves):
+        given = iter(forced)
+        with mock.patch.object(data, "batch_max", lambda *counts: next(given)), \
+                DTPRecorder() as mine, torch.no_grad():
+            model(*(a.to(dev) for a in half[:3]), temperature=t, prune_active=True)
+        for d, (want, got) in enumerate(zip(rec.records, mine.records)):
+            idx = rows[r][0] if want[0].shape[0] == n_vision else rows[r][1]
+            s0, t0, a0, o0 = (w[idx] for w in want[:4])
+            k, apply = want[4:]
+            s1, t1, a1, o1 = got[:4]
+            if not torch.equal((a0 & (s0 > t0[:, None])).sum(1), (a1 & (s1 > t1[:, None])).sum(1)):
+                return ref, f"rank {r}'s decision {d}: other counts above the threshold"
+            if apply and not torch.equal(o0[:, :k].sort(dim=1).values,
+                                         o1[:, :k].sort(dim=1).values):
+                return ref, f"rank {r}'s decision {d}: other kept tokens"
+    return ref, None
+
+
+def phase_multiprocess(device, kept, override=None):
+    """Phase 29: multi-process runs.  (a) ``nccl_one_rank``.  (b) two ranks
+    under ``--dist_backend gloo`` on the one card, spawned here with
+    ``torch.multiprocessing``, each running the NLVR driver ``--epoch 1`` at
+    ``configs/nlvr.yaml``'s width on phase 26's PNG fixture (16 pairs a
+    rank, the train split loaded in line), then the BLIP retrieval driver's
+    ``--evaluate`` on phase 27's best checkpoint (``kept``).
+
+    * The NLVR driver's first train step spans both ranks (DTP's counts and
+      the gradients over the global batch of 32 pairs): its kept counts,
+      losses (1e-4) and named gradients (1e-3 of each tensor's largest)
+      against the one-process step on the same global batch from the same
+      seeded init, here, before the ranks start.  Epoch 0 runs at the first
+      of ``PARITY_FACTORS`` (times T = 1, the controller's start) at which
+      each rank's half, run here at the rank's batch shape with the global
+      counts handed in (``rank_decisions``), takes the one-process step's
+      DTP decisions: the ranks' smaller GEMMs round otherwise, and the
+      fixture's augmented images hold identical patches, whose exact ties
+      no margin clears.  The ranks' first batches must equal the ones
+      built here.
+    * Both ranks print the same ``LOG:`` lines; only rank 0 writes the log,
+      the config and the checkpoints.
+    * The retrieval scores on each rank equal those of phase 27's
+      one-process ``--evaluate`` of the same checkpoint, bit for bit.
+    * Each rank's K1, K2, K4 and K5 launches, summed: the ``multiprocess``
+      path of the kernels line; every one of them launched.
+
+    A rank that fails fails the phase (``torch.multiprocessing`` ends the
+    other).  Returns the summed launch counts."""
+    import shutil
+
+    import torch.multiprocessing as tmp
+    import yaml
+
+    from madtp_tpu_torch.cli.common import build_blip_cfg
+    from madtp_tpu_torch.data.tokenizer_bert import BertWordPieceTokenizer
+    from madtp_tpu_torch.kernels.build import BUILD_DIR
+    from madtp_tpu_torch.models.blip import init_nlvr_model
+    from madtp_tpu_torch.train.loops import make_nlvr_train_step
+    from madtp_tpu_torch.train.optim import make_adamw
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    if device.type == "cuda":
+        nccl_one_rank(device)
+    root = kept["root"]
+    out = BUILD_DIR / "mp_runs"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    yaml_path = driver_yaml("nlvr.yaml", root, out / "nlvr.yaml", **(override or {}))
+    with open(yaml_path) as f:
+        config = yaml.safe_load(f)
+    batch = int(config["batch_size_train"])
+    tokenizer = BertWordPieceTokenizer(str(root / "vocab.txt"))
+    firsts = nlvr_first_batches(config, tokenizer, batch)
+    B = batch
+    glob = (torch.cat([firsts[0][0][:B], firsts[1][0][:B], firsts[0][0][B:], firsts[1][0][B:]]),
+            *(torch.cat([f[i] for f in firsts]) for i in (1, 2, 3)))
+
+    # the one-process step on the global batch, from the driver's seeded init (--seed 42)
+    t_one = time.perf_counter()
+    cfg = build_blip_cfg(config, int(config["image_size"]), twin_cross=True)
+    model = init_nlvr_model(cfg, seed=42, device=device)
+    x = [t.to(device) for t in glob]
+    rows = [(torch.cat([torch.arange(r * B, (r + 1) * B), torch.arange((2 + r) * B, (3 + r) * B)]),
+             torch.arange(r * B, (r + 1) * B)) for r in range(2)]
+    temperature = ref = None
+    for factor in parity_factors(0.8):  # where it settled in earlier runs of these seeds
+        ref, split = rank_decisions(model, x, firsts, rows, factor)
+        if split is None:
+            temperature = factor
+            break
+        log(f"[multiprocess] T {factor:g}: {split}: the next temperature")
+    if temperature is None:
+        raise AssertionError("at no temperature of PARITY_FACTORS do the ranks' halves take the "
+                             "one-process step's DTP decisions")
+    step = make_nlvr_train_step(model, make_adamw(model.parameters(), lr=0.0, weight_decay=0.0),
+                                device=device.type)
+    step_ms = []
+    for _ in range(2):  # lr 0: the second step starts from the same weights
+        sync()
+        t0 = time.perf_counter()
+        metrics = step(*x, temperature)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    named = dict(model.named_parameters())
+    want = dict(kept=(ref.v_kept.cpu(), ref.t_kept.cpu()), step_ms=step_ms,
+                metrics={k: float(v) for k, v in metrics.items()},
+                grads={n: named[n].grad.cpu() for n in GRAD_PARAMS})
+    del model, step, named, x, ref, metrics
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    log(f"[multiprocess] one-process step on the global batch ({2 * B} pairs) at T "
+        f"{temperature:g}, where each rank's half takes its DTP decisions: {want['metrics']}; "
+        f"step {step_ms[0]:.1f} ms, again {step_ms[1]:.1f} ms; "
+        f"{time.perf_counter() - t_one:.1f} s in all")
+
+    # phase 27's one-process --evaluate on its checkpoint dumped its scores
+    retrieval_argv = ["--config", str(kept["yaml"]), "--evaluate", "--pretrained",
+                      str(kept["checkpoint"]), "--batch_size_train", "8", "--batch_size_test",
+                      "8"]
+    one = np.load(kept["scores"])
+
+    plan = dict(device=device.type, coordinator=f"127.0.0.1:{_free_port()}", out=str(out),
+                temperature=temperature, retrieval_argv=retrieval_argv, grad_params=GRAD_PARAMS,
+                nlvr_argv=["--config", str(yaml_path), "--epoch", "1", "--pretrained", "",
+                           "--p", "0.1"])
+    t0 = time.perf_counter()
+    tmp.start_processes(_mp_rank, args=(plan,), nprocs=2, join=True, start_method="spawn")
+    wall = time.perf_counter() - t0
+    got = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+    # the NLVR driver: the first step against the one-process step
+    for r, g in enumerate(got):
+        f = g["first"]
+        if not all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(f["inputs"], firsts[r])):
+            raise AssertionError(f"rank {r}'s first train batch is not the one built here")
+        if f["t"] != temperature or not all(torch.equal(a, b) for a, b in
+                                            zip(f["kept"], want["kept"])):
+            raise AssertionError(f"rank {r}: kept counts {f['kept']} at T {f['t']}, the "
+                                 f"one-process step's {want['kept']}")
+        err = max(abs(f["metrics"][k] - v) for k, v in want["metrics"].items())
+        if not err <= 1e-4:
+            raise AssertionError(f"rank {r}: losses {f['metrics']} against {want['metrics']}")
+        rel = {}
+        for n in GRAD_PARAMS:
+            scale = float(want["grads"][n].abs().max())
+            rel[n] = float((f["grads"][n] - want["grads"][n]).abs().max()) / scale
+            if not (torch.isfinite(f["grads"][n]).all() and rel[n] <= GRAD_TOL):
+                raise AssertionError(f"rank {r}: grad of {n} differs by {rel[n]:.3e} of its max")
+    if got[0]["logs"] != got[1]["logs"] or not got[0]["logs"]:
+        raise AssertionError(f"the ranks logged {got[0]['logs']} and {got[1]['logs']}")
+    files = [sorted(p.name for p in (out / f"nlvr_r{r}").iterdir()) for r in range(2)]
+    if files[1] or not {"config.yaml", "log.txt", "resume_ckpt"} <= set(files[0]):
+        raise AssertionError(f"rank 0 wrote {files[0]}, rank 1 {files[1]}")
+
+    # the retrieval --evaluate against one process
+    for r in range(2):
+        s = np.load(out / f"retrieval_r{r}" / f"scores_r{r}.npz")
+        if not (np.array_equal(s["i2t"], one["i2t"]) and np.array_equal(s["t2i"], one["t2i"])):
+            raise AssertionError(f"rank {r}: retrieval scores differ from one process's")
+    launches = {k: sum(g["launches"][run][k] for g in got for run in ("nlvr", "retrieval"))
+                for k in ("K1", "K2", "K4", "K5")}
+    log(f"[multiprocess] two gloo ranks on {card_line() if device.type == 'cuda' else 'cpu'}: "
+        f"{wall:.1f} s from spawn to join; NLVR driver runs "
+        f"{[round(g['walls']['nlvr'], 1) for g in got]} s, retrieval --evaluate "
+        f"{[round(g['walls']['retrieval'], 1) for g in got]} s; first step at T "
+        f"{temperature:g} {[round(g['first']['step_ms'], 1) for g in got]} ms (its gloo "
+        f"all-reduce {[round(g['first']['reduce_ms'], 1) for g in got]} ms; one process "
+        f"{want['step_ms'][1]:.1f} ms): kept counts equal, losses {got[0]['first']['metrics']} "
+        f"(one process "
+        f"{want['metrics']}), grad max|diff| / max|grad| " + ", ".join(
+            f"{n.replace('visual_encoder.', 'v.').replace('text_encoder.encoder.', 't.')} "
+            f"{v:.2e}" for n, v in rel.items())
+        + f"; LOG lines equal ({len(got[0]['logs'])}); retrieval scores bit-equal; launches "
+        f"by rank {[g['launches'] for g in got]}")
+    if device.type == "cuda" and min(launches.values()) == 0:
+        raise AssertionError(f"multiprocess launches {launches}: a kernel was not launched")
+    shutil.rmtree(out)
+    shutil.rmtree(kept["dir"])
+    shutil.rmtree(kept["root"])
+    return launches
+
+
 def _timed(fn):
     t0 = time.perf_counter()
     fn()
@@ -5593,7 +6025,7 @@ def main():
     drivers, _, driver_records = timed(phase_drivers, device)
     tk.update({f"driver_{f}": c for f, c in drivers.items()})
     # phase 27: the BLIP and CLIP retrieval drivers (CLIP ViT-L/14@336 and RN50), the loaders
-    retrieval_drivers, retrieval_driver_records = timed(phase_retrieval_drivers, device)
+    retrieval_drivers, retrieval_driver_records, kept = timed(phase_retrieval_drivers, device)
     tk.update({f"driver_{f}": c for f, c in retrieval_drivers.items()})
     torch.cuda.empty_cache()
     # phase 28: the serving stack over HTTP (the NLVR main path's model, T* and capacities)
@@ -5602,6 +6034,9 @@ def main():
         {"retrieval": (rcfg, t_ret), "clip": (ccfg, t_clip), "vqa": (vqa_config(480), t_vqa),
          "caption": (caption_config(), t_cap)}, tokenizer)
     del nlvr_main
+    torch.cuda.empty_cache()
+    # phase 29: multi-process runs (a one-rank NCCL group; two gloo ranks on the card)
+    tk["multiprocess"] = timed(phase_multiprocess, device, kept)
 
     def train_total(k):
         return sum(c[k] for c in (*tk.values(), *te.values()))
@@ -5630,7 +6065,8 @@ def main():
                           "counts the launches in K3's range too (attention_scores_large_n); "
                           "train_<family>_eval counts the training path's controller evals "
                           "and capacity probe, train_<family> its train steps, "
-                          "driver_<family> the driver's train and evaluate runs",
+                          "driver_<family> the driver's train and evaluate runs, "
+                          "multiprocess the two ranks' driver runs of phase 29 (summed)",
              previous_note=PREVIOUS_NOTE.format("attention_scores.cu")),
         dict(name="attention_scores_large_n", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores.cu",

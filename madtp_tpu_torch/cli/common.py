@@ -3,11 +3,13 @@
 config (YAML, read and written by PyYAML imported at the call), seeding,
 the log, the tokenizer, the BLIP model config and the resume checkpoint.
 
-The port runs one process on one device.  ``--device`` takes the JAX
-driver's ``--platform`` place: ``cuda`` (the default) raises without a card,
-``cpu`` runs the plain PyTorch path.  ``--num_processes`` above 1 and
-``--dp`` over more than one card raise ``NotImplementedError``: multi-process
-and data-parallel training are ROADMAP A.6."""
+``--device`` takes the JAX driver's ``--platform`` place: ``cuda`` (the
+default) raises without a card, ``cpu`` runs the plain PyTorch path.  A
+driver runs as one process, or as ``--num_processes`` N processes over
+``torch.distributed`` (:mod:`madtp_tpu_torch.parallel.dist`), one per card:
+data parallelism in the port is one process per card, so ``--dp`` over
+several cards in one process is refused.  Under several processes the
+config, the logs and the checkpoints are written by rank 0 only."""
 
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from madtp_tpu_torch.core.device import resolve_device
 from madtp_tpu_torch.data.tokenizer_bert import BertWordPieceTokenizer
 from madtp_tpu_torch.data.transforms import (eval_resize_uint8, eval_transform,
                                              train_transform, train_transform_uint8)
+from madtp_tpu_torch.parallel import dist
 from madtp_tpu_torch.tasks.nlvr import cached_probe_batches  # noqa: F401  (the drivers')
 
 
@@ -71,7 +74,11 @@ def base_parser(default_config: str, default_pretrained: str = "", default_epoch
     p.add_argument("--process_id", default=-1, type=int,
                    help="this process's rank (env MADTP_PROCESS_ID)")
     p.add_argument("--coordinator", default="",
-                   help="coordinator host:port (env MADTP_COORDINATOR)")
+                   help="coordinator host:port (env MADTP_COORDINATOR, default "
+                        f"{dist.DEFAULT_COORDINATOR})")
+    p.add_argument("--dist_backend", default="auto", choices=dist.BACKENDS,
+                   help="torch.distributed backend under --num_processes: auto is nccl on "
+                        "the card and gloo on the CPU; gloo lets ranks share a card")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the driver runs: the card (raises without one) or the CPU")
     p.add_argument("--amp", action="store_true",
@@ -84,17 +91,35 @@ def base_parser(default_config: str, default_pretrained: str = "", default_epoch
 
 
 def setup_runtime(args) -> torch.device:
-    """The device the driver runs on; refuses what the port cannot run yet."""
-    n = args.num_processes or int(os.environ.get("MADTP_NUM_PROCESSES", "0") or 0)
-    if n > 1:
-        raise NotImplementedError(
-            f"--num_processes {n}: multi-process runs are not ported yet (ROADMAP A.6)")
+    """The device this process runs on: the requested one with one process;
+    under ``--num_processes`` N this rank's, after joining the process group
+    (:func:`madtp_tpu_torch.parallel.dist.init_from_args`)."""
     dev = resolve_device(args.device)
+    if dist.requested_processes(args) > 1:
+        return dist.init_from_args(args, dev)
     if dev.type == "cuda" and args.dp != "off" and torch.cuda.device_count() > 1:
         raise NotImplementedError(
-            f"--dp {args.dp} over {torch.cuda.device_count()} cards: data-parallel runs are "
-            "not ported yet (ROADMAP A.6); pass --dp off to run on one card")
+            f"--dp {args.dp} over {torch.cuda.device_count()} cards in one process: in the port "
+            "data parallelism is one process per card (--num_processes N, one per card); "
+            "pass --dp off to run on one card")
     return dev
+
+
+def mean_over_ranks(value: float) -> float:
+    """``value`` averaged over the ranks, each its own with one process: the
+    GFLOPs of the ranks' eval shards (``madtp_tpu/cli/compress_caption.py:
+    123``, ``compress_vqa.py:229``)."""
+    n = dist.process_count()
+    return value if n <= 1 else float(dist.host_sum(np.asarray([value]))[0]) / n
+
+
+def refuse_multiprocess_training(args, family: str) -> None:
+    """Multi-process training of the retrieval families is not ported yet:
+    raise before the process group forms, so no rank waits on another."""
+    if dist.requested_processes(args) > 1 and not args.evaluate and not args.synthetic:
+        raise NotImplementedError(
+            f"multi-process {family} training is not ported yet (ROADMAP A.6: cross-rank hard "
+            "negatives and the queue over the global batch); run --evaluate, or one process")
 
 
 def eval_image_transform(args, image_size: int, *, uint8=None):
@@ -147,7 +172,9 @@ def load_config(args) -> dict:
 
 
 def dump_config(config: dict, output_dir: str) -> None:
-    """The merged run config as ``<output_dir>/config.yaml``."""
+    """The merged run config as ``<output_dir>/config.yaml`` (rank 0)."""
+    if not dist.is_main_process():
+        return
     import yaml
 
     with open(os.path.join(output_dir, "config.yaml"), "w") as f:
@@ -161,6 +188,9 @@ def set_seed(seed: int) -> None:
 
 
 def dump_log(output_dir: str, name: str, stats: dict, append: bool = True) -> None:
+    """One JSON line of ``stats`` into ``<output_dir>/<name>`` (rank 0)."""
+    if not dist.is_main_process():
+        return
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, name), "a" if append else "w") as f:
         f.write(json.dumps(stats) + "\n")
@@ -263,8 +293,12 @@ def save_resume(output_dir: str, model: torch.nn.Module, optimizer: torch.optim.
     ``torch.Generator`` s, saved as their state) into
     ``<output_dir>/resume_ckpt``, the path that ``--resume`` takes.  The new
     file is written beside the old one and renamed into place, so a kill
-    during the save keeps the last state."""
+    during the save keeps the last state.  Under several processes only
+    rank 0 writes (every rank holds the same state); each rank returns the
+    path."""
     path = os.path.abspath(os.path.join(output_dir, "resume_ckpt"))
+    if not dist.is_main_process():
+        return path
     new, old = path + ".new", path + ".stale"
     for p in (new, old):
         if os.path.exists(p):

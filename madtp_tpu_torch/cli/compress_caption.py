@@ -12,6 +12,13 @@ epoch's val captions are scored by :mod:`madtp_tpu_torch.eval.caption_metrics`
 when the ground truth is there, and the checkpoint gate is CIDEr +
 SPICE_offline (the reference's CIDEr + SPICE, with the offline scene-graph
 scorer in SPICE's place) within 5 GFLOPs of the target.
+
+Under ``--num_processes`` N every split is sharded over the ranks, each
+train step spans the global batch (captions padded to 40 tokens), each
+rank's captions go through :func:`~madtp_tpu_torch.data.text_utils.
+save_result` (rank 0 merges them and scores the merged val split), the
+GFLOPs are averaged over the ranks, and rank 0 writes the logs and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -26,14 +33,16 @@ from madtp_tpu_torch.ckpt.convert import load_caption_state_dict, save_caption_c
 from madtp_tpu_torch.cli.common import (base_parser, build_blip_cfg, cached_probe_batches,
                                         dump_config, dump_log, eval_image_transform,
                                         load_config, load_resume, make_tokenizer,
-                                        read_checkpoint, save_resume, set_seed, setup_runtime,
-                                        synthetic_cfg, train_image_transform)
+                                        mean_over_ranks, read_checkpoint, save_resume,
+                                        set_seed, setup_runtime, synthetic_cfg,
+                                        train_image_transform)
 from madtp_tpu_torch.data.datasets import CaptionEvalDataset, CaptionTrainDataset
 from madtp_tpu_torch.data.loader import batched_loader
 from madtp_tpu_torch.data.text_utils import save_result
 from madtp_tpu_torch.data.transforms import PerSampleRng
 from madtp_tpu_torch.eval.caption_metrics import coco_caption_scores
 from madtp_tpu_torch.models.blip import init_caption_model
+from madtp_tpu_torch.parallel import dist
 from madtp_tpu_torch.tasks import caption as task
 from madtp_tpu_torch.train.controller import TemperatureController
 from madtp_tpu_torch.train.loops import make_caption_train_step
@@ -58,6 +67,8 @@ def main(argv=None):
 
     image_size = config.get("image_size", 64 if args.synthetic else 384)
     tokenizer = make_tokenizer(args, config)
+    n_procs, rank = dist.process_count(), dist.process_index()
+
     temperature = 1.0
     if args.synthetic:
         model = init_caption_model(synthetic_cfg(image_size, len(tokenizer.vocab)), seed=0,
@@ -99,6 +110,7 @@ def main(argv=None):
                                   .astype(np.float32), None) for _ in range(2)])
         results, cur_g = eval_epoch(temperature, loader)
         save_result(results, args.output_dir, "test_epoch_eval", remove_duplicate="image_id")
+        cur_g = mean_over_ranks(cur_g)
         log = {"n_captions": len(results), "Cur_Gflops": round(cur_g, 4),
                "sample": results[0]["caption"] if results else ""}
         dump_log(args.output_dir, "evaluate.txt", log, append=False)
@@ -108,15 +120,16 @@ def main(argv=None):
     def make_loader(split):
         ds = CaptionEvalDataset(eval_image_transform(args, image_size), config["image_root"],
                                 config["ann_root"], split)
-        return lambda: batched_loader(ds, config.get("batch_size_test", 32))
+        return lambda: batched_loader(ds, config.get("batch_size_test", 32),
+                                      num_shards=n_procs, shard_id=rank)
 
     if args.evaluate:
         if args.fast_eval and temperature > 0:
             calibrate_fast_eval(cached_probe_batches([None], make_loader("test"), n=4))
         results, cur_g = eval_epoch(temperature, make_loader("test"))
         save_result(results, args.output_dir, "test_epoch_eval", remove_duplicate="image_id")
-        dump_log(args.output_dir, "evaluate.txt", {"Cur_Gflops": round(cur_g, 2)},
-                 append=False)
+        dump_log(args.output_dir, "evaluate.txt",
+                 {"Cur_Gflops": round(mean_over_ranks(cur_g), 2)}, append=False)
         return
 
     # ---- compression training ----
@@ -184,6 +197,7 @@ def main(argv=None):
             model, step_fn,
             lambda: MetricLogger().log_every(
                 batched_loader(ds, batch_train, shuffle=True, epoch=epoch,
+                               num_shards=n_procs, shard_id=rank, drop_last=n_procs > 1,
                                batch_range=(skip, 1 << 31) if skip else None),
                 50, f"Train [{epoch}]"),
             tokenizer, temperature, lr=lr, stop=guard.should_stop)
@@ -195,19 +209,27 @@ def main(argv=None):
             print("LOG: preempted — resume checkpoint saved; restart with --resume")
             return
         results, cur_g = eval_epoch(temperature, make_loader("val"))
+        if n_procs > 1:
+            # rank 0 scores the whole split: every rank's captions, merged
+            merged = save_result(results, args.output_dir, f"val_epoch{epoch}",
+                                 remove_duplicate="image_id")
+            if dist.is_main_process():
+                with open(merged) as f:
+                    results = json.load(f)
+        cur_g = mean_over_ranks(cur_g)
         log = {"epoch": epoch, "Cur_Gflops": round(cur_g, 2), "train_loss": stats["loss"]}
         gt_root = config.get("coco_gt_root", "")
         gt_path = os.path.join(gt_root, "gt.json")
         if not os.path.exists(gt_path):
             gt_path = os.path.join(gt_root, "caption_gt.json")  # the fixture's name
         metric = 0.0
-        if os.path.exists(gt_path):
+        if os.path.exists(gt_path) and dist.is_main_process():
             with open(gt_path) as f:
                 scores = coco_caption_scores(results, json.load(f))
             log.update({k: round(v, 4) for k, v in scores.items()})
             metric = scores["CIDEr"] + scores["SPICE_offline"]
             log["ckpt_gate"] = "CIDEr+SPICE_offline (reference: CIDEr+SPICE)"
-        if metric >= best and cur_g - target < 5.0:
+        if metric >= best and cur_g - target < 5.0 and dist.is_main_process():
             save_caption_checkpoint(model, os.path.join(args.output_dir, "checkpoint_best.pth"),
                                     epoch=epoch, temperature=temperature)
             best = metric

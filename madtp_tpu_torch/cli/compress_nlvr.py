@@ -13,6 +13,13 @@ test accuracy within 5 GFLOPs of the target is written to
 ``checkpoint_best.pth``, every epoch to ``log.txt`` and the resume
 checkpoint.  ``--synthetic`` runs the same loop on seeded random weights and
 data.  ``--device cpu`` runs on the CPU; by default the driver needs a card.
+
+Under ``--num_processes`` N (one process per card) every split is sharded
+over the ranks, each train step spans the global batch (DTP's counts and the
+gradients over all ranks: :mod:`madtp_tpu_torch.parallel.data`), the train
+text is padded to 40 tokens, the ``--fast_train`` probe reads the same
+unsharded batches on every rank, the evals sum their totals over the ranks,
+and rank 0 writes the logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from madtp_tpu_torch.data.datasets import NLVRDataset
 from madtp_tpu_torch.data.loader import batched_loader
 from madtp_tpu_torch.data.transforms import PerSampleRng
 from madtp_tpu_torch.models.blip import init_nlvr_model
+from madtp_tpu_torch.parallel import dist
 from madtp_tpu_torch.tasks import nlvr as task
 from madtp_tpu_torch.train.controller import TemperatureController
 from madtp_tpu_torch.train.loops import make_nlvr_train_step
@@ -70,10 +78,11 @@ def synthetic_loader(n_batches, batch, image_size, seed=0, batch_skip=0):
     return lambda: iter(data[batch_skip:])
 
 
-def real_loader(config, split, *, train, batch, epoch=0, batch_skip=0, uint8=False):
-    """``(image0, image1, sentences, targets)`` batches of an NLVR2 split;
-    ``batch_skip`` drops the first batches of the epoch's schedule (the
-    exactly-once resume)."""
+def real_loader(config, split, *, train, batch, epoch=0, batch_skip=0, uint8=False,
+                num_shards=1, shard_id=0):
+    """``(image0, image1, sentences, targets)`` batches of shard ``shard_id``
+    of ``num_shards`` of an NLVR2 split; ``batch_skip`` drops the first
+    batches of the epoch's schedule (the exactly-once resume)."""
     size = config["image_size"]
     if train:
         tf = train_image_transform(None, size, PerSampleRng(42), uint8=uint8)
@@ -81,6 +90,7 @@ def real_loader(config, split, *, train, batch, epoch=0, batch_skip=0, uint8=Fal
         tf = eval_image_transform(None, size, uint8=uint8)
     ds = NLVRDataset(tf, config["image_root"], config["ann_root"], split)
     return lambda: batched_loader(ds, batch, shuffle=train, epoch=epoch, drop_last=train,
+                                  num_shards=num_shards, shard_id=shard_id,
                                   batch_range=(batch_skip, 1 << 31) if batch_skip else None)
 
 
@@ -105,10 +115,21 @@ def main(argv=None):
     tokenizer = make_tokenizer(args, config)
     enc = tokenizer.enc_token_id
 
+    n_procs, rank = dist.process_count(), dist.process_index()
+
     def tokenize(sentences):
         # padded to the batch's longest, as the reference does
         out = tokenizer(sentences, padding="longest")
         return out["input_ids"], out["attention_mask"]
+
+    def tokenize_train(sentences):
+        # under several processes every rank pads to one length, as the JAX
+        # package's one global train program must (compress_nlvr.py:123-130):
+        # the text DTP's largest alive count depends on it
+        if n_procs > 1:
+            out = tokenizer(sentences, padding="max_length", max_length=40)
+            return out["input_ids"], out["attention_mask"]
+        return tokenize(sentences)
 
     # ---- model ----
     temperature = 1.0
@@ -131,13 +152,17 @@ def main(argv=None):
     batch_train = config.get("batch_size_train", 4 if args.synthetic else 16)
     batch_test = config.get("batch_size_test", 4 if args.synthetic else 32)
 
-    def get_loader(split, train=False, epoch=0, batch_skip=0):
-        if args.synthetic:
+    def get_loader(split, train=False, epoch=0, batch_skip=0, sharded=True):
+        # sharded=False: the same batches on every rank (the --fast_train
+        # probe, whose capacities every rank's train step must share)
+        if args.synthetic:  # the same data on every rank, as the JAX driver's
             return synthetic_loader(args.synthetic_batches, batch_test, image_size,
                                     batch_skip=batch_skip)
+        ns, si = (n_procs, rank) if sharded else (1, 0)
         return real_loader(config, split, train=train,
                            batch=batch_train if train else batch_test, epoch=epoch,
-                           batch_skip=batch_skip, uint8=args.uint8_feed)
+                           batch_skip=batch_skip, uint8=args.uint8_feed, num_shards=ns,
+                           shard_id=si)
 
     def evaluate(split, prune_active, caps_v=None, caps_t=None):
         stats, cur_g = task.evaluate(model, get_loader(split), tokenize, temperature,
@@ -174,7 +199,7 @@ def main(argv=None):
     def fast_train_step(temperature):
         """``--fast_train``: capacities from the cached mask-mode probe
         batches at this epoch's temperature, and the gather-mode step."""
-        probe = cached_probe_batches(probe_cache, get_loader("train", True, 0))
+        probe = cached_probe_batches(probe_cache, get_loader("train", True, 0, sharded=False))
         key = task.probe_capacities(model, probe, tokenize, enc, temperature, args.cap_mode)
         if key not in step_cache:
             step_cache[key] = make_nlvr_train_step(
@@ -217,7 +242,7 @@ def main(argv=None):
         skip = resume_skip if epoch == start_epoch else 0
         train_stats = task.train_epoch(model, step_fn,
                                        get_loader("train", True, epoch, batch_skip=skip),
-                                       tokenize, enc, temperature, lr=lr,
+                                       tokenize_train, enc, temperature, lr=lr,
                                        stop=guard.should_stop)
         done = skip + int(train_stats.pop("batches_done", 0))
         if guard.sync_now():
@@ -227,7 +252,8 @@ def main(argv=None):
                         {"epoch": epoch - 1, "temperature": float(pre_temp),
                          "cur_gflops": float(cur_g), "best": float(best),
                          "batches_done": done})
-            print("LOG: preempted — resume checkpoint saved; restart with --resume")
+            print(f"LOG: preempted after {done} batches of epoch {epoch} — resume checkpoint "
+                  "saved; restart with --resume")
             return
         val_stats, cur_g = evaluate("val", True)
         test_stats, _ = evaluate("test", True)
@@ -236,10 +262,13 @@ def main(argv=None):
                **{f"test_{k}": v for k, v in test_stats.items()},
                "epoch": epoch, "Cur_Gflops": round(cur_g, 2)}
         acc = float(test_stats["acc"])
+        # every rank tracks the best (the stats are the ranks' totals); rank 0 writes
         if acc > best and cur_g - controller.target_gflops < 5.0:
             best, best_epoch = acc, epoch
-            save_nlvr_checkpoint(model, os.path.join(args.output_dir, "checkpoint_best.pth"),
-                                 epoch=epoch, temperature=temperature)
+            if dist.is_main_process():
+                save_nlvr_checkpoint(model, os.path.join(args.output_dir,
+                                                         "checkpoint_best.pth"),
+                                     epoch=epoch, temperature=temperature)
         dump_log(args.output_dir, "log.txt", log)
         print("LOG:", log)
         save_resume(args.output_dir, model, opt,

@@ -18,6 +18,13 @@ corpus.  ``--device cpu`` runs on the CPU; by default the driver needs a card.
 
 With one process ``negative_all_rank`` (on in ``configs/retrieval_coco.yaml``)
 means what it means off: the hard negatives are mined over the whole batch.
+
+Under ``--num_processes`` N the eval runs over the ranks: each encodes a
+contiguous block of the image batches (:func:`~madtp_tpu_torch.tasks.
+retrieval.encode_corpus_sharded`), reranks its rows of each direction by the
+reference's row arithmetic, and the score matrices are merged on every rank
+(bit for bit those of one process); rank 0 writes the logs.  Training over
+several processes is ROADMAP A.6 and raises before the process group forms.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ from madtp_tpu_torch.ckpt.convert import load_retrieval_state_dict, save_retriev
 from madtp_tpu_torch.cli.common import (base_parser, build_blip_cfg, cached_probe_batches,
                                         dump_config, dump_log, eval_image_transform,
                                         load_config, load_resume, make_tokenizer,
-                                        read_checkpoint, save_resume, set_seed, setup_runtime,
+                                        read_checkpoint, refuse_multiprocess_training,
+                                        save_resume, set_seed, setup_runtime,
                                         train_image_transform)
 from madtp_tpu_torch.core.config import BlipConfig, MedConfig, ViTConfig
 from madtp_tpu_torch.data.datasets import CaptionTrainDataset, RetrievalEvalDataset
@@ -40,6 +48,7 @@ from madtp_tpu_torch.data.loader import batched_loader, num_batches
 from madtp_tpu_torch.data.transforms import PerSampleRng
 from madtp_tpu_torch.eval.metrics import itm_eval
 from madtp_tpu_torch.models.blip import init_retrieval_model
+from madtp_tpu_torch.parallel import dist
 from madtp_tpu_torch.tasks import retrieval as task
 from madtp_tpu_torch.train.controller import TemperatureController
 from madtp_tpu_torch.train.loops import init_retrieval_train_state, make_retrieval_train_step
@@ -86,6 +95,7 @@ def main(argv=None):
     # scripts always pass --config)
     args = base_parser("configs/retrieval_flickr.yaml", "pretrained/model_base_retrieval_coco.pth",
                        default_output="output/Retrieval_flickr").parse_args(argv)
+    refuse_multiprocess_training(args, "BLIP retrieval")
     device = setup_runtime(args)
     config = load_config(args)
     set_seed(args.seed)
@@ -102,9 +112,10 @@ def main(argv=None):
         model, synthetic_batches, texts, txt2img, img2txt = synthetic_setup(
             image_size, len(tokenizer.vocab), args.synthetic_corpus, device)
         temperature = 1.0
+        n_image_batches = len(synthetic_batches)
 
-        def image_batches():
-            return iter(synthetic_batches)
+        def image_blocks(lo, hi):
+            return iter(synthetic_batches[lo:hi])
     else:
         cfg = build_blip_cfg(config, image_size)
         if config.get("pretrained"):
@@ -119,22 +130,37 @@ def main(argv=None):
         ds = RetrievalEvalDataset(eval_image_transform(args, image_size), config["image_root"],
                                   config["ann_root"], "test", dataset=config.get("dataset", "coco"))
         texts, txt2img, img2txt = ds.text, ds.txt2img, ds.img2txt
+        n_image_batches = -(-len(ds.image) // batch_test)
 
-        def image_batches():
-            return (b[0] for b in batched_loader(ds, batch_test))
+        def image_blocks(lo, hi):
+            # a rank decodes only its block of the batch schedule
+            return (b[0] for b in batched_loader(ds, batch_test, batch_range=(lo, hi)))
+
+    def image_batches():
+        return image_blocks(0, n_image_batches)
 
     tok = tokenizer(texts, padding="longest", max_length=35)
     text_ids, text_mask = np.asarray(tok["input_ids"]), np.asarray(tok["attention_mask"])
     enc_ids = text_ids.copy()  # the ITM reranks on [ENC]-token text (reference :168)
     enc_ids[:, 0] = enc
 
+    n_procs = dist.process_count()
+    shard = (n_procs, dist.process_index()) if n_procs > 1 else None
+
     def full_scores(temperature, prune, caps_v=None, caps_t=None):
-        img_feats, img_states, txt_feats = task.encode_corpus(
-            model, image_batches(), text_ids, text_mask, temperature=temperature,
-            prune_active=prune, capacities_v=caps_v, capacities_t=caps_t)
-        return task.rerank_scores(model, img_feats, img_states, txt_feats, enc_ids, text_mask,
-                                  k_test=min(k_test, len(texts)), temperature=temperature,
-                                  prune_active=prune, capacities_t=caps_t)
+        img_feats, img_states, txt_feats = task.encode_corpus_sharded(
+            model, image_blocks, n_image_batches, text_ids, text_mask,
+            temperature=temperature, prune_active=prune, capacities_v=caps_v,
+            capacities_t=caps_t)
+        s_i2t, s_t2i = task.rerank_scores(
+            model, img_feats, img_states, txt_feats, enc_ids, text_mask,
+            k_test=min(k_test, len(texts)), temperature=temperature, prune_active=prune,
+            capacities_t=caps_t, shard=shard)
+        if shard is not None:
+            # a rank that died in its rerank shows here, not inside the gather
+            dist.barrier("retrieval_scores")
+            s_i2t, s_t2i = dist.merge_scores(s_i2t), dist.merge_scores(s_t2i)
+        return s_i2t, s_t2i
 
     prune = temperature > 0
     caps_v = caps_t = None
@@ -145,7 +171,10 @@ def main(argv=None):
         print("fast_eval capacities:", caps_v, caps_t)
     s_i2t, s_t2i = full_scores(temperature, prune, caps_v, caps_t)
     if os.environ.get("MADTP_DUMP_SCORES"):
-        np.savez(os.path.join(args.output_dir, "scores.npz"), i2t=s_i2t, t2i=s_t2i)
+        # each rank holds the merged matrices; a name a rank keeps a shared
+        # output directory free of races
+        name = "scores.npz" if n_procs <= 1 else f"scores_r{dist.process_index()}.npz"
+        np.savez(os.path.join(args.output_dir, name), i2t=s_i2t, t2i=s_t2i)
     stats = itm_eval(s_i2t, s_t2i, txt2img, img2txt)
     log = {k: round(v, 3) for k, v in stats.items()}
     dump_log(args.output_dir, "evaluate.txt", log, append=False)

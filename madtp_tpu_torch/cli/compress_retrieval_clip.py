@@ -19,6 +19,13 @@ not train: its tower is inference-only, as in the JAX package, whose driver
 fails on one at its first checkpoint write.  ``--synthetic`` evaluates a
 tiny seeded model.  ``--device cpu`` runs on the CPU; by default the driver
 needs a card.
+
+Under ``--num_processes`` N the eval runs over the ranks: each decodes and
+encodes a contiguous block of both towers' batches
+(:func:`~madtp_tpu_torch.tasks.clip_retrieval.encode_towers_sharded`), and
+every rank ranks the gathered features, bit for bit those of one process;
+rank 0 writes the logs.  Training over several processes is ROADMAP A.6 and
+raises before the process group forms.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ from madtp_tpu_torch.ckpt.convert import (clip_from_jax_params, load_clip_state_
                                           save_clip_checkpoint)
 from madtp_tpu_torch.cli.common import (base_parser, cached_probe_batches, dump_config,
                                         dump_log, eval_image_transform, load_config,
-                                        load_resume, read_checkpoint, save_resume, set_seed,
+                                        load_resume, read_checkpoint,
+                                        refuse_multiprocess_training, save_resume, set_seed,
                                         setup_runtime, train_image_transform)
 from madtp_tpu_torch.core.config import CLIPConfig, infer_clip_config
 from madtp_tpu_torch.data.datasets import CaptionTrainDataset, RetrievalEvalDataset
@@ -40,6 +48,7 @@ from madtp_tpu_torch.data.loader import batched_loader, num_batches
 from madtp_tpu_torch.data.tokenizer_clip import ClipBPETokenizer, clip_tokenize
 from madtp_tpu_torch.data.transforms import PerSampleRng
 from madtp_tpu_torch.eval.metrics import itm_eval
+from madtp_tpu_torch.parallel import dist
 from madtp_tpu_torch.prune.flops import clip_gflops
 from madtp_tpu_torch.tasks import clip_retrieval as task
 from madtp_tpu_torch.train.controller import TemperatureController
@@ -125,6 +134,7 @@ def main(argv=None):
     args = base_parser("configs/retrieval_flickr_clip.yaml",
                        "pretrained/clip_large_retrieval_flickr.pth",
                        default_output="output/Retrieval_flickr").parse_args(argv)
+    refuse_multiprocess_training(args, "CLIP retrieval")
     device = setup_runtime(args)
     config = load_config(args)
     set_seed(args.seed)
@@ -132,9 +142,11 @@ def main(argv=None):
     dump_config(config, args.output_dir)
 
     bt = int(config.get("batch_size_test", 32))
+    n_procs, rank = dist.process_count(), dist.process_index()
     if args.synthetic:
         model, corpus, text, txt2img, img2txt = synthetic_setup(device)
         temperature = 1.0
+        n_images = len(corpus)
     else:
         sd, extras = read_checkpoint(config["pretrained"])
         cfg = infer_clip_config(sd, config.get("sd_dim", 768))
@@ -146,12 +158,22 @@ def main(argv=None):
         tokenizer = ClipBPETokenizer()
         text = clip_tokenize(tokenizer, ds.text, cfg.context_length)
         txt2img, img2txt = ds.txt2img, ds.img2txt
-        # decoded once and sliced: every training epoch evaluates the corpus
-        corpus = np.concatenate([b[0] for b in batched_loader(ds, bt)])
+        n_images, corpus = len(ds), None
     cfg = model.cfg
 
+    def image_blocks(lo, hi):
+        """Image batches ``lo`` to ``hi`` of the test schedule.  One process
+        decodes the corpus once and slices it (every training epoch
+        evaluates it); under several, each rank decodes only its block."""
+        nonlocal corpus
+        if corpus is None and n_procs > 1:
+            return (b[0] for b in batched_loader(ds, bt, batch_range=(lo, hi)))
+        if corpus is None:
+            corpus = np.concatenate([b[0] for b in batched_loader(ds, bt)])
+        return (corpus[b * bt:(b + 1) * bt] for b in range(lo, hi))
+
     def image_batches():
-        return (corpus[i:i + bt] for i in range(0, len(corpus), bt))
+        return image_blocks(0, -(-n_images // bt))
 
     prune = temperature > 0
     caps_v = None
@@ -161,12 +183,12 @@ def main(argv=None):
         # causal text tower stays in mask mode
         caps_v = task.probe_capacities(model, image_batches(), temperature, args.cap_mode)
         print("fast_eval vision capacities:", caps_v)
-    img, txt, v_kept, t_kept = task.encode_towers(model, image_batches(), text,
-                                                  temperature=temperature, prune_active=prune,
-                                                  capacities_v=caps_v, batch_size=bt)
+    img, txt, v_kept, t_kept = task.encode_towers_sharded(
+        model, image_blocks, n_images, text, temperature=temperature, prune_active=prune,
+        capacities_v=caps_v, batch_size=bt)
     sims = img @ txt.T
-    if os.environ.get("MADTP_DUMP_SCORES"):
-        np.savez(os.path.join(args.output_dir, "clip_sims_r0.npz"), sims=sims)
+    if os.environ.get("MADTP_DUMP_SCORES"):  # every rank's gathered similarities
+        np.savez(os.path.join(args.output_dir, f"clip_sims_r{rank}.npz"), sims=sims)
     stats = itm_eval(sims, sims.T, txt2img, img2txt)
     # a dense encode's kept counts are the full token counts: the dense GFLOPs
     cur_g = clip_gflops(cfg, v_kept, t_kept)

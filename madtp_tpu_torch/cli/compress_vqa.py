@@ -11,6 +11,13 @@ and writes the answers as JSON.  Training runs the temperature controller
 over epochs of the soft-weighted answer loss (a question's first
 ``tasks.vqa.MAX_A`` = 10 answers) and writes a checkpoint every epoch, as
 the reference does.
+
+Under ``--num_processes`` N the train and test splits are sharded over the
+ranks, each train step spans the global batch (questions padded to 35
+tokens, answers to 24), each rank's answers go through
+:func:`~madtp_tpu_torch.data.text_utils.save_result` (rank 0 merges them),
+the GFLOPs are averaged over the ranks, and rank 0 writes the logs and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -26,13 +33,15 @@ from madtp_tpu_torch.ckpt.convert import load_vqa_state_dict, save_vqa_checkpoin
 from madtp_tpu_torch.cli.common import (base_parser, build_blip_cfg, cached_probe_batches,
                                         dump_config, dump_log, eval_image_transform,
                                         load_config, load_resume, make_tokenizer,
-                                        read_checkpoint, save_resume, set_seed, setup_runtime,
-                                        synthetic_cfg, train_image_transform)
+                                        mean_over_ranks, read_checkpoint, save_resume,
+                                        set_seed, setup_runtime, synthetic_cfg,
+                                        train_image_transform)
 from madtp_tpu_torch.data.datasets import VQADataset, vqa_collate
 from madtp_tpu_torch.data.loader import batched_loader
 from madtp_tpu_torch.data.text_utils import save_result
 from madtp_tpu_torch.data.transforms import PerSampleRng
 from madtp_tpu_torch.models.blip import init_vqa_model
+from madtp_tpu_torch.parallel import dist
 from madtp_tpu_torch.prune.flops import vqa_gflops
 from madtp_tpu_torch.tasks import vqa as task
 from madtp_tpu_torch.train.controller import TemperatureController
@@ -57,6 +66,8 @@ def main(argv=None):
     image_size = config.get("image_size", 64 if args.synthetic else 480)
     tokenizer = make_tokenizer(args, config)
     k_test = config.get("k_test", 8 if args.synthetic else 128)
+    n_procs, rank = dist.process_count(), dist.process_index()
+
     temperature = 1.0
     if args.synthetic:
         cfg = synthetic_cfg(image_size, len(tokenizer.vocab))  # the JAX driver's
@@ -132,6 +143,7 @@ def main(argv=None):
             calibrate_fast_eval(loader)
         results, cur_g = run_eval(loader)
         save_result(results, args.output_dir, "vqa_result", remove_duplicate="question_id")
+        cur_g = mean_over_ranks(cur_g)
         log = {"n_answers": len(results), "Cur_Gflops": round(cur_g, 4),
                "sample": results[0]["answer"]}
         dump_log(args.output_dir, "evaluate.txt", log, append=False)
@@ -142,15 +154,16 @@ def main(argv=None):
                     config["vqa_root"], config.get("vg_root", ""), split="test")
 
     def test_loader():
-        return batched_loader(ds, config.get("batch_size_test", 16))
+        return batched_loader(ds, config.get("batch_size_test", 16), num_shards=n_procs,
+                              shard_id=rank)
 
     if args.evaluate:
         if args.fast_eval:
             calibrate_fast_eval(test_loader)
         results, cur_g = run_eval(test_loader)
         save_result(results, args.output_dir, "vqa_result", remove_duplicate="question_id")
-        dump_log(args.output_dir, "evaluate.txt", {"Cur_Gflops": round(cur_g, 2)},
-                 append=False)
+        dump_log(args.output_dir, "evaluate.txt",
+                 {"Cur_Gflops": round(mean_over_ranks(cur_g), 2)}, append=False)
         return
 
     # ---- compression training ----
@@ -213,7 +226,8 @@ def main(argv=None):
             model, step_fn,
             lambda: MetricLogger().log_every(
                 batched_loader(train_ds, batch_train, shuffle=True, epoch=epoch,
-                               collate=vqa_collate,
+                               collate=vqa_collate, num_shards=n_procs, shard_id=rank,
+                               drop_last=n_procs > 1,
                                batch_range=(skip, 1 << 31) if skip else None),
                 50, f"Train [{epoch}]"),
             tokenizer, temperature, lr=lr, stop=guard.should_stop)
@@ -227,8 +241,11 @@ def main(argv=None):
         results, cur_g = run_eval(test_loader)
         save_result(results, args.output_dir, f"vqa_result_epoch{epoch}",
                     remove_duplicate="question_id")
-        save_vqa_checkpoint(model, os.path.join(args.output_dir, f"checkpoint_{epoch:02d}.pth"),
-                            epoch=epoch, temperature=temperature)
+        cur_g = mean_over_ranks(cur_g)
+        if dist.is_main_process():
+            save_vqa_checkpoint(model, os.path.join(args.output_dir,
+                                                    f"checkpoint_{epoch:02d}.pth"),
+                                epoch=epoch, temperature=temperature)
         dump_log(args.output_dir, "log.txt", {"epoch": epoch, "Cur_Gflops": round(cur_g, 2),
                                               "train_loss": stats["loss"]})
         save_resume(args.output_dir, model, opt,

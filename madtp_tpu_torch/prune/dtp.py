@@ -23,6 +23,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from madtp_tpu_torch.parallel import data
+
 NEG_INF = float("-inf")
 
 
@@ -128,8 +130,9 @@ def _keep_rule(score, signals, palive, temperature, row_independent, variant="vi
         topk_num = counts
         alive_cnt = palive.sum(dim=1)
     else:
-        topk_num = counts.amax()
-        alive_cnt = palive.sum(dim=1).amax()
+        # the batch max; inside a train step that spans ranks, over every
+        # rank's rows, as the one-device step on the global batch takes it
+        topk_num, alive_cnt = data.batch_max(counts.amax(), palive.sum(dim=1).amax())
     if variant == "clip":
         apply = (topk_num > (1 if max_keep is None else max_keep)) & (alive_cnt - topk_num >= 2)
     elif variant == "vit":

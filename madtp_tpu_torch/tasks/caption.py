@@ -32,6 +32,7 @@ import torch
 
 from madtp_tpu_torch.models.blip import CaptionModel
 from madtp_tpu_torch.models.med import DecodeCache, MedDecoder, init_decode_cache
+from madtp_tpu_torch.parallel import data, dist
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.prune.flops import caption_gflops
@@ -308,13 +309,15 @@ def presearch(model: CaptionModel, images, target_gflops: float, *, t0: float = 
     return presearch_temperature(measure, target_gflops, t0=t0, max_iters=max_iters, tol=tol)
 
 
-def train_batch(tokenizer, captions: Sequence[str], prompt_length: int
-                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+def train_batch(tokenizer, captions: Sequence[str], prompt_length: int, *,
+                fixed: bool = False) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """A batch of training captions (``compress_caption.py:400-409``): ids and
-    mask padded to the longest caption (at most ``MAX_LENGTH``), BOS in slot
-    0, labels -100 at padding and over the first ``prompt_length`` tokens
-    (``len(tokenizer.encode(PROMPT)) - 1``).  int64 numpy arrays."""
-    tok = tokenizer(list(captions), padding="longest", max_length=MAX_LENGTH)
+    mask padded to the longest caption (at most ``MAX_LENGTH``; to
+    ``MAX_LENGTH`` itself with ``fixed``, as under several processes), BOS
+    in slot 0, labels -100 at padding and over the first ``prompt_length``
+    tokens (``len(tokenizer.encode(PROMPT)) - 1``).  int64 numpy arrays."""
+    tok = tokenizer(list(captions), padding="max_length" if fixed else "longest",
+                    max_length=MAX_LENGTH)
     ids = np.array(tok["input_ids"], np.int64)
     mask = np.array(tok["attention_mask"], np.int64)
     ids[:, 0] = tokenizer.bos_token_id
@@ -326,7 +329,8 @@ def train_batch(tokenizer, captions: Sequence[str], prompt_length: int
 def train_epoch(model: CaptionModel, train_step, loader_fn: Callable[[], Iterable], tokenizer,
                 temperature: float, *, print_fn=print, print_freq: int = 50,
                 lr: float = 0.0, stop=None) -> dict:
-    """One compression-training epoch (single process) of ``train_step``
+    """One compression-training epoch (under several processes each step
+    spans the ranks: :func:`~madtp_tpu_torch.parallel.data.global_batch`) of ``train_step``
     (:func:`~madtp_tpu_torch.train.loops.make_caption_train_step`'s step)
     over ``loader_fn()``'s ``(images, captions, image_ids)`` batches, each
     tokenized by :func:`train_batch`.  Returns the stats of
@@ -336,11 +340,17 @@ def train_epoch(model: CaptionModel, train_step, loader_fn: Callable[[], Iterabl
     dev = model.space_dict.device
     prompt_length = len(tokenizer.encode(PROMPT)) - 1
 
+    # under several processes every rank pads to one length, as the JAX
+    # package's one global program must (``compress_caption.py:420-423``)
+    fixed = dist.process_count() > 1
+
     def run_step(_, batch):
         images, captions = batch[0], batch[1]
-        ids, mask, labels = train_batch(tokenizer, captions, prompt_length)
+        ids, mask, labels = (train_batch(tokenizer, captions, prompt_length, fixed=True)
+                             if fixed else train_batch(tokenizer, captions, prompt_length))
         return train_step(_to_device(images, dev), *(_to_device(a, dev) for a in
                                                      (ids, mask, labels)), temperature)
 
-    return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
-                     print_freq=print_freq, stop=stop)
+    with data.global_batch():  # under several processes each step spans the ranks
+        return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
+                         print_freq=print_freq, stop=stop)

@@ -1,13 +1,14 @@
 """CLIP image-text retrieval evaluation: dual-tower ranking, no ITM rerank
 (counterpart of the eval of ``madtp_tpu/cli/compress_retrieval_clip.py:
-187-324``), single process.
+187-324``).
 
 * :func:`probe_capacities` is ``--fast_eval``'s calibration of the vision
   tower's gather capacities;
 * :func:`encode_towers` embeds every image batch as given and the texts in
   batches of ``batch_size`` (DTP couples the rows of a batch through its
   batch-max keep count, so the batches decide the result), with no host
-  sync until the features come back;
+  sync until the features come back; :func:`encode_towers_sharded` splits
+  both towers' batches over the processes and gathers them back;
 * :func:`evaluate` ranks ``sims = img @ txt.T`` with ``itm_eval`` and
   reports :func:`~madtp_tpu_torch.prune.flops.clip_gflops` from the last
   batch of each tower.  The text tower runs in mask mode in both modes.
@@ -30,6 +31,7 @@ import torch
 from madtp_tpu_torch.data.tokenizer_clip import clip_tokenize
 from madtp_tpu_torch.eval.metrics import itm_eval
 from madtp_tpu_torch.models.clip import CLIPModel
+from madtp_tpu_torch.parallel import dist
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.flops import clip_gflops
 from madtp_tpu_torch.train.epoch import run_epoch
@@ -130,6 +132,32 @@ def encode_towers(model: CLIPModel, image_batches: Iterable[np.ndarray], text: n
         txt.append(feat)
     return (torch.cat(img).float().cpu().numpy(), torch.cat(txt).float().cpu().numpy(),
             v_kept.cpu().numpy(), t_kept.cpu().numpy())
+
+
+def encode_towers_sharded(model: CLIPModel, image_blocks: Callable[[int, int], Iterable],
+                          n_images: int, text: np.ndarray, *, batch_size: int = BATCH_SIZE_TEST,
+                          **kw) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`encode_towers` over several processes
+    (``madtp_tpu/cli/compress_retrieval_clip.py:252-310``): when each tower
+    has at least one batch a rank, rank ``r`` of ``P`` encodes the
+    contiguous blocks ``[r * nb // P, (r + 1) * nb // P)`` of the image
+    batches (``image_blocks(lo, hi)`` yields just those) and of the text
+    batches, and the features are gathered back in corpus order.  Every
+    batch keeps its members, so the result is that of one process, bit for
+    bit; the kept counts are the last rank's, which holds each tower's last
+    batch.  Otherwise, and with one process, every rank encodes it all."""
+    P, r = dist.process_count(), dist.process_index()
+    nb_i, nb_t = -(-n_images // batch_size), -(-len(text) // batch_size)
+    if P <= 1 or nb_i < P or nb_t < P:
+        return encode_towers(model, image_blocks(0, nb_i), text, batch_size=batch_size, **kw)
+    lo_t, hi_t = r * nb_t // P * batch_size, (r + 1) * nb_t // P * batch_size
+    img, txt, v_kept, t_kept = encode_towers(
+        model, image_blocks(r * nb_i // P, (r + 1) * nb_i // P), text[lo_t:hi_t],
+        batch_size=batch_size, **kw)
+    dev = _device(model)
+    img, txt = (dist.all_gather_rows(torch.from_numpy(a).to(dev)).cpu().numpy()
+                for a in (img, txt))
+    return img, txt, dist.host_allgather(v_kept)[-1], dist.host_allgather(t_kept)[-1]
 
 
 def evaluate(model: CLIPModel, image_batches: Iterable[np.ndarray], text: np.ndarray,

@@ -1,7 +1,8 @@
 """NLVR2 evaluation and compression training
 (counterpart of ``madtp_tpu/tasks/nlvr.py:27-257``): the eval step, the
-single-process eval loop that returns the analytic per-sample GFLOPs, the
-single-process train epoch, and the ``--fast_train`` capacity probe
+eval loop that returns the analytic per-sample GFLOPs (each rank's shard,
+its totals summed over the ranks), the train epoch (each step over the
+global batch of all ranks), and the ``--fast_train`` capacity probe
 (``madtp_tpu/cli/compress_nlvr.py:270-300``).  ``fast_capacity_schedule``
 lives in :mod:`madtp_tpu_torch.prune.calibrate` and is importable from here
 too."""
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from madtp_tpu_torch.models.blip import NLVRModel, NLVROut
+from madtp_tpu_torch.parallel import data, dist
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.flops import nlvr_gflops
 from madtp_tpu_torch.train.epoch import run_epoch
@@ -64,7 +66,9 @@ def evaluate(model: NLVRModel, loader_fn: Callable[[], Iterable], tokenize,
     before batch ``i`` is read back, so the card does not wait on the host
     loop.  ``stats`` holds the accuracy and, in gather mode, the overflow
     count summed over batches.  Each batch runs as a captured step
-    (``graph=False``: eagerly)."""
+    (``graph=False``: eagerly).  Under several processes each rank
+    evaluates its own loader's shard and every rank returns the totals over
+    all of them."""
     cfg = model.cfg
     device = model.space_dict.device
     step = make_eval_step(model, prune_active, capacities_v, capacities_t, graph=graph)
@@ -99,6 +103,13 @@ def evaluate(model: NLVRModel, loader_fn: Callable[[], Iterable], tokenize,
             print_fn(f"Evaluation: [{i}]")
     if pending is not None:
         consume(pending)
+    if dist.process_count() > 1:
+        # each rank evaluated its own shard: every rank reports the totals
+        # (``madtp_tpu/tasks/nlvr.py:155-170``)
+        tot = dist.host_sum(np.asarray([correct, seen, gflops_sum, n_batches, overflow],
+                                       np.float64))
+        correct, seen, n_batches, overflow = (int(tot[i]) for i in (0, 1, 3, 4))
+        gflops_sum = float(tot[2])
     cur_gflops = gflops_sum / max(n_batches, 1)
     print_fn(f"Current Temperature: {temperature}")
     print_fn(f"Averaged GFLOPS: {cur_gflops}")
@@ -111,7 +122,8 @@ def evaluate(model: NLVRModel, loader_fn: Callable[[], Iterable], tokenize,
 def train_epoch(model: NLVRModel, train_step, loader_fn: Callable[[], Iterable], tokenize,
                 enc_token_id: int, temperature: float, *, print_fn=print,
                 print_freq: int = 50, lr: float = 0.0, stop=None) -> dict:
-    """One compression-training epoch (single process).  ``train_step`` is
+    """One compression-training epoch (under several processes each step
+    spans the ranks: :func:`~madtp_tpu_torch.parallel.data.global_batch`).  ``train_step`` is
     :func:`madtp_tpu_torch.train.loops.make_nlvr_train_step`'s step, which
     updates the model in place.  Step ``i``'s losses are read back after
     step ``i+1`` is dispatched (a one-deep lag), so the host does not wait
@@ -128,8 +140,9 @@ def train_epoch(model: NLVRModel, train_step, loader_fn: Callable[[], Iterable],
         x, _ = _device_batch(image0, image1, sentences, tokenize, enc_token_id, device)
         return train_step(*x, torch.from_numpy(np.asarray(targets)).to(device), temperature)
 
-    return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
-                     print_freq=print_freq, stop=stop)
+    with data.global_batch():  # under several processes each step spans the ranks
+        return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
+                         print_freq=print_freq, stop=stop)
 
 
 def cached_probe_batches(cache: list, loader_factory: Callable[[], Iterable],

@@ -8,12 +8,17 @@ single process.
   images of a batch through its batch-max keep count, so the batches decide
   the result) and the texts in batches of ``text_batch``; the image states
   stay on the device in the model's dtype for the rerank.
+* :func:`encode_corpus_sharded` splits the image batches into one contiguous
+  block a rank and gathers the blocks back in corpus order, under several
+  processes (``madtp_tpu/tasks/retrieval.py:142-240``).
 * :func:`rerank_scores` takes the fp32 similarity matrix on the host, each
   row's top ``k_test`` candidates, and runs one ITM forward per row with the
   row's candidates as its batch, in both directions.  Each forward is its own
   DTP batch, as in the reference's one-row-per-step loop (the JAX package
   ``vmap`` s the rows, which keeps them apart the same way); stacking rows
-  into one forward would couple them.  Unscored entries stay at -100.
+  into one forward would couple them.  Unscored entries stay at -100; with
+  ``shard`` a rank scores only its rows, and :func:`merge_score_matrices`
+  puts the ranks' matrices together.
 * :func:`probe_capacities` is ``--fast_eval``'s calibration (and
   ``--fast_train``'s); :func:`evaluate` runs the whole eval and returns
   ``itm_eval``'s recalls.
@@ -34,6 +39,7 @@ import torch
 
 from madtp_tpu_torch.eval.metrics import itm_eval
 from madtp_tpu_torch.models.blip import RetrievalModel
+from madtp_tpu_torch.parallel import dist
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.prune.flops import retrieval_gflops
@@ -125,12 +131,46 @@ def encode_corpus(model: RetrievalModel, image_batches: Iterable[np.ndarray],
             torch.cat(txt_feats).float().cpu().numpy())
 
 
+def encode_corpus_sharded(model: RetrievalModel, image_blocks: Callable[[int, int], Iterable],
+                          n_batches: int, text_ids: np.ndarray, text_mask: np.ndarray, *,
+                          temperature=0.0, prune_active: bool = False,
+                          capacities_v: Optional[Sequence[int]] = None,
+                          capacities_t: Optional[Sequence[int]] = None, text_batch: int = 256,
+                          graph: bool = True) -> Tuple[np.ndarray, TokenState, np.ndarray]:
+    """:func:`encode_corpus` over several processes
+    (``madtp_tpu/tasks/retrieval.py:142-240``): rank ``r`` of ``P`` encodes
+    the contiguous block ``[r * n_batches // P, (r + 1) * n_batches // P)``
+    of the image batches (``image_blocks(lo, hi)`` yields just those, so a
+    rank decodes only its own), and the blocks are gathered back in corpus
+    order.  Every batch keeps its members, so DTP's batch-max decisions and
+    the result are those of one process, bit for bit.  Texts are encoded on
+    every rank, as the reference does.  A rank whose block is empty encodes
+    one black image to learn the state's shape and keeps none of it.  With
+    one process it is :func:`encode_corpus` over every batch."""
+    P, r = dist.process_count(), dist.process_index()
+    kw = dict(temperature=temperature, prune_active=prune_active, capacities_v=capacities_v,
+              capacities_t=capacities_t, text_batch=text_batch, graph=graph)
+    if P <= 1:
+        return encode_corpus(model, image_blocks(0, n_batches), text_ids, text_mask, **kw)
+    lo, hi = r * n_batches // P, (r + 1) * n_batches // P
+    size = model.cfg.vit.image_size
+    block = (image_blocks(lo, hi) if lo < hi
+             else iter([np.zeros((1, 3, size, size), np.float32)]))
+    feats, states, txt_feats = encode_corpus(model, block, text_ids, text_mask, **kw)
+    if lo == hi:
+        feats, states = feats[:0], TokenState(states.x[:0], states.alive[:0], None)
+    feats = dist.all_gather_rows(torch.from_numpy(feats).to(states.x.device))
+    return (feats.cpu().numpy(),
+            TokenState(dist.all_gather_rows(states.x), dist.all_gather_rows(states.alive), None),
+            txt_feats)
+
+
 @torch.inference_mode()
 def rerank_scores(model: RetrievalModel, img_feats: np.ndarray, img_states: TokenState,
                   txt_feats: np.ndarray, text_ids: np.ndarray, text_mask: np.ndarray, *,
                   k_test: int = 128, temperature=0.0, prune_active: bool = False,
-                  capacities_t: Optional[Sequence[int]] = None, graph: bool = True
-                  ) -> Tuple[np.ndarray, np.ndarray]:
+                  capacities_t: Optional[Sequence[int]] = None, graph: bool = True,
+                  shard: Optional[Tuple[int, int]] = None) -> Tuple[np.ndarray, np.ndarray]:
     """Stage 2: ``sims = img_feats @ txt_feats.T`` in fp32 on the host, then
     for each image its top ``k_test`` texts and for each text its top
     ``k_test`` images, scored ``ITM + sim``.  ``text_ids`` carry the
@@ -145,6 +185,11 @@ def rerank_scores(model: RetrievalModel, img_feats: np.ndarray, img_states: Toke
     ``[rows, k]`` device tensor, read back once per direction.  Its graph
     lives only for this call (``graph=False``: eagerly).
 
+    ``shard=(num_shards, shard_id)`` scores only the shard's rows of each
+    direction, by the reference's arithmetic
+    (:func:`~madtp_tpu_torch.parallel.dist.reference_row_shard`, over the
+    images for image-to-text and over the texts for text-to-image).
+
     Returns ``(score_i2t [ni, nt], score_t2i [nt, ni])`` fp32, -100 where not
     scored."""
     sims = np.asarray(img_feats, np.float32) @ np.asarray(txt_feats, np.float32).T
@@ -153,7 +198,7 @@ def rerank_scores(model: RetrievalModel, img_feats: np.ndarray, img_states: Toke
     sx_all = img_states.x.to(dev, model.space_dict.dtype)
     sa_all = img_states.alive.to(dev)
 
-    def itm_rows(topk: np.ndarray, i2t: bool) -> np.ndarray:
+    def itm_rows(topk: np.ndarray, i2t: bool, lo: int, hi: int) -> np.ndarray:
         cands = _ids(topk, dev)
         n, k = topk.shape
         scores = torch.empty((n, k), dtype=torch.float32, device=dev)
@@ -177,18 +222,35 @@ def rerank_scores(model: RetrievalModel, img_feats: np.ndarray, img_states: Toke
                                static=(i2t, prune_active, capacities_t),
                                cache=BoundedCache(maxsize=1))
         rows = torch.arange(n, device=dev)
-        for r in range(n):
+        for r in range(lo, hi):
             row(rows[r:r + 1], temperature)
-        return scores.cpu().numpy()
+        return scores[lo:hi].cpu().numpy()
 
     def direction(s: np.ndarray, i2t: bool) -> np.ndarray:
         topk = np.argsort(-s, axis=1)[:, :k_test]
-        rows = np.arange(s.shape[0])[:, None]
+        lo, hi = (0, s.shape[0]) if shard is None else dist.reference_row_shard(s.shape[0],
+                                                                                 *shard)
         out = np.full(s.shape, -100.0, np.float32)
-        out[rows, topk] = itm_rows(topk, i2t) + s[rows, topk]
+        if lo < hi:
+            rows = np.arange(lo, hi)[:, None]
+            out[rows, topk[lo:hi]] = itm_rows(topk, i2t, lo, hi) + s[rows, topk[lo:hi]]
         return out
 
     return direction(sims, True), direction(sims.T, False)
+
+
+def merge_score_matrices(*parts: np.ndarray) -> np.ndarray:
+    """The ranks' row-sharded score matrices, each initialized at -100, as one
+    (``madtp_tpu/tasks/retrieval.py:399-415``): each entry was written by at
+    most one rank, so the merge takes the written value, in rank order.  The
+    reference all-reduces a SUM, which shifts every written entry by -100
+    per other rank, and a max would clamp scores below -100; the select
+    keeps them bit for bit."""
+    out = parts[0].copy()
+    for p in parts[1:]:
+        written = p != -100.0
+        out[written] = p[written]
+    return out
 
 
 @torch.inference_mode()

@@ -34,6 +34,7 @@ import torch
 
 from madtp_tpu_torch.models.blip import VQAModel
 from madtp_tpu_torch.models.med import MedDecoder
+from madtp_tpu_torch.parallel import data, dist
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.prune.flops import vqa_gflops
@@ -44,6 +45,7 @@ from madtp_tpu_torch.utils.graph import CapturedStep
 LABEL_SMOOTHING = 0.1  # reference models/med.py:1045
 MAX_A = 10  # answers per training question: VQAv2 has 10 annotators
 Q_MAX_LENGTH = 35  # the questions' token limit (reference models/blip_vqa.py)
+A_MAX_LENGTH = 24  # the answers' padded length under several processes
 
 
 def _ids(a, device) -> torch.Tensor:
@@ -234,17 +236,20 @@ def evaluate(model: VQAModel, batches: Iterable, answer_ids, answer_mask, *,
     return results, g_sum / max(n, 1)
 
 
-def tokenize_answers(tokenizer, answers: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
-    """Answers padded to the longest, BOS in slot 0 (``tokenize_answers``,
-    ``madtp_tpu/cli/compress_vqa.py:33-37``): int64 ``(ids, mask)``."""
-    out = tokenizer(list(answers), padding="longest")
+def tokenize_answers(tokenizer, answers: Sequence[str],
+                     max_length: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """Answers padded to the longest (to ``max_length`` when given), BOS in
+    slot 0 (``tokenize_answers``, ``madtp_tpu/cli/compress_vqa.py:33-37``):
+    int64 ``(ids, mask)``."""
+    out = (tokenizer(list(answers), padding="longest") if max_length is None
+           else tokenizer(list(answers), padding="max_length", max_length=max_length))
     ids = np.array(out["input_ids"], np.int64)
     ids[:, 0] = tokenizer.bos_token_id
     return ids, np.array(out["attention_mask"], np.int64)
 
 
 def train_batch(tokenizer, questions: Sequence[str], answers: Sequence[str], weights,
-                counts: Sequence[int]):
+                counts: Sequence[int], *, fixed: bool = False):
     """A training batch (``compress_vqa.py:425-446``) from ``vqa_collate``'s
     ragged answers: ``answers`` and ``weights`` flat, ``counts`` per
     question.  Questions padded to the longest (at most 35 tokens), the
@@ -253,11 +258,14 @@ def train_batch(tokenizer, questions: Sequence[str], answers: Sequence[str], wei
     with weight 0.  Returns int64 ``q_ids, q_mask, a_ids, a_mask`` and fp32
     ``weights`` [B, MAX_A].  A question with more answers than ``MAX_A``
     drops the extra ones (the JAX driver would then
-    misalign the next question's; VQAv2 never has more than 10)."""
-    q = tokenizer(list(questions), padding="longest", max_length=Q_MAX_LENGTH)
+    misalign the next question's; VQAv2 never has more than 10).  With
+    ``fixed``, as under several processes, the questions are padded to 35
+    tokens and the answers to ``A_MAX_LENGTH`` (``compress_vqa.py:423-426``)."""
+    q = tokenizer(list(questions), padding="max_length" if fixed else "longest",
+                  max_length=Q_MAX_LENGTH)
     q_ids = np.array(q["input_ids"], np.int64)
     q_ids[:, 0] = tokenizer.enc_token_id
-    a_ids, a_mask = tokenize_answers(tokenizer, answers)
+    a_ids, a_mask = tokenize_answers(tokenizer, answers, A_MAX_LENGTH if fixed else None)
     weights = np.asarray(weights, np.float32)
     B, La = len(counts), a_ids.shape[1]
     ids = np.zeros((B, MAX_A, La), np.int64)
@@ -276,7 +284,8 @@ def train_batch(tokenizer, questions: Sequence[str], answers: Sequence[str], wei
 def train_epoch(model: VQAModel, train_step, loader_fn: Callable[[], Iterable], tokenizer,
                 temperature: float, *, print_fn=print, print_freq: int = 50,
                 lr: float = 0.0, stop=None) -> dict:
-    """One compression-training epoch (single process) of ``train_step``
+    """One compression-training epoch (under several processes each step
+    spans the ranks: :func:`~madtp_tpu_torch.parallel.data.global_batch`) of ``train_step``
     (:func:`~madtp_tpu_torch.train.loops.make_vqa_train_step`'s step) over
     ``loader_fn()``'s ``(images, questions, answers, weights, counts)``
     batches (``vqa_collate``'s), each made by :func:`train_batch`.  Returns
@@ -285,11 +294,15 @@ def train_epoch(model: VQAModel, train_step, loader_fn: Callable[[], Iterable], 
     ``batches_done``."""
     dev = model.space_dict.device
 
+    fixed = dist.process_count() > 1  # one padded length on every rank
+
     def run_step(_, batch):
         images, questions, answers, weights, counts = batch
-        arrays = train_batch(tokenizer, questions, answers, weights, counts)
+        arrays = (train_batch(tokenizer, questions, answers, weights, counts, fixed=True)
+                  if fixed else train_batch(tokenizer, questions, answers, weights, counts))
         return train_step(torch.from_numpy(np.asarray(images)).to(dev),
                           *(torch.from_numpy(a).to(dev) for a in arrays), temperature)
 
-    return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
-                     print_freq=print_freq, stop=stop)
+    with data.global_batch():  # under several processes each step spans the ranks
+        return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
+                         print_freq=print_freq, stop=stop)

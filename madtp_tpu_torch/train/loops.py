@@ -25,6 +25,7 @@ from madtp_tpu_torch.models.blip import (CaptionModel, NLVRModel, RetrievalModel
 from madtp_tpu_torch.models.clip import CLIPModel
 from madtp_tpu_torch.models.med import lm_loss
 from madtp_tpu_torch.ops.layers import linear
+from madtp_tpu_torch.parallel import data
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.train import losses as L
 from madtp_tpu_torch.train.momentum import FeatureQueue, enqueue, init_queue, momentum_update
@@ -73,18 +74,32 @@ def _prefixed(params: dict) -> dict:
     return {"model." + n: p for n, p in params.items()}
 
 
-def _optimize(optimizer: torch.optim.Optimizer, loss_fn, names: Sequence[str], after=None):
+def _optimize(optimizer: torch.optim.Optimizer, loss_fn, names: Sequence[str], after=None,
+              count=None):
     """The step shared by every factory: zero the gradients, run ``loss_fn``
     (the total first, then the parts ``names``), backward, update, then
-    ``after(out, *args, **kwargs)`` when given (retrieval: the enqueue)."""
+    ``after(out, *args, **kwargs)`` when given (retrieval: the enqueue).
+
+    Inside :func:`~madtp_tpu_torch.parallel.data.global_batch` the
+    gradients and the returned losses become the global batch's before the
+    update (:func:`~madtp_tpu_torch.parallel.data.reduce_step`), weighted by
+    ``count(*args, **kwargs)``: the rows, tokens or questions the loss is a
+    mean over.  The steps without ``count`` (BLIP and CLIP retrieval) are
+    not run over several processes yet: the drivers refuse that
+    (:func:`~madtp_tpu_torch.cli.common.refuse_multiprocess_training`)."""
     def step(*args, **kwargs):
         optimizer.zero_grad(set_to_none=True)
         out = loss_fn(*args, **kwargs)
         out[0].backward()
+        metrics = [v.detach() for v in out[:len(names)]]
+        if data.spans():
+            metrics = data.reduce_step(
+                (p for g in optimizer.param_groups for p in g["params"]), metrics,
+                count(*args, **kwargs))
         optimizer.step()
         if after is not None:
             after(out, *args, **kwargs)
-        return {n: v.detach() for n, v in zip(names, out)}
+        return dict(zip(names, metrics))
     step.loss_fn = loss_fn
     return step
 
@@ -113,7 +128,9 @@ def make_nlvr_train_step(model: NLVRModel, optimizer: torch.optim.Optimizer, *,
             model, p, (x, ids, mask), dict(kw, temperature=temperature, targets=targets))
         return loss_ori + FDT_WEIGHT * loss_fdt, loss_ori, loss_fdt
 
-    return _optimize(optimizer, loss_fn, ("loss", "loss_ori", "loss_fdt"))
+    # both losses are means over the pairs
+    return _optimize(optimizer, loss_fn, ("loss", "loss_ori", "loss_fdt"),
+                     count=lambda images, ids, mask, targets, temperature: targets.shape[0])
 
 
 def make_caption_train_step(model: CaptionModel, optimizer: torch.optim.Optimizer, *,
@@ -139,7 +156,10 @@ def make_caption_train_step(model: CaptionModel, optimizer: torch.optim.Optimize
         loss_fdt = loss_lm
         return loss_lm + FDT_WEIGHT * loss_fdt, loss_lm, loss_fdt
 
-    return _optimize(optimizer, loss_fn, ("loss", "loss_lm", "loss_fdt"))
+    # the LM loss is a mean over the labelled tokens (``lm_loss``)
+    return _optimize(optimizer, loss_fn, ("loss", "loss_lm", "loss_fdt"),
+                     count=lambda images, ids, mask, labels, temperature:
+                     (labels[:, 1:] != -100).sum())
 
 
 def vqa_loss(model: VQAModel, images, q_ids, q_mask, a_ids, a_mask, weights, *,
@@ -195,7 +215,10 @@ def make_vqa_train_step(model: VQAModel, optimizer: torch.optim.Optimizer, *,
             dict(kw, temperature=temperature))
         return loss_vqa + FDT_WEIGHT * loss_fdt, loss_vqa, loss_fdt
 
-    return _optimize(optimizer, loss_fn, ("loss", "loss_vqa", "loss_fdt"))
+    # the weighted answer loss is divided by the questions, the FDT loss a
+    # mean over them
+    return _optimize(optimizer, loss_fn, ("loss", "loss_vqa", "loss_fdt"),
+                     count=lambda images, q_ids, *rest: q_ids.shape[0])
 
 
 class RetrievalTrainState(NamedTuple):

@@ -6,7 +6,8 @@ the query tiles (each relaunch bit-identical), the autograd pairings (K1
 with K2, K4 and K5 with the plain version's backward), the FFN routing
 rule, and the refusals; K4 at the decode's one query per row, an fp32 decode
 step on the card against the CPU, and beam search with no hidden wait on the
-card.  Needs an NVIDIA GPU with nvcc; skipped elsewhere.
+card, and DTP's cross-rank count max refusing a graph capture.  Needs an
+NVIDIA GPU with nvcc; skipped elsewhere.
 
 Run on the card: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
@@ -1026,3 +1027,18 @@ def test_row_independent_step_ignores_row_position(cuda, mode):
     assert torch.equal(a.logits, b.logits[inv])
     assert torch.equal(a.v_kept, b.v_kept[:, torch.cat([inv, P + inv])])
     assert torch.equal(a.t_kept, b.t_kept[:, inv])
+
+
+def test_global_batch_count_max_refuses_a_graph_capture(cuda):
+    """No collective enters a CUDA graph: inside a global-batch scope, DTP's
+    cross-rank count max raises when the stream is capturing."""
+    from unittest import mock
+
+    from madtp_tpu_torch.parallel import data
+
+    counts = (torch.tensor(3, device=cuda), torch.tensor(5, device=cuda))
+    graph = torch.cuda.CUDAGraph()
+    with mock.patch.object(data._SCOPE, "active", True):
+        with pytest.raises(RuntimeError, match="capture"):
+            with torch.cuda.graph(graph):
+                data.batch_max(*counts)
