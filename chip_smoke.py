@@ -5044,9 +5044,9 @@ def phase_retrieval_drivers(device, fixture_sizes=((480, 640), (375, 500)), over
     evaluation, checkpoint and resume writes are logged.  The CPU rehearsal
     passes a tiny ``override`` (BLIP yaml), ``clip_cfg``, ``clip_override``
     and ``rn_cfg``.  Returns the launch counts by driver, the K4 and K1
-    records, and what phase 29 reuses (``root``: the fixture; ``yaml``,
-    ``checkpoint`` and ``scores``: the BLIP run's yaml, best checkpoint and
-    the score matrices its ``--evaluate`` dumped, kept under ``dir``)."""
+    records, and what phase 29 reuses (``root``: the fixture; ``yaml`` and
+    ``scores``: the BLIP run's yaml and the score matrices its train run's
+    opening eval dumped, kept under ``dir``)."""
     import shutil
     from unittest import mock
 
@@ -5128,8 +5128,7 @@ def phase_retrieval_drivers(device, fixture_sizes=((480, 640), (375, 500)), over
     kept = dict(root=root, dir=BUILD_DIR / "mp_inputs")  # phase 29 evaluates on two ranks
     shutil.rmtree(kept["dir"], ignore_errors=True)
     kept["dir"].mkdir(parents=True)
-    for key, src in (("yaml", yaml_path), ("checkpoint", out / "train" / "checkpoint_best.pth"),
-                     ("scores", out / "evaluate" / "scores.npz")):
+    for key, src in (("yaml", yaml_path), ("scores", out / "train" / "scores.npz")):
         kept[key] = kept["dir"] / src.name
         shutil.move(str(src), str(kept[key]))
     shutil.rmtree(out)
@@ -5582,17 +5581,20 @@ def nccl_one_rank(device):
 
 def _mp_rank(rank, plan):
     """One of phase 29's two ranks (spawned): the NLVR driver's ``--epoch
-    1`` run over gloo at the plan's temperature, its first train step's
-    inputs, global kept counts, losses and named gradients kept, then the
-    BLIP retrieval driver's ``--evaluate``; the launch counts of each (those
-    of the no-grad forward that reads the first step's kept counts taken
-    out), the ``LOG:`` lines, written to ``plan["out"]/rank<r>.pt``."""
+    1`` run over gloo, its first train step's inputs, global kept counts,
+    losses and named gradients kept; the BLIP retrieval and CLIP drivers'
+    ``--epoch 1`` training runs (the BLIP run's opening eval dumps its
+    scores), their first steps' inputs, losses, named gradients and
+    queues kept (``held_step``).  Each training run's epoch 0 runs at the
+    plan's temperature for it.  The launch counts of each run (those of the
+    no-grad forward that reads the NLVR step's kept counts taken out), the
+    ``LOG:`` lines, written to ``plan["out"]/rank<r>.pt``."""
     import io
     from unittest import mock
 
     import torch.distributed as tdist
 
-    from madtp_tpu_torch.cli import compress_nlvr, compress_retrieval
+    from madtp_tpu_torch.cli import compress_nlvr, compress_retrieval, compress_retrieval_clip
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
@@ -5605,49 +5607,64 @@ def _mp_rank(rank, plan):
     dev = plan["device"]
     mp = ["--device", dev, "--num_processes", "2", "--process_id", str(rank), "--coordinator",
           plan["coordinator"], "--dist_backend", "gloo"]
-    first, checked = {}, {}  # checked: the launches of the check forward below
-    make_step = compress_nlvr.make_nlvr_train_step
+    first, checked = {}, {}  # checked: the launches of the NLVR check forward below
+    make_nlvr = compress_nlvr.make_nlvr_train_step
+    make_retrieval = compress_retrieval.make_retrieval_train_step
+    make_clip = compress_retrieval_clip.make_clip_train_step
     reduce_step, reduce_ms = data.reduce_step, []
+    world_rows, batch_rows, gather_ms = data.world_rows, data.batch_rows, []
 
     def sync():
         if dev == "cuda":
             torch.cuda.synchronize()
 
-    def timed_reduce(*a, **k):  # the step's one all-reduce, over gloo
-        sync()
-        t0 = time.perf_counter()
-        out = reduce_step(*a, **k)
-        sync()
-        reduce_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
+    def timed(fn, into):
+        def run(*a, **k):  # a collective over gloo, the card drained around it
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
 
     def make(model, opt, **kw):
-        step = make_step(model, opt, **kw)
+        step = make_nlvr(model, opt, **kw)
 
         def held(images, ids, mask, targets, t):
-            if first:
+            if "nlvr" in first:
                 return step(images, ids, mask, targets, t)
             before = counts()
             with torch.no_grad():  # inside train_epoch's global-batch scope
                 out = model(images, ids, mask, temperature=t, prune_active=True)
             checked.update({k: v - before[k] for k, v in counts().items()})
             sync()
+            reduce_ms.clear()
             t0 = time.perf_counter()
             m = step(images, ids, mask, targets, t)
             sync()
             named = dict(model.named_parameters())
-            first.update(inputs=[a.cpu() for a in (images, ids, mask, targets)],
-                         kept=(out.v_kept.cpu(), out.t_kept.cpu()), t=t,
-                         step_ms=(time.perf_counter() - t0) * 1e3, reduce_ms=reduce_ms[0],
-                         metrics={k: float(v) for k, v in m.items()},
-                         grads={n: named[n].grad.cpu() for n in plan["grad_params"]})
+            first["nlvr"] = dict(inputs=[a.cpu() for a in (images, ids, mask, targets)],
+                                 kept=(out.v_kept.cpu(), out.t_kept.cpu()), t=t,
+                                 step_ms=(time.perf_counter() - t0) * 1e3,
+                                 reduce_ms=sum(reduce_ms),
+                                 metrics={k: float(v) for k, v in m.items()},
+                                 grads={n: named[n].grad.cpu() for n in plan["grad_params"]})
             return m
         return held
 
-    class Controller(TemperatureController):  # epoch 0 at the plan's temperature
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            self.temperature = plan["temperature"]
+    def held(name, maker, grad_params):
+        def factory(state, opt, **kw):
+            return held_step(name, maker(state, opt, **kw), state.queue, first, grad_params,
+                             state.model, sync, reduce_ms, gather_ms)
+        return factory
+
+    def controller(name):
+        class Controller(TemperatureController):  # epoch 0 at the plan's temperature
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                self.temperature = plan["temperatures"][name]
+        return Controller
 
     def counts():
         if dev == "cuda":
@@ -5663,18 +5680,28 @@ def _mp_rank(rank, plan):
         return loader(*a, **({**k, "num_workers": 0} if k.get("shuffle") else k))
 
     with mock.patch.object(compress_nlvr, "make_nlvr_train_step", make), \
-            mock.patch.object(data, "reduce_step", timed_reduce), \
-            mock.patch.object(compress_nlvr, "TemperatureController", Controller), \
+            mock.patch.object(compress_retrieval, "make_retrieval_train_step",
+                              held("retrieval_train", make_retrieval, plan["retrieval_grads"])), \
+            mock.patch.object(compress_retrieval_clip, "make_clip_train_step",
+                              held("clip_train", make_clip, plan["clip_grads"])), \
+            mock.patch.object(data, "reduce_step", timed(reduce_step, reduce_ms)), \
+            mock.patch.object(data, "world_rows", timed(world_rows, gather_ms)), \
+            mock.patch.object(data, "batch_rows", timed(batch_rows, gather_ms)), \
+            mock.patch.object(compress_nlvr, "TemperatureController", controller("nlvr")), \
+            mock.patch.object(compress_retrieval, "TemperatureController",
+                              controller("retrieval_train")), \
+            mock.patch.object(compress_retrieval_clip, "TemperatureController",
+                              controller("clip_train")), \
             mock.patch.object(compress_nlvr, "batched_loader", train_in_line), \
             mock.patch.dict("os.environ", {"MADTP_DUMP_SCORES": "1"}), \
             contextlib.redirect_stdout(stdout):
-        for label, main, argv in (
-                ("nlvr", compress_nlvr.main, plan["nlvr_argv"]),
-                ("retrieval", compress_retrieval.main, plan["retrieval_argv"])):
+        for label, main in (("nlvr", compress_nlvr.main),
+                            ("retrieval_train", compress_retrieval.main),
+                            ("clip_train", compress_retrieval_clip.main)):
             zero_launch_counts()
             checked.clear()
             t0 = time.perf_counter()
-            main([*argv, "--output_dir", f"{plan['out']}/{label}_r{rank}", *mp])
+            main([*plan["argv"][label], "--output_dir", f"{plan['out']}/{label}_r{rank}", *mp])
             launches[label] = {k: v - checked.get(k, 0) for k, v in counts().items()}
             walls[label] = time.perf_counter() - t0
     tdist.destroy_process_group()
@@ -5709,34 +5736,33 @@ def nlvr_first_batches(config, tokenizer, batch, ranks=2):
     return out
 
 
-def rank_decisions(model, x, halves, rows, t):
+def rank_decisions(fwd, x, halves, rows, t):
     """Whether two ranks, each running its half of the global batch ``x``,
     take the one-process forward's DTP decisions at ``t``.  The
-    one-process mask-mode forward records every decision; each half
-    (``halves[r]``: ``(images, ids, mask, ...)``, whose rows are ``rows[r]``
-    = (vision rows, text rows) of the global batch) runs again with
-    ``parallel.data.batch_max`` handing it the recorded global counts, as
-    the ranks' cross-rank max will, at the ranks' batch shapes and so their
-    rounding.  Returns the one-process output and None, or a description of
-    the first decision a half takes otherwise (its rows' above-threshold
-    counts or kept tokens)."""
+    one-process forward ``fwd(x, t, None)`` (no gradient) records every
+    decision; each half (``halves[r]``, whose rows of a decision over ``n``
+    global rows are ``rows[r][n]``) runs again as ``fwd(halves[r], t, r)``
+    with ``parallel.data.batch_max`` handing it the recorded global counts,
+    as the ranks' cross-rank max will, at the ranks' batch shapes and so
+    their rounding.  Returns the one-process output and None, or a
+    description of the first decision a half takes otherwise (its rows'
+    above-threshold counts or kept tokens)."""
     from unittest import mock
 
     from madtp_tpu_torch.parallel import data
 
     with DTPRecorder() as rec, torch.no_grad():
-        ref = model(*x[:3], temperature=t, prune_active=True)
+        ref = fwd(x, t, None)
     dev = x[0].device
     forced = [(torch.tensor(k, device=dev), palive.sum(dim=1).amax().to(dev))
               for _, _, palive, _, k, _ in rec.records]
-    n_vision = rec.records[0][0].shape[0]
     for r, half in enumerate(halves):
         given = iter(forced)
         with mock.patch.object(data, "batch_max", lambda *counts: next(given)), \
                 DTPRecorder() as mine, torch.no_grad():
-            model(*(a.to(dev) for a in half[:3]), temperature=t, prune_active=True)
+            fwd([a.to(dev) for a in half], t, r)
         for d, (want, got) in enumerate(zip(rec.records, mine.records)):
-            idx = rows[r][0] if want[0].shape[0] == n_vision else rows[r][1]
+            idx = rows[r][want[0].shape[0]]
             s0, t0, a0, o0 = (w[idx] for w in want[:4])
             k, apply = want[4:]
             s1, t1, a1, o1 = got[:4]
@@ -5748,50 +5774,249 @@ def rank_decisions(model, x, halves, rows, t):
     return ref, None
 
 
-def phase_multiprocess(device, kept, override=None):
+def parity_temperature(label, fwd, x, halves, rows, first):
+    """The first factor of ``parity_factors(first)`` (times T = 1, the
+    controller's start) at which each rank's half takes the one-process
+    decisions (:func:`rank_decisions`): ``(T, the one-process output)``."""
+    for factor in parity_factors(first):
+        ref, split = rank_decisions(fwd, x, halves, rows, factor)
+        if split is None:
+            return factor, ref
+        log(f"[multiprocess] {label} T {factor:g}: {split}: the next temperature")
+    raise AssertionError(f"{label}: at no temperature of PARITY_FACTORS do the ranks' halves "
+                         "take the one-process step's DTP decisions")
+
+
+def replayed_loss(step, state, ranks=2, **kw):
+    """``fwd`` for :func:`rank_decisions` from a retrieval or CLIP train step:
+    its ``loss_fn`` (alpha 0, as at epoch 0's first batch, and ``kw``) with
+    the momentum towers put back after each call.  The one-process call on
+    the global batch records the rows ``parallel.data.world_rows`` hands
+    out; rank ``r``'s half gets those global rows back from it, in the same
+    order, and its place in the global batch from ``batch_rows``, as the
+    rank's gathers will give them."""
+    from unittest import mock
+
+    from madtp_tpu_torch.parallel import data
+
+    seen = []
+
+    def fwd(batch, t, r):
+        saved = [p.clone() for p in state.params_m.values()]
+        try:
+            if r is None:
+                seen.clear()
+
+                def record(x, grad=False):
+                    seen.append(x)
+                    return x
+                with mock.patch.object(data, "world_rows", record):
+                    return step.loss_fn(*batch, t, 0.0, **kw)
+            given = iter(seen)
+            with mock.patch.object(data, "world_rows", lambda x, grad=False: next(given)), \
+                    mock.patch.object(data, "batch_rows", lambda n: (r * n, ranks * n)):
+                return step.loss_fn(*batch, t, 0.0, **kw)
+        finally:
+            for p, v in zip(state.params_m.values(), saved):
+                p.copy_(v)
+    return fwd
+
+
+def retrieval_first_batches(config, image_size, encode, batch, ranks=2, seed=42):
+    """The first train batch of each rank's shard, as the BLIP and CLIP
+    retrieval drivers load it under ``ranks`` processes (``--seed`` 42)
+    and their ``train_epoch`` hands it to the step: ``(images, text...,
+    image ids)`` of each rank, ``encode(captions)`` the text tensors."""
+    import types
+
+    from madtp_tpu_torch.cli.common import train_image_transform
+    from madtp_tpu_torch.data.datasets import CaptionTrainDataset
+    from madtp_tpu_torch.data.loader import batched_loader
+    from madtp_tpu_torch.data.transforms import PerSampleRng
+
+    ds = CaptionTrainDataset(train_image_transform(types.SimpleNamespace(uint8_feed=False),
+                                                   image_size, PerSampleRng(seed)),
+                             config["image_root"], config["ann_root"],
+                             dataset=config.get("dataset", "coco"))
+    out = []
+    for r in range(ranks):
+        images, captions, idx = next(iter(batched_loader(
+            ds, batch, shuffle=True, epoch=0, drop_last=True, num_shards=ranks, shard_id=r,
+            num_workers=0)))
+        out.append((torch.from_numpy(np.asarray(images)), *encode(list(captions)),
+                    torch.as_tensor(np.asarray(idx), dtype=torch.long)))
+    return out
+
+
+def held_step(name, step_fn, queue, first, grad_params, model, sync, reduce_ms, gather_ms):
+    """A rank's train step whose first call records its inputs, losses,
+    named gradients, queue after the step (the global batch's columns, ids
+    and pointer), wall, all-reduce and gathers' ms into ``first[name]``."""
+    def held(*args, **kw):
+        if name in first:
+            return step_fn(*args, **kw)
+        sync()
+        reduce_ms.clear()
+        gather_ms.clear()
+        t0 = time.perf_counter()
+        m = step_fn(*args, **kw)
+        sync()
+        named = dict(model.named_parameters())
+        n = int(queue.ptr)
+        first[name] = dict(inputs=[a.cpu() for a in args if torch.is_tensor(a)], t=args[-2],
+                           step_ms=(time.perf_counter() - t0) * 1e3, reduce_ms=sum(reduce_ms),
+                           gather_ms=sum(gather_ms),
+                           metrics={k: float(v) for k, v in m.items()},
+                           grads={g: named[g].grad.cpu() for g in grad_params},
+                           queue=(queue.image[:, :n].cpu(), queue.text[:, :n].cpu(),
+                                  queue.idx[:n].cpu(), n))
+        return m
+    return held
+
+
+MP_CLIP_DEPTH = (6, 4)  # phase 29's CLIP ViT-L/14@336: vision and text layers (full width)
+
+
+def mp_clip_grads(cfg):
+    """``CLIP_GRADS`` at ``cfg``'s depth: each tower's last block."""
+    return tuple(n.replace("visual.transformer.resblocks.23",
+                           f"visual.transformer.resblocks.{cfg.vision_layers - 1}")
+                 .replace("transformer.resblocks.11.",
+                          f"transformer.resblocks.{cfg.transformer_layers - 1}.")
+                 for n in CLIP_GRADS)
+
+
+def one_process_step(label, step, state, x, halves, rows, first, grad_params, sync, **kw):
+    """The one-process retrieval or CLIP step on the global batch ``x`` at
+    epoch 0's first batch (alpha 0), at the temperature where each rank's
+    half takes its DTP decisions (``parity_temperature``): its losses, named
+    gradients, queue after it (the global batch's columns, ids and pointer)
+    and two walls (the second step from the state the first left)."""
+    t, _ = parity_temperature(label, replayed_loss(step, state, **kw), x, halves, rows, first)
+    model, q, step_ms = state.model, state.queue, []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        metrics = step(*x, t, 0.0, **kw)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(step_ms) == 1:
+            named = dict(model.named_parameters())
+            n = int(q.ptr)
+            want = dict(t=t, metrics={k: float(v) for k, v in metrics.items()},
+                        grads={g: named[g].grad.cpu() for g in grad_params},
+                        queue=(q.image[:, :n].cpu(), q.text[:, :n].cpu(), q.idx[:n].cpu(), n))
+    want["step_ms"] = step_ms
+    log(f"[multiprocess] {label}: one-process step on the global batch ({x[0].shape[0]} pairs) "
+        f"at T {t:g}, where each rank's half takes its DTP decisions: {want['metrics']}; step "
+        f"{step_ms[0]:.1f} ms, again {step_ms[1]:.1f} ms")
+    return want
+
+
+def check_first_steps(label, got, want, built):
+    """Each rank's first train step of ``label`` against the one-process step
+    on the global batch: the batch built here, the temperature, losses
+    (1e-4), named gradients (``GRAD_TOL`` of each tensor's largest) and, where
+    ``want`` has one, the queue after the step (features 1e-5, ids and
+    pointer equal, both ranks' bit-equal).  Returns the gradients' relative
+    differences."""
+    rel = {}
+    for r, g in enumerate(got):
+        f = g["first"][label]
+        if not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(f["inputs"], built[r])):
+            raise AssertionError(f"{label}: rank {r}'s first train batch is not the one built here")
+        if f["t"] != want["t"]:
+            raise AssertionError(f"{label}: rank {r} trained at T {f['t']}, not {want['t']}")
+        err = max(abs(f["metrics"][k] - v) for k, v in want["metrics"].items())
+        if not err <= 1e-4:
+            raise AssertionError(f"{label}: rank {r}: losses {f['metrics']} against "
+                                 f"{want['metrics']}")
+        for n, w in want["grads"].items():
+            rel[n] = float((f["grads"][n] - w).abs().max()) / float(w.abs().max())
+            if not (torch.isfinite(f["grads"][n]).all() and rel[n] <= GRAD_TOL):
+                raise AssertionError(f"{label}: rank {r}: grad of {n} differs by {rel[n]:.3e} "
+                                     "of its max")
+        if "queue" in want:
+            (img, txt, idx, n), (wi, wt, widx, wn) = f["queue"], want["queue"]
+            qerr = max(float((img - wi).abs().max()), float((txt - wt).abs().max()))
+            if n != wn or not torch.equal(idx, widx) or not qerr <= 1e-5:
+                raise AssertionError(f"{label}: rank {r}: queue after the step {qerr:.2e} "
+                                     f"from one process's, pointer {n} against {wn}")
+            if not all(torch.equal(a, b) for a, b in zip(f["queue"][:3],
+                                                         got[0]["first"][label]["queue"][:3])):
+                raise AssertionError(f"{label}: the ranks' queues differ")
+    return rel
+
+
+def phase_multiprocess(device, kept, override=None, clip_cfg=None, clip_override=None):
     """Phase 29: multi-process runs.  (a) ``nccl_one_rank``.  (b) two ranks
     under ``--dist_backend gloo`` on the one card, spawned here with
-    ``torch.multiprocessing``, each running the NLVR driver ``--epoch 1`` at
-    ``configs/nlvr.yaml``'s width on phase 26's PNG fixture (16 pairs a
-    rank, the train split loaded in line), then the BLIP retrieval driver's
-    ``--evaluate`` on phase 27's best checkpoint (``kept``).
+    ``torch.multiprocessing``, each running, on the PNG fixtures of phases
+    26-27 (``kept``): the NLVR driver ``--epoch 1`` at ``configs/nlvr.yaml``'s
+    width (16 pairs a rank, the train split loaded in line); the BLIP
+    retrieval driver training ``--epoch 1`` at
+    ``configs/retrieval_coco.yaml``'s widths (ViT-B/16@384,
+    ``negative_all_rank``, queue 57,600) from its seeded init, 8 pairs a
+    rank; the CLIP driver training ``--epoch 1`` on a seeded ViT-L/14@336
+    checkpoint at full width and ``MP_CLIP_DEPTH`` (the full depth trains
+    in phases 24-25 and 27), 8 pairs a rank.
 
-    * The NLVR driver's first train step spans both ranks (DTP's counts and
-      the gradients over the global batch of 32 pairs): its kept counts,
-      losses (1e-4) and named gradients (1e-3 of each tensor's largest)
-      against the one-process step on the same global batch from the same
-      seeded init, here, before the ranks start.  Epoch 0 runs at the first
+    * Each driver's first train step spans both ranks (DTP's counts, the
+      gradients and, for the retrieval families, the ITC, the hard
+      negatives and the queue over the global batch): its losses (1e-4),
+      named gradients (1e-3 of each tensor's largest), NLVR's kept counts
+      and the retrieval families' queues after the step (1e-5) against the
+      one-process step on the same global batch from the same seeded init
+      (BLIP: the same hard-negative noise, the driver's generator seeded
+      alike), here, before the ranks start.  Each epoch 0 runs at the first
       of ``PARITY_FACTORS`` (times T = 1, the controller's start) at which
       each rank's half, run here at the rank's batch shape with the global
-      counts handed in (``rank_decisions``), takes the one-process step's
-      DTP decisions: the ranks' smaller GEMMs round otherwise, and the
-      fixture's augmented images hold identical patches, whose exact ties
-      no margin clears.  The ranks' first batches must equal the ones
-      built here.
-    * Both ranks print the same ``LOG:`` lines; only rank 0 writes the log,
-      the config and the checkpoints.
-    * The retrieval scores on each rank equal those of phase 27's
-      one-process ``--evaluate`` of the same checkpoint, bit for bit.
-    * Each rank's K1, K2, K4 and K5 launches, summed: the ``multiprocess``
-      path of the kernels line; every one of them launched.
+      counts (and, for the retrieval families, the global rows) handed in
+      (``rank_decisions``), takes the one-process step's DTP decisions: the
+      ranks' smaller GEMMs round otherwise, and the fixture's augmented
+      images hold identical patches, whose exact ties no margin clears.
+      The ranks' first batches must equal the ones built here.
+    * Both ranks print the same ``LOG:`` lines; only rank 0 writes the
+      logs, the config and the checkpoints.
+    * The BLIP run's opening eval (the seeded init at T = 1, before any
+      step) gives each rank the scores of phase 27's one-process train
+      run's opening eval, bit for bit: the sharded eval held to one
+      process without a run of its own.
+    * Each rank's K1, K2, K4 and K5 launches of every run, summed: the
+      ``multiprocess`` path of the kernels line; every one of them
+      launched, and each training run launched its family's kernels.
 
     A rank that fails fails the phase (``torch.multiprocessing`` ends the
-    other).  Returns the summed launch counts."""
+    other).  The CPU rehearsal passes a tiny ``override`` (the BLIP yamls),
+    ``clip_cfg`` and ``clip_override``.  Returns the summed launch counts."""
+    import dataclasses
     import shutil
 
     import torch.multiprocessing as tmp
     import yaml
 
-    from madtp_tpu_torch.cli.common import build_blip_cfg
+    from madtp_tpu_torch.ckpt.convert import load_clip_state_dict, save_clip_checkpoint
+    from madtp_tpu_torch.cli.common import build_blip_cfg, read_checkpoint
+    from madtp_tpu_torch.core.config import infer_clip_config
     from madtp_tpu_torch.data.tokenizer_bert import BertWordPieceTokenizer
+    from madtp_tpu_torch.data.tokenizer_clip import ClipBPETokenizer, clip_tokenize
     from madtp_tpu_torch.kernels.build import BUILD_DIR
-    from madtp_tpu_torch.models.blip import init_nlvr_model
-    from madtp_tpu_torch.train.loops import make_nlvr_train_step
+    from madtp_tpu_torch.models.blip import init_nlvr_model, init_retrieval_model
+    from madtp_tpu_torch.models.clip import init_clip_model
+    from madtp_tpu_torch.tasks.retrieval import MAX_LENGTH
+    from madtp_tpu_torch.train.losses import gumbel
+    from madtp_tpu_torch.train.loops import (init_clip_train_state, init_retrieval_train_state,
+                                             make_clip_train_step, make_nlvr_train_step,
+                                             make_retrieval_train_step)
     from madtp_tpu_torch.train.optim import make_adamw
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize()
+
+    def free():
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
 
     if device.type == "cuda":
         nccl_one_rank(device)
@@ -5809,23 +6034,18 @@ def phase_multiprocess(device, kept, override=None):
     glob = (torch.cat([firsts[0][0][:B], firsts[1][0][:B], firsts[0][0][B:], firsts[1][0][B:]]),
             *(torch.cat([f[i] for f in firsts]) for i in (1, 2, 3)))
 
-    # the one-process step on the global batch, from the driver's seeded init (--seed 42)
+    # the one-process NLVR step on the global batch, from the driver's seeded init (--seed 42)
     t_one = time.perf_counter()
     cfg = build_blip_cfg(config, int(config["image_size"]), twin_cross=True)
     model = init_nlvr_model(cfg, seed=42, device=device)
     x = [t.to(device) for t in glob]
-    rows = [(torch.cat([torch.arange(r * B, (r + 1) * B), torch.arange((2 + r) * B, (3 + r) * B)]),
-             torch.arange(r * B, (r + 1) * B)) for r in range(2)]
-    temperature = ref = None
-    for factor in parity_factors(0.8):  # where it settled in earlier runs of these seeds
-        ref, split = rank_decisions(model, x, firsts, rows, factor)
-        if split is None:
-            temperature = factor
-            break
-        log(f"[multiprocess] T {factor:g}: {split}: the next temperature")
-    if temperature is None:
-        raise AssertionError("at no temperature of PARITY_FACTORS do the ranks' halves take the "
-                             "one-process step's DTP decisions")
+    rows = [{2 * len(glob[1]): torch.cat([torch.arange(r * B, (r + 1) * B),
+                                          torch.arange((2 + r) * B, (3 + r) * B)]),
+             len(glob[1]): torch.arange(r * B, (r + 1) * B)} for r in range(2)]
+    # where it settled in earlier runs of these seeds
+    temperature, ref = parity_temperature(
+        "nlvr", lambda b, t, r: model(*b[:3], temperature=t, prune_active=True), x, firsts,
+        rows, 0.8)
     step = make_nlvr_train_step(model, make_adamw(model.parameters(), lr=0.0, weight_decay=0.0),
                                 device=device.type)
     step_ms = []
@@ -5840,23 +6060,92 @@ def phase_multiprocess(device, kept, override=None):
                 metrics={k: float(v) for k, v in metrics.items()},
                 grads={n: named[n].grad.cpu() for n in GRAD_PARAMS})
     del model, step, named, x, ref, metrics
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-    log(f"[multiprocess] one-process step on the global batch ({2 * B} pairs) at T "
+    free()
+    log(f"[multiprocess] nlvr: one-process step on the global batch ({2 * B} pairs) at T "
         f"{temperature:g}, where each rank's half takes its DTP decisions: {want['metrics']}; "
         f"step {step_ms[0]:.1f} ms, again {step_ms[1]:.1f} ms; "
         f"{time.perf_counter() - t_one:.1f} s in all")
 
-    # phase 27's one-process --evaluate on its checkpoint dumped its scores
-    retrieval_argv = ["--config", str(kept["yaml"]), "--evaluate", "--pretrained",
-                      str(kept["checkpoint"]), "--batch_size_train", "8", "--batch_size_test",
-                      "8"]
-    one = np.load(kept["scores"])
+    # the one-process BLIP retrieval step: the driver's seeded init, queue and generator
+    small = ["--batch_size_train", "8", "--batch_size_test", "8"]
+    with open(kept["yaml"]) as f:
+        rconfig = yaml.safe_load(f)
+    rsize = int(rconfig.get("image_size", 384))
+    rcfg = build_blip_cfg(rconfig, rsize)
+    rb = 8
 
+    def bert(captions):
+        tok = tokenizer(captions, padding="max_length", max_length=MAX_LENGTH)
+        return (torch.as_tensor(np.asarray(tok["input_ids"]), dtype=torch.long),
+                torch.as_tensor(np.asarray(tok["attention_mask"]), dtype=torch.long))
+
+    built = {"retrieval_train": retrieval_first_batches(rconfig, rsize, bert, rb)}
+    rows = [{2 * rb: torch.arange(r * rb, (r + 1) * rb),
+             6 * rb: torch.cat([torch.arange(r * rb, (r + 1) * rb) + k * 2 * rb
+                                for k in range(3)])} for r in range(2)]
+    t_one = time.perf_counter()
+    model = init_retrieval_model(rcfg, seed=42, device=device,
+                                 embed_dim=16 if rcfg.med.hidden_size <= 64 else 256)
+    state = init_retrieval_train_state(model, queue_size=rconfig.get("queue_size", 57600))
+    step = make_retrieval_train_step(
+        state, make_adamw(model.parameters(), lr=0.0, weight_decay=0.0),
+        enc_token_id=tokenizer.enc_token_id,
+        negative_all_rank=bool(rconfig.get("negative_all_rank", False)), device=device.type)
+    g = torch.Generator(device=device).manual_seed(42)  # the driver's, --seed 42
+    noise = tuple(gumbel((2 * rb, 2 * rb), generator=g, device=device) for _ in range(2))
+    x = [torch.cat([h[i] for h in built["retrieval_train"]]).to(device) for i in range(4)]
+    wants = {"retrieval_train": one_process_step(
+        "retrieval", step, state, x, built["retrieval_train"], rows, 1.0, RETRIEVAL_GRADS, sync,
+        noise=noise)}
+    del model, state, step, x, noise
+    free()
+
+    # the one-process CLIP step on a seeded full-width checkpoint at MP_CLIP_DEPTH
+    ccfg = clip_cfg or dataclasses.replace(clip_config(), vision_layers=MP_CLIP_DEPTH[0],
+                                           transformer_layers=MP_CLIP_DEPTH[1])
+    pth = out / "clip_mp.pth"
+    save_clip_checkpoint(init_clip_model(ccfg, seed=29, device=device), str(pth), epoch=0,
+                         temperature=0.0)
+    clip_yaml = driver_yaml("retrieval_flickr_clip.yaml", root, out / "clip.yaml",
+                            **(clip_override or {}))
+    with open(clip_yaml) as f:
+        cconfig = yaml.safe_load(f)
+    sd, _ = read_checkpoint(str(pth))
+    model = load_clip_state_dict(sd, infer_clip_config(sd, cconfig.get("sd_dim", 768)),
+                                 device=device)
+    del sd
+    ctok = ClipBPETokenizer()
+    context = model.cfg.context_length
+    built["clip_train"] = retrieval_first_batches(
+        cconfig, model.cfg.image_resolution,
+        lambda caps: (torch.from_numpy(clip_tokenize(ctok, caps, context).astype(np.int64)),),
+        rb)
+    state = init_clip_train_state(model, queue_size=cconfig.get("queue_size", 57600))
+    step = make_clip_train_step(state, make_adamw(model.parameters(), lr=0.0, weight_decay=0.0),
+                                device=device.type)
+    x = [torch.cat([h[i] for h in built["clip_train"]]).to(device) for i in range(3)]
+    clip_grads = mp_clip_grads(model.cfg)
+    wants["clip_train"] = one_process_step("clip", step, state, x, built["clip_train"],
+                                           [{2 * rb: v[2 * rb]} for v in rows], 1.0,
+                                           clip_grads, sync)
+    del model, state, step, x
+    free()
+    log(f"[multiprocess] retrieval and CLIP one-process steps, their temperature searches "
+        f"and the CLIP checkpoint: {time.perf_counter() - t_one:.1f} s")
+
+    # phase 27's one-process train run dumped the scores of its opening eval (the
+    # seeded init at T 1), which the ranks' retrieval training run opens with too
+    one = np.load(kept["scores"])
     plan = dict(device=device.type, coordinator=f"127.0.0.1:{_free_port()}", out=str(out),
-                temperature=temperature, retrieval_argv=retrieval_argv, grad_params=GRAD_PARAMS,
-                nlvr_argv=["--config", str(yaml_path), "--epoch", "1", "--pretrained", "",
-                           "--p", "0.1"])
+                temperatures={"nlvr": temperature, "retrieval_train": wants["retrieval_train"]["t"],
+                              "clip_train": wants["clip_train"]["t"]},
+                grad_params=GRAD_PARAMS, retrieval_grads=RETRIEVAL_GRADS, clip_grads=clip_grads,
+                argv={"nlvr": ["--config", str(yaml_path), "--epoch", "1", "--pretrained", "",
+                               "--p", "0.1"],
+                      "retrieval_train": ["--config", str(kept["yaml"]), "--epoch", "1",
+                                          "--pretrained", "", "--p", "0.1", *small],
+                      "clip_train": ["--config", str(clip_yaml), "--epoch", "1", "--pretrained",
+                                     str(pth), "--p", str(CLIP_DRIVER_P), *small]})
     t0 = time.perf_counter()
     tmp.start_processes(_mp_rank, args=(plan,), nprocs=2, join=True, start_method="spawn")
     wall = time.perf_counter() - t0
@@ -5864,7 +6153,7 @@ def phase_multiprocess(device, kept, override=None):
 
     # the NLVR driver: the first step against the one-process step
     for r, g in enumerate(got):
-        f = g["first"]
+        f = g["first"]["nlvr"]
         if not all(a.dtype == b.dtype and torch.equal(a, b)
                    for a, b in zip(f["inputs"], firsts[r])):
             raise AssertionError(f"rank {r}'s first train batch is not the one built here")
@@ -5872,43 +6161,67 @@ def phase_multiprocess(device, kept, override=None):
                                             zip(f["kept"], want["kept"])):
             raise AssertionError(f"rank {r}: kept counts {f['kept']} at T {f['t']}, the "
                                  f"one-process step's {want['kept']}")
-        err = max(abs(f["metrics"][k] - v) for k, v in want["metrics"].items())
-        if not err <= 1e-4:
-            raise AssertionError(f"rank {r}: losses {f['metrics']} against {want['metrics']}")
-        rel = {}
-        for n in GRAD_PARAMS:
-            scale = float(want["grads"][n].abs().max())
-            rel[n] = float((f["grads"][n] - want["grads"][n]).abs().max()) / scale
-            if not (torch.isfinite(f["grads"][n]).all() and rel[n] <= GRAD_TOL):
-                raise AssertionError(f"rank {r}: grad of {n} differs by {rel[n]:.3e} of its max")
+    want["t"] = temperature
+    rel = check_first_steps("nlvr", got, want, [f[:4] for f in firsts])
+    # the retrieval and CLIP drivers: the first steps and queues against one process
+    rel_r = check_first_steps("retrieval_train", got, wants["retrieval_train"],
+                              built["retrieval_train"])
+    rel_c = check_first_steps("clip_train", got, wants["clip_train"], built["clip_train"])
     if got[0]["logs"] != got[1]["logs"] or not got[0]["logs"]:
         raise AssertionError(f"the ranks logged {got[0]['logs']} and {got[1]['logs']}")
-    files = [sorted(p.name for p in (out / f"nlvr_r{r}").iterdir()) for r in range(2)]
-    if files[1] or not {"config.yaml", "log.txt", "resume_ckpt"} <= set(files[0]):
-        raise AssertionError(f"rank 0 wrote {files[0]}, rank 1 {files[1]}")
+    for label in ("nlvr", "retrieval_train", "clip_train"):
+        files = [sorted(p.name for p in (out / f"{label}_r{r}").iterdir()
+                        if not p.name.startswith(("scores_", "clip_sims_"))) for r in range(2)]
+        if files[1] or not {"config.yaml", "log.txt", "resume_ckpt"} <= set(files[0]):
+            raise AssertionError(f"{label}: rank 0 wrote {files[0]}, rank 1 {files[1]}")
 
-    # the retrieval --evaluate against one process
+    # the retrieval training run's opening eval against one process
     for r in range(2):
-        s = np.load(out / f"retrieval_r{r}" / f"scores_r{r}.npz")
+        s = np.load(out / f"retrieval_train_r{r}" / f"scores_r{r}.npz")
         if not (np.array_equal(s["i2t"], one["i2t"]) and np.array_equal(s["t2i"], one["t2i"])):
             raise AssertionError(f"rank {r}: retrieval scores differ from one process's")
-    launches = {k: sum(g["launches"][run][k] for g in got for run in ("nlvr", "retrieval"))
+    runs = ("nlvr", "retrieval_train", "clip_train")
+    launches = {k: sum(g["launches"][run][k] for g in got for run in runs)
                 for k in ("K1", "K2", "K4", "K5")}
+
+    def short(n):
+        return (n.replace("visual_encoder.", "v.").replace("text_encoder.encoder.", "t.")
+                .replace("visual.transformer.", "v.").replace("transformer.", "t."))
+
+    def firsts_of(label):
+        return (f"{[round(g['first'][label]['step_ms'], 1) for g in got]} ms (its gloo "
+                f"all-reduce {[round(g['first'][label]['reduce_ms'], 1) for g in got]} ms"
+                + (f", its row gathers {[round(g['first'][label]['gather_ms'], 1) for g in got]}"
+                   " ms" if label != "nlvr" else "")
+                + f"; one process {(want if label == 'nlvr' else wants[label])['step_ms'][1]:.1f}"
+                " ms)")
+
     log(f"[multiprocess] two gloo ranks on {card_line() if device.type == 'cuda' else 'cpu'}: "
-        f"{wall:.1f} s from spawn to join; NLVR driver runs "
-        f"{[round(g['walls']['nlvr'], 1) for g in got]} s, retrieval --evaluate "
-        f"{[round(g['walls']['retrieval'], 1) for g in got]} s; first step at T "
-        f"{temperature:g} {[round(g['first']['step_ms'], 1) for g in got]} ms (its gloo "
-        f"all-reduce {[round(g['first']['reduce_ms'], 1) for g in got]} ms; one process "
-        f"{want['step_ms'][1]:.1f} ms): kept counts equal, losses {got[0]['first']['metrics']} "
-        f"(one process "
-        f"{want['metrics']}), grad max|diff| / max|grad| " + ", ".join(
-            f"{n.replace('visual_encoder.', 'v.').replace('text_encoder.encoder.', 't.')} "
-            f"{v:.2e}" for n, v in rel.items())
-        + f"; LOG lines equal ({len(got[0]['logs'])}); retrieval scores bit-equal; launches "
-        f"by rank {[g['launches'] for g in got]}")
-    if device.type == "cuda" and min(launches.values()) == 0:
-        raise AssertionError(f"multiprocess launches {launches}: a kernel was not launched")
+        f"{wall:.1f} s from spawn to join; driver runs by rank: " + ", ".join(
+            f"{run} {[round(g['walls'][run], 1) for g in got]} s" for run in runs))
+    log(f"[multiprocess] nlvr first step at T {temperature:g} {firsts_of('nlvr')}: kept counts "
+        f"equal, losses {got[0]['first']['nlvr']['metrics']} (one process {want['metrics']}), "
+        f"grad max|diff| / max|grad| " + ", ".join(f"{short(n)} {v:.2e}" for n, v in rel.items()))
+    for label, name, r_ in (("retrieval_train", "BLIP retrieval", rel_r),
+                            ("clip_train", "CLIP", rel_c)):
+        f = got[0]["first"][label]
+        qerr = max(float((a - b).abs().max()) for a, b in zip(f["queue"][:2],
+                                                              wants[label]["queue"][:2]))
+        log(f"[multiprocess] {name} first step at T {f['t']:g} {firsts_of(label)}: losses "
+            f"{f['metrics']} (one process {wants[label]['metrics']}), grad max|diff| / "
+            f"max|grad| " + ", ".join(f"{short(n)} {v:.2e}" for n, v in r_.items())
+            + f"; queue after the step {qerr:.2e} from one process's, ids and pointer equal, "
+            "bit-equal on both ranks")
+    log(f"[multiprocess] LOG lines equal ({len(got[0]['logs'])}); retrieval scores bit-equal; "
+        f"launches by rank {[g['launches'] for g in got]}")
+    if device.type == "cuda":
+        if min(launches.values()) == 0:
+            raise AssertionError(f"multiprocess launches {launches}: a kernel was not launched")
+        for g in got:
+            lr_, lc = g["launches"]["retrieval_train"], g["launches"]["clip_train"]
+            if min(lr_.values()) == 0 or min(lc[k] for k in ("K1", "K2", "K5")) == 0 or lc["K4"]:
+                raise AssertionError(f"multiprocess training launches: BLIP retrieval {lr_} "
+                                     f"(want K1, K2, K4, K5), CLIP {lc} (want K1, K2, K5)")
     shutil.rmtree(out)
     shutil.rmtree(kept["dir"])
     shutil.rmtree(kept["root"])

@@ -16,8 +16,8 @@ The reference NLVR layout carries ``crossattention.output.merge_layer`` only
 at layers >= ``merge_start_layer``, like the port's modules; a base checkpoint
 may carry ``self``/``dense`` where the twin layers need ``self0``/``self1`` and
 ``dense0``/``dense1``, and both twins then start from the same weights.  A
-retrieval checkpoint's momentum towers (``*_m.``) and queues are read only by
-training and are ignored here.
+retrieval checkpoint's momentum towers (``*_m.``) and ``temp`` are read apart,
+for training, by :func:`load_retrieval_momentum`; its queues by nothing.
 
 Out: :func:`save_nlvr_checkpoint`, :func:`save_caption_checkpoint`,
 :func:`save_vqa_checkpoint`, :func:`save_retrieval_checkpoint` and
@@ -153,12 +153,41 @@ def load_retrieval_state_dict(sd: Mapping[str, object], cfg: BlipConfig,
     tensors), as ``load_blip_retrieval`` reads it (``madtp_tpu/models/
     blip.py:292-326``): every key of the model must be there, the codebook
     included; position embeddings are resized to ``cfg.vit``'s grid; the
-    momentum towers (``visual_encoder_m.`` ...), the queues, ``temp`` and
+    momentum towers (``visual_encoder_m.`` ..., read by
+    :func:`load_retrieval_momentum`), the queues, ``temp`` and
     ``position_ids`` are ignored.  The projection width comes from
     ``vision_proj.weight``."""
     dev = resolve_device(device)
     embed_dim = int(np.shape(sd["vision_proj.weight"])[0])
     return _load_every_key(sd, lambda: RetrievalModel(cfg, embed_dim), cfg, dev)
+
+
+_MOMENTUM_PREFIXES = {"visual_encoder_m.": "visual_encoder.", "text_encoder_m.": "text_encoder.",
+                     "vision_proj_m.": "vision_proj.", "text_proj_m.": "text_proj."}
+
+
+def load_retrieval_momentum(sd: Mapping[str, object], cfg: BlipConfig, device="cuda"):
+    """A reference retrieval checkpoint's momentum towers and ``temp``, as
+    ``load_blip_retrieval(..., load_momentum=True)`` reads them
+    (``madtp_tpu/models/blip.py:292-326``): ``(params_m, temp)``, with
+    ``params_m`` the ``visual_encoder_m.*``, ``text_encoder_m.*``,
+    ``vision_proj_m`` and ``text_proj_m`` tensors by the online model's
+    parameter names (position embeddings resized to ``cfg.vit``'s grid), or
+    None when the checkpoint has no ``visual_encoder_m.*`` (the train state
+    then copies the online towers, the reference's ``copy_params``), and
+    ``temp`` the checkpoint's, 0.07 without one.  Both go to
+    :func:`~madtp_tpu_torch.train.loops.init_retrieval_train_state`."""
+    temp = float(_tensor(sd["temp"])) if "temp" in sd else 0.07
+    if not any(k.startswith("visual_encoder_m.") for k in sd):
+        return None, temp
+    renamed = dict(sd)
+    for k, v in sd.items():
+        for src, dst in _MOMENTUM_PREFIXES.items():
+            if k.startswith(src):
+                renamed[dst + k[len(src):]] = v
+    towers = load_retrieval_state_dict(renamed, cfg, device=device)
+    return {n: p.detach() for n, p in towers.named_parameters()
+            if n.split(".", 1)[0] in MOMENTUM_KEYS}, temp
 
 
 def _load_every_key(sd: Mapping[str, object], model_fn, cfg: BlipConfig,

@@ -113,15 +113,6 @@ def mean_over_ranks(value: float) -> float:
     return value if n <= 1 else float(dist.host_sum(np.asarray([value]))[0]) / n
 
 
-def refuse_multiprocess_training(args, family: str) -> None:
-    """Multi-process training of the retrieval families is not ported yet:
-    raise before the process group forms, so no rank waits on another."""
-    if dist.requested_processes(args) > 1 and not args.evaluate and not args.synthetic:
-        raise NotImplementedError(
-            f"multi-process {family} training is not ported yet (ROADMAP A.6: cross-rank hard "
-            "negatives and the queue over the global batch); run --evaluate, or one process")
-
-
 def eval_image_transform(args, image_size: int, *, uint8=None):
     """fp32 normalized CHW, or under ``--uint8_feed`` the resized uint8 HWC
     that the model normalizes on the device."""

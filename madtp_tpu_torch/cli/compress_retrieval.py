@@ -16,15 +16,21 @@ the target goes to ``checkpoint_best.pth``, every epoch to ``log.txt`` and the
 resume checkpoint.  ``--synthetic`` evaluates a tiny seeded model on a random
 corpus.  ``--device cpu`` runs on the CPU; by default the driver needs a card.
 
-With one process ``negative_all_rank`` (on in ``configs/retrieval_coco.yaml``)
-means what it means off: the hard negatives are mined over the whole batch.
-
 Under ``--num_processes`` N the eval runs over the ranks: each encodes a
 contiguous block of the image batches (:func:`~madtp_tpu_torch.tasks.
 retrieval.encode_corpus_sharded`), reranks its rows of each direction by the
 reference's row arithmetic, and the score matrices are merged on every rank
-(bit for bit those of one process); rank 0 writes the logs.  Training over
-several processes is ROADMAP A.6 and raises before the process group forms.
+(bit for bit those of one process).  Training runs each step over the global
+batch, each rank a shard of ``batch_size_train`` (the last partial batch
+dropped): the ITC against every rank's momentum features, the hard negatives
+from every rank's rows with ``negative_all_rank`` (on in
+``configs/retrieval_coco.yaml``) or from the rank's own, the queue fed every
+rank's batch (``train/loops.py`` ``make_retrieval_train_step``).  Every rank
+draws the hard negatives' global noise from a generator seeded alike, so the
+parameters, the queue and the generator stay the same on every rank; rank 0
+writes the logs, the config, the checkpoints and the resume file, which
+resumes every rank.  With one process both values of ``negative_all_rank``
+mine the whole batch.
 """
 
 from __future__ import annotations
@@ -39,8 +45,7 @@ from madtp_tpu_torch.ckpt.convert import load_retrieval_state_dict, save_retriev
 from madtp_tpu_torch.cli.common import (base_parser, build_blip_cfg, cached_probe_batches,
                                         dump_config, dump_log, eval_image_transform,
                                         load_config, load_resume, make_tokenizer,
-                                        read_checkpoint, refuse_multiprocess_training,
-                                        save_resume, set_seed, setup_runtime,
+                                        read_checkpoint, save_resume, set_seed, setup_runtime,
                                         train_image_transform)
 from madtp_tpu_torch.core.config import BlipConfig, MedConfig, ViTConfig
 from madtp_tpu_torch.data.datasets import CaptionTrainDataset, RetrievalEvalDataset
@@ -95,7 +100,6 @@ def main(argv=None):
     # scripts always pass --config)
     args = base_parser("configs/retrieval_flickr.yaml", "pretrained/model_base_retrieval_coco.pth",
                        default_output="output/Retrieval_flickr").parse_args(argv)
-    refuse_multiprocess_training(args, "BLIP retrieval")
     device = setup_runtime(args)
     config = load_config(args)
     set_seed(args.seed)
@@ -144,8 +148,8 @@ def main(argv=None):
     enc_ids = text_ids.copy()  # the ITM reranks on [ENC]-token text (reference :168)
     enc_ids[:, 0] = enc
 
-    n_procs = dist.process_count()
-    shard = (n_procs, dist.process_index()) if n_procs > 1 else None
+    n_procs, rank = dist.process_count(), dist.process_index()
+    shard = (n_procs, rank) if n_procs > 1 else None
 
     def full_scores(temperature, prune, caps_v=None, caps_t=None):
         img_feats, img_states, txt_feats = task.encode_corpus_sharded(
@@ -173,7 +177,7 @@ def main(argv=None):
     if os.environ.get("MADTP_DUMP_SCORES"):
         # each rank holds the merged matrices; a name a rank keeps a shared
         # output directory free of races
-        name = "scores.npz" if n_procs <= 1 else f"scores_r{dist.process_index()}.npz"
+        name = "scores.npz" if n_procs <= 1 else f"scores_r{rank}.npz"
         np.savez(os.path.join(args.output_dir, name), i2t=s_i2t, t2i=s_t2i)
     stats = itm_eval(s_i2t, s_t2i, txt2img, img2txt)
     log = {k: round(v, 3) for k, v in stats.items()}
@@ -183,8 +187,6 @@ def main(argv=None):
         return
 
     # ---- compression training (reference compress_retrieval_dtp.py:389-470) ----
-    if config.get("negative_all_rank", False):
-        print("negative_all_rank: one process mines its hard negatives over its whole batch")
     target = ORI_GFLOPS * (1.0 - config["p"])
     alpha_cfg = float(config.get("alpha", 0.4))
     init_lr = config.get("init_lr", 1e-5)
@@ -194,9 +196,10 @@ def main(argv=None):
                      weight_decay=config.get("weight_decay", 0.05))
 
     def make_step(caps=(None, None)):
-        return make_retrieval_train_step(state, opt, alpha=alpha_cfg, enc_token_id=enc,
-                                         capacities_v=caps[0], capacities_t=caps[1],
-                                         amp=args.amp, device=device.type)
+        return make_retrieval_train_step(
+            state, opt, alpha=alpha_cfg, enc_token_id=enc,
+            negative_all_rank=bool(config.get("negative_all_rank", False)),
+            capacities_v=caps[0], capacities_t=caps[1], amp=args.amp, device=device.type)
 
     train_step = make_step()
     controller = TemperatureController(target_gflops=target)
@@ -204,14 +207,15 @@ def main(argv=None):
                                                          PerSampleRng(args.seed)),
                                    config["image_root"], config["ann_root"],
                                    dataset=config.get("dataset", "coco"))
-    epoch_len = num_batches(len(train_ds), batch_train, drop_last=True)
+    epoch_len = num_batches(len(train_ds), batch_train, num_shards=n_procs, drop_last=True)
     step_cache = BoundedCache()  # --fast_train: capacity schedule -> step
     probe_cache = [None]
 
     def fast_train_step(temperature):
         """Capacities from the cached mask-mode probe batches at this epoch's
         temperature, and the gather-mode step (both towers, the momentum
-        ones and the ITM compacted)."""
+        ones and the ITM compacted).  The probe batches are not sharded, so
+        every rank computes the same capacities."""
         probe = cached_probe_batches(probe_cache, lambda: batched_loader(
             train_ds, batch_train, shuffle=True, epoch=0,
             drop_last=len(train_ds) >= batch_train))  # the partial batch when it is the only one
@@ -220,7 +224,8 @@ def main(argv=None):
             step_cache[key] = make_step(key)
         return step_cache[key], key
 
-    # the hard negatives' draws: the JAX driver carries a PRNG key, this one a generator
+    # the hard negatives' draws: the JAX driver carries a PRNG key, this one a
+    # generator, seeded alike on every rank (each takes its rows of the global draw)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     extra = {**{f"params_m.{n}": t for n, t in state.params_m.items()},
              **{f"queue.{k}": getattr(state.queue, k) for k in state.queue._fields},
@@ -256,7 +261,7 @@ def main(argv=None):
             model, step_fn,
             lambda: MetricLogger().log_every(
                 batched_loader(train_ds, batch_train, shuffle=True, epoch=epoch,
-                               drop_last=True,
+                               drop_last=True, num_shards=n_procs, shard_id=rank,
                                batch_range=(skip, 1 << 31) if skip else None),
                 50, f"Train [{epoch}]"),
             tokenizer, temperature, epoch=epoch, epoch_len=epoch_len, alpha=alpha_cfg,
@@ -277,10 +282,13 @@ def main(argv=None):
                                   text_ids.shape[1])
         log = {"epoch": epoch, "Cur_Gflops": round(cur_g, 2),
                **{k: round(v, 3) for k, v in stats.items()}}
+        # every rank tracks the best (the merged scores are the same); rank 0 writes
         if stats["r_mean"] > best and cur_g - target < BEST_SLACK:
             best, best_epoch = stats["r_mean"], epoch
-            save_retrieval_checkpoint(model, os.path.join(args.output_dir, "checkpoint_best.pth"),
-                                      epoch=epoch, temperature=temperature)
+            if dist.is_main_process():
+                save_retrieval_checkpoint(model, os.path.join(args.output_dir,
+                                                              "checkpoint_best.pth"),
+                                          epoch=epoch, temperature=temperature)
         dump_log(args.output_dir, "log.txt", log)
         print("LOG:", log)
         save_resume(args.output_dir, model, opt,

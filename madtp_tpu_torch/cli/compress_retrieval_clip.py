@@ -23,9 +23,13 @@ needs a card.
 Under ``--num_processes`` N the eval runs over the ranks: each decodes and
 encodes a contiguous block of both towers' batches
 (:func:`~madtp_tpu_torch.tasks.clip_retrieval.encode_towers_sharded`), and
-every rank ranks the gathered features, bit for bit those of one process;
-rank 0 writes the logs.  Training over several processes is ROADMAP A.6 and
-raises before the process group forms.
+every rank ranks the gathered features, bit for bit those of one process.
+Training runs each step over the global batch, each rank a shard of
+``batch_size_train`` (the last partial batch dropped): the ITC against every
+rank's momentum features and the queue fed every rank's batch
+(``train/loops.py`` ``make_clip_train_step``), so the parameters and the
+queue stay the same on every rank; rank 0 writes the logs, the config, the
+checkpoints and the resume file, which resumes every rank.
 """
 
 from __future__ import annotations
@@ -39,8 +43,7 @@ from madtp_tpu_torch.ckpt.convert import (clip_from_jax_params, load_clip_state_
                                           save_clip_checkpoint)
 from madtp_tpu_torch.cli.common import (base_parser, cached_probe_batches, dump_config,
                                         dump_log, eval_image_transform, load_config,
-                                        load_resume, read_checkpoint,
-                                        refuse_multiprocess_training, save_resume, set_seed,
+                                        load_resume, read_checkpoint, save_resume, set_seed,
                                         setup_runtime, train_image_transform)
 from madtp_tpu_torch.core.config import CLIPConfig, infer_clip_config
 from madtp_tpu_torch.data.datasets import CaptionTrainDataset, RetrievalEvalDataset
@@ -134,7 +137,6 @@ def main(argv=None):
     args = base_parser("configs/retrieval_flickr_clip.yaml",
                        "pretrained/clip_large_retrieval_flickr.pth",
                        default_output="output/Retrieval_flickr").parse_args(argv)
-    refuse_multiprocess_training(args, "CLIP retrieval")
     device = setup_runtime(args)
     config = load_config(args)
     set_seed(args.seed)
@@ -222,14 +224,15 @@ def main(argv=None):
                                                          PerSampleRng(args.seed)),
                                    config["image_root"], config["ann_root"],
                                    dataset=config.get("dataset", "flickr"))
-    epoch_len = num_batches(len(train_ds), batch_train, drop_last=True)
+    epoch_len = num_batches(len(train_ds), batch_train, num_shards=n_procs, drop_last=True)
     step_cache = BoundedCache()  # --fast_train: vision capacity schedule -> step
     probe_cache = [None]
 
     def fast_train_step(temperature):
         """Vision capacities from the cached mask-mode probe batches at this
         epoch's temperature, and the gather-mode step (the causal text tower
-        stays in mask mode)."""
+        stays in mask mode).  The probe batches are not sharded, so every
+        rank computes the same capacities."""
         probe = cached_probe_batches(probe_cache, lambda: batched_loader(
             train_ds, batch_train, shuffle=True, epoch=0,
             drop_last=len(train_ds) >= batch_train))  # the partial batch when it is the only one
@@ -271,7 +274,7 @@ def main(argv=None):
             model, step_fn,
             lambda: MetricLogger().log_every(
                 batched_loader(train_ds, batch_train, shuffle=True, epoch=epoch,
-                               drop_last=True,
+                               drop_last=True, num_shards=n_procs, shard_id=rank,
                                batch_range=(skip, 1 << 31) if skip else None),
                 50, f"Train [{epoch}]"),
             tokenizer, temperature, epoch=epoch, epoch_len=epoch_len, alpha=alpha_cfg, lr=lr,
@@ -293,10 +296,12 @@ def main(argv=None):
                                                  target_gflops=target, batch_size=bt)
         log = {"epoch": epoch, "Cur_Gflops": round(cur_g, 2),
                **{k: round(v, 3) for k, v in stats.items()}}
-        if improved:
+        if improved:  # every rank tracks the best (the same stats); rank 0 writes
             best, best_epoch = stats["r_mean"], epoch
-            save_clip_checkpoint(model, os.path.join(args.output_dir, "checkpoint_best.pth"),
-                                 epoch=epoch, temperature=temperature)
+            if dist.is_main_process():
+                save_clip_checkpoint(model, os.path.join(args.output_dir,
+                                                         "checkpoint_best.pth"),
+                                     epoch=epoch, temperature=temperature)
         dump_log(args.output_dir, "log.txt", log)
         print("LOG:", log)
         save_resume(args.output_dir, model, opt,

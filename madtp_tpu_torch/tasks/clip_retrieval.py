@@ -31,7 +31,7 @@ import torch
 from madtp_tpu_torch.data.tokenizer_clip import clip_tokenize
 from madtp_tpu_torch.eval.metrics import itm_eval
 from madtp_tpu_torch.models.clip import CLIPModel
-from madtp_tpu_torch.parallel import dist
+from madtp_tpu_torch.parallel import data, dist
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.flops import clip_gflops
 from madtp_tpu_torch.train.epoch import run_epoch
@@ -184,15 +184,18 @@ def train_epoch(model: CLIPModel, train_step, loader_fn: Callable[[], Iterable],
                 temperature: float, *, epoch: int, epoch_len: int, alpha: float = 0.4,
                 print_fn=print, print_freq: int = 50, lr: float = 0.0, stop=None,
                 done0: int = 0) -> dict:
-    """One compression-training epoch (single process,
-    ``compress_retrieval_clip.py:463-492``) of ``train_step``
-    (:func:`~madtp_tpu_torch.train.loops.make_clip_train_step`'s step, over
-    ``model``'s train state) on ``loader_fn()``'s ``(images, captions,
-    image_ids)`` batches, the captions through :func:`~madtp_tpu_torch.data.
-    tokenizer_clip.clip_tokenize` at the model's context length.  Epoch 0
-    ramps the soft-target weight, ``alpha * min(1, done / epoch_len)`` at
-    its ``done``-th batch of the epoch's schedule (a resumed epoch counts
-    from ``done0``, the batches it skips).  Returns the stats of
+    """One compression-training epoch (``compress_retrieval_clip.py:
+    463-492``) of ``train_step`` (:func:`~madtp_tpu_torch.train.loops.
+    make_clip_train_step`'s step, over ``model``'s train state) on
+    ``loader_fn()``'s ``(images, captions, image_ids)`` batches, the
+    captions through :func:`~madtp_tpu_torch.data.tokenizer_clip.
+    clip_tokenize` at the model's context length; under several processes
+    each step spans the ranks (:func:`~madtp_tpu_torch.parallel.data.
+    global_batch`), each rank's batches its shard's.  Epoch 0 ramps the
+    soft-target weight, ``alpha * min(1, done / epoch_len)`` at its
+    ``done``-th batch of the epoch's schedule (a resumed epoch counts from
+    ``done0``, the batches it skips; ``epoch_len`` the batches of a
+    shard).  Returns the stats of
     :func:`~madtp_tpu_torch.train.epoch.run_epoch`: the means of
     ``temperature``, ``lr``, ``alpha``, ``loss``, ``loss_ita``,
     ``loss_fdt`` and ``loss_fdt_m``, and ``batches_done``."""
@@ -209,8 +212,9 @@ def train_epoch(model: CLIPModel, train_step, loader_fn: Callable[[], Iterable],
                              temperature, a)
         return dict(metrics, alpha=a)
 
-    return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
-                     print_freq=print_freq, stop=stop)
+    with data.global_batch():
+        return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
+                         print_freq=print_freq, stop=stop)
 
 
 @torch.inference_mode()

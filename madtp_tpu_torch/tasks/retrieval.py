@@ -39,7 +39,7 @@ import torch
 
 from madtp_tpu_torch.eval.metrics import itm_eval
 from madtp_tpu_torch.models.blip import RetrievalModel
-from madtp_tpu_torch.parallel import dist
+from madtp_tpu_torch.parallel import data, dist
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.prune.flops import retrieval_gflops
@@ -308,14 +308,18 @@ def train_epoch(model: RetrievalModel, train_step, loader_fn: Callable[[], Itera
                 generator: Optional[torch.Generator] = None, max_length: int = MAX_LENGTH,
                 print_fn=print, print_freq: int = 50, lr: float = 0.0, stop=None,
                 done0: int = 0) -> dict:
-    """One compression-training epoch (single process) of ``train_step``
+    """One compression-training epoch of ``train_step``
     (:func:`~madtp_tpu_torch.train.loops.make_retrieval_train_step`'s step,
     over ``model``'s train state) on ``loader_fn()``'s ``(images, captions,
-    image_ids)`` batches, the captions padded to ``max_length``.  Epoch 0
-    ramps the soft-target weight, ``alpha * min(1, done / epoch_len)`` at its
-    ``done``-th batch of the epoch's schedule (a resumed epoch counts from
-    ``done0``, the batches it skips); ``generator`` (one per run, on the
-    model's device) draws every step's hard negatives.  Returns the stats of
+    image_ids)`` batches, the captions padded to ``max_length``; under
+    several processes each step spans the ranks
+    (:func:`~madtp_tpu_torch.parallel.data.global_batch`), each rank's
+    batches its shard's.  Epoch 0 ramps the soft-target weight, ``alpha *
+    min(1, done / epoch_len)`` at its ``done``-th batch of the epoch's
+    schedule (a resumed epoch counts from ``done0``, the batches it skips;
+    ``epoch_len`` the batches of a shard); ``generator`` (one per run, on
+    the model's device, seeded alike on every rank) draws every step's
+    hard-negative noise over the global batch.  Returns the stats of
     :func:`~madtp_tpu_torch.train.epoch.run_epoch`: the means of
     ``temperature``, ``lr``, ``alpha``, ``loss``, ``loss_ita``,
     ``loss_itm``, ``loss_fdt`` and ``loss_fdt_m``, and ``batches_done``."""
@@ -330,8 +334,9 @@ def train_epoch(model: RetrievalModel, train_step, loader_fn: Callable[[], Itera
                              _ids(img_idx, dev), temperature, a, generator=generator)
         return dict(metrics, alpha=a)
 
-    return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
-                     print_freq=print_freq, stop=stop)
+    with data.global_batch():
+        return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,
+                         print_freq=print_freq, stop=stop)
 
 
 @torch.inference_mode()

@@ -84,9 +84,7 @@ def _optimize(optimizer: torch.optim.Optimizer, loss_fn, names: Sequence[str], a
     gradients and the returned losses become the global batch's before the
     update (:func:`~madtp_tpu_torch.parallel.data.reduce_step`), weighted by
     ``count(*args, **kwargs)``: the rows, tokens or questions the loss is a
-    mean over.  The steps without ``count`` (BLIP and CLIP retrieval) are
-    not run over several processes yet: the drivers refuse that
-    (:func:`~madtp_tpu_torch.cli.common.refuse_multiprocess_training`)."""
+    mean over."""
     def step(*args, **kwargs):
         optimizer.zero_grad(set_to_none=True)
         out = loss_fn(*args, **kwargs)
@@ -241,13 +239,23 @@ def _is_momentum(name: str) -> bool:
 
 
 def init_retrieval_train_state(model: RetrievalModel, *, queue_size: int = 57600,
-                               temp: float = 0.07, seed: int = 0) -> RetrievalTrainState:
+                               temp: float = 0.07, seed: int = 0,
+                               params_m: Optional[Dict[str, torch.Tensor]] = None
+                               ) -> RetrievalTrainState:
     """The state a retrieval run starts from: the momentum towers copies of
-    the online ones, a queue from :func:`~madtp_tpu_torch.train.momentum.
-    init_queue` at the projections' width, ``temp`` 0.07 (the reference
-    ``copy_params`` and buffers)."""
+    the online ones (the reference ``copy_params``), or copies of
+    ``params_m`` (by the model's parameter names, as
+    :func:`~madtp_tpu_torch.ckpt.convert.load_retrieval_momentum` reads a
+    checkpoint's), a queue from :func:`~madtp_tpu_torch.train.momentum.
+    init_queue` at the projections' width, ``temp`` (0.07, the reference
+    buffer's start)."""
     dev = model.space_dict.device
-    params_m = {n: p.detach().clone() for n, p in model.named_parameters() if _is_momentum(n)}
+    online = {n: p for n, p in model.named_parameters() if _is_momentum(n)}
+    if params_m is not None and set(params_m) != set(online):
+        raise KeyError(f"momentum towers: {sorted(set(params_m) ^ set(online))[:3]} do not "
+                       "match the model's")
+    src = online if params_m is None else params_m
+    params_m = {n: src[n].detach().to(dev, online[n].dtype, copy=True) for n in online}
     embed_dim = model.vision_proj.weight.shape[0]
     return RetrievalTrainState(model, params_m, init_queue(embed_dim, queue_size, seed, dev),
                                torch.tensor(temp, dtype=torch.float32, device=dev))
@@ -275,7 +283,7 @@ def _itm_logits(model: RetrievalModel, ids, mask, memory: TokenState, *, tempera
 
 def make_retrieval_train_step(state: RetrievalTrainState, optimizer: torch.optim.Optimizer, *,
                               alpha: float = 0.4, momentum: float = 0.995, enc_token_id: int,
-                              prune_active: bool = True,
+                              prune_active: bool = True, negative_all_rank: bool = False,
                               capacities_v: Optional[Sequence[int]] = None,
                               capacities_t: Optional[Sequence[int]] = None,
                               amp: bool = False, device="cuda"):
@@ -294,22 +302,36 @@ def make_retrieval_train_step(state: RetrievalTrainState, optimizer: torch.optim
        targets over the momentum features and the queue, the ITC loss;
     4. the FDT losses of both towers' MAG features (else ``loss_ita``);
     5. two hard negatives per pair (:func:`~madtp_tpu_torch.train.losses.
-       sample_hard_negatives`: ``noise`` a pair of [B, B] Gumbel tensors,
-       image-per-text then text-per-image, or drawn from ``generator``),
-       the ITM over ``[pos, text with its negative image, image with its
-       negative text]``, the memory without the image's key bias;
+       sample_hard_negatives`: ``noise`` a pair of Gumbel tensors over the
+       global batch, [Bg, Bg], image-per-text then text-per-image, or drawn
+       from ``generator``), the ITM over ``[pos, text with its negative
+       image, image with its negative text]``, the memory without the
+       image's key bias;
     6. ``loss_ita + loss_itm + 0.1 loss_fdt + 0.1 loss_fdt_m``, backward,
        the optimizer's update;
     7. the fp32 momentum features and ``idx`` into the queue.
 
-    One process mines its negatives over the whole batch, as the JAX step
-    does with ``negative_all_rank`` or one data shard.  Returns ``{"loss",
-    "loss_ita", "loss_itm", "loss_fdt", "loss_fdt_m"}`` as device scalars;
-    nothing waits on the card.  ``device`` as :func:`make_nlvr_train_step`.
-    ``step.loss_fn`` takes the same arguments and returns the five losses
-    and the momentum features without the update and the enqueue; unlike
-    the other factories' it changes the state: it advances the EMA
-    (steps 1-2) and writes the clamped ``temp``."""
+    Under several processes, inside :func:`~madtp_tpu_torch.parallel.data.
+    global_batch`, the step is the JAX step (``data_shards`` the ranks) on
+    the global batch of ``Bg`` rows, each rank a contiguous block of ``B``
+    (equal on every rank): the ITC runs this rank's rows against every
+    rank's momentum features and ids and the queue; the negatives come from
+    every rank's rows with ``negative_all_rank`` (the negative image's
+    encoder states with their gradient, the reference's
+    ``all_gather_with_grad``; the negative text's ids and mask without),
+    else from the rank's own rows; each rank takes its rows of the global
+    noise (with ``negative_all_rank`` every column, else its own block's);
+    the ITM runs the rank's ``3 B`` rows (DTP's counts maxed over the
+    ranks); the queue takes every rank's features and ids, so it stays the
+    same on every rank; the gradients and losses are the global batch's
+    (``B`` the count).  With one process both values of
+    ``negative_all_rank`` mine the whole batch.  Returns ``{"loss",
+    "loss_ita", "loss_itm", "loss_fdt", "loss_fdt_m"}`` as device scalars.
+    ``device`` as :func:`make_nlvr_train_step`.  ``step.loss_fn`` takes the
+    same arguments and returns the five losses and the global batch's
+    momentum features and ids without the update and the enqueue; unlike
+    the other factories' it changes the state: it advances the EMA (steps
+    1-2) and writes the clamped ``temp``."""
     model = state.model
     _check_device(model, device)
     params = dict(model.named_parameters())
@@ -325,6 +347,7 @@ def make_retrieval_train_step(state: RetrievalTrainState, optimizer: torch.optim
         momentum_update(online_m, state.params_m.values(), momentum)
         p, x = _amp_cast(amp, params, images)
         B = ids.shape[0]
+        off, total = data.batch_rows(B)
         img_feat, vout, txt_feat, tout = functional_call(
             towers, _prefixed(p), (x, ids, mask), dict(kw, temperature=temperature))
         with torch.no_grad():
@@ -333,9 +356,10 @@ def make_retrieval_train_step(state: RetrievalTrainState, optimizer: torch.optim
                 towers, _prefixed({**p, **pm}), (x, ids, mask),
                 dict(kw, temperature=temperature))
             q = state.queue
-            sim_targets = L.id_match_targets(idx, torch.cat([idx, q.idx]))
-            img_m_all = torch.cat([m_img.T.float(), q.image], dim=1)
-            txt_m_all = torch.cat([m_txt.T.float(), q.text], dim=1)
+            idx_w, m_img_w, m_txt_w = (data.world_rows(t) for t in (idx, m_img, m_txt))
+            sim_targets = L.id_match_targets(idx, torch.cat([idx_w, q.idx]))
+            img_m_all = torch.cat([m_img_w.T.float(), q.image], dim=1)
+            txt_m_all = torch.cat([m_txt_w.T.float(), q.text], dim=1)
             t_i2t = L.itc_soft_targets(m_img, txt_m_all, sim_targets, temp, a)
             t_t2i = L.itc_soft_targets(m_txt, img_m_all, sim_targets, temp, a)
         loss_ita = 0.5 * (L.itc_loss(img_feat, txt_m_all, t_i2t, temp)
@@ -347,31 +371,45 @@ def make_retrieval_train_step(state: RetrievalTrainState, optimizer: torch.optim
             loss_fdt = fdt_alignment_loss(vout.sd_ft, tout.sd_ft, sd_dim)
             loss_fdt_m = fdt_alignment_loss(m_vout.sd_ft, m_tout.sd_ft, sd_dim)
 
-        noise_i, noise_t = (None, None) if noise is None else noise
-        neg_img = L.sample_hard_negatives(txt_feat, img_feat, idx, idx, temp, noise=noise_i,
-                                          generator=generator)
-        neg_txt = L.sample_hard_negatives(img_feat, txt_feat, idx, idx, temp, noise=noise_t,
-                                          generator=generator)
         enc_ids = ids.clone()
         enc_ids[:, 0] = enc_token_id
-        ids_all = torch.cat([enc_ids, enc_ids, enc_ids[neg_txt]])
-        mask_all = torch.cat([mask, mask, mask[neg_txt]])
         vs = vout.state
-        memory = TokenState(torch.cat([vs.x, vs.x[neg_img], vs.x]),
-                            torch.cat([vs.alive, vs.alive[neg_img], vs.alive]), None)
+        rows = slice(off, off + B)
+        if negative_all_rank:  # candidates: every rank's rows
+            cols = slice(0, total)
+            cand_img, cand_txt, cand_idx = (data.world_rows(img_feat), data.world_rows(txt_feat),
+                                            idx_w)
+            cand_x = data.world_rows(vs.x, grad=True)
+            cand_alive, cand_ids, cand_mask = (data.world_rows(t)
+                                               for t in (vs.alive, enc_ids, mask))
+        else:  # candidates: this rank's rows
+            cols = rows
+            cand_img, cand_txt, cand_idx = img_feat, txt_feat, idx
+            cand_x, cand_alive, cand_ids, cand_mask = vs.x, vs.alive, enc_ids, mask
+        noise_i, noise_t = (
+            L.rank_noise(None if noise is None else noise[k], rows, cols, total,
+                         generator=generator, device=img_feat.device) for k in (0, 1))
+        neg_img = L.sample_hard_negatives(txt_feat, cand_img, idx, cand_idx, temp, noise=noise_i)
+        neg_txt = L.sample_hard_negatives(img_feat, cand_txt, idx, cand_idx, temp, noise=noise_t)
+        ids_all = torch.cat([enc_ids, enc_ids, cand_ids[neg_txt]])
+        mask_all = torch.cat([mask, mask, cand_mask[neg_txt]])
+        memory = TokenState(torch.cat([vs.x, cand_x[neg_img], vs.x]),
+                            torch.cat([vs.alive, cand_alive[neg_img], vs.alive]), None)
         logits = functional_call(itm, _prefixed(p), (ids_all, mask_all, memory),
                                  dict(temperature=temperature, prune_active=prune_active,
                                       capacities_t=capacities_t))
         loss_itm = L.itm_loss(logits, B)
         loss = loss_ita + loss_itm + FDT_WEIGHT * loss_fdt + FDT_WEIGHT * loss_fdt_m
         state.temp.copy_(temp)
-        return loss, loss_ita, loss_itm, loss_fdt, loss_fdt_m, m_img, m_txt
+        return loss, loss_ita, loss_itm, loss_fdt, loss_fdt_m, m_img_w, m_txt_w, idx_w
 
-    def after(out, images, ids, mask, idx, *args, **kwargs):
-        enqueue(state.queue, out[5], out[6], idx)
+    def after(out, *args, **kwargs):
+        enqueue(state.queue, *out[5:8])
 
+    # every loss is a mean over the pairs (the ITM over their 3 B rows)
     return _optimize(optimizer, loss_fn,
-                     ("loss", "loss_ita", "loss_itm", "loss_fdt", "loss_fdt_m"), after)
+                     ("loss", "loss_ita", "loss_itm", "loss_fdt", "loss_fdt_m"), after,
+                     count=lambda images, ids, *rest, **kw: ids.shape[0])
 
 
 class ClipTrainState(NamedTuple):
@@ -444,11 +482,17 @@ def make_clip_train_step(state: ClipTrainState, optimizer: torch.optim.Optimizer
 
     ``amp`` runs both towers in bf16 (online, momentum and codebook cast);
     ``logit_scale``, the masters, the optimizer state and the queue stay
-    fp32.  Returns ``{"loss", "loss_ita", "loss_fdt", "loss_fdt_m"}`` as
-    device scalars; nothing waits on the card.  ``device`` as
-    :func:`make_nlvr_train_step`.  ``step.loss_fn`` takes the same
-    arguments and returns the four losses and the online features without
-    the update and the enqueue; it advances the EMA."""
+    fp32.  Under several processes, inside :func:`~madtp_tpu_torch.parallel.
+    data.global_batch`, it is the JAX step on the global batch, each rank a
+    contiguous block of ``B`` rows (equal on every rank): this rank's rows
+    against every rank's momentum features and ids and the queue, the queue
+    fed every rank's online features and ids, the gradients and losses the
+    global batch's (``B`` the count), as :func:`make_retrieval_train_step`
+    without negatives.  Returns ``{"loss", "loss_ita", "loss_fdt",
+    "loss_fdt_m"}`` as device scalars.  ``device`` as
+    :func:`make_nlvr_train_step`.  ``step.loss_fn`` takes the same arguments
+    and returns the four losses and the global batch's online features and
+    ids without the update and the enqueue; it advances the EMA."""
     model = state.model
     _check_device(model, device)
     params = dict(model.named_parameters())
@@ -465,15 +509,17 @@ def make_clip_train_step(state: ClipTrainState, optimizer: torch.optim.Optimizer
         p, x = _amp_cast(amp, params, images)
         img, txt, sd_img, sd_txt = functional_call(
             towers, _prefixed(p), (x, text), dict(kw, temperature=temperature))
+        data.batch_rows(text.shape[0])  # equal counts on every rank, or raise
         with torch.no_grad():
             pm = {n: t for n, t in _amp_cast(amp, state.params_m)[0].items()
                   if n.split(".", 1)[0] not in ("transformer", "ln_final")}
             m_img, m_txt, sd_img_m, sd_txt_m = functional_call(
                 towers, _prefixed({**p, **pm}), (x, text), dict(kw, temperature=temperature))
             q = state.queue
-            sim_targets = L.id_match_targets(idx, torch.cat([idx, q.idx]))
-            img_m_all = torch.cat([m_img.T.float(), q.image], dim=1)
-            txt_m_all = torch.cat([m_txt.T.float(), q.text], dim=1)
+            idx_w, m_img_w, m_txt_w = (data.world_rows(t) for t in (idx, m_img, m_txt))
+            sim_targets = L.id_match_targets(idx, torch.cat([idx_w, q.idx]))
+            img_m_all = torch.cat([m_img_w.T.float(), q.image], dim=1)
+            txt_m_all = torch.cat([m_txt_w.T.float(), q.text], dim=1)
             t_i2t = L.itc_soft_targets(m_img, txt_m_all, sim_targets, None, a, logit_scale=scale)
             t_t2i = L.itc_soft_targets(m_txt, img_m_all, sim_targets, None, a, logit_scale=scale)
         loss_ita = 0.5 * (L.itc_loss(img, txt_m_all, t_i2t, None, logit_scale=scale)
@@ -484,9 +530,12 @@ def make_clip_train_step(state: ClipTrainState, optimizer: torch.optim.Optimizer
             loss_fdt = fdt_alignment_loss(sd_img, sd_txt, sd_dim)
             loss_fdt_m = fdt_alignment_loss(sd_img_m, sd_txt_m, sd_dim)
         loss = loss_ita + FDT_WEIGHT * loss_fdt + FDT_WEIGHT * loss_fdt_m
-        return loss, loss_ita, loss_fdt, loss_fdt_m, img.detach(), txt.detach()
+        return (loss, loss_ita, loss_fdt, loss_fdt_m, data.world_rows(img.detach()),
+                data.world_rows(txt.detach()), idx_w)
 
-    def after(out, images, text, idx, *args, **kwargs):
-        enqueue(state.queue, out[4], out[5], idx)
+    def after(out, *args, **kwargs):
+        enqueue(state.queue, *out[4:7])
 
-    return _optimize(optimizer, loss_fn, ("loss", "loss_ita", "loss_fdt", "loss_fdt_m"), after)
+    # every loss is a mean over the pairs
+    return _optimize(optimizer, loss_fn, ("loss", "loss_ita", "loss_fdt", "loss_fdt_m"), after,
+                     count=lambda images, text, *rest, **kw: text.shape[0])

@@ -60,6 +60,19 @@ def gumbel(shape, *, generator: Optional[torch.Generator] = None, device=None) -
     return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
 
 
+def rank_noise(noise: Optional[torch.Tensor], rows: slice, cols: slice, total: int, *,
+               generator: Optional[torch.Generator] = None, device=None) -> torch.Tensor:
+    """This rank's block ``[rows, cols]`` of the global batch's ``[total,
+    total]`` Gumbel draw, the one ``jax.random.categorical`` makes over the
+    global batch: ``noise`` when given (the global draw), else drawn from
+    ``generator`` on ``device``.  A generator seeded alike on every rank
+    draws the same global noise on each, so the ranks' picks are the
+    one-process step's."""
+    if noise is None:
+        noise = gumbel((total, total), generator=generator, device=device)
+    return noise[rows, cols]
+
+
 @torch.no_grad()
 def sample_hard_negatives(feat_a: torch.Tensor, feat_b: torch.Tensor, idx: torch.Tensor,
                           idx_world: torch.Tensor, temp, *,

@@ -44,10 +44,16 @@ def init_queue(embed_dim: int, queue_size: int, seed: int, device) -> FeatureQue
 def enqueue(q: FeatureQueue, image_feat: torch.Tensor, text_feat: torch.Tensor,
             idx: torch.Tensor) -> None:
     """Write a batch's features [B, E] (as fp32) and ids at the pointer and
-    advance it by B modulo the queue size, in place.  The queue size is a
-    multiple of B, as the reference requires, so a batch never straddles
-    the end."""
+    advance it by B modulo the queue size, in place.  Under several
+    processes the batch is the global one, every rank's rows (the
+    reference's ``concat_all_gather``), so every rank's queue stays the
+    same.  The queue size must be a multiple of that global B, as the
+    reference asserts (``models/blip_retrieval.py:301-322``), so a batch never
+    straddles the end: checked here, on the shapes."""
     size = q.idx.shape[0]
+    if size % image_feat.shape[0]:
+        raise ValueError(f"queue size {size} is not a multiple of the global batch "
+                         f"{image_feat.shape[0]}")
     pos = (q.ptr + torch.arange(image_feat.shape[0], device=q.ptr.device)) % size
     q.image.index_copy_(1, pos, image_feat.T.float())
     q.text.index_copy_(1, pos, text_feat.T.float())

@@ -1042,3 +1042,19 @@ def test_global_batch_count_max_refuses_a_graph_capture(cuda):
         with pytest.raises(RuntimeError, match="capture"):
             with torch.cuda.graph(graph):
                 data.batch_max(*counts)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_global_batch_row_gather_refuses_a_graph_capture(cuda, grad):
+    """Nor does a retrieval step's gather of the other ranks' rows: inside a
+    global-batch scope ``world_rows`` raises when the stream is capturing."""
+    from unittest import mock
+
+    from madtp_tpu_torch.parallel import data
+
+    rows = torch.ones(4, 8, device=cuda, requires_grad=grad)
+    graph = torch.cuda.CUDAGraph()
+    with mock.patch.object(data._SCOPE, "active", True):
+        with pytest.raises(RuntimeError, match="capture"):
+            with torch.cuda.graph(graph):
+                data.world_rows(rows, grad=grad)

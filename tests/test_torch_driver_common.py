@@ -3,8 +3,8 @@
 ``tools/make_fixture.py``'s fixture with a ``vit: tiny`` 96-px yaml, one
 ``--pretrained`` ``.pth`` per BLIP family written by the JAX package's
 ``ckpt/export.py`` from seeded parameters, the two drivers' runs, and the
-comparisons of their logs and checkpoints.  The tests here: the retrieval drivers refuse to train
-under ``--num_processes 2`` and every driver refuses NCCL on the CPU; each driver,
+comparisons of their logs and checkpoints.  The tests here: under ``--num_processes 2``
+every driver refuses NCCL on the CPU; each driver,
 without a card, runs only when given ``--device cpu``; the preemption guard
 and the metric logger against the JAX package's."""
 
@@ -184,12 +184,8 @@ def assert_checkpoints_match(want_path, got_path, start_path, reach):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_num_processes_two_raises(family, tmp_path):
-    """Under ``--num_processes 2`` the retrieval families refuse to train
-    (ROADMAP A.6) before a process group forms, and every driver refuses
-    NCCL on the CPU."""
-    if family in ("retrieval", "retrieval_clip"):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            run_port(family, ["--output_dir", str(tmp_path), "--num_processes", "2"])
+    """Under ``--num_processes 2`` every driver refuses NCCL on the CPU,
+    before a process group forms."""
     with pytest.raises(ValueError, match="nccl"):
         run_port(family, ["--synthetic", "--output_dir", str(tmp_path), "--num_processes", "2",
                           "--dist_backend", "nccl"])
