@@ -3,11 +3,13 @@ models.  In, from two sources that must give the same tensors:
 
 * :func:`nlvr_from_jax_params`, :func:`retrieval_from_jax_params`,
   :func:`vqa_from_jax_params`, :func:`caption_from_jax_params`,
-  :func:`clip_from_jax_params` — the JAX package's param tree as numpy
-  arrays (layers stacked ``[L, ...]``, linear kernels ``[in, out]``);
+  :func:`pretrain_from_jax_params`, :func:`clip_from_jax_params` — the JAX
+  package's param tree as numpy arrays (layers stacked ``[L, ...]``, linear
+  kernels ``[in, out]``);
 * :func:`load_nlvr_state_dict`, :func:`load_retrieval_state_dict`,
   :func:`load_vqa_state_dict`, :func:`load_caption_state_dict`,
-  :func:`load_clip_state_dict` — a state dict in the reference ``.pth`` key
+  :func:`load_pretrain_state_dict`, :func:`load_clip_state_dict` — a state
+  dict in the reference ``.pth`` key
   layout (``madtp_tpu/ckpt/remap.py`` ``remap_vit``, ``remap_med``,
   ``remap_clip``, and the head and codebook handling of ``load_blip_nlvr``,
   ``load_blip_retrieval``, ``load_blip_vqa`` and ``load_blip_caption``).
@@ -19,9 +21,13 @@ may carry ``self``/``dense`` where the twin layers need ``self0``/``self1`` and
 retrieval checkpoint's momentum towers (``*_m.``) and ``temp`` are read apart,
 for training, by :func:`load_retrieval_momentum`; its queues by nothing.
 
+A Flax ViT ``.npz`` (the original Google checkpoints) loads into a
+:class:`~madtp_tpu_torch.models.vit.VisionTransformer`'s state dict through
+:func:`load_flax_vit_npz`.
+
 Out: :func:`save_nlvr_checkpoint`, :func:`save_caption_checkpoint`,
-:func:`save_vqa_checkpoint`, :func:`save_retrieval_checkpoint` and
-:func:`save_clip_checkpoint` write what a
+:func:`save_vqa_checkpoint`, :func:`save_retrieval_checkpoint`,
+:func:`save_pretrain_checkpoint` and :func:`save_clip_checkpoint` write what a
 compression run leaves behind, the weights and the temperature, in the
 reference ``.pth`` layout, with the keys the JAX drivers write.
 
@@ -39,7 +45,8 @@ import torch
 
 from madtp_tpu_torch.core.config import BlipConfig, CLIPConfig
 from madtp_tpu_torch.core.device import resolve_device
-from madtp_tpu_torch.models.blip import CaptionModel, NLVRModel, RetrievalModel, VQAModel
+from madtp_tpu_torch.models.blip import (CaptionModel, NLVRModel, PretrainModel, RetrievalModel,
+                                         VQAModel)
 from madtp_tpu_torch.models.clip import CLIPModel
 from madtp_tpu_torch.train.loops import (CLIP_MOMENTUM_KEYS, MOMENTUM_KEYS, ClipTrainState,
                                          RetrievalTrainState)
@@ -229,6 +236,69 @@ def load_caption_state_dict(sd: Mapping[str, object], cfg: BlipConfig,
     return _load_every_key(sd, lambda: CaptionModel(cfg), cfg, resolve_device(device))
 
 
+def load_pretrain_state_dict(sd: Mapping[str, object], cfg: BlipConfig,
+                             device="cuda") -> PretrainModel:
+    """A pretrain model from a reference-layout state dict: the retrieval
+    keys as :func:`load_retrieval_state_dict` reads them, and the decoder
+    as :func:`load_caption_state_dict` does (``text_decoder.bert.*``,
+    ``text_decoder.cls.predictions.{transform.*, bias}``); every key of the
+    model must be there."""
+    embed_dim = int(np.shape(sd["vision_proj.weight"])[0])
+    return _load_every_key(sd, lambda: PretrainModel(cfg, embed_dim), cfg,
+                           resolve_device(device))
+
+
+def _flax_vit_sd(w: Mapping[str, np.ndarray], num_patches) -> Dict[str, torch.Tensor]:
+    """The ``VisionTransformer`` state dict of a Flax ViT's arrays."""
+    prefix = "opt/target/" if "opt/target/embedding/kernel" in w else ""
+
+    def g(k):
+        return np.asarray(w[prefix + k], np.float32)
+
+    conv = g("embedding/kernel")  # HWIO [ph, pw, 3, D]
+    D = conv.shape[3]
+    sd = {"cls_token": _tensor(g("cls").reshape(1, 1, D)),
+          "patch_embed.proj.weight": _tensor(conv.transpose(3, 2, 0, 1)),
+          "patch_embed.proj.bias": _tensor(g("embedding/bias")),
+          "norm.weight": _tensor(g("Transformer/encoder_norm/scale")),
+          "norm.bias": _tensor(g("Transformer/encoder_norm/bias"))}
+    pos = _tensor(g("Transformer/posembed_input/pos_embedding"))
+    sd["pos_embed"] = pos if num_patches is None else interpolate_pos_embed(pos, num_patches)
+    blocks = {k[len(prefix):].split("/")[1] for k in w
+              if k.startswith(prefix + "Transformer/encoderblock_")}
+    for i in range(len(blocks)):
+        b, t = f"Transformer/encoderblock_{i}/", f"blocks.{i}."
+        mha = b + "MultiHeadDotProductAttention_1/"
+        sd[t + "attn.qkv.weight"] = _tensor(np.concatenate(
+            [g(mha + f"{n}/kernel").reshape(D, -1) for n in ("query", "key", "value")], 1).T)
+        sd[t + "attn.qkv.bias"] = _tensor(np.concatenate(
+            [g(mha + f"{n}/bias").reshape(-1) for n in ("query", "key", "value")]))
+        sd[t + "attn.proj.weight"] = _tensor(g(mha + "out/kernel").reshape(-1, D).T)
+        sd[t + "attn.proj.bias"] = _tensor(g(mha + "out/bias"))
+        for ln, src in (("norm1", "LayerNorm_0"), ("norm2", "LayerNorm_2")):
+            sd[t + ln + ".weight"] = _tensor(g(b + src + "/scale"))
+            sd[t + ln + ".bias"] = _tensor(g(b + src + "/bias"))
+        for fc, src in (("fc1", "Dense_0"), ("fc2", "Dense_1")):
+            sd[t + f"mlp.{fc}.weight"] = _tensor(g(b + f"MlpBlock_3/{src}/kernel").T)
+            sd[t + f"mlp.{fc}.bias"] = _tensor(g(b + f"MlpBlock_3/{src}/bias"))
+    return sd
+
+
+def load_flax_vit_npz(path: str, *, num_patches=None) -> Dict[str, torch.Tensor]:
+    """An original Google-Brain Flax ViT ``.npz`` (``load_flax_vit_npz``,
+    ``madtp_tpu/ckpt/remap.py:333-386``; the non-hybrid layout, keys with or
+    without ``opt/target/``) as a ``VisionTransformer`` state dict (fp32 CPU
+    tensors, ``patch_embed.proj``, ``blocks.{i}.attn.qkv`` ...): the
+    patch-embedding kernel HWIO to a conv weight, the per-head query, key
+    and value kernels packed into ``qkv``, the position embeddings resized
+    to ``num_patches`` grid tokens when given (``interpolate_pos_embed``,
+    ``madtp_tpu/ckpt/remap.py:49-69``).  The depth counts the blocks after
+    the prefix: the JAX loader counts them before it and reads one block
+    from an ``opt/target/`` file (``remap.py:351``)."""
+    with np.load(path) as w:
+        return _flax_vit_sd({k: w[k] for k in w.files}, num_patches)
+
+
 def load_clip_state_dict(sd: Mapping[str, object], cfg: CLIPConfig,
                          device="cuda") -> CLIPModel:
     """A CLIP model from a state dict in the reference ``clip/model.py``
@@ -406,6 +476,23 @@ def caption_from_jax_params(tree: Mapping, cfg: BlipConfig, device="cuda") -> Ca
     return _make(lambda: CaptionModel(cfg), dev, j.sd)
 
 
+def pretrain_from_jax_params(tree: Mapping, cfg: BlipConfig, device="cuda") -> PretrainModel:
+    """A pretrain model from the JAX package's param tree (numpy leaves; the
+    retrieval layout of :func:`retrieval_from_jax_params` plus a
+    ``text_decoder`` with its ``cls`` head, ``blip_pretrain_losses``'s)."""
+    dev = resolve_device(device)
+    j = _JaxTree()
+    j.vit(tree["visual_encoder"], cfg)
+    j.med(tree["text_encoder"], cfg)
+    j.med(tree["text_decoder"], cfg, prefix="text_decoder.bert.")
+    j.lm_head(tree["text_decoder"])
+    for name in ("vision_proj", "text_proj", "itm_head"):
+        j.lin(name, tree[name])
+    j.sd["space_dict"] = _tensor(tree["space_dict"])
+    embed_dim = j.sd["vision_proj.weight"].shape[0]
+    return _make(lambda: PretrainModel(cfg, embed_dim), dev, j.sd)
+
+
 def clip_from_jax_params(tree: Mapping, cfg: CLIPConfig, space_dict=None,
                          device="cuda") -> CLIPModel:
     """A CLIP model from the JAX package's param tree (numpy leaves;
@@ -480,6 +567,14 @@ def save_retrieval_checkpoint(model: RetrievalModel, path: str, *, epoch: int,
     :func:`load_retrieval_state_dict` and ``load_blip_retrieval`` read it
     back."""
     _save(model, path, epoch, temperature)
+
+
+def save_pretrain_checkpoint(model: PretrainModel, path: str, *, epoch: int,
+                             temperature: float) -> None:
+    """The pretrain layout's checkpoint: the retrieval checkpoint's keys and
+    the decoder with its LM head and tied exports; :func:`load_pretrain_state_dict`
+    and the JAX package's ``remap_vit`` and ``remap_med`` read it back."""
+    _save(model, path, epoch, temperature, lm_head=True)
 
 
 def retrieval_train_state_from_jax(params: Mapping, params_m: Mapping, queue, temp,

@@ -18,6 +18,13 @@ through :func:`cross_attention` with the memory's key bias, the FFN through
 :meth:`MedDecoder.step` decodes one token against a fixed-capacity
 :class:`DecodeCache` (``med_decoder_step``, ``:526-580``); :func:`lm_loss`
 is the decoder's training loss (``:596-611``).
+
+Dropout (``dropout_key``, the training recipe, ``madtp_tpu/models/med.py:
+83-87,129-136,165-216``): the encoder drops out its embeddings, then in each
+mask-mode layer the self-attention probabilities, the self-attention output
+dense and the FFN output, each from a stream of its own; the gather path
+drops out only the embeddings, drawn before it starts, as ``med_encoder``
+does.  The decoder takes none.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from madtp_tpu_torch.core.config import MedConfig
 from madtp_tpu_torch.models.vit import EncoderOut, _signals, _zeros_sd, placeholder_kept
 from madtp_tpu_torch.ops.attention import (attention_core, cross_attention,
                                            multi_head_attention)
-from madtp_tpu_torch.ops.layers import gelu, layer_norm, linear, mlp
+from madtp_tpu_torch.ops.layers import dropout, fold_in, gelu, layer_norm, linear, mlp, stream
 from madtp_tpu_torch.prune.dtp import (TokenState, dtp_prune, dtp_prune_gather,
                                        init_token_state)
 from madtp_tpu_torch.prune.query import query_model
@@ -105,13 +112,17 @@ class AttentionBlock(nn.Module):
         self.self = QKV(cfg.hidden_size, kv_dim)
         self.output = DenseNorm(cfg, cfg.hidden_size)
 
-    def forward(self, x, *, key_alive, key_bias=None, need_scores=False):
-        """Self-attention over ``x``; the scoring attention when ``need_scores``."""
+    def forward(self, x, *, key_alive, key_bias=None, need_scores=False, drop=None):
+        """Self-attention over ``x``; the scoring attention when ``need_scores``.
+        ``drop``: ``(probs_rate, out_rate, generator, generator)``, the
+        dropout of the probabilities and of the output dense, or None."""
         p = self.self
+        rate, out_rate, gen, out_gen = (0.0, 0.0, None, None) if drop is None else drop
         out, aux = multi_head_attention(
             _lin(x, p.query), _lin(x, p.key), _lin(x, p.value), self.num_heads,
-            key_alive=key_alive, key_bias=key_bias, need_scores=need_scores)
-        return self.close(out, x), aux
+            key_alive=key_alive, key_bias=key_bias, need_scores=need_scores,
+            dropout_rate=rate, generator=gen)
+        return self.close(out, x, out_rate, out_gen), aux
 
     def cross(self, x, enc: TokenState, key_bias=None):
         """Single-stream cross-attention over ``enc`` + output dense + residual LN."""
@@ -131,9 +142,11 @@ class AttentionBlock(nn.Module):
         out, _ = attention_core(q, k, v, attn_bias=attn_bias)
         return self.close(out, x)
 
-    def close(self, out, x):
-        """Output dense, residual, LayerNorm."""
-        return _ln(_lin(out, self.output.dense) + x, self.output.LayerNorm)
+    def close(self, out, x, rate: float = 0.0, generator=None):
+        """Output dense (dropped out at ``rate`` from ``generator``),
+        residual, LayerNorm."""
+        h = dropout(_lin(out, self.output.dense), rate, generator)
+        return _ln(h + x, self.output.LayerNorm)
 
 
 class TwinOutput(nn.Module):
@@ -188,8 +201,8 @@ class Layer(nn.Module):
             return self.crossattention(x, enc0, enc1)
         return self.crossattention.cross(x, enc0)
 
-    def ffn(self, x):
-        h = mlp(x, self.intermediate.dense, self.output.dense)
+    def ffn(self, x, rate: float = 0.0, generator=None):
+        h = dropout(mlp(x, self.intermediate.dense, self.output.dense), rate, generator)
         return _ln(h + x, self.output.LayerNorm)
 
 
@@ -212,13 +225,20 @@ class MedEncoder(nn.Module):
                 space_dict: Optional[torch.Tensor] = None, temperature=0.0,
                 prune_active: bool = False,
                 capacities: Optional[Sequence[int]] = None,
-                row_independent: bool = False) -> EncoderOut:
+                row_independent: bool = False,
+                dropout_key: Optional[int] = None) -> EncoderOut:
         """BertModel encoder pass (``med_encoder``): multimodal with
         ``encoder_state`` (twin cross-attention with ``encoder_state1``), text
         only without; ``capacities`` switches to gather mode.
         ``row_independent``: per-row DTP decisions and kept counts ``[L, B]``
-        (``madtp_tpu/models/med.py:159-166``)."""
+        (``madtp_tpu/models/med.py:159-166``).  ``dropout_key`` (training):
+        dropout from that key's streams."""
         emb = self.embeddings(input_ids)
+        cfg = self.cfg
+        if dropout_key is not None:
+            emb = dropout(emb, cfg.hidden_dropout_prob,
+                          stream(fold_in(dropout_key, 1), emb.device))
+            dropout_key = fold_in(dropout_key, 0)
         pad_bias = (1.0 - attention_mask.float()) * PAD_BIAS
         # cross-attention memories compute in the text tower's dtype
         enc0, enc1 = (None if st is None else TokenState(st.x.to(emb.dtype), st.alive, st.bias)
@@ -242,8 +262,14 @@ class MedEncoder(nn.Module):
             if use_fdt:
                 token_attn, sd_ft = query_model(x[:, 1:], space_dict, alive[:, 1:])
                 sd_all = sd_all + sd_ft
+            drop = ffn_drop = None
+            if dropout_key is not None and not gather:
+                k_sa, k_ffn = (fold_in(fold_in(dropout_key, i), j) for j in (0, 1))
+                drop = (cfg.attention_probs_dropout_prob, cfg.hidden_dropout_prob,
+                        *(stream(fold_in(k_sa, j), x.device) for j in (0, 1)))
+                ffn_drop = (cfg.hidden_dropout_prob, stream(k_ffn, x.device))
             h, aux = layer.attention(x, key_alive=alive, key_bias=bias,
-                                     need_scores=prune_active)
+                                     need_scores=prune_active, drop=drop)
             state = TokenState(h, alive, bias)
             kept = placeholder_kept(alive, row_independent)
             if gather:
@@ -258,7 +284,7 @@ class MedEncoder(nn.Module):
             x, alive, bias = state
             if enc0 is not None:
                 x = layer.cross(x, enc0, enc1)
-            state = TokenState(layer.ffn(x), alive, bias)
+            state = TokenState(layer.ffn(x, *(ffn_drop or ())), alive, bias)
             kept_list.append(kept)
         return EncoderOut(state, sd_all, torch.stack(kept_list),
                           overflow if gather else None)

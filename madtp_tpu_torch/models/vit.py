@@ -17,6 +17,16 @@ mask-mode path (all of them when ``ckpt_layers < 0``) are recomputed in the
 backward pass (``madtp_tpu/models/vit.py:178-198``).  The recompute takes
 the same DTP decisions only because K1 is deterministic (fixed-order sums, no
 float atomics); it launches K1 once more per recomputed block.
+
+Stochastic depth (``dropout_key``, the training recipe): layer ``i`` drops
+each residual branch of a row with probability ``drop_path_rate * i /
+max(depth - 1, 1)`` (fp32), from streams of its own, as ``fold_in(rng, i)``
+gives one in JAX (``madtp_tpu/models/vit.py:33-52,152-158``).  The gather
+path takes no key, as ``vit_forward`` passes none to ``_vit_forward_gather``.
+Under amp the drop-path's fp32 division promotes the residual stream to fp32
+from the first block's attention on (:func:`~madtp_tpu_torch.ops.layers.
+drop_path`): the rest of the tower computes in fp32 over its bf16 weights, as
+the JAX package computes it.
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from madtp_tpu_torch.core.config import ViTConfig
 from madtp_tpu_torch.ops.attention import AttnAux, self_attention
-from madtp_tpu_torch.ops.layers import layer_norm, mlp, normalize_images, patch_embed
+from madtp_tpu_torch.ops.layers import (drop_path, fold_in, layer_norm, mlp, normalize_images,
+                                        patch_embed, stream)
 from madtp_tpu_torch.prune.dtp import (DTPSignals, TokenState, dtp_prune,
                                        dtp_prune_gather, init_token_state)
 from madtp_tpu_torch.prune.query import query_model
@@ -75,18 +86,23 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(D, eps=cfg.layer_norm_eps)
         self.mlp = Mlp(D, int(D * cfg.mlp_ratio))
 
-    def attn_part(self, state: TokenState, need_scores: bool):
+    def attn_part(self, state: TokenState, need_scores: bool, drop=None):
+        """``drop``: ``(rate, generator)`` of the branch's drop-path, or None."""
         x, alive, bias = state
         h, aux = self_attention(
             layer_norm(x, self.norm1.weight, self.norm1.bias, self.eps),
             self.attn.qkv, self.attn.proj, self.num_heads,
             key_alive=alive, need_scores=need_scores)
+        if drop is not None:
+            h = drop_path(h, *drop)
         return TokenState(x + h, alive, bias), aux
 
-    def ffn_part(self, state: TokenState) -> TokenState:
+    def ffn_part(self, state: TokenState, drop=None) -> TokenState:
         x, alive, bias = state
         h = mlp(layer_norm(x, self.norm2.weight, self.norm2.bias, self.eps),
                 self.mlp.fc1, self.mlp.fc2)
+        if drop is not None:
+            h = drop_path(h, *drop)
         return TokenState(x + h, alive, bias)
 
 
@@ -117,12 +133,15 @@ class VisionTransformer(nn.Module):
     def forward(self, images: torch.Tensor, space_dict: Optional[torch.Tensor] = None,
                 temperature=0.0, prune_active: bool = False,
                 capacities: Optional[Sequence[int]] = None,
-                row_independent: bool = False) -> EncoderOut:
+                row_independent: bool = False,
+                dropout_key: Optional[int] = None) -> EncoderOut:
         """``prune_active`` must be True exactly when the temperature is > 0;
         ``capacities`` (one per layer) switches to gather mode.
         ``row_independent`` (serving): each row keeps its own count, so its
         result does not depend on the other rows, and ``kept_counts`` is
-        per row, ``[L, B]`` (``madtp_tpu/models/vit.py:101-108``)."""
+        per row, ``[L, B]`` (``madtp_tpu/models/vit.py:101-108``).
+        ``dropout_key`` (training, mask mode and dense): stochastic depth
+        from that key's streams."""
         x = self.embed(images)
         if capacities is not None and prune_active:
             return self._forward_gather(x, space_dict, temperature, capacities,
@@ -137,7 +156,7 @@ class VisionTransformer(nn.Module):
         kept_list = []
         for i, blk in enumerate(self.blocks):
             args = (blk, state, sd_all, space_dict, temperature, prune_active, 1 + P0 + i,
-                    row_independent)
+                    row_independent, self._drop(dropout_key, i))
             if i >= first_remat:
                 state, sd_all, kept = checkpoint(_mask_layer, *args, use_reentrant=False)
             else:
@@ -145,6 +164,14 @@ class VisionTransformer(nn.Module):
             kept_list.append(kept)
         return EncoderOut(self._final_norm(state), sd_all,
                           torch.stack(kept_list), None)
+
+    def _drop(self, key: Optional[int], i: int):
+        """Layer ``i``'s drop-path: ``(rate, key)``, or None without a key."""
+        if key is None:
+            return None
+        depth = self.cfg.depth
+        rate = torch.tensor(self.cfg.drop_path_rate, dtype=torch.float32) * i / max(depth - 1, 1)
+        return rate, fold_in(key, i)
 
     def remat_layers(self) -> int:
         """How many of the last blocks the mask-mode path recomputes."""
@@ -183,20 +210,27 @@ class VisionTransformer(nn.Module):
 
 
 def _mask_layer(blk: Block, state: TokenState, sd_all, space_dict, temperature,
-                prune_active: bool, merge_slot: int, row_independent: bool = False):
+                prune_active: bool, merge_slot: int, row_independent: bool = False,
+                drop=None):
     """One mask-mode layer: MAG query, attention, DTP into ``merge_slot``,
     FFN.  Returns ``(state, sd_all, kept)``, ``kept`` per row with
-    ``row_independent``."""
+    ``row_independent``.  ``drop``: the layer's ``(rate, key)``; its two
+    branches draw from the streams of the key's two halves."""
     token_attn = None
     if space_dict is not None:
         token_attn, sd_ft = query_model(state.x[:, 1:], space_dict, state.alive[:, 1:])
         sd_all = sd_all + sd_ft
-    state, aux = blk.attn_part(state, need_scores=prune_active)
+    d1 = d2 = None
+    if drop is not None:
+        rate, key = drop
+        dev = state.x.device
+        d1, d2 = ((rate, stream(fold_in(key, j), dev)) for j in (0, 1))
+    state, aux = blk.attn_part(state, need_scores=prune_active, drop=d1)
     kept = placeholder_kept(state.alive, row_independent)
     if prune_active:
         state, kept = dtp_prune(state, _signals(aux, token_attn), temperature, merge_slot,
                                 row_independent=row_independent)
-    return blk.ffn_part(state), sd_all, kept
+    return blk.ffn_part(state, drop=d2), sd_all, kept
 
 
 def placeholder_kept(alive: torch.Tensor, row_independent: bool) -> torch.Tensor:

@@ -29,6 +29,12 @@ attention with an ``attn_bias`` (CLIP's causal text tower) runs
 :func:`attention_core` on the card too, as the JAX package's
 ``attention_core`` leaves its fused path whenever ``attn_bias`` is given:
 K1 has no causal mask.
+
+Probability dropout (the MED self-attention in a dropout train step) runs in
+:func:`attention_core` on the card as well: the JAX package's
+``attention_core`` leaves both fused kernels whenever it drops out
+(``madtp_tpu/ops/attention.py:200-208``).  At rate 0 the route is the
+kernels'.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
 from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
 from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+from madtp_tpu_torch.ops import layers
 from madtp_tpu_torch.ops.layers import linear
 
 
@@ -59,11 +66,19 @@ def attention_core(
     key_alive: Optional[torch.Tensor] = None,  # [B, Nk] bool; False -> weight exactly 0
     query_alive: Optional[torch.Tensor] = None,  # [B, Nq] bool; rows summed into col_mass
     need_scores: bool = False,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ):
     """Plain attention.  Returns ``(out [B, Nq, H*Dh], AttnAux)``; the scores
     need ``Nq == Nk`` with slot 0 the CLS token.  Logits and probabilities
     are fp32; the probabilities are cast to ``v``'s dtype for the value
-    product, as in the JAX package."""
+    product, as in the JAX package.
+
+    With ``dropout_rate`` > 0 and a ``generator`` the probabilities that
+    feed the value product are dropped out (``probs * keep / (1 - rate)``,
+    ``madtp_tpu/ops/attention.py:236-245``); ``cls_attn`` and ``col_mass``
+    read the probabilities before dropout, the head norms of ``cls_attn``
+    the output after it."""
     B, H, Nq, Dh = q.shape
     if scale is None:
         scale = Dh ** -0.5
@@ -83,7 +98,11 @@ def attention_core(
     s = e.sum(dim=-1, keepdim=True)
     probs = e / s.clamp_min(1e-30)  # fp32 [B,H,Nq,Nk]
 
-    attn_out = torch.matmul(probs.to(v.dtype), v)  # [B,H,Nq,Dh]
+    probs_used = probs
+    if dropout_rate > 0.0 and generator is not None:
+        keep = layers.keep_mask(probs.shape, 1.0 - dropout_rate, generator, probs.device)
+        probs_used = probs * keep / (1.0 - dropout_rate)
+    attn_out = torch.matmul(probs_used.to(v.dtype), v)  # [B,H,Nq,Dh]
     out = attn_out.transpose(1, 2).reshape(B, Nq, H * Dh)
     if not need_scores:
         return out, AttnAux(None, None)
@@ -236,13 +255,23 @@ def cross_attention(q, k, v, key_alive, key_bias=None):
 
 
 def multi_head_attention(q, k, v, num_heads: int, *, key_alive=None,
-                         key_bias=None, need_scores: bool = False):
+                         key_bias=None, need_scores: bool = False,
+                         dropout_rate: float = 0.0,
+                         generator: Optional[torch.Generator] = None):
     """Attention over projected ``q`` [B, Nq, D] and ``k, v`` [B, Nk, D]
     (views of a packed qkv tensor are fine).  With ``need_scores`` this is the
-    scoring self-attention (:func:`attention_scores`), else the plain core.
+    scoring self-attention (:func:`attention_scores`), else the plain core;
+    with probability dropout (``dropout_rate`` > 0 and a ``generator``) the
+    plain core in both cases, the alive keys also its scores' queries.
     Returns ``(out [B, Nq, D], AttnAux)``."""
     Dh = q.shape[-1] // num_heads
     qh, kh, vh = (t.unflatten(-1, (num_heads, Dh)) for t in (q, k, v))
+    if dropout_rate > 0.0 and generator is not None:
+        return attention_core(qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
+                              key_bias=key_bias, key_alive=key_alive,
+                              query_alive=key_alive if need_scores else None,
+                              need_scores=need_scores, dropout_rate=dropout_rate,
+                              generator=generator)
     if need_scores:
         out, cls_attn, col_mass = attention_scores(qh, kh, vh, key_alive, key_bias)
         return out, AttnAux(cls_attn, col_mass)

@@ -3,6 +3,14 @@
 
 Weights are in PyTorch's layout (``[out, in]`` for a linear), the layout of
 the reference ``.pth`` files.  A module's weights set its compute dtype.
+
+The training recipe's randomness (BERT dropout, ViT drop-path) draws from
+explicit streams: a step's ``torch.Generator`` gives one 63-bit key
+(:func:`draw_key`), :func:`fold_in` derives a key per layer and branch from
+it, as ``jax.random.fold_in`` and ``split`` do, and :func:`stream` makes the
+generator a branch draws from.  A recomputed layer (remat) rebuilds the same
+streams, so it draws the same masks.  Every keep mask is drawn by
+:func:`keep_mask` alone.
 """
 
 from __future__ import annotations
@@ -35,6 +43,73 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(),
                      eps)
     return y.to(x.dtype)
+
+
+_M64 = (1 << 64) - 1
+
+
+def _mix64(z: int) -> int:
+    """splitmix64's finalizer: a bijection of 64-bit integers."""
+    z = (z + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
+
+
+def draw_key(generator: torch.Generator) -> int:
+    """One 63-bit key from ``generator``: the root of a step's streams.  A
+    CPU generator draws it on the host; a CUDA one waits for the card."""
+    return int(torch.randint(0, 2 ** 63 - 1, (), generator=generator,
+                             device=generator.device))
+
+
+def fold_in(key: int, data: int) -> int:
+    """The key of branch ``data`` of ``key`` (the role of
+    ``jax.random.fold_in``; ``fold_in(key, 0)`` and ``fold_in(key, 1)`` are
+    the two halves of a split)."""
+    return _mix64(key ^ _mix64(data + 1)) >> 1
+
+
+def stream(key: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded with ``key``."""
+    return torch.Generator(device=device).manual_seed(key)
+
+
+def keep_mask(shape, p, generator: torch.Generator, device) -> torch.Tensor:
+    """Bernoulli keep flags (bool, ``shape``), each True with probability
+    ``p`` (a float or a 0-d fp32 tensor): a uniform draw below ``p``, as
+    ``jax.random.bernoulli`` draws them.  Every dropout and drop-path mask of
+    the package is drawn here."""
+    return torch.rand(shape, generator=generator, device=device) < p
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (``madtp_tpu/ops/layers.py:148-153``): kept elements
+    divided by ``1 - rate``, rounded to ``x``'s dtype first as JAX rounds the
+    Python float, the others 0.  The identity when ``rate`` is 0 or there is
+    no generator; no mask is drawn then."""
+    if rate <= 0.0 or generator is None:
+        return x
+    keep = keep_mask(x.shape, 1.0 - rate, generator, x.device)
+    scale = float(torch.tensor(1.0 - rate, dtype=x.dtype))
+    return torch.where(keep, x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Stochastic depth on a residual branch ``x`` [B, ...] (timm DropPath,
+    ``madtp_tpu/ops/layers.py:156-168``): one keep flag per row, shape
+    ``(B, 1, ...)``, with probability ``1 - rate`` (``rate`` a 0-d fp32
+    tensor); kept rows divided by ``max(1 - rate, 1e-6)``.  As in the JAX
+    package the mask is drawn and the branch divided at every rate, 0
+    included, and the division by an fp32 scalar gives fp32: a bf16 branch
+    comes out fp32.  The identity without a generator."""
+    if generator is None:
+        return x
+    keep_p = 1.0 - rate.float()
+    keep = keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), keep_p, generator, x.device)
+    y = x.float() / keep_p.clamp_min(1e-6)
+    return torch.where(keep, y, torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -96,8 +171,14 @@ def mlp(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,
     activations' dtype on the TPU: bf16 on the tensor cores, fp32 (the
     fp32 train step, the card-against-CPU parity checks) on the CUDA cores
     without TF32.  K5 raises on any other dtype or a dtype mix.  CPU
-    tensors take :func:`mlp_plain`."""
+    tensors take :func:`mlp_plain`.
+
+    fp32 activations over weights of another dtype compute in fp32 with the
+    weights upcast, as JAX's ``linear`` computes such a mix: the amp ViT's
+    residual stream after the drop-path's promotion (:func:`drop_path`)."""
     w1, b1, w2, b2 = fc1.weight, fc1.bias, fc2.weight, fc2.bias
+    if x.dtype == torch.float32 and w1.dtype != torch.float32:
+        w1, b1, w2, b2 = (None if t is None else t.float() for t in (w1, b1, w2, b2))
     if x.is_cuda:
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         if torch.is_grad_enabled() and any(

@@ -1,5 +1,5 @@
 """Dynamic Token Pruning with static shapes
-(counterpart of ``madtp_tpu/prune/dtp.py:50-396``).
+(counterpart of ``madtp_tpu/prune/dtp.py:50-418``).
 
 Every non-CLS token is scored by the mean of three normalized signals
 (column mass, MAG token-codebook affinity, head-weighted CLS attention); a
@@ -12,6 +12,8 @@ merges every dropped token into one by score-weighted sum.
   keep count stays a device scalar used only in comparisons.
 * gather mode (:func:`dtp_prune_gather`): the same decisions, then a physical
   compaction to a static capacity.
+* :func:`dtp_prune_static`: a fixed top-k by CLS attention alone, no merge
+  (the reference's unused ``Reduce_token_static``).
 
 Ranking is a stable descending sort, so ties go to the lower index.
 """
@@ -260,3 +262,22 @@ def dtp_prune_gather(state: TokenState, signals: DTPSignals, temperature,
     if row_independent:
         kept = kept + overflow
     return TokenState(new_x, new_alive, new_bias), kept, overflow
+
+
+def dtp_prune_static(state: TokenState, cls_attn: torch.Tensor,
+                     keep_num: int) -> Tuple[TokenState, torch.Tensor]:
+    """The static top-k variant (``dtp_prune_static``,
+    ``madtp_tpu/prune/dtp.py:399-418``, the reference's
+    ``Reduce_token_static``, which no forward path calls): keep the
+    ``keep_num`` alive patch slots of each row that rank first by
+    ``cls_attn`` [B, P] (stable, lower index first among ties), no merge
+    token.  Returns ``(state, kept)``, ``kept`` the smaller of ``keep_num``
+    and the most alive patch slots of any row."""
+    x, alive, bias = state
+    palive = alive[:, 1:]
+    score = torch.where(palive, cls_attn, torch.full_like(cls_attn, NEG_INF))
+    ranks = _invert_permutation(torch.argsort(-score, dim=-1, stable=True))
+    keep = palive & (ranks < keep_num)
+    new_alive = torch.cat([alive[:, :1], keep], dim=1)
+    kept = torch.clamp_max(palive.sum(dim=1).amax(), keep_num)
+    return TokenState(x, new_alive, bias), kept

@@ -9,6 +9,11 @@ single process.
 * :func:`generate_captions` and :func:`finish_captions`: the pruned image
   encode and the decode from the prompt ``"a picture of "`` as one captured
   step, then the captions as text.
+* :func:`nucleus_generate`: the reference's ``sample=True`` decode (top-p
+  sampling, ``madtp_tpu/tasks/caption.py:190-265``), its Gumbel noise drawn
+  before the decode (:func:`nucleus_noise`), so that
+  :func:`make_nucleus_step` captures the encode and the decode as one graph
+  with the noise one of its inputs.
 * :func:`probe_capacities` is ``--fast_eval``'s calibration (and
   ``--fast_train``'s), and :func:`evaluate` the whole eval with the
   analytic GFLOPs.
@@ -37,6 +42,7 @@ from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.prune.flops import caption_gflops
 from madtp_tpu_torch.train.controller import presearch_temperature
+from madtp_tpu_torch.train.losses import gumbel
 from madtp_tpu_torch.train.epoch import run_epoch
 from madtp_tpu_torch.utils.graph import CapturedStep
 
@@ -162,6 +168,111 @@ def beam_generate(decoder: MedDecoder, enc_state: TokenState, prompt_ids: torch.
     is_eos_out = (out == eos_token_id) & (positions >= Lp)
     first_eos = torch.where(is_eos_out.any(dim=1), torch.argmax(is_eos_out.int(), dim=1), T)
     return torch.where(positions > first_eos[:, None], pad_token_id, out)
+
+
+def nucleus_noise(steps: int, batch: int, vocab: int, *, generator: torch.Generator,
+                  device) -> torch.Tensor:
+    """The Gumbel noise of a whole nucleus decode, ``[steps, batch, vocab]``
+    fp32 from ``generator`` on ``device``: step ``i``'s draw is row ``i``
+    (``jax.random.categorical`` adds one ``[B, V]`` draw a step).  Every draw
+    of :func:`nucleus_generate` comes from here."""
+    return gumbel((steps, batch, vocab), generator=generator, device=device)
+
+
+def _draw(filt: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """One nucleus draw, ``jax.random.categorical``'s ``argmax(logits +
+    gumbel)``: the first of equal maxima."""
+    return torch.argmax(filt + noise, dim=-1)
+
+
+@torch.inference_mode()
+def nucleus_generate(decoder: MedDecoder, enc_state: TokenState, prompt_ids: torch.Tensor, *,
+                     generator: Optional[torch.Generator] = None,
+                     noise: Optional[torch.Tensor] = None, max_length: int = 30,
+                     min_length: int = 10, top_p: float = 0.9, eos_token_id: int = 102,
+                     pad_token_id: int = 0, repetition_penalty: float = 1.1) -> torch.Tensor:
+    """Nucleus (top-p) sampling over the memory ``enc_state`` [B, S, D] from
+    ``prompt_ids`` [B, Lp] (BOS first), the reference's ``sample=True``
+    path with the semantics of the JAX ``nucleus_generate``: the cache
+    primed on the prompt; then at each position HF's repetition penalty
+    over the tokens so far, EOS suppressed below ``min_length``, the
+    nucleus (the probabilities at or above the smallest one whose
+    preceding cumulative sum is below ``top_p``), the others set to
+    ``NEG``, and a draw ``argmax(logits + gumbel)``; after EOS a row emits
+    padding.  The noise is ``noise`` [max_length - Lp, B, V] when given,
+    else drawn from ``generator`` by :func:`nucleus_noise`.  Nothing is read
+    back, so the decode can be captured.  Returns the sequences
+    [B, max_length] (prompt included)."""
+    B, Lp = prompt_ids.shape
+    T, V = max_length, decoder.cfg.vocab_size
+    dev = prompt_ids.device
+    if noise is None:
+        noise = nucleus_noise(T - Lp, B, V, generator=generator, device=dev)
+    enc = decoder._memory(enc_state, decoder.dtype)
+    memory = decoder.memory_kv(enc)
+    cache = init_decode_cache(decoder.cfg, B, T, decoder.dtype, dev)
+    positions = torch.arange(T, device=dev)
+    vocab = torch.arange(V, device=dev)
+    seqs = torch.full((B, T), pad_token_id, dtype=prompt_ids.dtype, device=dev)
+    seqs[:, :Lp] = prompt_ids
+    for t in range(Lp):  # prime the cache on the prompt
+        pos = positions[t]
+        h, cache = decoder.step(seqs.index_select(1, pos.view(1)), pos, cache, enc, memory)
+    logits = decoder.lm_head(h)[:, 0, :]
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    for t in range(Lp, T):
+        pos = positions[t]
+        logits = logits.float()
+        if repetition_penalty != 1.0:
+            seen = torch.zeros_like(logits).scatter_add_(
+                1, seqs, (positions < pos).float().expand(B, T)) > 0
+            pen = torch.where(logits > 0, logits / repetition_penalty,
+                              logits * repetition_penalty)
+            logits = torch.where(seen, pen, logits)
+        logits = torch.where((pos < min_length) & (vocab == eos_token_id), NEG, logits)
+        probs = torch.softmax(logits, dim=-1)
+        sp = torch.sort(probs, dim=-1, descending=True).values
+        inside = torch.cumsum(sp, dim=-1) - sp < top_p
+        thr = torch.where(inside, sp, torch.inf).amin(dim=-1, keepdim=True)
+        filt = torch.where(probs >= thr, logits, NEG)
+        tok = _draw(filt, noise[t - Lp])
+        tok = torch.where(done, pad_token_id, tok).to(seqs.dtype)
+        seqs.index_copy_(1, pos.view(1), tok[:, None])
+        done = done | (tok == eos_token_id)
+        if t + 1 < T:  # the last position's logits are not read
+            h, cache = decoder.step(tok[:, None], pos, cache, enc, memory)
+            logits = decoder.lm_head(h)[:, 0, :]
+    return seqs
+
+
+def make_nucleus_step(model: CaptionModel, prune_active: bool,
+                      capacities: Optional[Sequence[int]] = None, *, max_length: int = 20,
+                      min_length: int = 5, top_p: float = 0.9, eos_token_id: int = 102,
+                      pad_token_id: int = 0, repetition_penalty: float = 1.1,
+                      graph: bool = True):
+    """``step(images, prompt_ids, temperature, noise) -> (sequences [b,
+    max_length], v_kept)``: the image encode (gather mode with
+    ``capacities``) and :func:`nucleus_generate` from ``prompt_ids`` with
+    ``noise`` [max_length - Lp, b, V] (:func:`nucleus_noise`, drawn by the
+    caller before each call), as one captured step whose inputs include the
+    noise: each replay copies the new draw into the graph's buffer, as
+    :func:`make_caption_step` captures the beam decode.  ``graph=False``
+    runs it eagerly."""
+    @torch.inference_mode()
+    def step(images, prompt, t, noise):
+        state, _, v_kept = model.encode_image(images, temperature=t, prune_active=prune_active,
+                                              capacities=capacities)
+        out = nucleus_generate(model.text_decoder, state, prompt.long(), noise=noise,
+                               max_length=max_length, min_length=min_length, top_p=top_p,
+                               eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+                               repetition_penalty=repetition_penalty)
+        return out, v_kept
+
+    if not graph:
+        return step
+    return CapturedStep(step, "nucleus", model, static=(
+        prune_active, capacities, max_length, min_length, top_p, eos_token_id, pad_token_id,
+        repetition_penalty))
 
 
 def prompt_ids(tokenizer, batch: int) -> np.ndarray:

@@ -7,8 +7,12 @@ optimizer update of the model in place and returns its losses as device
 scalars; nothing in a step waits on the card.  The total loss is the task
 loss plus ``0.1 * loss_fdt`` (retrieval and CLIP: plus ``0.1 * loss_fdt_m``
 too).
-Dropout and drop-path stay off, as in the JAX package's drivers.  ``amp``
-computes in bf16 against the fp32 masters (:func:`_amp_cast`).
+The NLVR and caption steps take the reference's training recipe with
+``use_dropout`` (BERT dropout and the ViT's stochastic depth, at the rates of
+the model's config), drawn from the ``generator`` each step is given; no
+driver turns it on, as no JAX driver does.  The other steps have none, as
+the JAX package's have none.  ``amp`` computes in bf16 against the fp32
+masters (:func:`_amp_cast`).
 """
 
 from __future__ import annotations
@@ -102,61 +106,81 @@ def _optimize(optimizer: torch.optim.Optimizer, loss_fn, names: Sequence[str], a
     return step
 
 
+def _dropout_generator(use_dropout: bool, generator: Optional[torch.Generator]):
+    """The generator a step's masks come from: ``generator``, or one seeded
+    0 when none is given (the JAX step's ``PRNGKey(0)`` default); None
+    without ``use_dropout``."""
+    if not use_dropout:
+        return None
+    return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
 def make_nlvr_train_step(model: NLVRModel, optimizer: torch.optim.Optimizer, *,
-                         prune_active: bool = True,
+                         prune_active: bool = True, use_dropout: bool = False,
                          capacities_v: Optional[Sequence[int]] = None,
                          capacities_t: Optional[Sequence[int]] = None,
                          amp: bool = False, device="cuda"):
-    """``step(images, ids, mask, targets, temperature)`` runs one forward,
-    backward and optimizer update of ``model`` in place and returns
-    ``{"loss", "loss_ori", "loss_fdt"}`` as device scalars; nothing in the
-    step waits on the card.  ``capacities_v``/``capacities_t`` train in
-    gather mode (``--fast_train``).  ``device`` is where the model must
-    live: ``"cuda"`` (the default) raises without a card, ``"cpu"`` runs
-    the plain path.  ``step.loss_fn`` takes the same arguments and returns
-    ``(loss, loss_ori, loss_fdt)`` without the update."""
+    """``step(images, ids, mask, targets, temperature, generator=None)`` runs
+    one forward, backward and optimizer update of ``model`` in place and
+    returns ``{"loss", "loss_ori", "loss_fdt"}`` as device scalars; nothing
+    in the step waits on the card.  ``capacities_v``/``capacities_t`` train
+    in gather mode (``--fast_train``).  ``use_dropout`` turns on the
+    reference recipe (``madtp_tpu/train/loops.py:61-103``): the ViT's
+    drop-path at ``cfg.vit.drop_path_rate`` and the MED's dropout at the
+    config's rates, drawn from ``generator`` (a CPU generator keeps the step
+    free of waits); without it the step ignores ``generator``.  ``device``
+    is where the model must live: ``"cuda"`` (the default) raises without a
+    card, ``"cpu"`` runs the plain path.  ``step.loss_fn`` takes the same
+    arguments and returns ``(loss, loss_ori, loss_fdt)`` without the
+    update."""
     _check_device(model, device)
     params = dict(model.named_parameters())
     kw = dict(prune_active=prune_active, capacities_v=capacities_v,
               capacities_t=capacities_t)
 
-    def loss_fn(images, ids, mask, targets, temperature):
+    def loss_fn(images, ids, mask, targets, temperature, generator=None):
         p, x = _amp_cast(amp, params, images)
+        g = _dropout_generator(use_dropout, generator)
         loss_ori, loss_fdt, _ = functional_call(
-            model, p, (x, ids, mask), dict(kw, temperature=temperature, targets=targets))
+            model, p, (x, ids, mask),
+            dict(kw, temperature=temperature, targets=targets, generator=g))
         return loss_ori + FDT_WEIGHT * loss_fdt, loss_ori, loss_fdt
 
     # both losses are means over the pairs
     return _optimize(optimizer, loss_fn, ("loss", "loss_ori", "loss_fdt"),
-                     count=lambda images, ids, mask, targets, temperature: targets.shape[0])
+                     count=lambda images, ids, mask, targets, *_, **__: targets.shape[0])
 
 
 def make_caption_train_step(model: CaptionModel, optimizer: torch.optim.Optimizer, *,
-                            prune_active: bool = True,
+                            prune_active: bool = True, use_dropout: bool = False,
                             capacities_v: Optional[Sequence[int]] = None,
                             amp: bool = False, device="cuda"):
-    """``step(images, ids, mask, labels, temperature)`` (``make_caption_train_step``,
-    ``madtp_tpu/train/loops.py:106-141``): the caption model's training pass
-    (:meth:`CaptionModel.forward`, the image tower gather mode with
-    ``capacities_v``), one backward and update in place.  The decoder runs
-    unpruned and gives no text MAG features, so ``loss_fdt`` is ``loss_lm``
-    again, the reference's fallback.  Returns ``{"loss", "loss_lm",
-    "loss_fdt"}`` as device scalars; ``device`` as
-    :func:`make_nlvr_train_step`."""
+    """``step(images, ids, mask, labels, temperature, generator=None)``
+    (``make_caption_train_step``, ``madtp_tpu/train/loops.py:106-141``): the
+    caption model's training pass (:meth:`CaptionModel.forward`, the image
+    tower gather mode with ``capacities_v``), one backward and update in
+    place.  The decoder runs unpruned and gives no text MAG features, so
+    ``loss_fdt`` is ``loss_lm`` again, the reference's fallback.
+    ``use_dropout``: the ViT's drop-path from ``generator`` (the decoder
+    takes no dropout, as in the JAX step), as :func:`make_nlvr_train_step`.
+    Returns ``{"loss", "loss_lm", "loss_fdt"}`` as device scalars;
+    ``device`` as :func:`make_nlvr_train_step`."""
     _check_device(model, device)
     params = dict(model.named_parameters())
     kw = dict(prune_active=prune_active, capacities=capacities_v)
 
-    def loss_fn(images, ids, mask, labels, temperature):
+    def loss_fn(images, ids, mask, labels, temperature, generator=None):
         p, x = _amp_cast(amp, params, images)
+        g = _dropout_generator(use_dropout, generator)
         loss_lm, _, _ = functional_call(
-            model, p, (x, ids, mask), dict(kw, temperature=temperature, labels=labels))
+            model, p, (x, ids, mask),
+            dict(kw, temperature=temperature, labels=labels, generator=g))
         loss_fdt = loss_lm
         return loss_lm + FDT_WEIGHT * loss_fdt, loss_lm, loss_fdt
 
     # the LM loss is a mean over the labelled tokens (``lm_loss``)
     return _optimize(optimizer, loss_fn, ("loss", "loss_lm", "loss_fdt"),
-                     count=lambda images, ids, mask, labels, temperature:
+                     count=lambda images, ids, mask, labels, *_, **__:
                      (labels[:, 1:] != -100).sum())
 
 

@@ -22,7 +22,9 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     assert {"madtp_tpu_torch.tasks.vqa", "madtp_tpu_torch.models.med",
-            "madtp_tpu_torch.tasks.caption"} <= set(_port_modules())
+            "madtp_tpu_torch.tasks.caption", "madtp_tpu_torch.prune.sparsemax",
+            "madtp_tpu_torch.utils.profiling", "madtp_tpu_torch.ckpt.convert"} <= \
+        set(_port_modules())
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"  # any `import jax` now raises ImportError
@@ -102,6 +104,33 @@ def test_port_sources_do_not_name_the_jax_package():
     pattern = re.compile(r"^\s*(import\s+madtp_tpu|from\s+madtp_tpu)(?!_torch)\b", re.M)
     for path in list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
+
+
+def test_port_sources_import_no_jax():
+    """No port module imports JAX, at its top or inside a function (where the
+    import check above would not see it): the profiling module's ``trace``
+    is a ``torch.profiler`` context, and the Flax ``.npz`` loader reads
+    with numpy.  Both run with ``jax`` blocked."""
+    pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)\b", re.M)
+    paths = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert {"sparsemax.py", "profiling.py", "convert.py"} <= {p.name for p in paths}
+    for path in paths:
+        assert not pattern.search(path.read_text()), path
+    code = (
+        "import sys, tempfile\n"
+        "sys.modules['jax'] = None\n"
+        "import numpy as np, torch\n"
+        "from madtp_tpu_torch.utils import profiling\n"
+        "from madtp_tpu_torch.ckpt.convert import load_flax_vit_npz\n"
+        "from madtp_tpu_torch.prune import sparsemax\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    with profiling.trace(d):\n"
+        "        torch.ones(4).sum()\n"
+        "assert sparsemax(torch.tensor([0.0, 5.0])).tolist() == [0.0, 1.0]\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr
 
 
 @pytest.fixture

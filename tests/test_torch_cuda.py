@@ -1058,3 +1058,69 @@ def test_global_batch_row_gather_refuses_a_graph_capture(cuda, grad):
         with pytest.raises(RuntimeError, match="capture"):
             with torch.cuda.graph(graph):
                 data.world_rows(rows, grad=grad)
+
+
+def _dropout_setup(cuda, rate):
+    """A small NLVR model with drop-path and dropout at ``rate`` on the card,
+    its batch, and a step factory (AdamW at learning rate 0: the weights
+    stay)."""
+    from madtp_tpu_torch.core.config import BlipConfig, MedConfig, ViTConfig
+    from madtp_tpu_torch.models.blip import init_nlvr_model
+    from madtp_tpu_torch.train.loops import make_nlvr_train_step
+    from madtp_tpu_torch.train.optim import make_adamw
+
+    vit = ViTConfig(image_size=64, embed_dim=128, depth=2, num_heads=2, sd_dim=128,
+                    drop_path_rate=rate)
+    med = MedConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                    intermediate_size=256, vocab_size=100, max_position_embeddings=32,
+                    twin_cross=True, encoder_width=128, sd_dim=128, merge_start_layer=1,
+                    hidden_dropout_prob=rate, attention_probs_dropout_prob=rate)
+    model = init_nlvr_model(BlipConfig(vit, med, sd_num=16, sd_dim=128), seed=0, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    batch = (torch.randn(4, 3, 64, 64, generator=gen).to(cuda),
+             torch.randint(1, 100, (2, 10), generator=gen).to(cuda),
+             torch.ones(2, 10, dtype=torch.int64, device=cuda), torch.tensor([0, 1], device=cuda))
+    opt = make_adamw(model.parameters(), lr=0.0, weight_decay=0.0)
+
+    def run(use_dropout, seed=1):
+        step = make_nlvr_train_step(model, opt, use_dropout=use_dropout, device="cuda")
+        m = step(*batch, 20.0, generator=torch.Generator().manual_seed(seed))
+        return ({k: v.clone() for k, v in m.items()},
+                {n: p.grad.clone() for n, p in model.named_parameters()})
+    return run
+
+
+def _same_step(a, b):
+    """Equal losses and gradients; the word embeddings' gradient, a
+    scatter-add whose order of addition the card does not fix, to 1e-6 of its
+    largest."""
+    assert all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+    for n, g in a[1].items():
+        if n.endswith("word_embeddings.weight"):
+            assert float((g - b[1][n]).abs().max()) <= 1e-6 * float(g.abs().max()), n
+        else:
+            assert torch.equal(g, b[1][n]), n
+
+
+def test_dropout_step_reruns_bit_equal(cuda):
+    """The fp32 dropout step on the card (K1 and K2 in the ViT, the MED's
+    dropped-out self-attention on the plain core, K4, K5) twice from one
+    generator seed gives the same losses and gradients; another seed others,
+    and K1 runs only in the ViT's layers then."""
+    run = _dropout_setup(cuda, 0.3)
+    k1 = attention_scores_cuda.launches
+    a = run(True)
+    assert attention_scores_cuda.launches - k1 == 2  # the ViT's 2 layers; none in the MED
+    _same_step(a, run(True))
+    c = run(True, seed=2)
+    assert any(not torch.equal(a[0][k], c[0][k]) for k in a[0])
+
+
+def test_dropout_step_at_rate_zero_is_the_plain_step(cuda):
+    """With every rate 0 the fp32 dropout step on the card is the step
+    without dropout (the kernels' route, K1 in the MED too)."""
+    run = _dropout_setup(cuda, 0.0)
+    k1 = attention_scores_cuda.launches
+    a = run(True)
+    assert attention_scores_cuda.launches - k1 == 4
+    _same_step(a, run(False))
