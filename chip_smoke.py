@@ -215,14 +215,12 @@ Phases, each fatal on failure:
    and the global-batch count max and gradient reduction of
    ``parallel/data.py`` on CUDA tensors; then two ranks under
    ``--dist_backend gloo`` share the card, spawned with
-   ``torch.multiprocessing``, each running the NLVR driver ``--epoch 1`` at
-   ``configs/nlvr.yaml``'s width on the PNG fixture and then the BLIP
-   retrieval driver's ``--evaluate`` on phase 27's best checkpoint: the
-   NLVR driver's first train step (32 pairs over the two ranks, at the
-   first temperature where each rank's half takes the one-process step's
-   DTP decisions) against the one-process step on the same global batch
-   (equal kept counts, losses
-   within 1e-4, named gradients within 1e-3 of their largest), the same
+   ``torch.multiprocessing``, each running the BLIP retrieval and CLIP
+   drivers' training: each driver's first train step (16 pairs over the two
+   ranks, at the first temperature where each rank's half takes the
+   one-process step's DTP decisions) against the one-process step on the
+   same global batch (losses within 1e-4, named gradients within 1e-3 of
+   their largest, the queue after the step within 1e-5), the same
    ``LOG:`` lines on both ranks and files from rank 0 only, the retrieval
    scores bit-equal to one process's; the ranks' K1, K2, K4 and K5
    launches are the ``multiprocess`` path of the kernels line;
@@ -245,9 +243,25 @@ Phases, each fatal on failure:
    caption decoder, card against CPU (1e-4); K1, K2, K4 and K5 held on the
    paths' inputs; the main paths' launches are the ``stochastic`` path of
    the kernels line.
+31. tensor parallelism, mesh serving and the native JPEG decode
+   (``phase_tp``): K1's planes variant (a tensor-parallel MED's scoring
+   attention on a rank's 6 heads), K4 on those heads and K5 on a rank's half
+   of BLIP's and CLIP-L's FFNs, fp32 and bf16, against their plain versions
+   with times, bounds and library calls; the full-width NLVR eval (fp32, 4
+   pairs) on two gloo ranks sharing the card, the model sharded over a 1x2
+   mesh, in mask and gather mode against the one-process step (equal kept
+   counts, logits 1e-4, at a temperature where the ranks' DTP drift stays
+   4x below the margin), and every K1-planes, K4 and K5 case those ranks
+   launched held against its plain version on the rank's own inputs, the
+   most-called case of each timed; the model as a 1x2 mesh artifact served by
+   ``python -m madtp_tpu_torch.cli.serve`` (its second rank started by the
+   command), the reply against the direct step; the port's JPEG decoder
+   built with g++ (no libjpeg), bit-equal to this machine's Pillow, with
+   images/s; the ranks' launches are the ``tp`` path of the kernels line.
 
 Before phase 1 a line says whether libjpeg's header and library are on the
-machine (``jpeg_headers``), for the native JPEG decode still to be ported.
+machine (``jpeg_headers``); the port's JPEG decoder (phase 31) needs
+neither.
 
 The card-against-CPU searches try first the factor of ``PARITY_FACTORS``
 where each settled in earlier runs of these seeds (``parity_factors``),
@@ -310,15 +324,17 @@ import collections
 import contextlib
 import copy
 import ctypes
-import functools
 import importlib
 import itertools
 import json
 import math
+import os
+import pathlib
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -551,6 +567,17 @@ class K1Capture(_Capture):
 
     def key(self, q, k, v, key_alive, key_bias, scale):
         return (q.shape[0], q.shape[1], q.shape[2], q.dtype, key_bias is not None)
+
+
+class PlanesCapture(_Capture):
+    """K1's planes variant's calls (a tensor-parallel MED's scoring
+    attention on a rank's heads), by (B, N, H, dtype)."""
+
+    module, attr = "madtp_tpu_torch.ops.attention", "attention_planes_cuda"
+    defaults = tuple((n, None) for n in ("q", "k", "v", "key_alive", "key_bias", "scale"))
+
+    def key(self, q, *rest):
+        return (q.shape[0], q.shape[1], q.shape[2], q.dtype)
 
 
 class K2Capture(_Capture):
@@ -2852,14 +2879,15 @@ def vqa_batches(rng, image_size, n_batches, batch):
 
 
 def zero_launch_counts():
-    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.attention_scores import (attention_planes_cuda,
+                                                          attention_scores_cuda)
     from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
     from madtp_tpu_torch.kernels.ffn import ffn_cuda
 
     attention_scores_cuda.launches = attention_scores_cuda.large_n_launches = 0
     attention_scores_bwd_cuda.launches = cross_attention_cuda.launches = ffn_cuda.launches = 0
-    ffn_cuda.fp32_launches = 0
+    ffn_cuda.fp32_launches = attention_planes_cuda.launches = 0
 
 
 def launch_counts():
@@ -4474,7 +4502,8 @@ def phase_train_clip_main(device, cfg, tokenizer, batch=16, n_eval=64):
                       init_lr=1e-5, timing_batch=lambda t: (*fixed, t, 0.4), n_samples=batch,
                       unit="pairs",
                       ffn_per_forward=2 * (cfg.vision_layers + cfg.transformer_layers),
-                      save_and_load=save_and_load, cross_attention=False)
+                      save_and_load=save_and_load, cross_attention=False,
+                      iters=1)  # one timed step a kind: ViT-L's steps are ~1 s each
 
 
 CLIP_GRADS = ("visual.conv1.weight", "visual.transformer.resblocks.0.attn.in_proj_weight",
@@ -5610,21 +5639,18 @@ def nccl_one_rank(device):
 
 
 def _mp_rank(rank, plan):
-    """One of phase 29's two ranks (spawned): the NLVR driver's ``--epoch
-    1`` run over gloo, its first train step's inputs, global kept counts,
-    losses and named gradients kept; the BLIP retrieval and CLIP drivers'
-    ``--epoch 1`` training runs (the BLIP run's opening eval dumps its
-    scores), their first steps' inputs, losses, named gradients and
-    queues kept (``held_step``).  Each training run's epoch 0 runs at the
-    plan's temperature for it.  The launch counts of each run (those of the
-    no-grad forward that reads the NLVR step's kept counts taken out), the
-    ``LOG:`` lines, written to ``plan["out"]/rank<r>.pt``."""
+    """One of phase 29's two ranks (spawned): the BLIP retrieval and CLIP
+    drivers' ``--epoch 1`` training runs over gloo (the BLIP run's opening
+    eval dumps its scores), their first steps' inputs, losses, named
+    gradients and queues kept (``held_step``).  Each training run's epoch 0
+    runs at the plan's temperature for it.  The launch counts of each run,
+    the ``LOG:`` lines, written to ``plan["out"]/rank<r>.pt``."""
     import io
     from unittest import mock
 
     import torch.distributed as tdist
 
-    from madtp_tpu_torch.cli import compress_nlvr, compress_retrieval, compress_retrieval_clip
+    from madtp_tpu_torch.cli import compress_retrieval, compress_retrieval_clip
     from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
     from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
     from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
@@ -5637,8 +5663,7 @@ def _mp_rank(rank, plan):
     dev = plan["device"]
     mp = ["--device", dev, "--num_processes", "2", "--process_id", str(rank), "--coordinator",
           plan["coordinator"], "--dist_backend", "gloo"]
-    first, checked = {}, {}  # checked: the launches of the NLVR check forward below
-    make_nlvr = compress_nlvr.make_nlvr_train_step
+    first = {}
     make_retrieval = compress_retrieval.make_retrieval_train_step
     make_clip = compress_retrieval_clip.make_clip_train_step
     reduce_step, reduce_ms = data.reduce_step, []
@@ -5658,31 +5683,6 @@ def _mp_rank(rank, plan):
             return out
         return run
 
-    def make(model, opt, **kw):
-        step = make_nlvr(model, opt, **kw)
-
-        def held(images, ids, mask, targets, t):
-            if "nlvr" in first:
-                return step(images, ids, mask, targets, t)
-            before = counts()
-            with torch.no_grad():  # inside train_epoch's global-batch scope
-                out = model(images, ids, mask, temperature=t, prune_active=True)
-            checked.update({k: v - before[k] for k, v in counts().items()})
-            sync()
-            reduce_ms.clear()
-            t0 = time.perf_counter()
-            m = step(images, ids, mask, targets, t)
-            sync()
-            named = dict(model.named_parameters())
-            first["nlvr"] = dict(inputs=[a.cpu() for a in (images, ids, mask, targets)],
-                                 kept=(out.v_kept.cpu(), out.t_kept.cpu()), t=t,
-                                 step_ms=(time.perf_counter() - t0) * 1e3,
-                                 reduce_ms=sum(reduce_ms),
-                                 metrics={k: float(v) for k, v in m.items()},
-                                 grads={n: named[n].grad.cpu() for n in plan["grad_params"]})
-            return m
-        return held
-
     def held(name, maker, grad_params):
         def factory(state, opt, **kw):
             return held_step(name, maker(state, opt, **kw), state.queue, first, grad_params,
@@ -5696,74 +5696,36 @@ def _mp_rank(rank, plan):
                 self.temperature = plan["temperatures"][name]
         return Controller
 
-    def counts():
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        return dict(K1=attention_scores_cuda.launches, K2=attention_scores_bwd_cuda.launches,
-                    K4=cross_attention_cuda.launches, K5=ffn_cuda.launches)
-
     out, walls, launches = {}, {}, {}
     stdout = io.StringIO()
-    loader = compress_nlvr.batched_loader
-
-    def train_in_line(*a, **k):  # the train batches' image swaps drawn in fetch order
-        return loader(*a, **({**k, "num_workers": 0} if k.get("shuffle") else k))
-
-    with mock.patch.object(compress_nlvr, "make_nlvr_train_step", make), \
-            mock.patch.object(compress_retrieval, "make_retrieval_train_step",
-                              held("retrieval_train", make_retrieval, plan["retrieval_grads"])), \
+    with mock.patch.object(compress_retrieval, "make_retrieval_train_step",
+                           held("retrieval_train", make_retrieval, plan["retrieval_grads"])), \
             mock.patch.object(compress_retrieval_clip, "make_clip_train_step",
                               held("clip_train", make_clip, plan["clip_grads"])), \
             mock.patch.object(data, "reduce_step", timed(reduce_step, reduce_ms)), \
             mock.patch.object(data, "world_rows", timed(world_rows, gather_ms)), \
             mock.patch.object(data, "batch_rows", timed(batch_rows, gather_ms)), \
-            mock.patch.object(compress_nlvr, "TemperatureController", controller("nlvr")), \
             mock.patch.object(compress_retrieval, "TemperatureController",
                               controller("retrieval_train")), \
             mock.patch.object(compress_retrieval_clip, "TemperatureController",
                               controller("clip_train")), \
-            mock.patch.object(compress_nlvr, "batched_loader", train_in_line), \
             mock.patch.dict("os.environ", {"MADTP_DUMP_SCORES": "1"}), \
             contextlib.redirect_stdout(stdout):
-        for label, main in (("nlvr", compress_nlvr.main),
-                            ("retrieval_train", compress_retrieval.main),
+        for label, main in (("retrieval_train", compress_retrieval.main),
                             ("clip_train", compress_retrieval_clip.main)):
             zero_launch_counts()
-            checked.clear()
             t0 = time.perf_counter()
             main([*plan["argv"][label], "--output_dir", f"{plan['out']}/{label}_r{rank}", *mp])
-            launches[label] = {k: v - checked.get(k, 0) for k, v in counts().items()}
+            sync()
+            launches[label] = dict(K1=attention_scores_cuda.launches,
+                                   K2=attention_scores_bwd_cuda.launches,
+                                   K4=cross_attention_cuda.launches, K5=ffn_cuda.launches)
             walls[label] = time.perf_counter() - t0
     tdist.destroy_process_group()
     out.update(first=first, launches=launches, walls=walls,
                logs=[line for line in stdout.getvalue().splitlines()
                      if line.startswith("LOG:")])
     torch.save(out, f"{plan['out']}/rank{rank}.pt")
-
-
-def nlvr_first_batches(config, tokenizer, batch, ranks=2):
-    """The first train batch of each rank's shard, as the NLVR driver loads
-    and tokenizes it under ``ranks`` processes (in-line loading, so the
-    dataset's image swaps are drawn in fetch order): ``(images, ids, mask,
-    targets)`` of each rank."""
-    from unittest import mock
-
-    from madtp_tpu_torch.cli import compress_nlvr
-    from madtp_tpu_torch.data.loader import batched_loader
-
-    out = []
-    in_line = functools.partial(batched_loader, num_workers=0)
-    with mock.patch.object(compress_nlvr, "batched_loader", in_line):
-        for r in range(ranks):
-            image0, image1, sentences, targets = next(iter(compress_nlvr.real_loader(
-                config, "train", train=True, batch=batch, num_shards=ranks, shard_id=r)()))
-            tok = tokenizer(sentences, padding="max_length", max_length=40)
-            ids = np.array(tok["input_ids"])  # the driver's dtypes (tasks/nlvr.py _device_batch)
-            ids[:, 0] = tokenizer.enc_token_id
-            out.append((torch.from_numpy(np.concatenate([image0, image1])), torch.from_numpy(ids),
-                        torch.from_numpy(np.asarray(tok["attention_mask"])),
-                        torch.from_numpy(np.asarray(targets))))
-    return out
 
 
 def rank_decisions(fwd, x, halves, rows, t):
@@ -5978,12 +5940,11 @@ def check_first_steps(label, got, want, built):
     return rel
 
 
-def phase_multiprocess(device, kept, override=None, clip_cfg=None, clip_override=None):
+def phase_multiprocess(device, kept, clip_cfg=None, clip_override=None):
     """Phase 29: multi-process runs.  (a) ``nccl_one_rank``.  (b) two ranks
     under ``--dist_backend gloo`` on the one card, spawned here with
     ``torch.multiprocessing``, each running, on the PNG fixtures of phases
-    26-27 (``kept``): the NLVR driver ``--epoch 1`` at ``configs/nlvr.yaml``'s
-    width (16 pairs a rank, the train split loaded in line); the BLIP
+    26-27 (``kept``): the BLIP
     retrieval driver training ``--epoch 1`` at
     ``configs/retrieval_coco.yaml``'s widths (ViT-B/16@384,
     ``negative_all_rank``, queue 57,600) from its seeded init, 8 pairs a
@@ -5992,16 +5953,15 @@ def phase_multiprocess(device, kept, override=None, clip_cfg=None, clip_override
     in phases 24-25 and 27), 8 pairs a rank.
 
     * Each driver's first train step spans both ranks (DTP's counts, the
-      gradients and, for the retrieval families, the ITC, the hard
-      negatives and the queue over the global batch): its losses (1e-4),
-      named gradients (1e-3 of each tensor's largest), NLVR's kept counts
-      and the retrieval families' queues after the step (1e-5) against the
+      gradients, the ITC, the hard negatives and the queue over the global
+      batch): its losses (1e-4), named gradients (1e-3 of each tensor's
+      largest) and queue after the step (1e-5) against the
       one-process step on the same global batch from the same seeded init
       (BLIP: the same hard-negative noise, the driver's generator seeded
       alike), here, before the ranks start.  Each epoch 0 runs at the first
       of ``PARITY_FACTORS`` (times T = 1, the controller's start) at which
       each rank's half, run here at the rank's batch shape with the global
-      counts (and, for the retrieval families, the global rows) handed in
+      counts and rows handed in
       (``rank_decisions``), takes the one-process step's DTP decisions: the
       ranks' smaller GEMMs round otherwise, and the fixture's augmented
       images hold identical patches, whose exact ties no margin clears.
@@ -6017,8 +5977,8 @@ def phase_multiprocess(device, kept, override=None, clip_cfg=None, clip_override
       launched, and each training run launched its family's kernels.
 
     A rank that fails fails the phase (``torch.multiprocessing`` ends the
-    other).  The CPU rehearsal passes a tiny ``override`` (the BLIP yamls),
-    ``clip_cfg`` and ``clip_override``.  Returns the summed launch counts."""
+    other).  The CPU rehearsal passes a tiny ``clip_cfg`` and
+    ``clip_override``.  Returns the summed launch counts."""
     import dataclasses
     import shutil
 
@@ -6031,13 +5991,12 @@ def phase_multiprocess(device, kept, override=None, clip_cfg=None, clip_override
     from madtp_tpu_torch.data.tokenizer_bert import BertWordPieceTokenizer
     from madtp_tpu_torch.data.tokenizer_clip import ClipBPETokenizer, clip_tokenize
     from madtp_tpu_torch.kernels.build import BUILD_DIR
-    from madtp_tpu_torch.models.blip import init_nlvr_model, init_retrieval_model
+    from madtp_tpu_torch.models.blip import init_retrieval_model
     from madtp_tpu_torch.models.clip import init_clip_model
     from madtp_tpu_torch.tasks.retrieval import MAX_LENGTH
     from madtp_tpu_torch.train.losses import gumbel
     from madtp_tpu_torch.train.loops import (init_clip_train_state, init_retrieval_train_state,
-                                             make_clip_train_step, make_nlvr_train_step,
-                                             make_retrieval_train_step)
+                                             make_clip_train_step, make_retrieval_train_step)
     from madtp_tpu_torch.train.optim import make_adamw
 
     def sync():
@@ -6054,47 +6013,7 @@ def phase_multiprocess(device, kept, override=None, clip_cfg=None, clip_override
     out = BUILD_DIR / "mp_runs"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    yaml_path = driver_yaml("nlvr.yaml", root, out / "nlvr.yaml", **(override or {}))
-    with open(yaml_path) as f:
-        config = yaml.safe_load(f)
-    batch = int(config["batch_size_train"])
     tokenizer = BertWordPieceTokenizer(str(root / "vocab.txt"))
-    firsts = nlvr_first_batches(config, tokenizer, batch)
-    B = batch
-    glob = (torch.cat([firsts[0][0][:B], firsts[1][0][:B], firsts[0][0][B:], firsts[1][0][B:]]),
-            *(torch.cat([f[i] for f in firsts]) for i in (1, 2, 3)))
-
-    # the one-process NLVR step on the global batch, from the driver's seeded init (--seed 42)
-    t_one = time.perf_counter()
-    cfg = build_blip_cfg(config, int(config["image_size"]), twin_cross=True)
-    model = init_nlvr_model(cfg, seed=42, device=device)
-    x = [t.to(device) for t in glob]
-    rows = [{2 * len(glob[1]): torch.cat([torch.arange(r * B, (r + 1) * B),
-                                          torch.arange((2 + r) * B, (3 + r) * B)]),
-             len(glob[1]): torch.arange(r * B, (r + 1) * B)} for r in range(2)]
-    # where it settled in earlier runs of these seeds
-    temperature, ref = parity_temperature(
-        "nlvr", lambda b, t, r: model(*b[:3], temperature=t, prune_active=True), x, firsts,
-        rows, 0.8)
-    step = make_nlvr_train_step(model, make_adamw(model.parameters(), lr=0.0, weight_decay=0.0),
-                                device=device.type)
-    step_ms = []
-    for _ in range(2):  # lr 0: the second step starts from the same weights
-        sync()
-        t0 = time.perf_counter()
-        metrics = step(*x, temperature)
-        sync()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    named = dict(model.named_parameters())
-    want = dict(kept=(ref.v_kept.cpu(), ref.t_kept.cpu()), step_ms=step_ms,
-                metrics={k: float(v) for k, v in metrics.items()},
-                grads={n: named[n].grad.cpu() for n in GRAD_PARAMS})
-    del model, step, named, x, ref, metrics
-    free()
-    log(f"[multiprocess] nlvr: one-process step on the global batch ({2 * B} pairs) at T "
-        f"{temperature:g}, where each rank's half takes its DTP decisions: {want['metrics']}; "
-        f"step {step_ms[0]:.1f} ms, again {step_ms[1]:.1f} ms; "
-        f"{time.perf_counter() - t_one:.1f} s in all")
 
     # the one-process BLIP retrieval step: the driver's seeded init, queue and generator
     small = ["--batch_size_train", "8", "--batch_size_test", "8"]
@@ -6167,12 +6086,10 @@ def phase_multiprocess(device, kept, override=None, clip_cfg=None, clip_override
     # seeded init at T 1), which the ranks' retrieval training run opens with too
     one = np.load(kept["scores"])
     plan = dict(device=device.type, coordinator=f"127.0.0.1:{_free_port()}", out=str(out),
-                temperatures={"nlvr": temperature, "retrieval_train": wants["retrieval_train"]["t"],
+                temperatures={"retrieval_train": wants["retrieval_train"]["t"],
                               "clip_train": wants["clip_train"]["t"]},
-                grad_params=GRAD_PARAMS, retrieval_grads=RETRIEVAL_GRADS, clip_grads=clip_grads,
-                argv={"nlvr": ["--config", str(yaml_path), "--epoch", "1", "--pretrained", "",
-                               "--p", "0.1"],
-                      "retrieval_train": ["--config", str(kept["yaml"]), "--epoch", "1",
+                retrieval_grads=RETRIEVAL_GRADS, clip_grads=clip_grads,
+                argv={"retrieval_train": ["--config", str(kept["yaml"]), "--epoch", "1",
                                           "--pretrained", "", "--p", "0.1", *small],
                       "clip_train": ["--config", str(clip_yaml), "--epoch", "1", "--pretrained",
                                      str(pth), "--p", str(CLIP_DRIVER_P), *small]})
@@ -6181,25 +6098,14 @@ def phase_multiprocess(device, kept, override=None, clip_cfg=None, clip_override
     wall = time.perf_counter() - t0
     got = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
 
-    # the NLVR driver: the first step against the one-process step
-    for r, g in enumerate(got):
-        f = g["first"]["nlvr"]
-        if not all(a.dtype == b.dtype and torch.equal(a, b)
-                   for a, b in zip(f["inputs"], firsts[r])):
-            raise AssertionError(f"rank {r}'s first train batch is not the one built here")
-        if f["t"] != temperature or not all(torch.equal(a, b) for a, b in
-                                            zip(f["kept"], want["kept"])):
-            raise AssertionError(f"rank {r}: kept counts {f['kept']} at T {f['t']}, the "
-                                 f"one-process step's {want['kept']}")
-    want["t"] = temperature
-    rel = check_first_steps("nlvr", got, want, [f[:4] for f in firsts])
     # the retrieval and CLIP drivers: the first steps and queues against one process
     rel_r = check_first_steps("retrieval_train", got, wants["retrieval_train"],
                               built["retrieval_train"])
     rel_c = check_first_steps("clip_train", got, wants["clip_train"], built["clip_train"])
     if got[0]["logs"] != got[1]["logs"] or not got[0]["logs"]:
         raise AssertionError(f"the ranks logged {got[0]['logs']} and {got[1]['logs']}")
-    for label in ("nlvr", "retrieval_train", "clip_train"):
+    runs = ("retrieval_train", "clip_train")
+    for label in runs:
         files = [sorted(p.name for p in (out / f"{label}_r{r}").iterdir()
                         if not p.name.startswith(("scores_", "clip_sims_"))) for r in range(2)]
         if files[1] or not {"config.yaml", "log.txt", "resume_ckpt"} <= set(files[0]):
@@ -6210,7 +6116,6 @@ def phase_multiprocess(device, kept, override=None, clip_cfg=None, clip_override
         s = np.load(out / f"retrieval_train_r{r}" / f"scores_r{r}.npz")
         if not (np.array_equal(s["i2t"], one["i2t"]) and np.array_equal(s["t2i"], one["t2i"])):
             raise AssertionError(f"rank {r}: retrieval scores differ from one process's")
-    runs = ("nlvr", "retrieval_train", "clip_train")
     launches = {k: sum(g["launches"][run][k] for g in got for run in runs)
                 for k in ("K1", "K2", "K4", "K5")}
 
@@ -6220,18 +6125,13 @@ def phase_multiprocess(device, kept, override=None, clip_cfg=None, clip_override
 
     def firsts_of(label):
         return (f"{[round(g['first'][label]['step_ms'], 1) for g in got]} ms (its gloo "
-                f"all-reduce {[round(g['first'][label]['reduce_ms'], 1) for g in got]} ms"
-                + (f", its row gathers {[round(g['first'][label]['gather_ms'], 1) for g in got]}"
-                   " ms" if label != "nlvr" else "")
-                + f"; one process {(want if label == 'nlvr' else wants[label])['step_ms'][1]:.1f}"
-                " ms)")
+                f"all-reduce {[round(g['first'][label]['reduce_ms'], 1) for g in got]} ms, its row "
+                f"gathers {[round(g['first'][label]['gather_ms'], 1) for g in got]} ms; one "
+                f"process {wants[label]['step_ms'][1]:.1f} ms)")
 
     log(f"[multiprocess] two gloo ranks on {card_line() if device.type == 'cuda' else 'cpu'}: "
         f"{wall:.1f} s from spawn to join; driver runs by rank: " + ", ".join(
             f"{run} {[round(g['walls'][run], 1) for g in got]} s" for run in runs))
-    log(f"[multiprocess] nlvr first step at T {temperature:g} {firsts_of('nlvr')}: kept counts "
-        f"equal, losses {got[0]['first']['nlvr']['metrics']} (one process {want['metrics']}), "
-        f"grad max|diff| / max|grad| " + ", ".join(f"{short(n)} {v:.2e}" for n, v in rel.items()))
     for label, name, r_ in (("retrieval_train", "BLIP retrieval", rel_r),
                             ("clip_train", "CLIP", rel_c)):
         f = got[0]["first"][label]
@@ -6749,6 +6649,486 @@ def phase_stochastic(device, tokenizer, t_cap):
     return dict(total)
 
 
+# ---- phase 31: tensor parallelism, mesh serving, the native JPEG decode ----
+
+TP_PAIRS = 4  # phase 31's NLVR eval: 4 pairs (8 images at 384 px), fp32
+TP_SEED = 31
+TP_CANDIDATES = 2  # temperatures clear of fp32 rounding one process, all run by the ranks
+TP_FIRST_FACTOR = 3.2  # where phase 31's search settled in earlier runs of these seeds
+
+
+def hold_planes(name, q, k, v, alive, bias, scale, iters=10):
+    """K1's planes variant (a tensor-parallel MED's scoring attention on a
+    rank's heads) against its plain version on one case, within
+    ``PLANES_TOLERANCES``, a relaunch bit-identical; its time, the plain
+    version's, SDPA's (``out`` only: less than the variant computes) and the
+    bound (K1's work, the plane and the CLS row's two sums written).
+    Returns the record for the kernels line."""
+    import torch.nn.functional as F
+
+    from madtp_tpu_torch.kernels.attention_scores import (PLANES_TOLERANCES,
+                                                          attention_planes_cuda)
+    from madtp_tpu_torch.ops.attention import attention_planes_plain
+
+    dtype = q.dtype
+    alive = alive.contiguous()
+    bias_in = torch.zeros(alive.shape, device=q.device) if bias is None \
+        else bias.float().contiguous()
+    with torch.inference_mode():
+        got = attention_planes_cuda(q, k, v, alive, bias_in, scale)
+        want = attention_planes_plain(q, k, v, alive, bias, scale)
+        errs = {n: check_close(f"K1 planes {n} {name}", g, w, *PLANES_TOLERANCES[dtype][n])
+                for n, g, w in zip(("out", "plane", "num", "den"), got, want)}
+        if not all(torch.equal(a, b) for a, b in
+                   zip(got, attention_planes_cuda(q, k, v, alive, bias_in, scale))):
+            raise AssertionError(f"K1 planes {name}: two launches on the same inputs differ")
+        del got, want
+        ms = kernel_ms(lambda: attention_planes_cuda(q, k, v, alive, bias_in, scale), iters)
+        plain_ms = kernel_ms(lambda: attention_planes_plain(q, k, v, alive, bias, scale), 3)
+        mask = sdpa_mask(alive, bias_in, dtype)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = kernel_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, scale=scale), iters)
+    B, N, H, _ = q.shape
+    flops, nbytes = k1_work(q, alive)
+    nbytes += 4 * B * (N - 1) * (N - 1)  # the plane, beside the sums k1_work counts
+    rec = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               **bounds(flops, nbytes, dtype), shape=dict(B=B, N=N, H=H, dtype=str(dtype)[6:]))
+    log(f"[tp] K1 planes {name} {str(dtype)[6:]}: max|err| out {errs['out']:.2e} plane "
+        f"{errs['plane']:.2e} num {errs['num']:.2e} den {errs['den']:.2e}, bit-identical "
+        f"relaunch | {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']}), sdpa (out only) {library_ms:.4f} ms")
+    return rec
+
+
+def tp_kernels(device, iters=10):
+    """Phase 31 (a): the kernels at a tensor-parallel rank's shapes (the
+    model axis 2 wide): K1's planes variant at the MED text side of the NLVR
+    eval (32 pairs, 35 slots, BLIP's 12 heads halved), K4 on those 6 heads
+    over the ViT's 577 slots, K5 on BLIP's F = 1536 (the gather ViT's rows)
+    and CLIP-L's F = 2048, fp32 and bf16, each against its plain version.
+    Returns ``{kernel: {dtype: record}}``."""
+    out = collections.defaultdict(dict)
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        q, k, v, alive, bias = k1_case(32, 35, with_bias=True, dtype=dtype, device=device, H=6)
+        out["K1"][dt] = hold_planes("NLVR text B=32 N=35 H=6", q, k, v, alive, bias, 0.125,
+                                    iters)
+        q, k, v, alive, bias = k4_case(32, 35, 577, with_bias=False, dtype=dtype,
+                                       device=device, H=6)
+        key = (32, 35, 577, dtype, False)
+        case = types.SimpleNamespace(cases={key: (q, k, v, alive, bias)},
+                                     calls=collections.Counter({key: 1}))
+        out["K4"][dt] = check_k4_cases("tp 6 heads", case, iters)
+        for label, (M, D, F, act) in (("blip", (64 * 584, 768, 1536, "gelu")),
+                                      ("clip_l", (32 * 577, 1024, 2048, "quick_gelu"))):
+            x, w1, b1, w2, b2 = k5_case(M, D, F, device, dtype=dtype)
+            out["K5"][f"{label}_{dt}"] = hold_k5(f"tp {label} M={M} D={D} F={F}", x, w1, b1, w2,
+                                                 torch.zeros_like(b2), act, iters)
+        del q, k, v, alive, bias, x, w1, b1, w2, b2
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_rank_cases(planes, k4, k5):
+    """Every case of K1's planes variant, K4 and K5 that a tensor-parallel
+    rank's evals launched (one per distinct shape, as the captures recorded
+    them) against its plain version on the rank's own inputs, in its dtype
+    within the kernel's tolerances, a relaunch bit-identical.  Returns
+    ``{kernel: (cases, calls, max_abs_err)}``."""
+    from madtp_tpu_torch.kernels.attention_scores import PLANES_TOLERANCES, attention_planes_cuda
+    from madtp_tpu_torch.kernels.cross_attention import TOLERANCES as K4_TOLERANCES
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import TOLERANCES as K5_TOLERANCES
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+    from madtp_tpu_torch.ops.attention import attention_planes_plain, cross_attention_plain
+    from madtp_tpu_torch.ops.layers import mlp_plain
+
+    def held(name, kernel, plain, args, tolerances):
+        got, want = kernel(*args), plain(*args)
+        got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
+        err = max(check_close(f"{name} {i}", g, w, *tol)
+                  for i, (g, w, tol) in enumerate(zip(got, want, tolerances)))
+        again = kernel(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again if isinstance(again, tuple)
+                                                     else (again,))):
+            raise AssertionError(f"{name}: two launches on the same inputs differ")
+        return err
+
+    out = {}
+    with torch.inference_mode():
+        errs = []
+        for key, (q, k, v, alive, bias, scale) in planes.cases.items():
+            tol = PLANES_TOLERANCES[key[3]]
+            errs.append(held(f"tp K1 planes B={key[0]} N={key[1]} H={key[2]}",
+                             attention_planes_cuda,
+                             attention_planes_plain, (q, k, v, alive, bias, scale),
+                             [tol[n] for n in ("out", "plane", "num", "den")]))
+        out["K1"] = (len(errs), sum(planes.calls.values()), max(errs, default=0.0))
+        errs = []
+        for key, (q, k, v, alive, bias) in k4.cases.items():
+            bias = None if bias is None else bias.float().contiguous()
+            errs.append(held(f"tp K4 B={key[0]} Nq={key[1]} S={key[2]}", cross_attention_cuda,
+                             cross_attention_plain,
+                             (q, k, v, alive.contiguous(), bias, q.shape[-1] ** -0.5),
+                             [K4_TOLERANCES[key[3]]]))
+        out["K4"] = (len(errs), sum(k4.calls.values()), max(errs, default=0.0))
+        errs = []
+        for key, case in k5.cases.items():
+            errs.append(held(f"tp K5 M={key[0]} D={key[1]} F={key[2]} {key[3]}", ffn_cuda,
+                             mlp_plain, case, [K5_TOLERANCES[key[4]]]))
+        out["K5"] = (len(errs), sum(k5.calls.values()), max(errs, default=0.0))
+    return out
+
+
+def time_rank_cases(planes, k4, k5):
+    """The most-called case of each kernel a tensor-parallel rank's evals
+    launched, held and timed as the other phases' recorded cases are
+    (``hold_planes``, ``check_k4_cases``, ``hold_k5``): the records for the
+    kernels line."""
+    records = {}
+    key, n = planes.calls.most_common(1)[0]
+    records["K1"] = hold_planes(f"NLVR eval rank B={key[0]} N={key[1]} H={key[2]} ({n} calls)",
+                                *planes.cases[key])
+    key, n = k4.calls.most_common(1)[0]
+    records["K4"] = check_k4_cases("tp NLVR eval rank", types.SimpleNamespace(
+        cases={key: k4.cases[key]}, calls=collections.Counter({key: n})), 10)
+    key, n = k5.calls.most_common(1)[0]
+    records["K5"] = hold_k5(f"tp NLVR eval rank M={key[0]} D={key[1]} F={key[2]} ({n} calls)",
+                            *k5.cases[key], 5)
+    return records
+
+
+def _tp_rank(rank, plan):
+    """One of phase 31's two ranks (spawned): the NLVR model of the plan's
+    config with the phase's seeded weights (read from the mesh artifact's
+    file), sharded over a 1x2 mesh (gloo, the one card), its
+    mask and gather eval at each candidate temperature with the DTP
+    decisions recorded, the launches of those runs (counted from 0 just
+    before them); on the card every K1-planes, K4 and K5 case of those runs
+    held against its plain version (``hold_rank_cases``, both ranks) and
+    rank 0's most-called case of each timed (``time_rank_cases``, rank 1
+    waiting); written to ``plan["out"]/tp_rank<r>.pt``."""
+    from madtp_tpu_torch.kernels.attention_scores import (attention_planes_cuda,
+                                                          attention_scores_cuda)
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+    from madtp_tpu_torch.models.blip import NLVRModel
+    from madtp_tpu_torch.parallel import dist
+    from madtp_tpu_torch.parallel.mesh import make_mesh, shard_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)  # four processes beside the script share the host's cores
+    dev = dist.init_from_args(types.SimpleNamespace(
+        num_processes=2, process_id=rank, coordinator=plan["coordinator"],
+        dist_backend="gloo"), torch.device(plan["device"]))
+    with torch.device("meta"):  # the phase's seeded weights, as the artifact holds them
+        model = NLVRModel(plan["cfg"])
+    model.load_state_dict(torch.load(plan["weights"], map_location="cpu", weights_only=True),
+                          assign=True)
+    model = shard_model(model.to(dev).eval(), make_mesh(1, 2))
+    x = [t.to(dev) for t in plan["inputs"]]
+    with torch.inference_mode():  # a first call: the kernels' libraries load
+        model(*x, temperature=plan["candidates"][0][0], prune_active=True)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    runs = []
+    with PlanesCapture() as planes, K4Capture() as k4, K5Capture() as k5:
+        for T, caps in plan["candidates"]:
+            res = {}
+            for mode in ("mask", "gather"):
+                kw = {} if mode == "mask" else dict(capacities_v=caps[0], capacities_t=caps[1])
+                with DTPRecorder() as rec, torch.inference_mode():
+                    o = model(*x, temperature=T, prune_active=True, **kw)
+                res[mode] = dict(logits=o.logits.cpu(), kept=(o.v_kept.cpu(), o.t_kept.cpu()),
+                                 dtp=rec.records)
+            runs.append(res)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(K1=attention_scores_cuda.launches, planes=attention_planes_cuda.launches,
+                      K4=cross_attention_cuda.launches, K5=ffn_cuda.launches,
+                      K5_fp32=ffn_cuda.fp32_launches)
+    held = timed = None
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        held = hold_rank_cases(planes, k4, k5)
+        dist.barrier("phase 31 cases held")
+        if rank == 0:
+            timed = time_rank_cases(planes, k4, k5)
+        held["seconds"] = time.perf_counter() - t0
+    shapes = {n: list(p.shape) for n, p in model.named_parameters()}
+    dist.barrier("phase 31")
+    torch.distributed.destroy_process_group()
+    torch.save(dict(runs=runs, counts=counts, wall=wall, shapes=shapes, held=held, timed=timed),
+               f"{plan['out']}/tp_rank{rank}.pt")
+
+
+def tp_jpeg(root, iters=40):
+    """Phase 31 (d): the port's JPEG decoder built here with g++ (its own
+    source; the library's needed libraries name no libjpeg), on fixtures
+    this machine's Pillow encodes: mode 1 bit-equal to Pillow's decode, crop
+    and bicubic resize (a photo, grayscale, progressive, each chroma
+    subsampling cropped, restart intervals, a 1x1 image), mode 2 within the
+    JAX test's bound; images/s of a 640x480 photo to 384 px (decode, resize
+    and normalize) against Pillow's decode and resize."""
+    import io
+
+    from PIL import Image
+
+    from madtp_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    ldd = subprocess.run(["ldd", str(native.target())], capture_output=True, text=True).stdout
+    if "jpeg" in ldd:
+        raise AssertionError(f"the native decode links libjpeg:\n{ldd}")
+    rng = np.random.RandomState(31)
+    h, w = 480, 640
+    gx = np.linspace(0, 255, w)[None, :] * np.ones((h, 1))
+    gy = np.linspace(0, 255, h)[:, None] * np.ones((1, w))
+    photo = (np.stack([gx, gy, (gx + gy) / 2], -1) + rng.rand(h, w, 3) * 40).astype(np.uint8)
+
+    def jpeg(arr, **kw):
+        b = io.BytesIO()
+        Image.fromarray(arr).save(b, "JPEG", **{"quality": 90, **kw})
+        return b.getvalue()
+
+    def pil(data, size, box=None):
+        im = Image.open(io.BytesIO(data)).convert("RGB")
+        if box is not None:
+            im = im.crop((box[0], box[1], box[0] + box[2], box[1] + box[3]))
+        return np.asarray(im.resize((size, size), Image.BICUBIC), np.uint8)
+
+    noise = (rng.rand(100, 150, 3) * 255).astype(np.uint8)
+    cases = [("photo", jpeg(photo), 384, None), ("photo crop", jpeg(photo), 96, (37, 81, 301, 233)),
+             ("grayscale", jpeg(photo[:, :, 0]), 64, None),
+             ("progressive", jpeg(photo, progressive=True), 96, None),
+             ("1x1", jpeg(photo[:1, :1]), 32, None)]
+    cases += [(f"subsampling {ss}", jpeg(noise, subsampling=ss), 48, (13, 7, 100, 80))
+              for ss in (0, 1, 2)]
+    try:
+        cases.append(("restart intervals", jpeg(photo, restart_marker_blocks=3), 96, None))
+    except TypeError:  # a Pillow without the option
+        log("[tp] jpeg: this Pillow writes no restart intervals; that case is left out")
+    for name, data, size, box in cases:
+        got = native.decode_resize(data, size, crop=box, dct_scale=False)
+        if not np.array_equal(got, pil(data, size, box)):
+            raise AssertionError(f"native JPEG {name}: mode 1 differs from Pillow")
+    data = cases[0][1]
+    ref = native.decode_resize(data, 224, dct_scale=False)
+    got2 = native.decode_resize(data, 224, dct_scale=True)
+    mode2 = float(np.abs(ref.astype(int) - got2.astype(int)).mean())
+    if got2.shape != ref.shape or not mode2 < 8.0:
+        raise AssertionError(f"native JPEG mode 2: mean |diff| {mode2} (limit 8)")
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        native.decode_resize_norm(data, 384, dct_scale=False)
+    ours = iters / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        np.asarray(Image.open(io.BytesIO(data)).convert("RGB").resize((384, 384),
+                                                                       Image.BICUBIC))
+    theirs = iters / (time.perf_counter() - t0)
+    log(f"[tp] jpeg: built with g++ in {build_s:.1f} s, no libjpeg linked; {len(cases)} cases "
+        f"bit-equal to Pillow {Image.__version__} in mode 1, mode 2 mean |diff| {mode2:.3f} at "
+        f"224 px; 640x480 -> 384 px: {ours:.1f} images/s (decode, resize, normalize, one "
+        f"thread), Pillow's decode and resize {theirs:.1f} images/s; {card_line()}")
+    return dict(cases=len(cases), mode2=mode2, images_per_s=ours, pillow_images_per_s=theirs)
+
+
+def _serve_reply(url, inputs, timeout=240):
+    """The server's reply to ``inputs`` once it is healthy, and the seconds
+    spent waiting for it to become healthy and for the reply."""
+    from madtp_tpu_torch.serve.server import ServingClient
+
+    client = ServingClient(url, timeout=120)
+    t0 = time.perf_counter()
+    deadline = time.time() + timeout
+    while not client.healthy():
+        if time.time() > deadline:
+            raise AssertionError(f"the mesh server at {url} never became healthy")
+        time.sleep(0.2)
+    t1 = time.perf_counter()
+    reply = client.predict(*inputs)
+    return reply, t1 - t0, time.perf_counter() - t1
+
+
+def phase_tp(device, t_star, pairs=TP_PAIRS):
+    """31. Tensor parallelism, mesh serving and the native JPEG decode.
+    (a) ``tp_kernels``.  (b) The full-width NLVR eval (ViT-B/16@384, 12 + 12
+    layers, seeded weights, fp32, ``pairs`` pairs, 35 tokens with a padded
+    caption) one process on the card at the first ``TP_CANDIDATES`` of
+    ``parity_factors(TP_FIRST_FACTOR)`` times phase 5's T* whose DTP
+    decisions stand >= 64 fp32 steps from their edge in mask and gather mode;
+    then two gloo ranks
+    sharing the card (``_tp_rank``), the model sharded over a 1x2 mesh:
+    at the first candidate where the ranks' DTP scores drift from the one
+    process's at least 4x below its margin, equal kept counts and logits
+    within 1e-4 in both modes, both ranks bit-equal; each kernel of the
+    path launched (the ``tp`` path of the kernels line: the ranks'
+    launches summed, K1's planes variant in the MED and K1 in the ViT).
+    (c) The model exported as a 1x2 mask-mode artifact and served by
+    ``python -m madtp_tpu_torch.cli.serve`` (its rank 1 started by the
+    command, no warm-up: the request runs the step first), while (b) runs:
+    the reply at the settled temperature equals the one-process step (logits
+    1e-4, kept counts equal), and both ranks end with the server.  (d)
+    ``tp_jpeg``.  Returns ``(launches, kernel records)``."""
+    import shutil
+
+    import torch.multiprocessing as tmp
+
+    from madtp_tpu_torch.kernels.build import BUILD_DIR
+    from madtp_tpu_torch.models.blip import init_nlvr_model
+    from madtp_tpu_torch.serve.artifact import save_artifact
+    from madtp_tpu_torch.tasks.nlvr import fast_capacity_schedule
+
+    records = tp_kernels(device)
+    root = BUILD_DIR / "tp_runs"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    cfg = full_config()
+    model = init_nlvr_model(cfg, seed=TP_SEED, device=device)
+    images, ids, mask = synthetic_inputs(cfg, pairs=pairs, text_len=35, seed=TP_SEED)
+    x = [t.to(device) for t in (images, ids, mask)]
+    # (c) the mesh artifact first: its server's two ranks start and load it meanwhile
+    art = root / "serve" / "nlvr_mesh"
+    save_artifact(str(art), model, "nlvr", "eval",
+                  (images, ids, mask, torch.tensor(1.0)), meta={"task": "nlvr", "mode": "mask"},
+                  mesh=(1, 2))
+    port = _free_port()
+    serve_log = open(root / "serve.log", "wb")
+    t_server = time.perf_counter()
+    server = subprocess.Popen(
+        [sys.executable, "-m", "madtp_tpu_torch.cli.serve", "--artifact", str(art), "--port",
+         str(port), "--device", device.type, "--no_warmup"],
+        cwd=str(pathlib.Path(__file__).resolve().parent), stdout=serve_log,
+        stderr=subprocess.STDOUT, env={**os.environ, "OMP_NUM_THREADS": "2"})
+    try:
+        candidates = []
+        for f in parity_factors(TP_FIRST_FACTOR):
+            T, caps, runs = t_star * f, None, {}
+            for mode in ("mask", "gather"):
+                kw = {} if mode == "mask" else dict(capacities_v=caps[0], capacities_t=caps[1])
+                with DTPRecorder() as rec, torch.inference_mode():
+                    o = model(*x, temperature=T, prune_active=True, **kw)
+                margin = min(dtp_margins(rec.records))
+                if margin < GAP_MIN:
+                    break
+                runs[mode] = dict(logits=o.logits.cpu(), dtp=rec.records, margin=margin,
+                                  kept=(o.v_kept.cpu(), o.t_kept.cpu()))
+                if mode == "mask":
+                    caps = fast_capacity_schedule(o.v_kept.cpu().numpy(),
+                                                  o.t_kept.cpu().numpy(), "ceil")
+            if len(runs) == 2:
+                candidates.append((T, f, caps, runs))
+                if len(candidates) == TP_CANDIDATES:
+                    break
+        del model
+        torch.cuda.empty_cache()
+        log(f"[tp] one process: {len(candidates)} candidate temperatures "
+            f"{[round(c[0], 4) for c in candidates]} (factors {[c[1] for c in candidates]} of "
+            f"T* {t_star:.4f}); the 1x2 mesh artifact written; "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not candidates:
+            raise AssertionError("tp: no temperature near T* clears fp32 rounding in one "
+                                 "process")
+        plan = dict(device=device.type, coordinator=f"127.0.0.1:{_free_port()}", cfg=cfg,
+                    weights=str(art / "weights.pt"), inputs=[images, ids, mask], out=str(root),
+                    candidates=[(c[0], c[2]) for c in candidates])
+        t0 = time.perf_counter()
+        tmp.start_processes(_tp_rank, args=(plan,), nprocs=2, join=True, start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        got = [torch.load(root / f"tp_rank{r}.pt", weights_only=False) for r in range(2)]
+        settled = None
+        for i, (T, f, caps, want) in enumerate(candidates):
+            lines = []
+            for mode in ("mask", "gather"):
+                a, b = (g["runs"][i][mode] for g in got)
+                if not (torch.equal(a["logits"], b["logits"])
+                        and all(torch.equal(u, v) for u, v in zip(a["kept"], b["kept"]))):
+                    raise AssertionError(f"tp {mode} at T {T:g}: the two ranks differ")
+                drift = dtp_drift(want[mode]["dtp"], a["dtp"])
+                kept_eq = all(torch.equal(u, v) for u, v in zip(a["kept"], want[mode]["kept"]))
+                err = float((a["logits"] - want[mode]["logits"]).abs().max())
+                lines.append((mode, drift, want[mode]["margin"], kept_eq, err, a["kept"]))
+            clear = all(d * DRIFT_FACTOR <= m for _, d, m, *_ in lines)
+            log(f"[tp] two ranks at T {T:g} (factor {f:g}): " + "; ".join(
+                f"{mode} drift {d:.3e} against margin {m:.3e}, kept equal {k}, max|logit "
+                f"diff| {e:.3e}" for mode, d, m, k, e, _ in lines)
+                + ("" if clear else ": not clear of rounding, the next temperature"))
+            if clear:
+                for mode, d, m, k, e, kept in lines:
+                    if not k or not e <= 1e-4:
+                        raise AssertionError(f"tp {mode} at T {T:g}: kept counts equal {k}, "
+                                             f"logits {e:.3e} from one process (limit 1e-4)")
+                settled = (T, candidates[i][3]["mask"])
+                log(f"[tp] settled at factor {f:g}: kept vision "
+                    f"{lines[0][5][0].tolist()} text {lines[0][5][1].tolist()} (mask), "
+                    f"{lines[1][5][0].tolist()} {lines[1][5][1].tolist()} (gather), equal to "
+                    f"one process")
+                break
+        if settled is None:
+            raise AssertionError("tp: no candidate temperature clear of the ranks' drift")
+        counts = [g["counts"] for g in got]
+        launches = {"K1": sum(c["K1"] + c["planes"] for c in counts), "K2": 0,
+                    "K4": sum(c["K4"] for c in counts), "K5": sum(c["K5"] for c in counts)}
+        planes = sum(c["planes"] for c in counts)
+        if device.type == "cuda" and (min(launches[k] for k in ("K1", "K4", "K5")) == 0
+                                      or planes == 0):
+            raise AssertionError(f"tp launches {launches}, planes {planes}: a kernel of the "
+                                 "path was not launched")
+        log(f"[tp] two gloo ranks on {card_line() if device.type == 'cuda' else 'cpu'}: "
+            f"{spawn_s:.1f} s from spawn to join, the evals {[round(g['wall'], 2) for g in got]} "
+            f"s by rank ({len(candidates)} temperatures x 2 modes); launches by rank "
+            f"{counts}")
+        if device.type == "cuda":
+            for r, g in enumerate(got):
+                held = g["held"]
+                log(f"[tp] rank {r}'s cases held against their plain versions in "
+                    f"{held['seconds']:.1f} s (with rank 0's timings): " + "; ".join(
+                        f"{k} {held[k][0]} cases ({held[k][1]} calls), max|err| {held[k][2]:.2e}"
+                        for k in ("K1", "K4", "K5")))
+                if min(held[k][0] for k in ("K1", "K4", "K5")) == 0:
+                    raise AssertionError(f"tp rank {r}: a kernel of the path recorded no case")
+            records["path"] = got[0]["timed"]
+
+        # (c) the served reply at the settled temperature
+        T, want = settled
+        t0 = time.perf_counter()
+        reply, wait_s, call_s = _serve_reply(
+            f"http://127.0.0.1:{port}", (images.numpy(), ids.numpy(), mask.numpy(),
+                                         np.float32(T)))
+        err = float(np.abs(reply[0] - want["logits"].numpy()).max())
+        if not (err <= 1e-4 and np.array_equal(reply[1], want["kept"][0].numpy())
+                and np.array_equal(reply[2], want["kept"][1].numpy())):
+            raise AssertionError(f"tp served reply: logits {err:.3e} from the direct step, kept "
+                                 f"{reply[1].tolist()} {reply[2].tolist()} against "
+                                 f"{want['kept'][0].tolist()} {want['kept'][1].tolist()}")
+        log(f"[tp] cli.serve on the 1x2 mesh artifact (two processes, gloo): reply at T {T:g} "
+            f"equal to the direct step (kept equal, max|logit diff| {err:.3e}); after the "
+            f"ranks joined, {wait_s:.1f} s until it was healthy, the call {call_s:.1f} s "
+            f"(the server started {time.perf_counter() - t_server:.1f} s before the reply)")
+    finally:
+        server.terminate()
+        try:
+            server.wait(timeout=90)
+        finally:
+            if server.poll() is None:
+                server.kill()
+            serve_log.close()
+    log_text = (root / "serve.log").read_text(errors="replace")
+    if "over 2 processes" not in log_text:
+        raise AssertionError(f"the mesh server did not run on two processes:\n{log_text[-2000:]}")
+    records["jpeg"] = tp_jpeg(root)
+    records["planes"] = planes
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, records
+
+
 def jpeg_headers():
     """Whether libjpeg's header and library are on this machine, for the
     native JPEG decode a later slice ports: a file check for ``jpeglib.h`` in
@@ -6894,12 +7274,16 @@ def main():
         phase_serving, device, *nlvr_main,
         {"retrieval": (rcfg, t_ret), "clip": (ccfg, t_clip), "vqa": (vqa_config(480), t_vqa),
          "caption": (caption_config(), t_cap)}, tokenizer)
+    t_nlvr = nlvr_main[1]
     del nlvr_main
     torch.cuda.empty_cache()
     # phase 29: multi-process runs (a one-rank NCCL group; two gloo ranks on the card)
     tk["multiprocess"] = timed(phase_multiprocess, device, kept)
     # phase 30: dropout training, nucleus captioning, the legacy heads
     tk["stochastic"] = timed(phase_stochastic, device, tokenizer, t_cap)
+    torch.cuda.empty_cache()
+    # phase 31: tensor parallelism over two gloo ranks, a mesh artifact served, the JPEG decode
+    tk["tp"], tp_records = timed(phase_tp, device, t_nlvr)
 
     def train_total(k):
         return sum(c[k] for c in (*tk.values(), *te.values()))
@@ -6921,6 +7305,8 @@ def main():
              **record, at_nlvr_gather_eval=record1_eval, at_retrieval_eval=record1_ret,
              at_clip_vision_h16=record1_clip, at_vqa_gather_eval=record1_vqa,
              at_caption_eval=record1_cap, at_train_nlvr=record1_train,
+             at_tp_planes=tp_records["K1"], at_tp_path_planes=tp_records["path"]["K1"],
+             tp_plane_launches=tp_records["planes"],
              **{f"at_train_{f}": r["K1"] for f, r in trec.items()},
              fp32_at_train_shape=record1_32, fp32_at_driver_nlvr=driver_records["K1"],
              fp32_at_driver_clip_h16=retrieval_driver_records["K1"],
@@ -6931,7 +7317,11 @@ def main():
                           "driver_<family> the driver's train and evaluate runs, "
                           "multiprocess the two ranks' driver runs of phase 29 (summed), "
                           "stochastic phase 30's dropout train steps, nucleus decode and "
-                          "legacy heads",
+                          "legacy heads, tp phase 31's two tensor-parallel ranks (K1 in the "
+                          "ViT and its planes variant, k1_attention_planes, in the MED: "
+                          "tp_plane_launches; at_tp_planes holds the variant at 32 pairs, "
+                          "at_tp_path_planes at the tp path's most-called case, "
+                          "library_ms SDPA out only)",
              previous_note=PREVIOUS_NOTE.format("attention_scores.cu")),
         dict(name="attention_scores_large_n", route="cuda",
              source="madtp_tpu_torch/csrc/attention_scores.cu",
@@ -6971,6 +7361,7 @@ def main():
              fp32_at_one_query=record4_one_query, fp32_at_driver_nlvr=driver_records["K4"],
              fp32_at_driver_retrieval_itm=retrieval_driver_records["K4"],
              **{f"at_train_{f}": r["K4"] for f, r in trec.items() if r["K4"] is not None},
+             at_tp=tp_records["K4"], at_tp_path=tp_records["path"]["K4"],
              library_note="library_ms is scaled_dot_product_attention with the "
                           "same additive mask: the same function",
              previous_note="previous_ms is the replaced design "
@@ -6992,14 +7383,15 @@ def main():
              fp32=record5_fp32, fp32_at_train_main=record5_train,
              fp32_at_driver_nlvr=driver_records["K5"],
              **{f"fp32_at_train_{f}": r["K5_fp32"] for f, r in trec.items()},
+             at_tp=tp_records["K5"], at_tp_path=tp_records["path"]["K5"],
              fp32_launches=sum(fp32_k5.values()), fp32_launches_by_path=fp32_k5,
              library_note="library_ms is two F.linear and the activation: the same function",
              previous_note="previous_ms is the replaced design (madtp_tpu_torch/csrc/previous/"
                            "ffn.cu: bf16 k5_ffn, fp32 k5_ffn_fp32, the first SGEMM) on the same "
                            "inputs and card; launches counts the bf16 main paths and the "
                            "fp32 FFNs of the drivers (driver_<family>), phase 29 "
-                           "(multiprocess) and phase 30 (stochastic), fp32_launches the "
-                           "other fp32 paths"),
+                           "(multiprocess), phase 30 (stochastic) and phase 31 (tp: a rank's "
+                           "half of each FFN, fp32), fp32_launches the other fp32 paths"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

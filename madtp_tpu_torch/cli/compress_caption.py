@@ -55,10 +55,15 @@ ORI_GFLOPS = 65.7  # reference compress_caption_dtp.py:216
 PROMPT = task.PROMPT
 
 
-def main(argv=None):
-    args = base_parser("configs/caption_coco.yaml",
+def build_parser():
+    """The driver's flags (the JAX driver's, ``--device`` for ``--platform``)."""
+    return base_parser("configs/caption_coco.yaml",
                        "pretrained/model_base_caption_capfilt_large.pth",
-                       default_output="output/Caption_coco").parse_args(argv)
+                       default_output="output/Caption_coco")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     device = setup_runtime(args)
     config = load_config(args)
     set_seed(args.seed)

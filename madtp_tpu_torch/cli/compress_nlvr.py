@@ -100,9 +100,14 @@ def load_model(path: str, cfg: BlipConfig, device):
     return load_nlvr_state_dict(sd, cfg, device=device), float(extras.get("temperature", 0.0))
 
 
+def build_parser():
+    """The driver's flags (the JAX driver's, ``--device`` for ``--platform``)."""
+    return base_parser("configs/nlvr.yaml", "pretrained/model_base_nlvr.pth",
+                       default_epoch=15, default_output="output/NLVR")
+
+
 def main(argv=None):
-    args = base_parser("configs/nlvr.yaml", "pretrained/model_base_nlvr.pth",
-                       default_epoch=15, default_output="output/NLVR").parse_args(argv)
+    args = build_parser().parse_args(argv)
     device = setup_runtime(args)
     config = load_config(args)
     set_seed(args.seed)

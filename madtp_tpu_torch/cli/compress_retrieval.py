@@ -95,11 +95,16 @@ def first_batch(batches) -> np.ndarray:
             close()
 
 
+def build_parser():
+    """The driver's flags (the JAX driver's, ``--device`` for ``--platform``)."""
+    return base_parser("configs/retrieval_flickr.yaml", "pretrained/model_base_retrieval_coco.pth",
+                       default_output="output/Retrieval_flickr")
+
+
 def main(argv=None):
     # the reference defaults to the Flickr yaml with a COCO checkpoint (its
     # scripts always pass --config)
-    args = base_parser("configs/retrieval_flickr.yaml", "pretrained/model_base_retrieval_coco.pth",
-                       default_output="output/Retrieval_flickr").parse_args(argv)
+    args = build_parser().parse_args(argv)
     device = setup_runtime(args)
     config = load_config(args)
     set_seed(args.seed)

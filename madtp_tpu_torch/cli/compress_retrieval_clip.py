@@ -131,12 +131,17 @@ def synthetic_setup(device):
     return model, images, text, {i: i for i in range(n)}, {i: [i] for i in range(n)}
 
 
+def build_parser():
+    """The driver's flags (the JAX driver's, ``--device`` for ``--platform``)."""
+    return base_parser("configs/retrieval_flickr_clip.yaml",
+                       "pretrained/clip_large_retrieval_flickr.pth",
+                       default_output="output/Retrieval_flickr")
+
+
 def main(argv=None):
     # the reference defaults to the BLIP Flickr yaml, which its CLIP driver
     # cannot load; this one defaults to the CLIP yaml
-    args = base_parser("configs/retrieval_flickr_clip.yaml",
-                       "pretrained/clip_large_retrieval_flickr.pth",
-                       default_output="output/Retrieval_flickr").parse_args(argv)
+    args = build_parser().parse_args(argv)
     device = setup_runtime(args)
     config = load_config(args)
     set_seed(args.seed)

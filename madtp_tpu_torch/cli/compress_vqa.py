@@ -54,9 +54,14 @@ from madtp_tpu_torch.utils.logging import MetricLogger
 ORI_GFLOPS = 186.1  # reference compress_vqa_dtp.py:239
 
 
+def build_parser():
+    """The driver's flags (the JAX driver's, ``--device`` for ``--platform``)."""
+    return base_parser("configs/vqa.yaml", "pretrained/model_base_vqa_capfilt_large.pth",
+                       default_output="output/VQA")
+
+
 def main(argv=None):
-    args = base_parser("configs/vqa.yaml", "pretrained/model_base_vqa_capfilt_large.pth",
-                       default_output="output/VQA").parse_args(argv)
+    args = build_parser().parse_args(argv)
     device = setup_runtime(args)
     config = load_config(args)
     set_seed(args.seed)

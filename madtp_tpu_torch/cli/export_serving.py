@@ -26,6 +26,11 @@ both packages export the same capacities; ``--probe_npz`` or
 DTP: every row computes as if served alone, so the server may merge requests
 into one device call; NLVR's two images of a pair then prune apart too.
 
+``--mesh DxM`` exports a multi-device artifact to be served over a (data,
+model) mesh of D x M processes (:mod:`madtp_tpu_torch.parallel.mesh`:
+tensor parallelism over M, rows over D): the same whole weights, with
+``nr_devices`` and ``mesh`` in ``meta.json``, for every task.
+
 ``--device`` (default ``cuda``; without a card it raises) takes the place of
 the JAX exporter's ``--platforms``.  A model loaded here computes in
 bfloat16 on the card, as the eval main paths do, and in float32 on the CPU;
@@ -208,7 +213,7 @@ def export_nlvr(args, config, dev, model=None, capacities=None):
             note="; NLVR pair images also prune independently of each other — scores can "
                  "differ slightly from batched/reference eval")
     save_artifact(args.output_dir, model, "nlvr", "eval", (images, ids, mask, _t(temperature)),
-                  meta=meta)
+                  meta=meta, mesh=_mesh(args))
     print(f"exported NLVR serving artifact -> {args.output_dir} (T={temperature}, "
           f"mode={meta['mode']})")
 
@@ -264,9 +269,11 @@ def export_clip(args, config, dev, model=None, capacities=None):
                                          kept_outputs=None if cfg.is_resnet else {1: "vision"})
         txt_meta = _mark_row_independent(txt_meta, [1, 1], kept_outputs={1: "text"})
     save_artifact(os.path.join(args.output_dir, "image_encoder"), model, "clip",
-                  "image_encoder", (images, _t(temperature)), meta=img_meta)
+                  "image_encoder", (images, _t(temperature)), meta=img_meta,
+                  mesh=_mesh(args))
     save_artifact(os.path.join(args.output_dir, "text_encoder"), model, "clip",
-                  "text_encoder", (text, _t(temperature)), meta=txt_meta)
+                  "text_encoder", (text, _t(temperature)), meta=txt_meta,
+                  mesh=_mesh(args))
     print(f"exported CLIP serving artifacts -> {args.output_dir}"
           f"/{{image_encoder,text_encoder}} (T={temperature})")
 
@@ -307,7 +314,7 @@ def export_caption(args, config, dev, model=None, capacities=None):
     if args.row_independent:  # the decode is per row by construction
         meta = _mark_row_independent(meta, [1, 1], kept_outputs={1: "vision"})
     save_artifact(args.output_dir, model, "caption", "generate",
-                  (images, prompt, _t(temperature)), meta=meta)
+                  (images, prompt, _t(temperature)), meta=meta, mesh=_mesh(args))
     print(f"exported caption serving artifact -> {args.output_dir} "
           f"(T={temperature}, beams={args.num_beams})")
 
@@ -359,7 +366,8 @@ def export_vqa(args, config, dev, model=None, capacities=None):
     if args.row_independent:  # requests merge only with equal answer lists
         meta = _mark_row_independent(meta, [1, 1, 1, 1], kept_outputs={2: "vision", 3: "text"})
     save_artifact(args.output_dir, model, "vqa", "rank",
-                  (images, q_ids, q_mask, a_ids, a_mask, _t(temperature)), meta=meta)
+                  (images, q_ids, q_mask, a_ids, a_mask, _t(temperature)), meta=meta,
+                  mesh=_mesh(args))
     print(f"exported VQA rank serving artifact -> {args.output_dir} "
           f"(T={temperature}, k={k}, answers={nA}x{La})")
 
@@ -432,11 +440,11 @@ def export_retrieval(args, config, dev, model=None, capacities=None):
         rr_meta = _mark_row_independent(rr_meta, [1])
     t = _t(temperature)
     save_artifact(os.path.join(args.output_dir, "image_encoder"), model, "retrieval",
-                  "image_encoder", (images, t), meta=img_meta)
+                  "image_encoder", (images, t), meta=img_meta, mesh=_mesh(args))
     save_artifact(os.path.join(args.output_dir, "text_encoder"), model, "retrieval",
-                  "text_encoder", (ids, mask, t), meta=txt_meta)
+                  "text_encoder", (ids, mask, t), meta=txt_meta, mesh=_mesh(args))
     save_artifact(os.path.join(args.output_dir, "itm_rerank"), model, "retrieval",
-                  "itm_rerank", (r_ids, r_mask, sx, sa, t), meta=rr_meta)
+                  "itm_rerank", (r_ids, r_mask, sx, sa, t), meta=rr_meta, mesh=_mesh(args))
     print(f"exported retrieval serving artifacts -> {args.output_dir}"
           f"/{{image_encoder,text_encoder,itm_rerank}} (T={temperature})")
 
@@ -487,7 +495,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "server may merge requests into one device call")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the model runs: the card (raises without one) or the CPU")
+    p.add_argument("--mesh", default="",
+                   help="DATAxMODEL, e.g. 1x2: a multi-device artifact served over that "
+                        "(data, model) mesh of processes")
     return p
+
+
+def _mesh(args):
+    """``--mesh`` as ``(n_data, n_model)``, or None."""
+    if not getattr(args, "mesh", ""):
+        return None
+    n_data, n_model = (int(v) for v in args.mesh.lower().split("x"))
+    return n_data, n_model
 
 
 def load_export_config(args) -> dict:

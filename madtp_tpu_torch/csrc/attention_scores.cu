@@ -92,7 +92,9 @@
 // one to `attention_scores_cuda.launches` per successful call of
 // `k1_attention_scores` below, which launches both passes (and `k1_colsum`
 // when pass B is split), and, when N > 1536, one to
-// `attention_scores_cuda.large_n_launches` (K3's count).
+// `attention_scores_cuda.large_n_launches` (K3's count); `attention_planes_cuda`
+// adds one to its own count per call of `k1_attention_planes` (pass A and
+// `k1_planes`, the tensor-parallel variant further below).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -608,6 +610,105 @@ __global__ void __launch_bounds__(256) k1_colsum(const float* __restrict__ part,
   col[idx] = alive[idx] ? acc : 0.f;
 }
 
+// ---------------------------------------------------------------- the planes variant
+//
+// Tensor parallelism splits the heads of a MED self-attention over the ranks
+// of a model group, and col_mass (a max over heads, then a sum over queries)
+// and cls_attn (each head weighted by r_h / sum_h r_h) do not add up from
+// the ranks' own col_mass and cls_attn.  So the variant `k1_attention_planes`
+// runs pass A as above, then `k1_planes`, which writes what the group can
+// combine:
+//   plane[b, i-1, n-1] = max over the rank's heads of P_h[i, n] (i, n >= 1;
+//                        0 where query i is dead), fp32, combined by a MAX;
+//   num[b, n-1]        = sum over the rank's heads of P_h[0, n] r_h[n];
+//   den[b, n-1]        = sum over the rank's heads of r_h[n], both combined
+//                        by a SUM, then cls_attn = num / (den + 1e-8) and
+//                        col_mass = the plane summed over its queries.
+// P is recomputed from pass A's m and l: P = exp(x - m) / l, x = scale q.k +
+// bias, summed over the head dims in order on FFMA from the inputs widened to
+// fp32 (bf16 products are exact in fp32), 0 at a dead key.  Grid (ceil((N -
+// 1) / 32) key tiles, ceil(N / 32) query tiles, B), 256 threads: thread (r,
+// kl) holds query row r of the tile against keys kl + 8 j (j < 4); the
+// tiles of each head pass through padded shared memory.  Text N is 26-40
+// here, so a block or four an image.
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+constexpr int PT = 32;  // query rows and keys of a planes tile
+
+template <typename T>
+__global__ void __launch_bounds__(256) k1_planes(
+    const T* __restrict__ q, const T* __restrict__ k, int64_t sb, int64_t sn,
+    const uint8_t* __restrict__ alive, const float* __restrict__ bias,
+    const float* __restrict__ stat_m, const float* __restrict__ stat_l,
+    const float* __restrict__ rnorm, float* __restrict__ plane, float* __restrict__ num,
+    float* __restrict__ den, int N, int H, float scale) {
+  __shared__ float Qs[PT][DH + 1];
+  __shared__ float Ks[PT][DH + 1];
+  const int b = blockIdx.z, i0 = blockIdx.y * PT, n0 = 1 + blockIdx.x * PT;
+  const int tid = threadIdx.x, r = tid / 8, kl = tid % 8, i = i0 + r;
+  const int64_t bN = (int64_t)b * N;
+  float mx[4] = {0.f, 0.f, 0.f, 0.f}, nm[4] = {0.f, 0.f, 0.f, 0.f},
+        dn[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int h = 0; h < H; ++h) {
+    __syncthreads();
+    const T* qh = q + (int64_t)b * sb + (int64_t)h * DH;
+    const T* kh = k + (int64_t)b * sb + (int64_t)h * DH;
+    for (int e = tid; e < PT * DH; e += 256) {
+      const int row = e / DH, d = e % DH, qi = i0 + row, kn = n0 + row;
+      Qs[row][d] = qi < N ? widen(qh[(int64_t)qi * sn + d]) : 0.f;
+      Ks[row][d] = kn < N ? widen(kh[(int64_t)kn * sn + d]) : 0.f;
+    }
+    __syncthreads();
+    if (i >= N) continue;
+    const int64_t st = ((int64_t)b * H + h) * N;
+    const float m = stat_m[st + i], l = stat_l[st + i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + kl + 8 * j;
+      if (n >= N) continue;
+      float p = 0.f;
+      if (alive[bN + n] && l > 0.f) {
+        float s = 0.f;
+#pragma unroll 16
+        for (int d = 0; d < DH; ++d) s = fmaf(Qs[r][d], Ks[kl + 8 * j][d], s);
+        p = expf(s * scale + bias[bN + n] - m) / l;
+      }
+      mx[j] = fmaxf(mx[j], p);
+      if (i == 0) {
+        const float rr = rnorm[st + n];
+        nm[j] = fmaf(p, rr, nm[j]);
+        dn[j] += rr;
+      }
+    }
+  }
+  if (i >= N) return;
+  const int P = N - 1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + kl + 8 * j;
+    if (n >= N) continue;
+    if (i == 0) {
+      num[(int64_t)b * P + n - 1] = nm[j];
+      den[(int64_t)b * P + n - 1] = dn[j];
+    } else {
+      plane[((int64_t)b * P + i - 1) * P + n - 1] = alive[bN + i] ? mx[j] : 0.f;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_planes(const T* q, const T* k, int64_t sb, int64_t sn, const uint8_t* alive,
+                          const float* bias, const float* stat_m, const float* stat_l,
+                          const float* rnorm, float* plane, float* num, float* den, int B,
+                          int N, int H, float scale, cudaStream_t stream) {
+  const dim3 grid((N - 1 + PT - 1) / PT, (N + PT - 1) / PT, B);
+  k1_planes<T><<<grid, 256, 0, stream>>>(q, k, sb, sn, alive, bias, stat_m, stat_l, rnorm,
+                                         plane, num, den, N, H, scale);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------- fp32, CUDA cores
 
 // fp32 multiplies on the CUDA cores (FFMA).  Tensor cores would mean
@@ -996,23 +1097,35 @@ __global__ void __launch_bounds__(B_NT, 2) k1_scores_simt(
   }
 }
 
-cudaError_t launch(const float* q, const float* k, const float* v, int64_t sb, int64_t sn,
-                   const uint8_t* alive, const float* bias, float* out, float* col, float* cls,
-                   float* stat_m, float* stat_l, float* rnorm, float* part, int B, int N, int H,
-                   int chunks, float scale, cudaStream_t stream) {
-  static bool configured = false;  // both attributes at their largest, once
+cudaError_t launch_fwd(const float* q, const float* k, const float* v, int64_t sb, int64_t sn,
+                       const uint8_t* alive, const float* bias, float* out, float* stat_m,
+                       float* stat_l, float* rnorm, int B, int N, int H, float scale,
+                       cudaStream_t stream) {
+  static bool configured = false;
   if (!configured) {
     cudaError_t err =
         cudaFuncSetAttribute(k1_fwd_simt, cudaFuncAttributeMaxDynamicSharedMemorySize, A_SMEM);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(k1_scores_simt, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               pass_b_smem(MAX_HEADS));
     if (err != cudaSuccess) return err;
     configured = true;
   }
   k1_fwd_simt<<<dim3((N + A_TQ - 1) / A_TQ, H, B), A_NT, A_SMEM, stream>>>(
       q, k, v, sb, sn, alive, bias, out, stat_m, stat_l, rnorm, N, H, scale);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const float* q, const float* k, const float* v, int64_t sb, int64_t sn,
+                   const uint8_t* alive, const float* bias, float* out, float* col, float* cls,
+                   float* stat_m, float* stat_l, float* rnorm, float* part, int B, int N, int H,
+                   int chunks, float scale, cudaStream_t stream) {
+  static bool configured = false;  // pass B's attribute at its largest, once
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        k1_scores_simt, cudaFuncAttributeMaxDynamicSharedMemorySize, pass_b_smem(MAX_HEADS));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  cudaError_t err = launch_fwd(q, k, v, sb, sn, alive, bias, out, stat_m, stat_l, rnorm, B, N, H,
+                               scale, stream);
   if (err != cudaSuccess) return err;
   k1_scores_simt<<<dim3((N + TK - 1) / TK, chunks, B), B_NT, pass_b_smem(H), stream>>>(
       q, k, sb, sn, alive, bias, stat_m, stat_l, rnorm, col, part, cls, N, H, scale);
@@ -1026,20 +1139,16 @@ cudaError_t launch(const float* q, const float* k, const float* v, int64_t sb, i
 }  // namespace simt
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, int64_t sb, int64_t sn,
-                   const void* alive, const void* bias, void* out, void* col, void* cls,
-                   void* stat_m, void* stat_l, void* rnorm, void* part, int B, int N, int H,
-                   int chunks, float scale, cudaStream_t stream) {
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, int64_t sb, int64_t sn,
+                       const void* alive, const void* bias, void* out, void* stat_m,
+                       void* stat_l, void* rnorm, int B, int N, int H, float scale,
+                       cudaStream_t stream) {
   constexpr int ring_a = A_STAGES * 2 * KT * Op<T>::ROWB;
   const int smem_a = ring_a + (N + KT - 1) / KT * KT * 4;
-  const int smem_b = pass_b_smem<T>(H);
-  static bool configured = false;  // both attributes at their largest, once
+  static bool configured = false;  // the attribute at its largest, once
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         k1_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, ring_a + MAX_N * 4);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(k1_scores<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               pass_b_smem<T>(MAX_HEADS));
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -1050,7 +1159,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, int64_t sb, int6
       static_cast<const uint8_t*>(alive), static_cast<const float*>(bias),
       static_cast<T*>(out), static_cast<float*>(stat_m), static_cast<float*>(stat_l),
       static_cast<float*>(rnorm), N, H, scale);
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, int64_t sb, int64_t sn,
+                   const void* alive, const void* bias, void* out, void* col, void* cls,
+                   void* stat_m, void* stat_l, void* rnorm, void* part, int B, int N, int H,
+                   int chunks, float scale, cudaStream_t stream) {
+  const int smem_b = pass_b_smem<T>(H);
+  static bool configured = false;  // pass B's attribute at its largest, once
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        k1_scores<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, pass_b_smem<T>(MAX_HEADS));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  cudaError_t err = launch_fwd<T>(q, k, v, sb, sn, alive, bias, out, stat_m, stat_l, rnorm, B,
+                                  N, H, scale, stream);
   if (err != cudaSuccess) return err;
   const dim3 grid_b((N + PassB<T>::TK - 1) / PassB<T>::TK, chunks, B);
   k1_scores<T><<<grid_b, B_THREADS, smem_b, stream>>>(
@@ -1095,5 +1221,44 @@ extern "C" int k1_attention_scores(int dtype, const void* q, const void* k, cons
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(q, k, v, sb, sn, alive, bias, out, col, cls, stat_m,
                                       stat_l, rnorm, part, B, N, H, chunks, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The planes variant (above `k1_planes`): pass A into out, stat_m, stat_l,
+// rnorm ([B, H, N] fp32 scratch), then the rank's head-max plane [B, N-1,
+// N-1] and the CLS row's num and den [B, N-1], fp32.  Same inputs and limits
+// as `k1_attention_scores`.  Returns the cudaError_t of the launches.
+extern "C" int k1_attention_planes(int dtype, const void* q, const void* k, const void* v,
+                                   long long sb, long long sn, const void* alive,
+                                   const void* bias, void* out, void* plane, void* num,
+                                   void* den, void* stat_m, void* stat_l, void* rnorm, int B,
+                                   int N, int H, int Dh, float scale, void* stream) {
+  if (Dh != DH || N < 2 || N > MAX_N || B < 1 || H < 1 || H > MAX_HEADS || B > 65535 ||
+      (int64_t)B * H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* al = static_cast<const uint8_t*>(alive);
+  const float* bi = static_cast<const float*>(bias);
+  float *m = static_cast<float*>(stat_m), *l = static_cast<float*>(stat_l),
+        *r = static_cast<float*>(rnorm);
+  cudaError_t err;
+  if (dtype == 0) {
+    const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k);
+    err = simt::launch_fwd(qf, kf, static_cast<const float*>(v), sb, sn, al, bi,
+                           static_cast<float*>(out), m, l, r, B, N, H, scale, st);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_planes(qf, kf, sb, sn, al, bi, m, l, r, static_cast<float*>(plane),
+                              static_cast<float*>(num), static_cast<float*>(den), B, N, H,
+                              scale, st);
+  }
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    err = launch_fwd<T>(q, k, v, sb, sn, alive, bias, out, stat_m, stat_l, rnorm, B, N, H, scale,
+                        st);
+    if (err != cudaSuccess) return (int)err;
+    return (int)launch_planes(static_cast<const T*>(q), static_cast<const T*>(k), sb, sn, al, bi,
+                              m, l, r, static_cast<float*>(plane), static_cast<float*>(num),
+                              static_cast<float*>(den), B, N, H, scale, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,12 +6,22 @@ PNG is decoded here with ``zlib`` and numpy: 8-bit grey, grey with alpha,
 RGB and RGBA, not interlaced, all five row filters.  Alpha is dropped and
 grey is repeated into three channels, as Pillow's ``convert("RGB")`` does.
 Any other file goes through Pillow, imported at the call; without Pillow it
-raises an ``ImportError`` that names it."""
+raises an ``ImportError`` that names it.
+
+Under ``MADTP_NATIVE_JPEG=1`` or ``2`` a JPEG file is not decoded here: it
+comes back as an :class:`EncodedJpeg` (its bytes and size), which the
+transforms decode, crop and resize in one call of the port's own decoder
+(:mod:`madtp_tpu_torch.native`, built at the first use; a failed build
+raises).  A JPEG that decoder does not read (CMYK, say) is decoded by
+Pillow, that image alone (:func:`decode_pixels`)."""
 
 from __future__ import annotations
 
+import io
+import os
 import struct
 import zlib
+from typing import NamedTuple
 
 import numpy as np
 
@@ -97,17 +107,52 @@ def decode_png(blob: bytes) -> np.ndarray:
     return np.ascontiguousarray(rgb)
 
 
-def open_image(path: str) -> np.ndarray:
+class EncodedJpeg(NamedTuple):
+    """A JPEG file left encoded for the native decode: its bytes, width and
+    height."""
+
+    data: bytes
+    width: int
+    height: int
+
+
+def native_mode() -> int:
+    """``MADTP_NATIVE_JPEG``: 1 (the native decode, bit-equal to Pillow's), 2
+    (also the M/8 reduced-scale decode) or 0 (off, the default)."""
+    return {"1": 1, "2": 2}.get(os.environ.get("MADTP_NATIVE_JPEG", ""), 0)
+
+
+def _pillow(blob: bytes, name: str) -> np.ndarray:
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{name} is not a PNG file; decoding it needs PIL (Pillow), "
+                          "which is not installed") from e
+    with Image.open(io.BytesIO(blob)) as im:
+        return np.asarray(im.convert("RGB"), np.uint8)
+
+
+def decode_pixels(img) -> np.ndarray:
+    """uint8 HWC RGB pixels of an array (as it is) or an :class:`EncodedJpeg`
+    (decoded by Pillow)."""
+    if isinstance(img, EncodedJpeg):
+        return _pillow(img.data, "a JPEG stream")
+    return img
+
+
+def open_image(path: str):
     """The file's pixels as uint8 HWC RGB: PNG by the port's decoder, any
-    other format by Pillow."""
+    other format by Pillow; under ``MADTP_NATIVE_JPEG`` a JPEG file as an
+    :class:`EncodedJpeg` for the transforms' native decode."""
     with open(path, "rb") as f:
         blob = f.read()
     if blob.startswith(PNG_SIGNATURE):
         return decode_png(blob)
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(f"{path} is not a PNG file; decoding it needs PIL (Pillow), "
-                          "which is not installed") from e
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), np.uint8)
+    if blob.startswith(b"\xff\xd8") and native_mode():
+        from madtp_tpu_torch import native
+
+        try:
+            return EncodedJpeg(blob, *native.jpeg_dims(blob))
+        except native.UnsupportedJpeg:
+            pass
+    return _pillow(blob, path)

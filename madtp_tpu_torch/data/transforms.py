@@ -32,6 +32,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from madtp_tpu_torch.data.image import EncodedJpeg, decode_pixels, native_mode
+
 MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
@@ -339,13 +341,51 @@ def equalize(img: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def eval_resize_uint8(img: np.ndarray, image_size: int) -> np.ndarray:
+# ---------------------------------------------------------------------------
+# The native path (``MADTP_NATIVE_JPEG=1|2``, madtp_tpu_torch/native): a JPEG
+# from ``open_image`` (an ``EncodedJpeg``) decoded, cropped and resized in one
+# call, bit for bit Pillow's decode and resize at 1 (2 adds the M/8
+# reduced-scale decode); a decoded array resized by the same library.  A
+# JPEG its decoder refuses is decoded by Pillow and goes the array's way.
+# ---------------------------------------------------------------------------
+
+
+def _native(img, size: int, crop=None, norm: bool = False) -> Optional[np.ndarray]:
+    """The native path's result, or None when it is off."""
+    mode = native_mode()
+    if not mode:
+        return None
+    from madtp_tpu_torch import native
+
+    if isinstance(img, EncodedJpeg):
+        try:
+            fn = native.decode_resize_norm if norm else native.decode_resize
+            return fn(img.data, size, crop=crop, dct_scale=mode == 2)
+        except native.UnsupportedJpeg:
+            img = decode_pixels(img)
+    return (native.resize_norm if norm else native.resize)(img, size, crop=crop)
+
+
+def _size(img) -> Tuple[int, int]:
+    """``(width, height)`` of an array or an ``EncodedJpeg``."""
+    if isinstance(img, EncodedJpeg):
+        return img.width, img.height
+    return img.shape[1], img.shape[0]
+
+
+def eval_resize_uint8(img, image_size: int) -> np.ndarray:
     """Bicubic resize only, uint8 HWC (the ``--uint8_feed`` host side; the
     model normalizes on the device)."""
-    return resize_bicubic(img, (image_size, image_size))
+    out = _native(img, image_size)
+    if out is not None:
+        return out
+    return resize_bicubic(decode_pixels(img), (image_size, image_size))
 
 
-def eval_transform(img: np.ndarray, image_size: int) -> np.ndarray:
+def eval_transform(img, image_size: int) -> np.ndarray:
+    out = _native(img, image_size, norm=True)
+    if out is not None:
+        return out
     return normalize_chw(eval_resize_uint8(img, image_size))
 
 
@@ -367,16 +407,20 @@ def _random_crop_box(W: int, H: int, rng: random.Random, scale,
     return None
 
 
-def _crop_resize(img: np.ndarray, box, size: int) -> np.ndarray:
+def _crop_resize(img, box, size: int) -> np.ndarray:
+    out = _native(img, size, crop=box)
+    if out is not None:
+        return out
+    img = decode_pixels(img)
     if box is not None:
         x, y, w, h = box
         img = img[y:y + h, x:x + w]
     return resize_bicubic(img, (size, size))
 
 
-def random_resized_crop(img: np.ndarray, size: int, rng: random.Random,
+def random_resized_crop(img, size: int, rng: random.Random,
                         scale=(0.5, 1.0), ratio=(3 / 4, 4 / 3)) -> np.ndarray:
-    box = _random_crop_box(img.shape[1], img.shape[0], rng, scale, ratio)
+    box = _random_crop_box(*_size(img), rng, scale, ratio)
     return _crop_resize(img, box, size)
 
 
@@ -424,11 +468,11 @@ def rand_augment(img: np.ndarray, n: int, m: int, rng: random.Random,
     return img
 
 
-def _train_augmented(img: np.ndarray, image_size: int, rng: random.Random,
+def _train_augmented(img, image_size: int, rng: random.Random,
                      min_scale: float) -> np.ndarray:
     """RandomResizedCrop -> flip -> RandAugment(2, 5); the crop box is drawn
     before anything else, as in the JAX package."""
-    box = _random_crop_box(img.shape[1], img.shape[0], rng, (min_scale, 1.0))
+    box = _random_crop_box(*_size(img), rng, (min_scale, 1.0))
     cropped = _crop_resize(img, box, image_size)
     if rng.random() < 0.5:
         cropped = np.ascontiguousarray(cropped[:, ::-1])

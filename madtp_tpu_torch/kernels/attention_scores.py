@@ -11,6 +11,13 @@ plain PyTorch version of the same function is
 :func:`madtp_tpu_torch.ops.attention.attention_scores_plain`;
 :func:`madtp_tpu_torch.ops.attention.attention_scores` picks between the two
 by the device of its inputs.
+
+:func:`attention_planes_cuda` launches K1's planes variant, the scoring
+attention of a tensor-parallel MED on a rank's heads: pass A, then the rank's
+head-max plane and the CLS row's two partial sums, which the model group
+combines (:func:`madtp_tpu_torch.ops.attention.attention_scores`); its plain
+version is :func:`madtp_tpu_torch.ops.attention.attention_planes_plain`, and
+it counts its launches in ``attention_planes_cuda.launches``.
 """
 
 from __future__ import annotations
@@ -69,15 +76,31 @@ TOLERANCES = {
 }
 
 
-def _load():
+# (rtol, atol) of the planes variant against its plain version: the plane
+# and the CLS row's sums take the probabilities K1's pass A describes (its m
+# and l, the same as for col_mass and cls_attn), so they keep K1's
+# tolerances; num and den sum over a rank's heads only.
+PLANES_TOLERANCES = {
+    torch.float32: {"out": (1e-5, 1e-5), "plane": (1e-5, 1e-5), "num": (1e-5, 1e-5),
+                    "den": (1e-5, 1e-5)},
+    torch.bfloat16: {"out": (2e-2, 2e-2), "plane": (1e-4, 1e-4), "num": (1e-2, 1e-5),
+                     "den": (1e-2, 1e-5)},
+}
+
+
+def _load(symbol="k1_attention_scores"):
     from madtp_tpu_torch.kernels.build import build
 
     lib = build(SOURCE).lib
-    fn = lib.k1_attention_scores
+    fn = getattr(lib, symbol)
     if fn.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [i32, p, p, p, i64, i64, p, p, p, p, p, p, p, p, p,
-                       i32, i32, i32, i32, i32, ctypes.c_float, p]
+        if symbol == "k1_attention_scores":
+            fn.argtypes = [i32, p, p, p, i64, i64, p, p, p, p, p, p, p, p, p,
+                           i32, i32, i32, i32, i32, ctypes.c_float, p]
+        else:
+            fn.argtypes = [i32, p, p, p, i64, i64, p, p, p, p, p, p, p, p, p,
+                           i32, i32, i32, i32, ctypes.c_float, p]
         fn.restype = i32
     return fn
 
@@ -161,3 +184,41 @@ def attention_scores_cuda(q, k, v, key_alive, key_bias, scale: float, *,
 
 attention_scores_cuda.launches = 0
 attention_scores_cuda.large_n_launches = 0  # K3's range, N > LARGE_N
+
+
+def attention_planes_cuda(q, k, v, key_alive, key_bias, scale: float):
+    """Launch K1's planes variant on a rank's heads (inputs as for
+    :func:`attention_scores_cuda`, no gradient).  Returns ``(out [B, N,
+    H*Dh] in q's dtype, plane [B, N-1, N-1], num [B, N-1], den [B, N-1])``,
+    fp32 but ``out``: ``plane[b, i-1, n-1]`` the max over the heads of
+    ``P_h[i, n]`` at alive queries ``i`` (0 at dead ones), ``num`` the sum
+    over the heads of ``P_h[0, n] r_h[n]`` and ``den`` that of ``r_h[n]``,
+    ``r_h[n]`` the fp32 norm of the row of out.  A model group combines them
+    with a MAX and a SUM into ``col_mass`` and ``cls_attn``.  Raises on any
+    input the kernel does not take; it never falls back."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, key_bias)):
+        raise RuntimeError("attention_planes_cuda returns no gradient: tensor "
+                           "parallelism here is inference only")
+    _check(q, k, v, key_alive, key_bias, who="attention_planes_cuda")
+    fn = _load("k1_attention_planes")
+    B, N, H, Dh = q.shape
+    dev = q.device
+    out = torch.empty((B, N, H, Dh), dtype=q.dtype, device=dev)
+    plane = torch.empty((B, N - 1, N - 1), dtype=torch.float32, device=dev)
+    num = torch.empty((B, N - 1), dtype=torch.float32, device=dev)
+    den = torch.empty((B, N - 1), dtype=torch.float32, device=dev)
+    stats = torch.empty((3, B, H, N), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 q.stride(0), q.stride(1), key_alive.data_ptr(), key_bias.data_ptr(),
+                 out.data_ptr(), plane.data_ptr(), num.data_ptr(), den.data_ptr(),
+                 stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
+                 B, N, H, Dh, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"K1 planes launch failed with cudaError_t {err}")
+    attention_planes_cuda.launches += 1
+    return out.view(B, N, H * Dh), plane, num, den
+
+
+attention_planes_cuda.launches = 0

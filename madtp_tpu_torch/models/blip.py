@@ -31,7 +31,7 @@ from madtp_tpu_torch.core.config import BlipConfig
 from madtp_tpu_torch.core.device import resolve_device
 from madtp_tpu_torch.models.med import MedDecoder, MedEncoder, lm_loss
 from madtp_tpu_torch.models.vit import EncoderOut, VisionTransformer
-from madtp_tpu_torch.ops.layers import cosine_embedding_loss, draw_key, fold_in, linear
+from madtp_tpu_torch.ops.layers import cosine_embedding_loss, draw_key, fold_in, linear, tp_linear
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.train import losses as L
 from madtp_tpu_torch.train.losses import cross_entropy
@@ -114,7 +114,7 @@ class NLVRModel(nn.Module):
                               row_independent=row_independent, dropout_key=k_t)
         fc1, fc2 = self.cls_head[0], self.cls_head[2]
         h = torch.relu(linear(t.state.x[:, 0, :], fc1.weight, fc1.bias))
-        logits = linear(h, fc2.weight, fc2.bias)
+        logits = tp_linear(h, fc2)  # fc1, fc2 split over a tensor-parallel model's ranks
         if targets is not None:
             loss_ori = cross_entropy(logits, targets)
             loss_fdt = loss_ori

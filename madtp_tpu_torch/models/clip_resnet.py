@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from madtp_tpu_torch.ops.layers import linear
+from madtp_tpu_torch.ops.layers import linear, tp_linear
 
 BN_EPS = 1e-5
 
@@ -113,7 +113,7 @@ class AttentionPool2d(nn.Module):
         probs = torch.softmax(logits, dim=-1).to(vh.dtype)
         out = (probs.float() @ vh.float()).to(vh.dtype)  # [B, H, 1, Dh]
         out = out.transpose(1, 2).reshape(B, C)
-        return linear(out, self.c_proj.weight, self.c_proj.bias)
+        return tp_linear(out, self.c_proj)  # row-split under tensor parallelism
 
 
 class ModifiedResNet(nn.Module):

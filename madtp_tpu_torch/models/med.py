@@ -38,7 +38,8 @@ from madtp_tpu_torch.core.config import MedConfig
 from madtp_tpu_torch.models.vit import EncoderOut, _signals, _zeros_sd, placeholder_kept
 from madtp_tpu_torch.ops.attention import (attention_core, cross_attention,
                                            multi_head_attention)
-from madtp_tpu_torch.ops.layers import dropout, fold_in, gelu, layer_norm, linear, mlp, stream
+from madtp_tpu_torch.ops.layers import (dropout, fold_in, gelu, layer_norm, mlp, stream,
+                                        tp_linear)
 from madtp_tpu_torch.prune.dtp import (TokenState, dtp_prune, dtp_prune_gather,
                                        init_token_state)
 from madtp_tpu_torch.prune.query import query_model
@@ -47,7 +48,7 @@ PAD_BIAS = -10000.0
 
 
 def _lin(x, mod: nn.Linear):
-    return linear(x, mod.weight, mod.bias)
+    return tp_linear(x, mod)
 
 
 def _ln(x, mod: nn.LayerNorm):
@@ -106,6 +107,8 @@ class AttentionBlock(nn.Module):
     """Self-attention (``forward``) or single-stream cross-attention
     (``cross``), then output dense and residual LN."""
 
+    tp_group = None  # the model group of a tensor-parallel model (parallel/mesh.py)
+
     def __init__(self, cfg: MedConfig, kv_dim: int):
         super().__init__()
         self.num_heads = cfg.num_attention_heads
@@ -121,7 +124,7 @@ class AttentionBlock(nn.Module):
         out, aux = multi_head_attention(
             _lin(x, p.query), _lin(x, p.key), _lin(x, p.value), self.num_heads,
             key_alive=key_alive, key_bias=key_bias, need_scores=need_scores,
-            dropout_rate=rate, generator=gen)
+            dropout_rate=rate, generator=gen, group=self.tp_group)
         return self.close(out, x, out_rate, out_gen), aux
 
     def cross(self, x, enc: TokenState, key_bias=None):
@@ -162,6 +165,8 @@ class TwinOutput(nn.Module):
 
 class TwinCrossAttention(nn.Module):
     """NLVR twin cross-attention over two image streams."""
+
+    tp_group = None  # the model group of a tensor-parallel model (parallel/mesh.py)
 
     def __init__(self, cfg: MedConfig, merge: bool):
         super().__init__()
@@ -309,10 +314,12 @@ class DecodeCache(NamedTuple):
 
 
 def init_decode_cache(cfg: MedConfig, batch: int, max_len: int, dtype=torch.float32,
-                      device=None) -> DecodeCache:
-    """A zero cache of ``max_len`` slots (``init_decode_cache``)."""
+                      device=None, heads: Optional[int] = None) -> DecodeCache:
+    """A zero cache of ``max_len`` slots (``init_decode_cache``) for ``heads``
+    heads (all of them by default; a tensor-parallel decoder's rank holds its
+    share, :attr:`MedDecoder.heads`)."""
     H = cfg.num_attention_heads
-    shape = (cfg.num_hidden_layers, batch, H, max_len, cfg.hidden_size // H)
+    shape = (cfg.num_hidden_layers, batch, heads or H, max_len, cfg.hidden_size // H)
     return DecodeCache(*(torch.zeros(shape, dtype=dtype, device=device) for _ in range(2)))
 
 
@@ -349,6 +356,12 @@ class MedDecoder(nn.Module):
     def dtype(self) -> torch.dtype:
         """The compute dtype, that of the weights."""
         return self.bert.embeddings.word_embeddings.weight.dtype
+
+    @property
+    def heads(self) -> int:
+        """The attention heads this process computes: all of them, or a
+        tensor-parallel rank's share (:mod:`madtp_tpu_torch.parallel.mesh`)."""
+        return self.bert.encoder.layer[0].attention.num_heads
 
     def _memory(self, encoder_state: TokenState, dtype) -> TokenState:
         # the memory computes in the decoder's dtype (``_align``)

@@ -43,11 +43,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+from madtp_tpu_torch.kernels.attention_scores import attention_planes_cuda, attention_scores_cuda
 from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
 from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
 from madtp_tpu_torch.ops import layers
 from madtp_tpu_torch.ops.layers import linear
+from madtp_tpu_torch.parallel import dist
 
 
 class AttnAux(NamedTuple):
@@ -128,6 +129,43 @@ def attention_scores_plain(q, k, v, key_alive, key_bias, scale: float):
     return out, aux.cls_attn, aux.col_mass
 
 
+def attention_planes_plain(q, k, v, key_alive, key_bias, scale: float):
+    """The plain version of K1's planes variant
+    (:func:`~madtp_tpu_torch.kernels.attention_scores.attention_planes_cuda`):
+    ``q, k, v`` in [B, N, H, Dh] (a rank's heads); returns ``(out [B, N,
+    H*Dh], plane [B, N-1, N-1], num [B, N-1], den [B, N-1])``: the head-max
+    plane of the probabilities at alive queries (0 at dead ones), and the
+    CLS row's ``sum_h P_h[0, n] r_h[n]`` and ``sum_h r_h[n]``, fp32."""
+    B, N, H, Dh = q.shape
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    bias = None if key_bias is None else key_bias[:, None, None, :]
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    logits = logits.masked_fill(~key_alive[:, None, None, :], float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = torch.exp(logits - m)
+    probs = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    attn_out = torch.matmul(probs.to(vh.dtype), vh)
+    out = attn_out.transpose(1, 2).reshape(B, N, H * Dh)
+    r = torch.linalg.vector_norm(attn_out[:, :, 1:, :].float(), dim=-1)  # [B, H, N-1]
+    plane = probs[:, :, 1:, 1:].amax(dim=1) * key_alive[:, 1:, None].to(torch.float32)
+    num = (probs[:, :, 0, 1:] * r).sum(dim=1)
+    return out, plane, num, r.sum(dim=1)
+
+
+def combine_planes(plane, num, den, group):
+    """``(cls_attn, col_mass)`` over every head of a model ``group`` from
+    each rank's planes variant: the planes maxed, the CLS row's sums added
+    (one ``all_reduce`` each), then ``col_mass`` the plane summed over its
+    queries and ``cls_attn = num / (den + 1e-8)``, as ``attention_core``
+    forms them over all heads."""
+    dist.all_reduce(plane, "max", group)
+    sums = dist.all_reduce(torch.stack([num, den]), "sum", group)
+    return sums[0] / (sums[1] + 1e-8), plane.sum(dim=1)
+
+
 def attention_scores_bwd_plain(q, k, v, key_alive, key_bias, scale: float,
                                d_out, d_cls, d_col):
     """K2's plain version: the VJP of :func:`attention_scores_plain` by
@@ -173,7 +211,7 @@ class ScoringAttention(torch.autograd.Function):
         return dq, dk, dv, None, dbias, None
 
 
-def attention_scores(q, k, v, key_alive, key_bias=None, scale=None):
+def attention_scores(q, k, v, key_alive, key_bias=None, scale=None, group=None):
     """Scoring self-attention (counterpart of ``_fused_scores_diff`` /
     ``_fused_forward``).  ``q, k, v``: [B, N, H, Dh]; ``key_alive`` bool
     [B, N], also the query mask of ``col_mass``; ``key_bias`` [B, N] or None.
@@ -181,9 +219,24 @@ def attention_scores(q, k, v, key_alive, key_bias=None, scale=None):
     CUDA tensors go to the kernels, which raise on what they do not take:
     through :class:`ScoringAttention` when grad mode is on and an input
     requires a gradient, else straight to K1 (``no_grad``,
-    ``inference_mode``).  CPU tensors go to the plain version."""
+    ``inference_mode``).  CPU tensors go to the plain version.
+
+    ``group``: the heads are a rank's share of a tensor-parallel model group
+    (:mod:`madtp_tpu_torch.parallel.mesh`): K1's planes variant (or its
+    plain version on the CPU) runs on them and :func:`combine_planes` forms
+    ``cls_attn`` and ``col_mass`` over every head of the group; ``out``
+    stays the rank's heads.  Inference only."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if group is not None:
+        if q.is_cuda:
+            bias = (torch.zeros(key_alive.shape, dtype=torch.float32, device=q.device)
+                    if key_bias is None else key_bias.float().contiguous())
+            out, plane, num, den = attention_planes_cuda(q, k, v, key_alive.contiguous(),
+                                                         bias, scale)
+        else:
+            out, plane, num, den = attention_planes_plain(q, k, v, key_alive, key_bias, scale)
+        return (out, *combine_planes(plane, num, den, group))
     if q.is_cuda:
         bias = (torch.zeros(key_alive.shape, dtype=torch.float32, device=q.device)
                 if key_bias is None else key_bias.float().contiguous())
@@ -257,12 +310,14 @@ def cross_attention(q, k, v, key_alive, key_bias=None):
 def multi_head_attention(q, k, v, num_heads: int, *, key_alive=None,
                          key_bias=None, need_scores: bool = False,
                          dropout_rate: float = 0.0,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None, group=None):
     """Attention over projected ``q`` [B, Nq, D] and ``k, v`` [B, Nk, D]
     (views of a packed qkv tensor are fine).  With ``need_scores`` this is the
     scoring self-attention (:func:`attention_scores`), else the plain core;
     with probability dropout (``dropout_rate`` > 0 and a ``generator``) the
     plain core in both cases, the alive keys also its scores' queries.
+    ``group``: the heads are a rank's share of a tensor-parallel model
+    group, whose scores :func:`attention_scores` combines.
     Returns ``(out [B, Nq, D], AttnAux)``."""
     Dh = q.shape[-1] // num_heads
     qh, kh, vh = (t.unflatten(-1, (num_heads, Dh)) for t in (q, k, v))
@@ -273,7 +328,8 @@ def multi_head_attention(q, k, v, num_heads: int, *, key_alive=None,
                               need_scores=need_scores, dropout_rate=dropout_rate,
                               generator=generator)
     if need_scores:
-        out, cls_attn, col_mass = attention_scores(qh, kh, vh, key_alive, key_bias)
+        out, cls_attn, col_mass = attention_scores(qh, kh, vh, key_alive, key_bias,
+                                                   group=group)
         return out, AttnAux(cls_attn, col_mass)
     return attention_core(qh.transpose(1, 2), kh.transpose(1, 2),
                           vh.transpose(1, 2), key_bias=key_bias,

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 
 from madtp_tpu_torch.kernels.ffn import ffn_cuda
@@ -35,6 +36,35 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     y = F.linear(x.float(), weight.float(),
                  None if bias is None else bias.float())
     return y.to(x.dtype)
+
+
+def reduce_partial(y: torch.Tensor, bias: Optional[torch.Tensor], group) -> torch.Tensor:
+    """A row-split layer's output (:mod:`madtp_tpu_torch.parallel.mesh`):
+    the ranks' partial sums ``y`` added in fp32 by one ``all_reduce`` over
+    the model ``group``, then ``bias`` added once, rounded to ``y``'s dtype
+    once."""
+    from madtp_tpu_torch.parallel.dist import all_reduce
+
+    out = all_reduce(y.float(), "sum", group)
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(y.dtype)
+
+
+def tp_linear(x: torch.Tensor, mod: torch.nn.Linear) -> torch.Tensor:
+    """:func:`linear` of a module's weights; a row-split linear of a
+    tensor-parallel model (``mod.tp_group`` set) computes its partial sum
+    and completes it with :func:`reduce_partial`.  Its input is the split
+    layer's output, the rank's features; where it holds every feature
+    instead (CLIP RN's attention pool, whose projections are not split),
+    the rank takes its own features of it first."""
+    group = getattr(mod, "tp_group", None)
+    if group is None:
+        return linear(x, mod.weight, mod.bias)
+    width = mod.weight.shape[1]
+    if x.shape[-1] != width:
+        x = x.narrow(-1, tdist.get_rank(group) * width, width)
+    return reduce_partial(linear(x, mod.weight), mod.bias, group)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -175,7 +205,23 @@ def mlp(x: torch.Tensor, fc1: torch.nn.Linear, fc2: torch.nn.Linear,
 
     fp32 activations over weights of another dtype compute in fp32 with the
     weights upcast, as JAX's ``linear`` computes such a mix: the amp ViT's
-    residual stream after the drop-path's promotion (:func:`drop_path`)."""
+    residual stream after the drop-path's promotion (:func:`drop_path`).
+
+    In a tensor-parallel model (``fc2.tp_group`` set) ``fc1`` and ``fc2``
+    hold the rank's ``F / n_model`` hidden features: K5 (or the plain
+    version) runs on them with a zero ``b2`` and :func:`reduce_partial` adds
+    the ranks' outputs and ``b2``.  Inference only."""
+    group = getattr(fc2, "tp_group", None)
+    if group is not None:
+        w2b = fc2.bias
+        zero = torch.zeros_like(w2b)
+        if x.is_cuda:
+            x2 = x.reshape(-1, x.shape[-1]).contiguous()
+            y = ffn_cuda(x2, fc1.weight, fc1.bias, fc2.weight, zero, act)
+            y = y.view(*x.shape[:-1], y.shape[-1])
+        else:
+            y = mlp_plain(x, fc1.weight, fc1.bias, fc2.weight, zero, act)
+        return reduce_partial(y, w2b, group)
     w1, b1, w2, b2 = fc1.weight, fc1.bias, fc2.weight, fc2.bias
     if x.dtype == torch.float32 and w1.dtype != torch.float32:
         w1, b1, w2, b2 = (None if t is None else t.float() for t in (w1, b1, w2, b2))

@@ -41,25 +41,28 @@ from madtp_tpu_torch.parallel import dist
 
 class _Scope:
     active = False
+    group = None  # the ranks :func:`batch_max` spans; None: every rank
 
 
 _SCOPE = _Scope()
 
 
 @contextlib.contextmanager
-def global_batch():
+def global_batch(group=None):
     """The train steps run in this block span every rank's batch: DTP counts
     are maxed and gradients reduced over the ranks.  With one process it
-    changes nothing."""
-    if dist.process_count() <= 1:
+    changes nothing.  ``group`` (a mesh's data group,
+    :func:`madtp_tpu_torch.parallel.mesh.data_scope`): DTP's counts are maxed
+    over its ranks only."""
+    if group is None and dist.process_count() <= 1:
         yield
         return
-    prev = _SCOPE.active
-    _SCOPE.active = True
+    prev = _SCOPE.active, _SCOPE.group
+    _SCOPE.active, _SCOPE.group = True, group
     try:
         yield
     finally:
-        _SCOPE.active = prev
+        _SCOPE.active, _SCOPE.group = prev
 
 
 def spans() -> bool:
@@ -79,7 +82,7 @@ def batch_max(*counts: torch.Tensor) -> Sequence[torch.Tensor]:
         return counts
     _not_captured(counts[0], "a global-batch DTP count")
     t = torch.stack([c.reshape(()).to(torch.int64) for c in counts])
-    return tuple(dist.all_reduce(t, "max").unbind(0))
+    return tuple(dist.all_reduce(t, "max", _SCOPE.group).unbind(0))
 
 
 def batch_rows(n: int) -> Tuple[int, int]:

@@ -133,11 +133,13 @@ def _gather_list(t: torch.Tensor) -> List[torch.Tensor]:
     return out
 
 
-def all_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """In-place ``all_reduce`` of ``t`` with ``op`` (``"sum"`` or ``"max"``)
-    over every rank; returns ``t``."""
+    over every rank, or over the ranks of ``group`` (a mesh axis,
+    :mod:`madtp_tpu_torch.parallel.mesh`); returns ``t``."""
     if tdist.is_initialized():
-        tdist.all_reduce(t, op={"sum": tdist.ReduceOp.SUM, "max": tdist.ReduceOp.MAX}[op])
+        tdist.all_reduce(t, op={"sum": tdist.ReduceOp.SUM, "max": tdist.ReduceOp.MAX}[op],
+                         group=group)
     return t
 
 

@@ -3,7 +3,9 @@
 and :mod:`.server` for the wire protocol."""
 
 from madtp_tpu_torch.serve.artifact import (  # noqa: F401
+    MeshServingModel,
     ServingModel,
+    follow,
     load_artifact,
     save_artifact,
 )

@@ -69,8 +69,8 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from madtp_tpu_torch.serve.artifact import (META_FILE, WEIGHTS_FILE, dtype_name,
-                                            load_artifact, torch_dtype)
+from madtp_tpu_torch.serve.artifact import (META_FILE, WEIGHTS_FILE, MeshServingModel,
+                                            dtype_name, load_artifact, torch_dtype)
 
 ML_DTYPES_KEY = "__ml_dtypes_json__"  # madtp_tpu/ckpt/export.py ML_DTYPES_KEY
 
@@ -269,8 +269,8 @@ class _ModelRuntime:
     ``overflow_max`` (the largest excess seen)."""
 
     def __init__(self, art_dir: str, device_lock: threading.Lock, *, aggregate: bool,
-                 request_timeout: float, device="cuda"):
-        self.model = load_artifact(art_dir, device, lock=device_lock)
+                 request_timeout: float, device="cuda", name: str = ""):
+        self.model = load_artifact(art_dir, device, lock=device_lock, name=name)
         self._inputs = [(shape, torch_dtype(d)) for shape, d in self.model.meta["inputs"]]
         self._bat = self.model.meta.get("batching")
         self._aggregate = bool(aggregate and self._bat and any(self._bat["inputs"])
@@ -300,6 +300,8 @@ class _ModelRuntime:
 
     def close(self):
         with self._cond:
+            if self._closing:
+                return
             self._closing = True
             self._cond.notify_all()
         if self._dispatcher is not None:
@@ -512,7 +514,7 @@ class ArtifactServer(ThreadingHTTPServer):
         self._lock = threading.Lock()  # one card, one call stream
         self.runtimes = {
             name: _ModelRuntime(d, self._lock, aggregate=aggregate,
-                                request_timeout=request_timeout, device=device)
+                                request_timeout=request_timeout, device=device, name=name)
             for name, d in artifacts.items()}
         self.default = next(iter(self.runtimes.values())) if len(self.runtimes) == 1 else None
         super().__init__((host, port), _Handler)
@@ -546,6 +548,17 @@ class ArtifactServer(ThreadingHTTPServer):
         for rt in self.runtimes.values():
             rt.close()
         super().shutdown()
+
+    def server_close(self):
+        """Close the socket and release the other ranks of mesh artifacts
+        (:func:`~madtp_tpu_torch.serve.artifact.follow`)."""
+        super().server_close()
+        for rt in self.runtimes.values():
+            rt.close()
+        meshes = [rt.model for rt in self.runtimes.values()
+                  if isinstance(rt.model, MeshServingModel)]
+        if meshes:
+            meshes[0].close()
 
     def start_background(self) -> threading.Thread:
         t = threading.Thread(target=self.serve_forever, daemon=True)

@@ -102,7 +102,7 @@ def beam_generate(decoder: MedDecoder, enc_state: TokenState, prompt_ids: torch.
     dev = prompt_ids.device
     enc = decoder._memory(_expand_state(enc_state, nb), decoder.dtype)
     memory = decoder.memory_kv(enc)
-    cache = init_decode_cache(decoder.cfg, B * nb, T, decoder.dtype, dev)
+    cache = init_decode_cache(decoder.cfg, B * nb, T, decoder.dtype, dev, decoder.heads)
     positions = torch.arange(T, device=dev)
     vocab = torch.arange(V, device=dev)
     row_base = torch.arange(B, device=dev)[:, None] * nb
@@ -210,7 +210,7 @@ def nucleus_generate(decoder: MedDecoder, enc_state: TokenState, prompt_ids: tor
         noise = nucleus_noise(T - Lp, B, V, generator=generator, device=dev)
     enc = decoder._memory(enc_state, decoder.dtype)
     memory = decoder.memory_kv(enc)
-    cache = init_decode_cache(decoder.cfg, B, T, decoder.dtype, dev)
+    cache = init_decode_cache(decoder.cfg, B, T, decoder.dtype, dev, decoder.heads)
     positions = torch.arange(T, device=dev)
     vocab = torch.arange(V, device=dev)
     seqs = torch.full((B, T), pad_token_id, dtype=prompt_ids.dtype, device=dev)

@@ -85,17 +85,21 @@ def corpus_steps(model: RetrievalModel, prune_active: bool,
 
 
 def itm_step(model: RetrievalModel, prune_active: bool,
-             capacities_t: Optional[Sequence[int]] = None, *, row_independent: bool = False):
+             capacities_t: Optional[Sequence[int]] = None, *, row_independent: bool = False,
+             graph: bool = True):
     """The ITM rerank unit (``rerank_fn`` of ``madtp_tpu/cli/
     export_serving.py``): ``step(ids, mask, x, alive, temperature) ->
     scores [n]``, row ``i`` text ``i`` against image state ``i`` (``x``,
-    ``alive`` as the image step gives them), captured."""
+    ``alive`` as the image step gives them), captured (``graph=False``:
+    eager)."""
     @torch.inference_mode()
     def step(ids, mask, x, alive, t):
         return model.itm_score(ids.long(), mask.long(), TokenState(x, alive, None),
                                temperature=t, prune_active=prune_active,
                                capacities=capacities_t, row_independent=row_independent)
 
+    if not graph:
+        return step
     return CapturedStep(step, "retrieval_itm", model,
                         static=(prune_active, capacities_t, row_independent))
 

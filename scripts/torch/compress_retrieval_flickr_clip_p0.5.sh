@@ -1,0 +1,26 @@
+#!/bin/bash
+# The port's run of scripts/compress_retrieval_flickr_clip_p0.5.sh:
+# python -m madtp_tpu_torch.cli.compress_retrieval_clip with the same flags, one process
+# per visible card (rank r on card r, joined through --num_processes /
+# --process_id / --coordinator).  NUM_CARDS and MADTP_PORT override the
+# card count and the coordinator's port.
+# NOTE: --p 0.55 != the filename's p0.5 — this mirrors the reference's own
+# scripts/compress_retrieval_flickr_clip_p0.5.sh (its released runs used the adjusted ratio).
+N=${NUM_CARDS:-$(nvidia-smi -L 2>/dev/null | grep -c '^GPU')}
+N=$(( N > 0 ? N : 1 ))
+PORT=${MADTP_PORT:-29500}
+pids=()
+for r in $(seq 0 $((N - 1))); do
+    python -m madtp_tpu_torch.cli.compress_retrieval_clip \
+        --fast_train \
+        --p 0.55 \
+        --epoch 5 \
+        --pretrained pretrained/clip_large_retrieval_flickr.pth \
+        --config configs/retrieval_flickr_clip.yaml \
+        --output_dir output/retrieval_flickr_clip_compression_p0.55 \
+        --num_processes "$N" --process_id "$r" --coordinator "127.0.0.1:$PORT" &
+    pids+=($!)
+done
+status=0
+for p in "${pids[@]}"; do wait "$p" || status=$?; done
+exit "$status"

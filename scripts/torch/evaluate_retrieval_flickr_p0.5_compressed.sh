@@ -1,0 +1,23 @@
+#!/bin/bash
+# The port's run of scripts/evaluate_retrieval_flickr_p0.5_compressed.sh:
+# python -m madtp_tpu_torch.cli.compress_retrieval with the same flags, one process
+# per visible card (rank r on card r, joined through --num_processes /
+# --process_id / --coordinator).  NUM_CARDS and MADTP_PORT override the
+# card count and the coordinator's port.
+N=${NUM_CARDS:-$(nvidia-smi -L 2>/dev/null | grep -c '^GPU')}
+N=$(( N > 0 ? N : 1 ))
+PORT=${MADTP_PORT:-29500}
+pids=()
+for r in $(seq 0 $((N - 1))); do
+    python -m madtp_tpu_torch.cli.compress_retrieval \
+        --fast_eval \
+        --evaluate \
+        --config configs/retrieval_flickr.yaml \
+        --pretrained output/retrieval_flickr_compression_p0.5/model_base_retrieval_flickr_p0.5_compressed.pth \
+        --output_dir output/retrieval_flickr_compression_p0.5 \
+        --num_processes "$N" --process_id "$r" --coordinator "127.0.0.1:$PORT" &
+    pids+=($!)
+done
+status=0
+for p in "${pids[@]}"; do wait "$p" || status=$?; done
+exit "$status"

@@ -23,7 +23,8 @@ def _port_modules():
 def test_port_imports_without_jax():
     assert {"madtp_tpu_torch.tasks.vqa", "madtp_tpu_torch.models.med",
             "madtp_tpu_torch.tasks.caption", "madtp_tpu_torch.prune.sparsemax",
-            "madtp_tpu_torch.utils.profiling", "madtp_tpu_torch.ckpt.convert"} <= \
+            "madtp_tpu_torch.utils.profiling", "madtp_tpu_torch.ckpt.convert",
+            "madtp_tpu_torch.parallel.mesh", "madtp_tpu_torch.native"} <= \
         set(_port_modules())
     code = (
         "import importlib, sys\n"

@@ -1124,3 +1124,66 @@ def test_dropout_step_at_rate_zero_is_the_plain_step(cuda):
     a = run(True)
     assert attention_scores_cuda.launches - k1 == 4
     _same_step(a, run(False))
+
+
+def _planes_compare(q, k, v, alive, bias):
+    from madtp_tpu_torch.kernels.attention_scores import (PLANES_TOLERANCES,
+                                                          attention_planes_cuda)
+    from madtp_tpu_torch.ops.attention import attention_planes_plain
+
+    bias_in = torch.zeros(alive.shape, device=q.device) if bias is None else bias
+    scale = q.shape[-1] ** -0.5
+    before = attention_planes_cuda.launches
+    with torch.no_grad():
+        got = attention_planes_cuda(q, k, v, alive, bias_in, scale)
+    assert attention_planes_cuda.launches == before + 1
+    want = attention_planes_plain(q, k, v, alive, bias, scale)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out", "plane", "num", "den"), got, want):
+        rtol, atol = PLANES_TOLERANCES[q.dtype][name]
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{name}: {m}")
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,with_bias", [
+    (32, 26, 6, True), (32, 40, 6, True), (16, 35, 6, False), (3, 2, 6, True),
+    (2, 70, 8, False)])
+def test_k1_planes_match_plain(cuda, B, N, H, with_bias, dtype):
+    """K1's planes variant (a tensor-parallel MED's scoring attention on a
+    rank's heads: BLIP's 12 heads at n_model = 2, the text side's 26-40
+    slots; and N past one 32-slot tile) against its plain version; the
+    planes of two head halves combine into K1's own col_mass and cls_attn,
+    and a relaunch gives the same bits."""
+    q, k, v, alive, bias = k1_case(B, N, with_bias=with_bias, dtype=dtype, device=cuda, H=H)
+    halves = [_planes_compare(*(t[:, :, s] for t in (q, k, v)), alive, bias)
+              for s in (slice(0, H // 2), slice(H // 2, H))]
+    full = _compare(q, k, v, alive, bias)
+    plane = torch.maximum(halves[0][1], halves[1][1])
+    num, den = halves[0][2] + halves[1][2], halves[0][3] + halves[1][3]
+    tol = TOLERANCES[dtype]
+    torch.testing.assert_close(plane.sum(dim=1), full[2], rtol=tol["col_mass"][0],
+                               atol=tol["col_mass"][1])
+    torch.testing.assert_close(num / (den + 1e-8), full[1], rtol=tol["cls_attn"][0],
+                               atol=tol["cls_attn"][1])
+    from madtp_tpu_torch.kernels.attention_scores import attention_planes_cuda
+
+    bias_in = torch.zeros(alive.shape, device=cuda) if bias is None else bias
+    with torch.no_grad():
+        again = attention_planes_cuda(q[:, :, :H // 2], k[:, :, :H // 2], v[:, :, :H // 2],
+                                      alive, bias_in, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(again, halves[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,F,act", [
+    (32 * 584, 768, 1536, "gelu"), (16 * 40, 768, 1536, "gelu"), (1, 768, 1536, "gelu"),
+    (8 * 577, 1024, 2048, "quick_gelu"), (16 * 77, 1024, 2048, "quick_gelu")])
+def test_k5_at_tensor_parallel_shapes(cuda, M, D, F, act, dtype):
+    """K5 on a rank's half of the FFN at n_model = 2, with the zero b2 the
+    tensor-parallel route passes: BLIP's F = 1536 (the ViT's and the MED's
+    rows, one row) and CLIP-L's F = 2048, shapes no one-card path gives fp32
+    K5's per-shape plan."""
+    x, w1, b1, w2, b2 = k5_case(M, D, F, cuda, dtype=dtype)
+    _k5_compare(x, w1, b1, w2, torch.zeros_like(b2), act)

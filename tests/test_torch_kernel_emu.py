@@ -1,6 +1,7 @@
-"""K1, K2, fp32 K4 and fp32 K5, the CUDA sources themselves, run on the CPU
-through the emulator of ``tests/cuda_emu.h`` (g++; skipped without it)
-against their plain versions and the JAX package's ``attention_core``,
+"""K1 (and its tensor-parallel planes variant), K2, fp32 K4 and fp32 K5, the
+CUDA sources themselves, run on the CPU through the emulator of
+``tests/cuda_emu.h`` (g++; skipped without it) against their plain versions
+and the JAX package's ``attention_core``,
 ``fused_cross_attention`` and ``fused_mlp_2d``, fp32 (K1, K4 and K5 on the
 CUDA cores, K2 as 3xTF32 on the emulated tensor cores) and bf16, at small
 shapes that cross the tiles' edges and take pass B's and pass M's query
@@ -120,6 +121,38 @@ def test_k1_source_matches_plain_and_jax(kernels, B, N, H, with_bias, dead_row, 
             np.testing.assert_allclose(g.numpy(), j, rtol=rtol, atol=atol)
     if dead_row:
         assert not got[0][-1].float().any() and not got[2][-1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,with_bias,dead_row", [(2, 40, 2, True, True),
+                                                     (1, 70, 3, False, False)])
+def test_k1_planes_source_matches_plain(B, N, H, with_bias, dead_row, dtype):
+    """K1's planes variant (``k1_attention_planes``: pass A and
+    ``k1_planes``) on the emulator against its plain version, the text
+    side's 40 slots and 70 (past one 32-slot tile of the planes)."""
+    from madtp_tpu_torch.kernels.attention_scores import PLANES_TOLERANCES
+    from madtp_tpu_torch.ops.attention import attention_planes_plain
+
+    if not cuda_emu.available():
+        pytest.skip("needs g++ for the CPU emulator")
+    fn = cuda_emu.build(CSRC / "attention_scores.cu").k1_attention_planes
+    fn.argtypes = [I32, P, P, P, I64, I64] + [P] * 9 + [I32] * 4 + [ctypes.c_float, P]
+    fn.restype = I32
+    q, k, v, alive, bias, scale = _case(B, N, H, dtype, with_bias, dead_row)
+    bias_in = torch.zeros(B, N) if bias is None else bias
+    out = torch.empty(B, N, H, 64, dtype=dtype)
+    plane, num, den = torch.empty(B, N - 1, N - 1), torch.empty(B, N - 1), torch.empty(B, N - 1)
+    stats = torch.empty(3, B, H, N)
+    assert fn(_DTYPES[dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
+              alive.data_ptr(), bias_in.data_ptr(), out.data_ptr(), plane.data_ptr(),
+              num.data_ptr(), den.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+              stats[2].data_ptr(), B, N, H, 64, scale, None) == 0
+    want = attention_planes_plain(q, k, v, alive, bias, scale)
+    for name, g, w in zip(("out", "plane", "num", "den"), (out.view(B, N, -1), plane, num, den),
+                          want):
+        rtol, atol = PLANES_TOLERANCES[dtype][name]
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{name}: {m}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

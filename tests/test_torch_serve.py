@@ -15,8 +15,8 @@ against the JAX package on the CPU, at tiny sizes (fp32).
   batching and capacities.
 * ``rebind`` gives the outputs of a fresh load of the new weights.
 
-The counterparts of ``tests/test_serve.py``; its mesh test has none: mesh
-artifacts wait for multi-process support (ROADMAP A.6)."""
+The counterparts of ``tests/test_serve.py``; its mesh test's counterpart is
+in ``tests/test_torch_tp.py``."""
 
 import functools
 import os
