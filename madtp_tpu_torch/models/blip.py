@@ -35,6 +35,7 @@ from madtp_tpu_torch.ops.layers import cosine_embedding_loss, draw_key, fold_in,
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.train import losses as L
 from madtp_tpu_torch.train.losses import cross_entropy
+from madtp_tpu_torch.utils import profiling
 
 
 class NLVROut(NamedTuple):
@@ -93,7 +94,9 @@ class NLVRModel(nn.Module):
         ``blip_nlvr_forward``) ``(loss_ori, loss_fdt, logits)`` instead:
         the fp32 cross-entropy of the logits and, when pruning, the FDT
         alignment loss between the two images' averaged MAG features and the
-        text's (else ``loss_ori`` again).
+        text's (else ``loss_ori`` again).  That branch keeps the towers' kept
+        counts as the counters ``kept.vision`` and ``kept.text``
+        (:func:`~madtp_tpu_torch.utils.profiling.count`).
 
         ``generator`` (training): the reference recipe's drop-path in the
         image tower and dropout in the text tower, from one key drawn from it
@@ -116,6 +119,8 @@ class NLVRModel(nn.Module):
         h = torch.relu(linear(t.state.x[:, 0, :], fc1.weight, fc1.bias))
         logits = tp_linear(h, fc2)  # fc1, fc2 split over a tensor-parallel model's ranks
         if targets is not None:
+            profiling.count("kept.vision", v.kept_counts)
+            profiling.count("kept.text", t.kept_counts)
             loss_ori = cross_entropy(logits, targets)
             loss_fdt = loss_ori
             if prune_active and v.sd_ft is not None and t.sd_ft is not None:

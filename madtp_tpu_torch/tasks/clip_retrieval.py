@@ -35,6 +35,7 @@ from madtp_tpu_torch.parallel import data, dist
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.flops import clip_gflops
 from madtp_tpu_torch.train.epoch import run_epoch
+from madtp_tpu_torch.utils import profiling
 from madtp_tpu_torch.utils.graph import CapturedStep
 
 BATCH_SIZE_TEST = 32  # configs/retrieval_*_clip.yaml batch_size_test
@@ -118,20 +119,25 @@ def encode_towers(model: CLIPModel, image_batches: Iterable[np.ndarray], text: n
     [Lt])`` as numpy: L2-normalised features (normalised in the model's
     dtype, returned as fp32) and the kept counts of the last batch of each
     tower.  Each batch of each tower is a captured step (``graph=False``:
-    eagerly)."""
+    eagerly).  Each upload is the span ``feed`` (an image batch's of its
+    index), the final read the span ``readback``."""
     dev = _device(model)
     img_step, txt_step = tower_steps(model, prune_active, capacities_v, graph=graph)
     img, txt = [], []
     v_kept = t_kept = None
-    for images in image_batches:
-        feat, v_kept = img_step(torch.from_numpy(np.asarray(images)).to(dev), temperature)
+    for i, images in enumerate(image_batches):
+        with profiling.span("feed", i):
+            x = torch.from_numpy(np.asarray(images)).to(dev)
+        feat, v_kept = img_step(x, temperature)
         img.append(feat)
-    ids = torch.as_tensor(np.asarray(text), dtype=torch.long).to(dev)
+    with profiling.span("feed"):
+        ids = torch.as_tensor(np.asarray(text), dtype=torch.long).to(dev)
     for i in range(0, ids.shape[0], batch_size):
         feat, t_kept = txt_step(ids[i:i + batch_size], temperature)
         txt.append(feat)
-    return (torch.cat(img).float().cpu().numpy(), torch.cat(txt).float().cpu().numpy(),
-            v_kept.cpu().numpy(), t_kept.cpu().numpy())
+    with profiling.span("readback"):
+        return (torch.cat(img).float().cpu().numpy(), torch.cat(txt).float().cpu().numpy(),
+                v_kept.cpu().numpy(), t_kept.cpu().numpy())
 
 
 def encode_towers_sharded(model: CLIPModel, image_blocks: Callable[[int, int], Iterable],
@@ -198,18 +204,20 @@ def train_epoch(model: CLIPModel, train_step, loader_fn: Callable[[], Iterable],
     shard).  Returns the stats of
     :func:`~madtp_tpu_torch.train.epoch.run_epoch`: the means of
     ``temperature``, ``lr``, ``alpha``, ``loss``, ``loss_ita``,
-    ``loss_fdt`` and ``loss_fdt_m``, and ``batches_done``."""
+    ``loss_fdt`` and ``loss_fdt_m``, and ``batches_done``.  A step's
+    tokenizing and uploads are the span ``feed`` of its index."""
     dev = _device(model)
     context = model.cfg.context_length
 
     def run_step(done, batch):
         images, captions, img_idx = batch
-        text = clip_tokenize(tokenizer, list(captions), context)
+        with profiling.span("feed", done):
+            text = clip_tokenize(tokenizer, list(captions), context)
+            x = (torch.from_numpy(np.asarray(images)).to(dev),
+                 torch.from_numpy(text.astype(np.int64)).to(dev),
+                 torch.as_tensor(np.asarray(img_idx), dtype=torch.long).to(dev))
         a = alpha if epoch > 0 else alpha * min(1.0, (done0 + done) / max(1, epoch_len))
-        metrics = train_step(torch.from_numpy(np.asarray(images)).to(dev),
-                             torch.from_numpy(text.astype(np.int64)).to(dev),
-                             torch.as_tensor(np.asarray(img_idx), dtype=torch.long).to(dev),
-                             temperature, a)
+        metrics = train_step(*x, temperature, a)
         return dict(metrics, alpha=a)
 
     with data.global_batch():

@@ -20,6 +20,7 @@ from madtp_tpu_torch.parallel import data, dist
 from madtp_tpu_torch.prune.calibrate import fast_capacity_schedule
 from madtp_tpu_torch.prune.flops import nlvr_gflops
 from madtp_tpu_torch.train.epoch import run_epoch
+from madtp_tpu_torch.utils import profiling
 from madtp_tpu_torch.utils.graph import CapturedStep
 
 
@@ -47,13 +48,15 @@ def make_eval_step(model: NLVRModel, prune_active: bool,
 def _device_batch(image0, image1, sentences, tokenize, enc_token_id, device):
     """Images ``[2B, ...]`` (first images, then second ones), ids with the
     encoder token at slot 0 (reference ``models/blip_nlvr.py:69``) and the
-    mask, on ``device``; returns them and the text length."""
-    ids, mask = tokenize(sentences)
-    ids = np.array(ids)
-    ids[:, 0] = enc_token_id
-    images = torch.from_numpy(np.concatenate([image0, image1], axis=0))
-    return (images.to(device), torch.from_numpy(ids).to(device),
-            torch.from_numpy(np.asarray(mask)).to(device)), ids.shape[1]
+    mask, on ``device``; returns them and the text length.  The span
+    ``feed``."""
+    with profiling.span("feed"):
+        ids, mask = tokenize(sentences)
+        ids = np.array(ids)
+        ids[:, 0] = enc_token_id
+        images = torch.from_numpy(np.concatenate([image0, image1], axis=0))
+        return (images.to(device), torch.from_numpy(ids).to(device),
+                torch.from_numpy(np.asarray(mask)).to(device)), ids.shape[1]
 
 
 def evaluate(model: NLVRModel, loader_fn: Callable[[], Iterable], tokenize,
@@ -68,7 +71,8 @@ def evaluate(model: NLVRModel, loader_fn: Callable[[], Iterable], tokenize,
     count summed over batches.  Each batch runs as a captured step
     (``graph=False``: eagerly).  Under several processes each rank
     evaluates its own loader's shard and every rank returns the totals over
-    all of them."""
+    all of them.  A batch's read-back is the span ``readback`` of its
+    index."""
     cfg = model.cfg
     device = model.space_dict.device
     step = make_eval_step(model, prune_active, capacities_v, capacities_t, graph=graph)
@@ -76,18 +80,19 @@ def evaluate(model: NLVRModel, loader_fn: Callable[[], Iterable], tokenize,
 
     def consume(pend):
         nonlocal correct, seen, gflops_sum, n_batches, overflow
-        out, targets, text_w = pend
-        preds = out.logits.float().argmax(-1).cpu().numpy()
-        correct += int((preds == np.asarray(targets)).sum())
-        seen += len(targets)
-        if prune_active:
-            g = nlvr_gflops(cfg.vit, cfg.med, out.v_kept.cpu().numpy(),
-                            out.t_kept.cpu().numpy(), text_w)
-        else:
-            g = nlvr_gflops(cfg.vit, cfg.med, [cfg.vit.num_patches] * cfg.vit.depth,
-                            [text_w - 1] * cfg.med.num_hidden_layers, text_w)
-        if out.overflow is not None:
-            overflow += int(out.overflow)
+        i, out, targets, text_w = pend
+        with profiling.span("readback", i):
+            preds = out.logits.float().argmax(-1).cpu().numpy()
+            correct += int((preds == np.asarray(targets)).sum())
+            seen += len(targets)
+            if prune_active:
+                g = nlvr_gflops(cfg.vit, cfg.med, out.v_kept.cpu().numpy(),
+                                out.t_kept.cpu().numpy(), text_w)
+            else:
+                g = nlvr_gflops(cfg.vit, cfg.med, [cfg.vit.num_patches] * cfg.vit.depth,
+                                [text_w - 1] * cfg.med.num_hidden_layers, text_w)
+            if out.overflow is not None:
+                overflow += int(out.overflow)
         gflops_sum += g
         n_batches += 1
 
@@ -98,7 +103,7 @@ def evaluate(model: NLVRModel, loader_fn: Callable[[], Iterable], tokenize,
         out = step(*batch, temperature)
         if pending is not None:
             consume(pending)
-        pending = (out, targets, text_w)
+        pending = (i, out, targets, text_w)
         if print_freq and i % print_freq == 0:
             print_fn(f"Evaluation: [{i}]")
     if pending is not None:
@@ -128,17 +133,20 @@ def train_epoch(model: NLVRModel, train_step, loader_fn: Callable[[], Iterable],
     updates the model in place.  Step ``i``'s losses are read back after
     step ``i+1`` is dispatched (a one-deep lag), so the host does not wait
     on the card every step.  ``stop()`` is polled after each step, so a
-    stopped epoch counts every batch it trained exactly once.
+    stopped epoch counts every batch it trained exactly once.  A step's
+    upload, its targets' included, is the span ``feed`` of its index.
 
     Returns the stats: the mean of ``temperature``, ``lr``, ``loss``,
     ``loss_ori`` and ``loss_fdt`` as ``"%.4f"`` strings, and
     ``batches_done`` (int)."""
     device = model.space_dict.device
 
-    def run_step(_, batch):
+    def run_step(i, batch):
         image0, image1, sentences, targets = batch
-        x, _ = _device_batch(image0, image1, sentences, tokenize, enc_token_id, device)
-        return train_step(*x, torch.from_numpy(np.asarray(targets)).to(device), temperature)
+        with profiling.span("feed", i):
+            x, _ = _device_batch(image0, image1, sentences, tokenize, enc_token_id, device)
+            targets = torch.from_numpy(np.asarray(targets)).to(device)
+        return train_step(*x, targets, temperature)
 
     with data.global_batch():  # under several processes each step spans the ranks
         return run_epoch(loader_fn(), run_step, temperature, lr=lr, print_fn=print_fn,

@@ -33,6 +33,7 @@ from madtp_tpu_torch.parallel import data
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.train import losses as L
 from madtp_tpu_torch.train.momentum import FeatureQueue, enqueue, init_queue, momentum_update
+from madtp_tpu_torch.utils import profiling
 
 FDT_WEIGHT = 0.1
 MOMENTUM_KEYS = ("visual_encoder", "vision_proj", "text_encoder", "text_proj")
@@ -88,20 +89,27 @@ def _optimize(optimizer: torch.optim.Optimizer, loss_fn, names: Sequence[str], a
     gradients and the returned losses become the global batch's before the
     update (:func:`~madtp_tpu_torch.parallel.data.reduce_step`), weighted by
     ``count(*args, **kwargs)``: the rows, tokens or questions the loss is a
-    mean over."""
+    mean over.
+
+    The step is the span ``dispatch``, with ``forward``, ``backward`` and
+    ``optimizer`` inside it (:mod:`~madtp_tpu_torch.utils.profiling`)."""
     def step(*args, **kwargs):
-        optimizer.zero_grad(set_to_none=True)
-        out = loss_fn(*args, **kwargs)
-        out[0].backward()
-        metrics = [v.detach() for v in out[:len(names)]]
-        if data.spans():
-            metrics = data.reduce_step(
-                (p for g in optimizer.param_groups for p in g["params"]), metrics,
-                count(*args, **kwargs))
-        optimizer.step()
-        if after is not None:
-            after(out, *args, **kwargs)
-        return dict(zip(names, metrics))
+        with profiling.span("dispatch"):
+            optimizer.zero_grad(set_to_none=True)
+            with profiling.span("forward"):
+                out = loss_fn(*args, **kwargs)
+            with profiling.span("backward"):
+                out[0].backward()
+            metrics = [v.detach() for v in out[:len(names)]]
+            if data.spans():
+                metrics = data.reduce_step(
+                    (p for g in optimizer.param_groups for p in g["params"]), metrics,
+                    count(*args, **kwargs))
+            with profiling.span("optimizer"):
+                optimizer.step()
+            if after is not None:
+                after(out, *args, **kwargs)
+            return dict(zip(names, metrics))
     step.loss_fn = loss_fn
     return step
 

@@ -44,7 +44,9 @@ counts stay those of the kernels that ran.  ``CapturedStep.captures`` counts
 the graphs captured and ``CapturedStep.capture_seconds`` the host's time in
 their warm-ups and captures.  Each graph is kept beside its executable
 (``keep_graph``), so its nodes can be listed (``raw_cuda_graph()``): the
-launches it holds, which every replay runs."""
+launches it holds, which every replay runs.  A call is the span ``dispatch``
+(:mod:`~madtp_tpu_torch.utils.profiling`): a replay, or a capture where the
+signature is new."""
 
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ import torch
 from torch import nn
 from torch.nn.modules import module as _module
 
+from madtp_tpu_torch.utils import profiling
 from madtp_tpu_torch.utils.cache import BoundedCache
 
 MAXSIZE = 8  # entries kept per model, as the JAX package's step caches
@@ -248,20 +251,21 @@ class CapturedStep:
 
     @torch.inference_mode()
     def __call__(self, *inputs):
-        cache = model_cache(self.owner) if self.cache is None else self.cache
-        key = (self.name, self.static)
-        step = cache[key] if key in cache else _Step()
-        signature = tuple(_signature(x) for x in inputs)
-        entry = step.entries.get(signature)
-        if entry is not None:
-            out = entry.run(self.fn, inputs)
-        else:
-            entry = _Entry(inputs)
-            if entry.device.type == "cuda":
-                out = entry.capture(self.fn, self.name, step, inputs)
-            else:
+        with profiling.span("dispatch"):
+            cache = model_cache(self.owner) if self.cache is None else self.cache
+            key = (self.name, self.static)
+            step = cache[key] if key in cache else _Step()
+            signature = tuple(_signature(x) for x in inputs)
+            entry = step.entries.get(signature)
+            if entry is not None:
                 out = entry.run(self.fn, inputs)
-            step.entries[signature] = entry
-            cache[key] = step
-        step.last = entry
-        return out
+            else:
+                entry = _Entry(inputs)
+                if entry.device.type == "cuda":
+                    out = entry.capture(self.fn, self.name, step, inputs)
+                else:
+                    out = entry.run(self.fn, inputs)
+                step.entries[signature] = entry
+                cache[key] = step
+            step.last = entry
+            return out
