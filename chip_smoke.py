@@ -1961,7 +1961,7 @@ def phase_train_parity(device, cfg, temperature=1.0):
             k4_before = cross_attention_cuda.launches
             k5_before = ffn_cuda.fp32_launches
             model.zero_grad(set_to_none=True)
-            lo, lf, _ = model(*x, targets=targets.to(dev), **kw)
+            lo, lf = model(*x, targets=targets.to(dev), **kw)[:2]
             (lo + 0.1 * lf).backward()
             named = dict(model.named_parameters())
             res[where] = dict(kept=(out.v_kept.cpu(), out.t_kept.cpu()),
@@ -2003,25 +2003,134 @@ def phase_train_parity(device, cfg, temperature=1.0):
             f"{r:.2e}" for n, r in rel.items()))
 
 
+def graphed_against_eager(device, cfg, model, caps_v, caps_t, temperature, lr, pairs,
+                          enc_token_id, iters, widths=(26, 31, 26, 31, 26)):
+    """The default NLVR train step (one CUDA graph per text width) against
+    ``graph=False``, in gather mode fp32 then amp, on two copies of
+    ``model``'s weights with an optimizer each, over batches of ``pairs``
+    pairs at text ``widths`` (two widths, each replayed), the rate changed
+    before the third step: each step's losses, and after them every
+    parameter and AdamW's moments and step counts, bit for bit.  Launch
+    counts are zeroed just before the graphed run and read just after it;
+    the eager run launches each kernel as often.  Returns the graphed run's
+    K1, K2, K4 and bf16 K5 launches and its fp32 K5 launches."""
+    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
+    from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
+    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
+    from madtp_tpu_torch.kernels.ffn import ffn_cuda
+    from madtp_tpu_torch.models.blip import init_nlvr_model
+    from madtp_tpu_torch.train.loops import make_nlvr_train_step
+    from madtp_tpu_torch.train.optim import make_adamw, set_lr
+    from madtp_tpu_torch.utils.graph import CapturedStep, graph_count
+
+    rng = np.random.default_rng(7)
+    s = cfg.vit.image_size
+    batches = {}
+    for w in sorted(set(widths)):
+        ids = rng.integers(1, cfg.med.vocab_size, size=(pairs, w))
+        ids[:, 0] = enc_token_id
+        mask = np.ones((pairs, w), np.int64)
+        mask[-1, w - 5:] = 0
+        batches[w] = tuple(torch.from_numpy(a).to(device) for a in (
+            rng.standard_normal((2 * pairs, 3, s, s), dtype=np.float32), ids, mask,
+            rng.integers(0, 2, size=pairs)))
+
+    def counts():
+        torch.cuda.synchronize()
+        return (attention_scores_cuda.launches, attention_scores_bwd_cuda.launches,
+                cross_attention_cuda.launches, ffn_cuda.launches - ffn_cuda.fp32_launches,
+                ffn_cuda.fp32_launches)
+
+    runs = {}
+    for graph in (True, False):
+        m = init_nlvr_model(cfg, seed=0, device=device)
+        m.load_state_dict(model.state_dict())
+        opt = make_adamw(m.parameters(), lr=lr, weight_decay=0.05)
+        losses, t0 = [], time.perf_counter()
+        captures = CapturedStep.captures
+        before = counts()
+        torch.cuda.set_sync_debug_mode("error")  # no step waits on the card
+        try:
+            for amp in (False, True):
+                set_lr(opt, lr)
+                step = make_nlvr_train_step(m, opt, capacities_v=caps_v, capacities_t=caps_t,
+                                            amp=amp, graph=graph)
+                for i, w in enumerate(widths):
+                    if i == 2:
+                        set_lr(opt, lr / 2)
+                    losses.append(step(*batches[w], temperature))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        launched = tuple(b - a for a, b in zip(before, counts()))
+        wall = time.perf_counter() - t0
+        replay_ms = time_ms(lambda: step(*batches[widths[0]], temperature), iters)
+        runs[graph] = dict(model=m, opt=opt, losses=losses, launches=launched, wall=wall,
+                           captures=CapturedStep.captures - captures, step_ms=replay_ms,
+                           graphs=graph_count(step.graphs))
+    g, e = runs[True], runs[False]
+    n = len(widths)
+    want_captures = 2 * len(set(widths))
+    if g["captures"] != want_captures or g["graphs"] != want_captures or e["captures"]:
+        raise AssertionError(f"graphed run captured {g['captures']} graphs ({g['graphs']} "
+                             f"held), want {want_captures}; eager run {e['captures']}")
+    off = [(i, k) for i, (a, b) in enumerate(zip(g["losses"], e["losses"]))
+           for k in a if not torch.equal(a[k], b[k])]
+    names = dict((p, name) for name, p in g["model"].named_parameters())
+    for (name, p), q in zip(g["model"].named_parameters(), e["model"].parameters()):
+        if not torch.equal(p, q):
+            off.append((name, "param"))
+        sa, sb = g["opt"].state[p], e["opt"].state[q]
+        off += [(names[p], k) for k in sa.keys() | sb.keys()
+                if k not in sa or k not in sb or not torch.equal(sa[k], sb[k])]
+    if off:
+        raise AssertionError(f"graphed train step differs from graph=False in {len(off)} "
+                             f"places: {off[:8]}")
+    if g["launches"] != e["launches"]:
+        raise AssertionError(f"graphed run launched K1/K2/K4/K5 bf16/K5 fp32 {g['launches']}, "
+                             f"the eager run {e['launches']}")
+    launches, k5_fp32 = g["launches"][:4], g["launches"][4]
+    log(f"[train] launches on the training main path (default step, graphed; {n} fp32 and "
+        f"{n} amp steps, text widths {widths}): K1 {launches[0]}, K2 {launches[1]}, "
+        f"K4 {launches[2]}, K5 {launches[3]} in bf16 and {k5_fp32} in fp32, each as the "
+        "eager run's")
+    per_forward = cfg.vit.depth + cfg.med.num_hidden_layers
+    if min(launches) == 0 or launches[2] != launches[0]:
+        raise AssertionError(f"training main path launched K1/K2/K4/K5 {launches} times "
+                             "(K4 should match K1: 24 of each per forward)")
+    if launches[3] != per_forward * n or k5_fp32 != per_forward * n:
+        raise AssertionError(f"training main path launched K5 {launches[3]} times in bf16 and "
+                             f"{k5_fp32} in fp32, want {per_forward * n} each: every FFN of "
+                             "the amp and of the fp32 steps")
+    last = {k: float(v) for k, v in g["losses"][-1].items()}
+    log(f"[train] graphed against graph=False at {pairs} pairs: {2 * n} steps, "
+        f"{g['captures']} captures, losses, parameters and AdamW state bit-equal (last "
+        f"{last}); {g['wall']:.1f} s graphed, {e['wall']:.1f} s eager; amp step at width "
+        f"{widths[0]} {g['step_ms']:.2f} ms replayed, {e['step_ms']:.2f} ms eager; "
+        f"reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+    del runs, g, e
+    torch.cuda.empty_cache()
+    return launches, k5_fp32
+
+
 def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=2, batches=2, iters=2,
                      p_target=0.5, enc_token_id=2):
     """Compression training as ``madtp_tpu/cli/compress_nlvr.py:335-384``
     runs it, on synthetic data: controller epochs in mask mode fp32, then a
-    ``--fast_train`` epoch in fp32 and with ``amp``.  K2 is held on the
-    inputs of the mask-mode fp32 epochs and of the amp epoch, K1, K4 and K5
-    on every input of the run, and the mask fp32 step is profiled by kernel.
-    Returns the K1, K2, K4 and bf16 K5 launch counts of that run (the amp
-    epoch's FFNs), the fp32 K5 launches (every other FFN of the run), K5's
+    ``--fast_train`` epoch in fp32 and with ``amp``, all eagerly
+    (``graph=False``), so the kernels' recorders see every call: K2 is held
+    on the inputs of the mask-mode fp32 epochs and of the amp epoch, K1, K4
+    and K5 on every input of the run, and the mask fp32 step is profiled by
+    kernel.  Then the default step, one CUDA graph per text width
+    (:func:`graphed_against_eager`), is held bit for bit against
+    ``graph=False`` at full width.  Returns the K1, K2, K4 and bf16 K5
+    launch counts of the graphed run (its amp steps' FFNs), its fp32 K5
+    launches (the fp32 steps' FFNs), K5's
     fp32 record at the path's most-called fp32 shape, K2's records of the
     two captures, K1's record at its most-called shape and K4's at its
     most-called fp32 shape."""
     import tempfile
 
     from madtp_tpu_torch.ckpt.convert import load_nlvr_state_dict, save_nlvr_checkpoint
-    from madtp_tpu_torch.kernels.attention_scores import attention_scores_cuda
-    from madtp_tpu_torch.kernels.attention_scores_bwd import attention_scores_bwd_cuda
-    from madtp_tpu_torch.kernels.cross_attention import cross_attention_cuda
-    from madtp_tpu_torch.kernels.ffn import ffn_cuda
     from madtp_tpu_torch.models.blip import init_nlvr_model
     from madtp_tpu_torch.prune.flops import nlvr_gflops
     from madtp_tpu_torch.tasks.nlvr import (cached_probe_batches, evaluate, probe_capacities,
@@ -2054,11 +2163,10 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=2, batches=2, it
     controller = TemperatureController(target_gflops=ori * (1.0 - p_target))
     quiet = dict(print_fn=lambda m: log(f"[train]   {m}"), print_freq=0)
 
-    attention_scores_cuda.launches = attention_scores_bwd_cuda.launches = 0
-    cross_attention_cuda.launches = ffn_cuda.launches = ffn_cuda.fp32_launches = 0
     with K4Capture() as capture, K5Capture() as k5_capture, \
             K1Capture() as k1_capture:  # the path's own inputs
-        step_mask = make_nlvr_train_step(model, opt)  # mask mode, fp32: compress_nlvr's default
+        # the recorded path is eager: its recorders take every call's inputs
+        step_mask = make_nlvr_train_step(model, opt, graph=False)  # compress_nlvr's default mode
         cur_g = ori
         with K2Capture() as k2_fp32:  # the mask-mode fp32 epochs' own backward inputs
             for epoch in range(epochs):
@@ -2086,7 +2194,7 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=2, batches=2, it
         for amp in (False, True):
             name = "gather " + ("amp" if amp else "fp32")
             steps[name] = make_nlvr_train_step(model, opt, capacities_v=caps_v,
-                                               capacities_t=caps_t, amp=amp)
+                                               capacities_t=caps_t, amp=amp, graph=False)
             with K2Capture() if amp else contextlib.nullcontext() as k2_capture:
                 stats = train_epoch(model, steps[name], loader_fn(batches), tokenize,
                                     enc_token_id, temperature, lr=lr, **quiet)
@@ -2095,23 +2203,8 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=2, batches=2, it
                 f"fdt {stats['loss_fdt']})")
             if not math.isfinite(float(stats["loss"])):
                 raise AssertionError(f"{name}: loss {stats['loss']}")
-    torch.cuda.synchronize()
-    k5_fp32 = ffn_cuda.fp32_launches
-    launches = (attention_scores_cuda.launches, attention_scores_bwd_cuda.launches,
-                cross_attention_cuda.launches, ffn_cuda.launches - k5_fp32)
-    log(f"[train] launches on the training main path: K1 {launches[0]}, K2 {launches[1]}, "
-        f"K4 {launches[2]}, K5 {launches[3]} in bf16 and {k5_fp32} in fp32")
-    if min(launches) == 0 or launches[2] != launches[0]:
-        raise AssertionError(f"training main path launched K1/K2/K4/K5 {launches} times "
-                             "(K4 should match K1: 24 of each per forward)")
-    per_forward = cfg.vit.depth + cfg.med.num_hidden_layers
-    if launches[3] != per_forward * batches:
-        raise AssertionError(f"training main path launched bf16 K5 {launches[3]} times, want "
-                             f"{per_forward * batches}: every FFN of the amp epoch")
-    if k5_fp32 == 0 or k5_fp32 % per_forward:
-        raise AssertionError(f"training main path launched fp32 K5 {k5_fp32} times, want a "
-                             f"positive multiple of {per_forward}: every FFN of the fp32 "
-                             "forwards")
+    launches, k5_fp32 = graphed_against_eager(device, cfg, model, caps_v, caps_t, temperature,
+                                              lr, pairs, enc_token_id, iters)
     record4_32 = check_k4_cases("nlvr train", capture, where=dict(dtype="float32"))
     record32 = check_k5_cases("nlvr train", k5_capture, where=dict(dtype="float32"))
     record1 = check_k1_cases("nlvr train", k1_capture, iters=5)
@@ -2135,8 +2228,9 @@ def phase_train_main(device, cfg, pairs=16, text_len=26, epochs=2, batches=2, it
     log("[train] gather fp32 train step ran under set_sync_debug_mode('error')")
 
     steps["mask fp32"] = step_mask
-    steps["dense fp32"] = make_nlvr_train_step(model, opt, prune_active=False)
-    steps["dense amp"] = make_nlvr_train_step(model, opt, prune_active=False, amp=True)
+    steps["dense fp32"] = make_nlvr_train_step(model, opt, prune_active=False, graph=False)
+    steps["dense amp"] = make_nlvr_train_step(model, opt, prune_active=False, amp=True,
+                                              graph=False)
     times = {}
     for name in ("mask fp32", "gather fp32", "gather amp", "dense fp32", "dense amp"):
         step = steps[name]
@@ -6377,7 +6471,8 @@ def stochastic_training(device, nlvr_cpu, tokenizer, pairs=16, text_len=26, batc
     model.visual_encoder.cfg, model.text_encoder.cfg = zero_cfg.vit, zero_cfg.med
     with MaskStream() as ms0:
         zero = run(step, x, model, 1)
-    plain = run(make_nlvr_train_step(model, opt, device=device.type), x, model, 1)
+    # eager: a graphed call leaves no .grad to compare
+    plain = run(make_nlvr_train_step(model, opt, device=device.type, graph=False), x, model, 1)
     if not (all(torch.equal(zero[0][k], plain[0][k]) for k in plain[0])
             and _grads_equal(zero[1], plain[1])) or len(ms0.masks) != 2 * L:
         raise AssertionError("the fp32 step at rates 0 differs from the step without dropout")

@@ -140,7 +140,7 @@ def main(argv=None):
     # ---- compression training ----
     target = ORI_GFLOPS * (1.0 - config["p"])
     opt = make_adamw(model.parameters(), lr=config.get("init_lr", 1e-5),
-                     weight_decay=config.get("weight_decay", 0.05))
+                     weight_decay=config.get("weight_decay", 0.05), capturable=False)
     train_step = make_caption_train_step(model, opt, amp=args.amp, device=device.type)
     controller = TemperatureController(target_gflops=target)
     ds = CaptionTrainDataset(train_image_transform(args, image_size, PerSampleRng(args.seed)),

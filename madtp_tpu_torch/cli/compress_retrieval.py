@@ -198,7 +198,7 @@ def main(argv=None):
     batch_train = config.get("batch_size_train", 16)
     state = init_retrieval_train_state(model, queue_size=config.get("queue_size", 57600))
     opt = make_adamw(model.parameters(), lr=init_lr,
-                     weight_decay=config.get("weight_decay", 0.05))
+                     weight_decay=config.get("weight_decay", 0.05), capturable=False)
 
     def make_step(caps=(None, None)):
         return make_retrieval_train_step(

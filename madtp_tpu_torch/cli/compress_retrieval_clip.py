@@ -217,7 +217,7 @@ def main(argv=None):
     batch_train = config.get("batch_size_train", 16)
     state = init_clip_train_state(model, queue_size=config.get("queue_size", 57600))
     opt = make_adamw(model.parameters(), lr=init_lr,
-                     weight_decay=config.get("weight_decay", 0.2))
+                     weight_decay=config.get("weight_decay", 0.2), capturable=False)
 
     def make_step(caps_v=None):
         return make_clip_train_step(state, opt, alpha=alpha_cfg, capacities_v=caps_v,

@@ -174,7 +174,7 @@ def main(argv=None):
     # ---- compression training ----
     target = ORI_GFLOPS * (1.0 - config["p"])
     opt = make_adamw(model.parameters(), lr=config.get("init_lr", 2e-5),
-                     weight_decay=config.get("weight_decay", 0.05))
+                     weight_decay=config.get("weight_decay", 0.05), capturable=False)
     train_step = make_vqa_train_step(model, opt, amp=args.amp, device=device.type)
     controller = TemperatureController(target_gflops=target)
     train_ds = VQADataset(

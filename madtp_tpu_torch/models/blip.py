@@ -35,7 +35,6 @@ from madtp_tpu_torch.ops.layers import cosine_embedding_loss, draw_key, fold_in,
 from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.train import losses as L
 from madtp_tpu_torch.train.losses import cross_entropy
-from madtp_tpu_torch.utils import profiling
 
 
 class NLVROut(NamedTuple):
@@ -91,12 +90,12 @@ class NLVRModel(nn.Module):
         ``[L, B]`` (``madtp_tpu/models/blip.py:75-96``).
 
         Returns an :class:`NLVROut`; with ``targets`` [B] (the train branch of
-        ``blip_nlvr_forward``) ``(loss_ori, loss_fdt, logits)`` instead:
-        the fp32 cross-entropy of the logits and, when pruning, the FDT
-        alignment loss between the two images' averaged MAG features and the
-        text's (else ``loss_ori`` again).  That branch keeps the towers' kept
-        counts as the counters ``kept.vision`` and ``kept.text``
-        (:func:`~madtp_tpu_torch.utils.profiling.count`).
+        ``blip_nlvr_forward``) ``(loss_ori, loss_fdt, logits, v_kept,
+        t_kept)`` instead: the fp32 cross-entropy of the logits and, when
+        pruning, the FDT alignment loss between the two images' averaged MAG
+        features and the text's (else ``loss_ori`` again), then the towers'
+        kept counts, which the train step records
+        (:func:`madtp_tpu_torch.train.loops.make_nlvr_train_step`).
 
         ``generator`` (training): the reference recipe's drop-path in the
         image tower and dropout in the text tower, from one key drawn from it
@@ -119,14 +118,12 @@ class NLVRModel(nn.Module):
         h = torch.relu(linear(t.state.x[:, 0, :], fc1.weight, fc1.bias))
         logits = tp_linear(h, fc2)  # fc1, fc2 split over a tensor-parallel model's ranks
         if targets is not None:
-            profiling.count("kept.vision", v.kept_counts)
-            profiling.count("kept.text", t.kept_counts)
             loss_ori = cross_entropy(logits, targets)
             loss_fdt = loss_ori
             if prune_active and v.sd_ft is not None and t.sd_ft is not None:
                 sd_img = (v.sd_ft[:B] + v.sd_ft[B:]) / 2.0
                 loss_fdt = fdt_alignment_loss(sd_img, t.sd_ft, self.cfg.sd_dim)
-            return loss_ori, loss_fdt, logits
+            return loss_ori, loss_fdt, logits, v.kept_counts, t.kept_counts
         overflow = None
         if v.overflow is not None or t.overflow is not None:
             # summed over rows too when the towers count them per row

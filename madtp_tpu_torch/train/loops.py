@@ -4,9 +4,11 @@ BLIP retrieval and CLIP retrieval.
 
 Each factory returns ``step(...)``, which runs one forward, backward and
 optimizer update of the model in place and returns its losses as device
-scalars; nothing in a step waits on the card.  The total loss is the task
-loss plus ``0.1 * loss_fdt`` (retrieval and CLIP: plus ``0.1 * loss_fdt_m``
-too).
+scalars; nothing in a step waits on the card.  The NLVR step replays it
+as one CUDA graph per text width where a graph can hold it
+(:func:`make_nlvr_train_step`); the others run eagerly.  The total loss is
+the task loss plus ``0.1 * loss_fdt`` (retrieval and CLIP: plus
+``0.1 * loss_fdt_m`` too).
 The NLVR and caption steps take the reference's training recipe with
 ``use_dropout`` (BERT dropout and the ViT's stochastic depth, at the rates of
 the model's config), drawn from the ``generator`` each step is given; no
@@ -34,6 +36,8 @@ from madtp_tpu_torch.prune.dtp import TokenState
 from madtp_tpu_torch.train import losses as L
 from madtp_tpu_torch.train.momentum import FeatureQueue, enqueue, init_queue, momentum_update
 from madtp_tpu_torch.utils import profiling
+from madtp_tpu_torch.utils.cache import BoundedCache
+from madtp_tpu_torch.utils.graph import CapturedStep
 
 FDT_WEIGHT = 0.1
 MOMENTUM_KEYS = ("visual_encoder", "vision_proj", "text_encoder", "text_proj")
@@ -80,10 +84,13 @@ def _prefixed(params: dict) -> dict:
 
 
 def _optimize(optimizer: torch.optim.Optimizer, loss_fn, names: Sequence[str], after=None,
-              count=None):
+              count=None, keep: Sequence[str] = ()):
     """The step shared by every factory: zero the gradients, run ``loss_fn``
     (the total first, then the parts ``names``), backward, update, then
     ``after(out, *args, **kwargs)`` when given (retrieval: the enqueue).
+    The step returns the losses by their names and, under the names
+    ``keep``, the outputs of ``loss_fn`` that follow them (the NLVR step's
+    kept counts), detached and this rank's own.
 
     Inside :func:`~madtp_tpu_torch.parallel.data.global_batch` the
     gradients and the returned losses become the global batch's before the
@@ -109,9 +116,17 @@ def _optimize(optimizer: torch.optim.Optimizer, loss_fn, names: Sequence[str], a
                 optimizer.step()
             if after is not None:
                 after(out, *args, **kwargs)
-            return dict(zip(names, metrics))
+            kept = [v.detach() for v in out[len(names):len(names) + len(keep)]]
+            return dict(zip((*names, *keep), (*metrics, *kept)))
     step.loss_fn = loss_fn
     return step
+
+
+def _host_state(optimizer: torch.optim.Optimizer) -> bool:
+    """Whether ``optimizer`` keeps a step count or a learning rate on the
+    host, which a CUDA graph of its ``step()`` would freeze."""
+    return not all(g.get("capturable") and torch.is_tensor(g["lr"])
+                   for g in optimizer.param_groups)
 
 
 def _dropout_generator(use_dropout: bool, generator: Optional[torch.Generator]):
@@ -127,7 +142,7 @@ def make_nlvr_train_step(model: NLVRModel, optimizer: torch.optim.Optimizer, *,
                          prune_active: bool = True, use_dropout: bool = False,
                          capacities_v: Optional[Sequence[int]] = None,
                          capacities_t: Optional[Sequence[int]] = None,
-                         amp: bool = False, device="cuda"):
+                         amp: bool = False, device="cuda", graph: bool = True):
     """``step(images, ids, mask, targets, temperature, generator=None)`` runs
     one forward, backward and optimizer update of ``model`` in place and
     returns ``{"loss", "loss_ori", "loss_fdt"}`` as device scalars; nothing
@@ -140,23 +155,67 @@ def make_nlvr_train_step(model: NLVRModel, optimizer: torch.optim.Optimizer, *,
     is where the model must live: ``"cuda"`` (the default) raises without a
     card, ``"cpu"`` runs the plain path.  ``step.loss_fn`` takes the same
     arguments and returns ``(loss, loss_ori, loss_fdt)`` without the
-    update."""
+    update.
+
+    The step is captured (:class:`~madtp_tpu_torch.utils.graph.CapturedStep`,
+    ``train=True``): zero-grad, forward, backward and the update as one CUDA
+    graph per input signature (the text width), the temperature an input
+    of it, replayed on later calls; on the CPU the same buffers run
+    eagerly.  It runs eagerly instead with ``graph=False``, and where a
+    graph would freeze what changes between calls or cannot hold it: with
+    ``use_dropout`` (the masks' key is drawn on the host), inside a step
+    that spans the ranks (collectives), or on the card with an optimizer
+    whose step count or learning rate is a host number
+    (:func:`~madtp_tpu_torch.train.optim.make_adamw` keeps both on the card
+    there; :func:`~madtp_tpu_torch.train.optim.set_lr` reaches the
+    replays).  The graphs read the weights and the optimizer's state by
+    address, so the optimizer holds them (``step.graphs``), at most 8 keys
+    of prune mode, capacities and amp, least recently used dropped: every
+    step made over one optimizer (a capacity schedule each) shares them and
+    their one memory pool.  After a graphed call on the card the parameters
+    hold no ``.grad``: the graphs write their gradients into that pool,
+    where the next replay overwrites them.  Every call records the towers'
+    kept counts as the counters ``kept.vision`` and ``kept.text``
+    (:func:`~madtp_tpu_torch.utils.profiling.count`)."""
     _check_device(model, device)
     params = dict(model.named_parameters())
     kw = dict(prune_active=prune_active, capacities_v=capacities_v,
               capacities_t=capacities_t)
+    names, keep = ("loss", "loss_ori", "loss_fdt"), ("kept.vision", "kept.text")
 
-    def loss_fn(images, ids, mask, targets, temperature, generator=None):
+    def losses(images, ids, mask, targets, temperature, generator=None):
         p, x = _amp_cast(amp, params, images)
         g = _dropout_generator(use_dropout, generator)
-        loss_ori, loss_fdt, _ = functional_call(
+        loss_ori, loss_fdt, _, v_kept, t_kept = functional_call(
             model, p, (x, ids, mask),
             dict(kw, temperature=temperature, targets=targets, generator=g))
-        return loss_ori + FDT_WEIGHT * loss_fdt, loss_ori, loss_fdt
+        return loss_ori + FDT_WEIGHT * loss_fdt, loss_ori, loss_fdt, v_kept, t_kept
 
     # both losses are means over the pairs
-    return _optimize(optimizer, loss_fn, ("loss", "loss_ori", "loss_fdt"),
-                     count=lambda images, ids, mask, targets, *_, **__: targets.shape[0])
+    update = _optimize(optimizer, losses, names, keep=keep,
+                       count=lambda images, ids, mask, targets, *_, **__: targets.shape[0])
+    graphs = optimizer.__dict__.setdefault("_captured_steps", BoundedCache())
+    static = (prune_active, *(None if c is None else tuple(c)
+                              for c in (capacities_v, capacities_t)), amp)
+    captured = CapturedStep(update, "nlvr_train", model, static=static, cache=graphs,
+                            train=True)
+    on_card = model.space_dict.is_cuda
+
+    def step(images, ids, mask, targets, temperature, generator=None):
+        if (not graph or use_dropout or data.spans()
+                or (on_card and _host_state(optimizer))):
+            out = update(images, ids, mask, targets, temperature, generator=generator)
+        else:
+            out = captured(images, ids, mask, targets, temperature)
+            if on_card:
+                optimizer.zero_grad(set_to_none=True)
+        for name in keep:
+            profiling.count(name, out.pop(name))
+        return out
+
+    step.loss_fn = lambda *args, **kwargs: losses(*args, **kwargs)[:len(names)]
+    step.graphs = graphs
+    return step
 
 
 def make_caption_train_step(model: CaptionModel, optimizer: torch.optim.Optimizer, *,

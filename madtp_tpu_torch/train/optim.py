@@ -4,7 +4,7 @@
 from __future__ import annotations
 
 import math
-from typing import Iterable
+from typing import Iterable, Optional
 
 import torch
 
@@ -24,16 +24,32 @@ def step_lr(epoch: int, init_lr: float, min_lr: float, decay_rate: float = 1.0) 
     return max(min_lr, init_lr * (decay_rate ** epoch))
 
 
-def make_adamw(params: Iterable[torch.nn.Parameter], lr: float,
-               weight_decay: float) -> torch.optim.AdamW:
+def make_adamw(params: Iterable[torch.nn.Parameter], lr: float, weight_decay: float,
+               capturable: Optional[bool] = None) -> torch.optim.AdamW:
     """AdamW with betas (0.9, 0.999) and eps 1e-8, decaying every parameter,
-    as ``optax.adamw`` does with no mask."""
+    as ``optax.adamw`` does with no mask.  ``capturable`` (by default: when
+    every parameter is on the card) keeps the step count and the learning
+    rate as device tensors, so a CUDA graph of ``step()`` reads them where
+    they lie and follows :func:`set_lr` (the captured NLVR train step,
+    :func:`madtp_tpu_torch.train.loops.make_nlvr_train_step`); its bias
+    corrections are then fp32 on the card, not doubles on the host, which
+    rounds the update apart from the host's in the last bits.  The steps
+    that run eagerly pass ``capturable=False``."""
+    params = list(params)
+    if capturable is None:
+        capturable = bool(params) and all(p.is_cuda for p in params)
+    if capturable:
+        lr = torch.tensor(lr, dtype=torch.float32, device=params[0].device)
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=weight_decay)
+                             weight_decay=weight_decay, capturable=capturable)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
     """Set the learning rate of every parameter group (the counterpart of
-    ``optax.inject_hyperparams``, ``make_adamw_injectable``)."""
+    ``optax.inject_hyperparams``, ``make_adamw_injectable``); a rate held as
+    a device tensor is filled in place, where the captured steps read it."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr

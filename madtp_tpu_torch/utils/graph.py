@@ -1,18 +1,21 @@
-"""Captured steps: each eval step as one CUDA graph, replayed with one launch
-from the host (the counterpart of ``jax.jit`` and of the JAX package's step
-caches keyed by capacities, ``madtp_tpu/tasks/nlvr.py:24-76``).
+"""Captured steps: each eval step, and the NLVR train step, as one CUDA graph,
+replayed with one launch from the host (the counterpart of ``jax.jit`` and of
+the JAX package's step caches keyed by capacities,
+``madtp_tpu/tasks/nlvr.py:24-76``).
 
 A :class:`CapturedStep` wraps ``fn(*inputs)``: a step whose inputs are
 tensors, Python numbers or ``None`` and whose output is a tensor, ``None``
-or a (named) tuple of them.  Its entries are keyed as the JAX package's step
+or a (named) tuple or a dict of them.  Its entries are keyed as the JAX package's step
 caches are, by the step's name and its static arguments (prune mode,
 capacities, beam settings), at most 8 of them, least recently used dropped.
 Within an entry, as ``jax.jit`` keeps a program for every input shape it
 has seen, there is one graph for each signature of the inputs (each
 input's shape, dtype and device; a number counts as a 0-d float32 tensor),
-with its static input buffers.  The graphs of one entry share one memory
-pool: they replay one at a time on one stream and each call clones its
-outputs before the next replay, so one graph's scratch may be another's.
+with its static input buffers.  The graphs of one cache share one memory
+pool, whatever their entry: they replay one at a time on one stream and
+each call clones its outputs before the next replay, so one graph's scratch
+may be another's, and the pool is as large as its largest graph needs, not
+the sum of them.
 
 * a call copies its inputs into the buffers (a number by a fill kernel: the
   temperature is an input of the graph, not a constant in it, so one capture
@@ -25,7 +28,10 @@ outputs before the next replay, so one graph's scratch may be another's.
   handles), whose outputs are the call's result, then captures ``fn`` under
   ``torch.cuda.set_sync_debug_mode("error")``.  A step that waits on the
   card fails to capture and raises with its name; it is not cached, and
-  nothing runs eagerly in its place;
+  nothing runs eagerly in its place.  A train step (``train=True``: it runs
+  with autograd, outside inference mode) updates its weights once per
+  call: the warm-up is the call's update, and the capture records the
+  update without running it;
 * on the CPU there is no graph: the same buffers go through ``fn`` eagerly,
   the plain version that the tests hold against the JAX package.
 
@@ -35,7 +41,7 @@ that copies in place is seen by the next replay, and the entries are dropped
 once a parameter or buffer no longer lies where the graphs read it (``.to()``,
 a tensor replaced).  A step whose ``fn`` reads other tensors by address keeps
 its entries in a cache of its own, which must not outlive them (the
-rerank's resident corpus).
+rerank's resident corpus, the NLVR train step's optimizer state).
 
 Launch counts: a kernel wrapper counts a launch when it enqueues its kernel.
 During a capture the launch is recorded into the graph and does not run, so
@@ -46,7 +52,8 @@ their warm-ups and captures.  Each graph is kept beside its executable
 (``keep_graph``), so its nodes can be listed (``raw_cuda_graph()``): the
 launches it holds, which every replay runs.  A call is the span ``dispatch``
 (:mod:`~madtp_tpu_torch.utils.profiling`): a replay, or a capture where the
-signature is new."""
+signature is new; each replay and each capture is also the counter
+``graph.replay`` or ``graph.capture``, whose value is the step's name."""
 
 from __future__ import annotations
 
@@ -149,24 +156,32 @@ def _clone(out):
     if isinstance(out, tuple):
         items = [_clone(v) for v in out]
         return type(out)(*items) if hasattr(out, "_fields") else tuple(items)
+    if isinstance(out, dict):
+        return {k: _clone(v) for k, v in out.items()}
     return out
 
 
 def _tensors(out):
     if torch.is_tensor(out):
         yield out
-    elif isinstance(out, tuple):
-        for v in out:
+    elif isinstance(out, (tuple, dict)):
+        for v in (out.values() if isinstance(out, dict) else out):
             yield from _tensors(v)
 
 
 class _Step:
     """One entry: the graphs of one step and static key, by input
-    signature, their memory pool and the stream they are captured on."""
+    signature, their memory pool and the stream they are captured on: those
+    of the other entries of ``cache``, where it has any, so that one pool
+    serves every graph of a cache."""
 
-    def __init__(self):
+    def __init__(self, cache: BoundedCache):
         self.entries = {}
         self.pool = self.stream = self.last = None
+        for other in cache.values():
+            if other.pool is not None:
+                self.pool, self.stream = other.pool, other.stream
+                break
 
 
 class _Entry:
@@ -240,29 +255,34 @@ class CapturedStep:
     """``fn`` as a captured step named ``name`` (see the module's doc).
     ``static`` holds the arguments ``fn`` closes over that change its graph
     (prune mode, capacity tuples, beam settings), hashable as a cache key;
-    the entries live in ``model_cache(owner)`` unless ``cache`` is given."""
+    the entries live in ``model_cache(owner)`` unless ``cache`` is given.
+    ``train``: ``fn`` is a train step and runs with autograd; otherwise it
+    runs in inference mode."""
 
     captures = 0  # graphs captured, all steps
     capture_seconds = 0.0  # host time of their warm-ups and captures
 
     def __init__(self, fn: Callable, name: str, owner: nn.Module, static=(),
-                 cache: Optional[BoundedCache] = None):
+                 cache: Optional[BoundedCache] = None, train: bool = False):
         self.fn, self.name, self.owner, self.static, self.cache = fn, name, owner, static, cache
+        self.train = train
 
-    @torch.inference_mode()
     def __call__(self, *inputs):
-        with profiling.span("dispatch"):
+        with torch.inference_mode(not self.train), profiling.span("dispatch"):
             cache = model_cache(self.owner) if self.cache is None else self.cache
             key = (self.name, self.static)
-            step = cache[key] if key in cache else _Step()
+            step = cache[key] if key in cache else _Step(cache)
             signature = tuple(_signature(x) for x in inputs)
             entry = step.entries.get(signature)
             if entry is not None:
                 out = entry.run(self.fn, inputs)
+                if entry.graph is not None:
+                    profiling.count("graph.replay", self.name)
             else:
                 entry = _Entry(inputs)
                 if entry.device.type == "cuda":
                     out = entry.capture(self.fn, self.name, step, inputs)
+                    profiling.count("graph.capture", self.name)
                 else:
                     out = entry.run(self.fn, inputs)
                 step.entries[signature] = entry

@@ -14,9 +14,10 @@ probe):
 
 Spans and counters.  The host phases of the eval loops, the captured steps
 and the train step are :func:`span` s (``feed``, ``dispatch``,
-``forward``, ``backward``, ``optimizer``, ``readback``, ``rank``) and the
-train step's kept counts are :func:`count` s (``kept.vision``,
-``kept.text``).  They record exactly while a ``torch.profiler`` records
+``forward``, ``backward``, ``optimizer``, ``readback``, ``rank``); the
+train step's kept counts (``kept.vision``, ``kept.text``) and each replay
+and capture of a CUDA graph (``graph.replay``, ``graph.capture``, the
+step's name) are :func:`count` s.  They record exactly while a ``torch.profiler`` records
 (:func:`trace`, or any ``torch.profiler.profile``): then each span is also a
 ``record_function`` range of the same name, so it shows in the trace, and
 each leaves a record (:func:`records`) whose start and end are on the

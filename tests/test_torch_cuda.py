@@ -321,8 +321,8 @@ def test_remat_relaunches_k1_and_keeps_the_gradients(cuda):
         c = cfg._replace(vit=dataclasses.replace(vit, grad_checkpoint=remat, ckpt_layers=1))
         model = init_nlvr_model(c, seed=0, device=cuda)
         k1, k2 = attention_scores_cuda.launches, attention_scores_bwd_cuda.launches
-        lo, lf, _ = model(images, ids, mask, temperature=20.0, prune_active=True,
-                          targets=targets)
+        lo, lf = model(images, ids, mask, temperature=20.0, prune_active=True,
+                       targets=targets)[:2]
         (lo + 0.1 * lf).backward()
         runs.append((float(lo.detach()), [p.grad for p in model.parameters()],
                      attention_scores_cuda.launches - k1, attention_scores_bwd_cuda.launches - k2))
@@ -1083,7 +1083,9 @@ def _dropout_setup(cuda, rate):
     opt = make_adamw(model.parameters(), lr=0.0, weight_decay=0.0)
 
     def run(use_dropout, seed=1):
-        step = make_nlvr_train_step(model, opt, use_dropout=use_dropout, device="cuda")
+        # eager without dropout too: a graphed call leaves no .grad to compare
+        step = make_nlvr_train_step(model, opt, use_dropout=use_dropout, device="cuda",
+                                    graph=False)
         m = step(*batch, 20.0, generator=torch.Generator().manual_seed(seed))
         return ({k: v.clone() for k, v in m.items()},
                 {n: p.grad.clone() for n, p in model.named_parameters()})

@@ -93,7 +93,7 @@ def _port_loss_and_grads(model, setup, caps):
     images, ids, mask, targets = _inputs(setup)
     model.zero_grad(set_to_none=True)
     lo, lf, logits = model(images, ids, mask, temperature=TEMPERATURE, prune_active=True,
-                           capacities_v=caps[0], capacities_t=caps[1], targets=targets)
+                           capacities_v=caps[0], capacities_t=caps[1], targets=targets)[:3]
     (lo + 0.1 * lf).backward()
     grads = {n: p.grad.clone() for n, p in model.named_parameters()}
     return (float(lo.detach()), float(lf.detach()), logits.detach().numpy()), grads
@@ -201,8 +201,8 @@ def test_space_dict_receives_gradients(setup):
     through the DTP merge weights (K1's col_mass and cls_attn)."""
     model = _model(setup)
     images, ids, mask, targets = _inputs(setup)
-    lo, lf, _ = model(images, ids, mask, temperature=TEMPERATURE, prune_active=True,
-                      targets=targets)
+    lo, lf = model(images, ids, mask, temperature=TEMPERATURE, prune_active=True,
+                   targets=targets)[:2]
     g_all = torch.autograd.grad(lo + 0.1 * lf, model.space_dict, retain_graph=True)[0]
     g_ori = torch.autograd.grad(lo, model.space_dict)[0]
     assert float(g_all.abs().sum()) > 0.0
